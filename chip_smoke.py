@@ -6,18 +6,31 @@
 Phases, one line each, any failure exits non-zero:
 
   1. device   require a CUDA device; print its name and power limit
-  2. build    compile the hand-written kernels (csrc/) with nvcc
-  3. kernels  each kernel bit-identical to its plain PyTorch version on the
+  2. build    compile the hand-written kernels (csrc/) with nvcc, one
+              process per source; K5's registers and spills from ptxas
+  3. kernels  K1-K4 bit-identical to their plain PyTorch versions on the
               card: edge inputs 0, 1, p-1, p-2 and 4096 seeded random
-              elements; batch inversion at N = 257 with zero lanes
-  4. verify   the main path, `verify_signature_sets`, on 128 sets x 1 key
-              and on the mainnet-block shape 128 sets x 128 keys: both
+              elements; batch inversion at N = 257 with zero lanes. After
+              set-up, K5 bit-identical to its plain version (on CPU
+              tensors) on 64 points: interop keys, the order-3 point
+              (0, 2), points of E(Fp) outside G1 and infinity rows
+  4. verify   the verify path, `verify_signature_sets`, on 128 sets x 1
+              key and on the mainnet-block shape 128 sets x 128 keys: both
               True, with the kernels' launch counts of one verify; then a
               tampered message, a wrong key and a non-subgroup signature
               at 128 x 1, each False; warm ms per batch and sets/s
+     pk       the admission path, `batch_validate_public_keys`, at
+              S = 16384 (a checkpoint-start admission chunk) and S = 16
+              (one block's deposits): 256 distinct interop pubkeys tiled,
+              every 8th key an invalid encoding; every verdict equal to
+              the ref oracle's, exactly one K5 launch and no other kernel
+              per call; warm ms and keys/s, host decompression and packing
+              ms, K5's device ms
   5. profile  device busy time, idle share and top kernels of one verify
      timing   each kernel at the shape that carries most of its main-path
               work, against its plain version and its bound
+     extras   to_affine (G1, G2), fp6_mul and fp6_inv on the card
+              bit-identical to the same functions on CPU tensors
   6. parity   one S=4, K=2 batch: the card's Miller partial and GT value
               bit-identical to the same functions on the CPU
 
@@ -41,6 +54,12 @@ BATCH_INV_STEPS = 257  # K4's leading axis on the verify path: 2 S + 1
 N_SETS = 128
 BLOCK_KEYS = 128
 WARM_REPS = 3
+# Pubkey admission: one chunk of a checkpoint-start admission (1/64 of a
+# million-key registry) and one block's deposits (MAX_DEPOSITS).
+PK_SIZES = (16384, 16)
+PK_DISTINCT = 256
+PK_INVALID_EVERY = 8
+K5_POINTS = 64
 
 # The card's published memory rate (H100 SXM data sheet): the bytes bound.
 MEM_BYTES_PER_S = 3.35e12
@@ -54,12 +73,15 @@ IMAD_PER_SM_PER_CLK = 64
 WORD_PRODUCTS_PER_MUL = 300
 
 SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/fp_kernels.cu"
+G1_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/g1_kernels.cu"
 REPLACES = {
     "fp_mul": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:310",
     "fp_addsub": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:294",
     "fp_pow": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:460",
     "fp_batch_inv": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:466",
+    "g1_subgroup_check": "lighthouse_tpu/crypto/bls/jax_backend/api.py:599",
 }
+VERIFY_KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv")
 
 
 def phase(tag: str, **fields) -> None:
@@ -177,6 +199,63 @@ def non_subgroup_signature(api):
             return api.Signature(pt)
 
 
+def invalid_encodings():
+    """name -> a 48-byte compressed G1 key that admission must refuse: two
+    that decode to points outside G1 (besides the order-3 point), and the
+    ones the host decoder rejects or reads as infinity."""
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+    from lighthouse_tpu_torch.crypto.bls.ref import api as ref
+    from lighthouse_tpu_torch.crypto.bls.ref.curves import Point, _B1
+    from lighthouse_tpu_torch.crypto.bls.ref.fields import Fp
+
+    non_g1, x_off, x = [], None, 5
+    while len(non_g1) < 2 or x_off is None:
+        x += 1
+        y = (Fp(x) * Fp(x) * Fp(x) + _B1).sqrt()
+        if y is None:
+            x_off = x_off or x
+        elif len(non_g1) < 2 and not Point(Fp(x), y, False, _B1).mul(R).inf:
+            non_g1.append(ref.g1_to_compressed(Point(Fp(x), y, False, _B1)))
+    return {
+        "order_3": b"\x80" + bytes(47),  # (0, 2): on the curve, order 3
+        "non_g1_a": non_g1[0],
+        "garbage": b"\xff" * 48,
+        "infinity": b"\xc0" + bytes(47),
+        "x_ge_p": b"\x9f" + b"\xff" * 47,
+        "not_on_curve": b"\x80" + x_off.to_bytes(47, "big"),
+        "non_g1_b": non_g1[1],
+        "uncompressed": bytes(48),
+    }
+
+
+def admission_keys(valid: list[bytes], invalid: list[bytes], n: int) -> list[bytes]:
+    """n keys: the valid ones tiled, every PK_INVALID_EVERY-th key the next
+    invalid encoding."""
+    k = PK_INVALID_EVERY
+    return [invalid[(i // k) % len(invalid)] if i % k == k - 1 else valid[(i - i // k) % len(valid)]
+            for i in range(n)]
+
+
+def oracle_pk_verdict(kb: bytes) -> bool:
+    """The ref oracle's admission verdict: the key decodes with the full
+    [r]P == O subgroup check and is not infinity."""
+    from lighthouse_tpu_torch.crypto.bls.ref import api as ref
+
+    try:
+        return not ref.g1_from_compressed(kb).inf
+    except ref.DecodeError:
+        return False
+
+
+def ptxas_summary(log: str, kernel: str) -> str:
+    """ptxas's register and spill lines for `kernel` from the build log."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line:
+            return "; ".join(l.split(":", 1)[-1].strip() for l in lines[i + 1 : i + 3])
+    return "not found"
+
+
 # -- phases ----------------------------------------------------------------------
 
 
@@ -209,6 +288,132 @@ def check_kernels(torch, fp, P, dev) -> None:
     for i, v in enumerate(ints):
         assert fp.words_to_int(got[i]) == v * v * rinv % P, "plain mul disagrees with integers"
     phase("kernels", ok=True, compared=",".join(checks), elements=a.shape[0], batch_inv_steps=n)
+
+
+def check_g1_kernel(torch, api, fp, curve, valid: list[bytes], invalid: list[bytes]) -> None:
+    """K5 on the card bit-identical to its plain version, the composed
+    g1_in_subgroup on CPU tensors, on K5_POINTS points: valid keys, the
+    decodable invalid ones, and infinity rows (the rest, and padding)."""
+    keys = valid[: K5_POINTS - len(invalid)] + invalid
+    pts, _ = api.decompress_public_keys(keys)
+    x, y, inf = (torch.from_numpy(a) for a in api.pack_g1_batch(pts))
+    xw, yw = fp.from_jax_limbs(x), fp.from_jax_limbs(y)
+    want = curve.g1_subgroup_check_plain(xw, yw, inf)
+    got = curve.g1_in_subgroup_kernel(xw.to(DEVICE), yw.to(DEVICE), inf.to(DEVICE)).cpu()
+    n_valid = len(keys) - len(invalid)
+    assert want.tolist() == [True] * n_valid + [False] * (len(pts) - n_valid), "plain K5 verdicts are wrong"
+    if not torch.equal(got, want):
+        raise AssertionError(f"g1_subgroup_check differs from its plain version at {(got != want).nonzero().tolist()}")
+    phase("kernels", ok=True, compared="g1_subgroup_check", points=len(pts), g1=n_valid,
+          non_g1=int((~inf).sum()) - n_valid, infinity=int(inf.sum()))
+
+
+def run_pk(torch, api, fp, keys: list[bytes], want: list[bool], card: str):
+    """One counted admission call (launch counts reset just before, read
+    just after), then WARM_REPS timed ones; the host halves timed apart,
+    and K5's device time from a profiled call. Returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    fp.reset_launches()
+    got = api.batch_validate_public_keys(keys)
+    torch.cuda.synchronize()
+    launches = dict(fp.LAUNCHES)
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if bad or len(got) != len(want):
+        raise AssertionError(f"pk S={len(keys)}: verdicts differ from the oracle at {bad[:8]}")
+    if launches != {k: int(k == "g1_subgroup_check") for k in fp.KERNELS}:
+        raise AssertionError(f"pk S={len(keys)}: expected one K5 launch and nothing else, got {launches}")
+    times = []
+    for _ in range(WARM_REPS):
+        t0 = time.perf_counter()
+        again = api.batch_validate_public_keys(keys)
+        times.append((time.perf_counter() - t0) * 1e3)
+        assert again == got
+    ms = statistics.median(times)
+    t0 = time.perf_counter()
+    pts, _ = api.decompress_public_keys(keys)
+    t1 = time.perf_counter()
+    api.pack_g1_batch(pts)
+    t2 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        api.batch_validate_public_keys(keys)
+        torch.cuda.synchronize()
+    rows = device_events(prof)
+    k5_ms = sum(us for us, _, k in rows if "g1_subgroup_check_kernel" in k) / 1e3
+    busy_ms = sum(us for us, _, _ in rows) / 1e3
+    phase("pk", S=len(keys), invalid=sum(not w for w in want), ms=f"{ms:.3f}",
+          keys_per_s=f"{len(keys) / ms * 1e3:.1f}", host_decompress_ms=f"{(t1 - t0) * 1e3:.3f}",
+          host_pack_ms=f"{(t2 - t1) * 1e3:.3f}", k5_device_ms=f"{k5_ms:.4f}", device_busy_ms=f"{busy_ms:.4f}",
+          idle_share=f"{1 - busy_ms / ms:.4f}", launches=json.dumps(launches, separators=(",", ":")),
+          card=f'"{card}"')
+    return launches
+
+
+def time_g1_kernel(torch, api, fp, curve, keys: list[bytes], launches, peak_ops_per_s):
+    """K5 at the admission chunk's shape: device ms per launch (profiler),
+    ms per call, the plain version's ms on the same card tensors, and the
+    bound, counting only the rows that are not infinity (those return at
+    once)."""
+    from lighthouse_tpu_torch.crypto.bls.constants import X
+
+    x, y, inf, _ = api.stage_public_keys(keys)
+    xw, yw = fp.from_jax_limbs(x, DEVICE), fp.from_jax_limbs(y, DEVICE)
+    infd = torch.from_numpy(inf).to(DEVICE)
+    n = len(inf)
+    run = lambda: curve.g1_in_subgroup_kernel(xw, yw, infd)  # noqa: E731
+    plain = lambda: curve.g1_subgroup_check_plain(xw, yw, infd)  # noqa: E731
+    saved = dict(fp.LAUNCHES)
+    got, want = run(), plain()
+    err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+    call_ms = cuda_ms(run, 5)
+    ms = kernel_device_ms(run, 5, "g1_subgroup_check_kernel")
+    plain_ms = cuda_ms(plain, 1)
+    fp.LAUNCHES.update(saved)
+    # [z^2] P as two chains over |z|: per chain bit_length - 1 doublings (9
+    # products) and popcount - 1 additions (14); phi and the comparison 5.
+    absz = abs(X)
+    muls = 2 * (absz.bit_length() - 1) * 9 + 2 * (bin(absz).count("1") - 1) * 14 + 5
+    live = int((~infd).sum())
+    t_ops = live * muls * WORD_PRODUCTS_PER_MUL / peak_ops_per_s * 1e3
+    t_bytes = (n * (2 * 48 + 1) + n + 48) / MEM_BYTES_PER_S * 1e3
+    phase("timing", kernel="g1_subgroup_check", shape=n, live=live, ms=f"{ms:.5f}", ms_per_call=f"{call_ms:.5f}",
+          plain_ms=f"{plain_ms:.3f}", bound_ms=f"{max(t_ops, t_bytes):.6f}", max_abs_err=err)
+    if err != 0:
+        raise AssertionError(f"g1_subgroup_check differs from its plain version at S={n}")
+    return {
+        "name": "g1_subgroup_check", "route": "cuda", "source": G1_SOURCE, "replaces": REPLACES["g1_subgroup_check"],
+        "launches": launches["g1_subgroup_check"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None, "shape": [n], "ms_per_call": call_ms,
+    }
+
+
+def check_extras(torch, fp, curve, tower, P) -> None:
+    """to_affine (G1, G2), fp6_mul and fp6_inv on the card bit-identical to
+    the same functions on CPU tensors, on 8 random elements each, zero Z and
+    a zero Fp6 element among them (infinity, inv0)."""
+    n = 8
+    r = field_inputs(fp, P, 12 * n, 6, "cpu")[8:].reshape(n, 2, 3, 2, fp.WORDS)
+    a6, b6 = r[:, 0], r[:, 1]
+    a6[1] = 0  # inv0: zero maps to zero
+    b6[0, 2] = 0  # Z = 0: infinity in both groups
+    g1 = curve.Proj(*(b6[:, c, 0] for c in range(3)))
+    g2 = curve.Proj(*(b6[:, c] for c in range(3)))
+    cases = {
+        "to_affine_g1": lambda d: curve.to_affine(curve.FP, curve.Proj(*(c.to(d) for c in g1))),
+        "to_affine_g2": lambda d: curve.to_affine(curve.FP2, curve.Proj(*(c.to(d) for c in g2))),
+        "fp6_mul": lambda d: (tower.fp6_mul(a6.to(d), b6.to(d)),),
+        "fp6_inv": lambda d: (tower.fp6_inv(a6.to(d)),),
+    }
+    for name, fn in cases.items():
+        card, cpu = fn(DEVICE), fn("cpu")
+        if not all(torch.equal(c.cpu(), h) for c, h in zip(card, cpu)):
+            raise AssertionError(f"{name}: the card differs from the CPU")
+    inv = tower.fp6_inv(a6.to(DEVICE))
+    ones = tower.fp6_mul(a6.to(DEVICE), inv).cpu() == tower.fp6_one((n,), "cpu")
+    assert ones.flatten(1).all(dim=1).tolist() == [i != 1 for i in range(n)], "fp6_inv(a) a != 1"
+    phase("extras", ok=True, compared=",".join(cases), elements=n)
 
 
 def run_verify(torch, api, fp, sets, label: str, card: str, record_shapes: bool = False):
@@ -279,7 +484,7 @@ def time_kernels(torch, fp, P, dev, shapes, launches, peak_ops_per_s):
     bound, and the largest word difference from the plain version."""
     results = []
     pow_products = fp.INV_EXP.bit_length() + bin(fp.INV_EXP).count("1")
-    for name in fp.KERNELS:
+    for name in VERIFY_KERNELS:
         shape = heaviest_shape(shapes[name])
         if name == "fp_batch_inv":
             steps, lanes = shape
@@ -357,7 +562,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from lighthouse_tpu_torch.crypto.bls.constants import P
-    from lighthouse_tpu_torch.crypto.bls.torch_backend import api, fp, kernels, pairing
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import api, curve, fp, kernels, pairing, tower
 
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -371,7 +576,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels.library()
-    phase("build", seconds=f"{time.perf_counter() - t0:.2f}", nvcc_seconds=kernels.BUILD_SECONDS)
+    phase("build", seconds=f"{time.perf_counter() - t0:.2f}", nvcc_seconds=kernels.BUILD_SECONDS,
+          g1_subgroup_check=f'"{ptxas_summary(kernels.BUILD_LOG or "", "g1_subgroup_check")}"')
 
     check_kernels(torch, fp, P, dev)
 
@@ -379,15 +585,22 @@ def main() -> int:
     gossip = make_sets(api, N_SETS, 1)
     block = make_sets(api, N_SETS, BLOCK_KEYS)
     bad_sig = non_subgroup_signature(api)
-    phase("setup", host_seconds=f"{time.perf_counter() - t0:.2f}")
+    valid = [pk.to_bytes() for pk in block[0].signing_keys]
+    valid += [api.interop_keypair(i)[1].to_bytes() for i in range(len(valid), PK_DISTINCT)]
+    invalid = list(invalid_encodings().values())
+    oracle = {kb: oracle_pk_verdict(kb) for kb in valid + invalid}
+    assert all(oracle[kb] for kb in valid) and not any(oracle[kb] for kb in invalid)
+    phase("setup", host_seconds=f"{time.perf_counter() - t0:.2f}", pk_distinct=len(valid), pk_invalid=len(invalid))
+
+    check_g1_kernel(torch, api, fp, curve, valid, invalid)
 
     gossip_shape, block_shape = f"{N_SETS}x1", f"{N_SETS}x{BLOCK_KEYS}"
     ok_g, launches_g, _, _ = run_verify(torch, api, fp, gossip, gossip_shape, name_power)
     ok_b, launches_b, block_ms, shapes = run_verify(torch, api, fp, block, block_shape, name_power, record_shapes=True)
     assert ok_g and ok_b, "a valid batch did not verify"
     for launches in (launches_g, launches_b):
-        missing = [k for k, v in launches.items() if v <= 0]
-        assert not missing, f"kernels not launched by the main path: {missing}"
+        missing = [k for k in VERIFY_KERNELS if launches[k] <= 0]
+        assert not missing, f"kernels not launched by the verify path: {missing}"
 
     i = len(gossip) // 2  # the set each bad batch spoils
     s = gossip[i]
@@ -400,15 +613,22 @@ def main() -> int:
         phase("reject", case=label, shape=gossip_shape, result=verdict)
         assert verdict is False, f"{label}: a bad batch verified"
 
+    pk_keys, pk_launches = {}, {}
+    for size in PK_SIZES:
+        pk_keys[size] = admission_keys(valid, invalid, size)
+        pk_launches[size] = run_pk(torch, api, fp, pk_keys[size], [oracle[kb] for kb in pk_keys[size]], name_power)
+
     profile_verify(torch, api, block, block_shape, block_ms)
     results = time_kernels(torch, fp, P, dev, shapes, launches_b, peak_ops)
+    results.append(time_g1_kernel(torch, api, fp, curve, pk_keys[PK_SIZES[0]], pk_launches[PK_SIZES[0]], peak_ops))
+    check_extras(torch, fp, curve, tower, P)
     check_parity(torch, api, fp, pairing)
 
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": results}))
     print(name_power)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    # the run drives cuda:0 only, whatever else the machine holds
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
     return 0
 
 

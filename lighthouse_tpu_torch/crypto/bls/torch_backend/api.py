@@ -1,4 +1,5 @@
-"""The torch BLS backend: batched signature-set verification on a CUDA device.
+"""The torch BLS backend: batched signature-set verification and pubkey
+admission on a CUDA device.
 
 The verification workload runs as one plain PyTorch function per batch over
 the K1-K4 field kernels:
@@ -9,6 +10,9 @@ the K1-K4 field kernels:
             checks of every signature; r_i * aggpk_i and r_i * sig_i
             windowed multiplications; S + 1 Miller loops; one final
             exponentiation
+
+Pubkey admission (`batch_validate_public_keys`) decompresses on the host
+and runs the G1 subgroup check of the whole batch as one kernel launch (K5).
 
 Semantics match the JAX package (lighthouse_tpu jax_backend/api.py) and the
 ref oracle: independent nonzero 64-bit scalars per set, empty batch and
@@ -37,9 +41,9 @@ import torch
 from ..ref import api as _ref
 from ..ref.curves import Point, g1_infinity, g2_infinity
 from . import fp, h2c, pairing
-from .curve import FP, FP2, Proj, eq_points, from_affine, is_infinity, psi, scalar_mul_bits, stack2, unstack
-from .curve import add as p_add, neg as p_neg
-from .pack import G1_GEN_NEG_Y_L, G1_GEN_X_L, pack_g1_batch, pack_g2_batch
+from .curve import FP, FP2, Proj, eq_points, from_affine, g1_in_subgroup_kernel, is_infinity, psi
+from .curve import add as p_add, neg as p_neg, scalar_mul_bits, stack2, unstack
+from .pack import G1_GEN_NEG_Y_L, G1_GEN_X_L, pack_g1_batch, pack_g2_batch, precompute_limbs
 from .tower import fp2_mul, fp12_is_one
 
 DecodeError = _ref.DecodeError
@@ -136,6 +140,10 @@ class SignatureSet:
     signature: Signature
     signing_keys: list[PublicKey]
     message: bytes
+
+
+def verify_signature_set(s: SignatureSet, device=None) -> bool:
+    return s.signature.fast_aggregate_verify(s.signing_keys, s.message, device=device)
 
 
 # -- the device pipeline -------------------------------------------------------
@@ -363,6 +371,27 @@ def stage_sets(sets: list[SignatureSet], rng=None):
     return pk_x.reshape(S, K, -1), pk_y.reshape(S, K, -1), pk_inf.reshape(S, K), sig_x, sig_y, sig_inf, u, r_rows
 
 
+def drop_staging_caches(sets) -> None:
+    """Forget every staging cache a batch could hit (the hash-to-field LRU
+    and the limb rows of every point it references, the padding generator's
+    included), so that the next `stage_sets` runs cold."""
+    h2c.H2C_FIELD_CACHE.clear()
+    pts = [_pad_generator()]
+    for s in sets:
+        pts += [pk.point for pk in s.signing_keys] + [s.signature.point]
+    for pt in pts:
+        try:
+            del pt._limbs
+        except AttributeError:
+            pass
+
+
+def precompute_pubkey_limbs(pk: PublicKey) -> None:
+    """Pubkey-cache hook: attach a resolved validator key's limb rows now,
+    so the first batch that stages it is already a cache hit."""
+    precompute_limbs(pk.point)
+
+
 class VerifyFuture:
     """Handle to an in-flight verification: the kernels are queued on the
     device stream and `result()` waits for the verdict."""
@@ -406,6 +435,58 @@ def verify_signature_sets(sets: list[SignatureSet], rng=None, device=None) -> bo
     one final exponentiation. Returns False (never raises) for structurally
     invalid batches."""
     return verify_signature_sets_async(sets, rng=rng, device=device).result()
+
+
+# -- pubkey admission ------------------------------------------------------------
+
+
+def decompress_public_keys(keys: list[bytes]):
+    """Decompress each compressed G1 key on the host (the on-curve check
+    only: the subgroup check runs on the device) and pad to the S bucket
+    with infinity. Returns (S points, decode mask (len(keys),)): the mask is
+    False where the encoding is invalid, and such a key becomes infinity."""
+    inf1 = g1_infinity()
+    pts, decoded = [], np.zeros(len(keys), dtype=bool)
+    for i, kb in enumerate(keys):
+        try:
+            pts.append(_ref.g1_from_compressed(kb, subgroup_check=False))
+            decoded[i] = True
+        except DecodeError:
+            pts.append(inf1)
+    pts += [inf1] * (_next_pow2(len(pts)) - len(pts))
+    return pts, decoded
+
+
+def stage_public_keys(keys: list[bytes]):
+    """Host half of pubkey admission: (x, y, inf) wire limbs, (S, 32),
+    (S, 32), (S,), as the JAX package stages them, and the decode mask."""
+    pts, decoded = decompress_public_keys(keys)
+    return (*pack_g1_batch(pts), decoded)
+
+
+def validate_staged_g1(x: torch.Tensor, y: torch.Tensor, inf: torch.Tensor) -> torch.Tensor:
+    """The counterpart of the JAX package's `_pk_validate_kernel(S)`:
+    (S, 12) word coordinates and the (S,) infinity mask on the device ->
+    g1_in_subgroup & ~inf, (S,) bool; one K5 launch on a CUDA device."""
+    return g1_in_subgroup_kernel(x, y, inf)
+
+
+@torch.inference_mode()
+def batch_validate_public_keys(keys: list[bytes], device=None) -> list[bool]:
+    """Decompress and subgroup-check a batch of compressed G1 pubkeys, the
+    validator pubkey-cache admission path: one bool per key; invalid
+    encodings and infinity are False. The staged batch crosses to the device
+    as one int32 buffer and is repacked into words there."""
+    dev = resolve_device(device)
+    x, y, inf, decoded = stage_public_keys(keys)
+    S, n = inf.shape[0], x.size
+    flat = torch.from_numpy(_pack_staged([x, y, inf])).to(dev)
+    ok = validate_staged_g1(
+        fp.from_jax_limbs(flat[:n].reshape(S, -1)),
+        fp.from_jax_limbs(flat[n : 2 * n].reshape(S, -1)),
+        flat[2 * n :].bool(),
+    )
+    return (ok[: len(keys)].cpu().numpy() & decoded).tolist()
 
 
 # -- interop keypairs ----------------------------------------------------------

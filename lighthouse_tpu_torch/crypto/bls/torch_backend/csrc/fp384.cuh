@@ -8,7 +8,9 @@
 //
 // Hopper multiplies 32 x 32 -> 64 bits natively (IMAD.WIDE), so the product
 // is a plain CIOS Montgomery multiplication with 64-bit accumulators. Every
-// helper works in registers; nothing here touches shared memory.
+// helper works in registers; nothing here touches shared memory. The
+// constants are static: each .cu that includes this file is compiled on
+// its own and keeps its own copy.
 
 #pragma once
 
@@ -17,17 +19,17 @@
 #define FP_WORDS 12
 
 // p, little-endian words.
-__constant__ uint32_t FP_P[FP_WORDS] = {
+static __constant__ uint32_t FP_P[FP_WORDS] = {
     0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
     0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
 // -p^-1 mod 2^32.
 #define FP_PINV 0xfffcfffdu
 // R mod p: one in Montgomery form.
-__constant__ uint32_t FP_ONE[FP_WORDS] = {
+static __constant__ uint32_t FP_ONE[FP_WORDS] = {
     0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau, 0x5f489857u,
     0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
 // p - 2, the Fermat inversion exponent, and its bit length.
-__constant__ uint32_t FP_P_MINUS_2[FP_WORDS] = {
+static __constant__ uint32_t FP_P_MINUS_2[FP_WORDS] = {
     0xffffaaa9u, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
     0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
 #define FP_P_MINUS_2_BITS 381

@@ -13,6 +13,10 @@ and the table gather becomes `torch.gather`.
 
 G2 subgroup membership is Scott's psi criterion: P in G2 iff
 psi(P) == [z]P (z < 0), a 64-bit multiplication instead of a 255-bit one.
+G1 membership is the phi criterion: P in G1 iff phi(P) == -[z^2]P, with
+phi(x, y) = (beta x, y); as one kernel (K5, csrc/g1_kernels.cu) it is the
+pubkey-admission check. The Montgomery ladder and the full-order checks
+[r]P == O are the oracle-grade criteria both are validated against.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..constants import B_G1, B_G2, X as X_PARAM
+from ..constants import B_G1, B_G2, R as R_ORD, X as X_PARAM
+from ..ref.curves import Point, g1_generator
+from ..ref.fields import Fp as RefFp
 from ..ref.hash_to_curve import _PSI_CX, _PSI_CY
 from . import fp, tower
 from .pack import pack_fp2, pack_fp2_el
@@ -35,6 +41,7 @@ class FieldOps(NamedTuple):
     sub: Callable
     neg: Callable
     mul: Callable
+    inv: Callable
     is_zero: Callable
     eq: Callable
     select: Callable
@@ -49,6 +56,7 @@ FP = FieldOps(
     sub=fp.sub,
     neg=fp.neg,
     mul=fp.mul,
+    inv=fp.inv,
     is_zero=fp.is_zero,
     eq=fp.eq,
     select=fp.select,
@@ -63,6 +71,7 @@ FP2 = FieldOps(
     sub=tower.fp2_sub,
     neg=tower.fp2_neg,
     mul=tower.fp2_mul,
+    inv=tower.fp2_inv,
     is_zero=tower.fp2_is_zero,
     eq=tower.fp2_eq,
     select=tower.fp2_select,
@@ -70,6 +79,16 @@ FP2 = FieldOps(
     zero=tower.fp2_zero,
     b3=pack_fp2(3 * B_G2[0], 3 * B_G2[1]),
     elem_dims=2,
+)
+
+# The plain versions of K1-K3 as a field: the group law over it is PyTorch
+# operations only, on any device (K5's plain version, also on the card).
+FP_PLAIN = FP._replace(
+    add=lambda a, b: fp.addsub_plain(a, b, 0),
+    sub=lambda a, b: fp.addsub_plain(a, b, 1),
+    neg=lambda a: fp.addsub_plain(a, None, 2),
+    mul=fp.mul_plain,
+    inv=lambda a: fp.pow_plain(a, fp.INV_EXP),
 )
 
 
@@ -86,6 +105,14 @@ def from_affine(F: FieldOps, x, y, inf) -> Proj:
     one = F.one(inf.shape, x.device)
     zero = F.zero(inf.shape, x.device)
     return Proj(F.select(inf, zero, x), F.select(inf, one, y), F.select(inf, zero, one))
+
+
+def to_affine(F: FieldOps, p: Proj):
+    """(x, y, inf); infinity decodes to zeroed coordinates (inv0). One
+    field inversion (K3 underneath) and one stacked product."""
+    zinv = F.inv(p.z)
+    m = F.mul(torch.stack([p.x, p.y]), zinv)
+    return m[0], m[1], F.is_zero(p.z)
 
 
 def is_infinity(F: FieldOps, p: Proj):
@@ -154,6 +181,32 @@ def unstack(p: Proj, i: int) -> Proj:
     return Proj(p.x[i], p.y[i], p.z[i])
 
 
+def _sel(F: FieldOps, cond, a: Proj, b: Proj) -> Proj:
+    return Proj(*(F.select(cond, u, v) for u, v in zip(a, b)))
+
+
+def _bits_tensor(bits, device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(bits)) if isinstance(bits, np.ndarray) else bits
+    return t.to(device)
+
+
+def scalar_mul_bits_ladder(F: FieldOps, p: Proj, bits) -> Proj:
+    """Montgomery ladder, MSB-first over a fixed bit width: the oracle-grade
+    form the windowed multiplication is validated against. `bits` as for
+    `scalar_mul_bits`. Each step computes R0 + R1 and 2 R_b as ONE 2-stacked
+    complete addition."""
+    shape = F.is_zero(p.z).shape
+    bits = _bits_tensor(bits, p.x.device)
+    r0, r1 = infinity(F, shape, p.x.device), p
+    for j in range(bits.shape[-1]):
+        take = (bits[..., j] != 0).expand(shape)
+        rsel = _sel(F, take, r1, r0)
+        u = add(F, stack2(r0, rsel), stack2(r1, rsel))
+        u_add, u_dbl = unstack(u, 0), unstack(u, 1)
+        r0, r1 = _sel(F, take, u_add, u_dbl), _sel(F, take, u_dbl, u_add)
+    return r0
+
+
 _WINDOW = 4
 
 
@@ -188,8 +241,7 @@ def scalar_mul_bits(F: FieldOps, p: Proj, bits) -> Proj:
     dev = p.x.device
     shape = F.is_zero(p.z).shape
     public = isinstance(bits, np.ndarray)
-    bits_t = torch.from_numpy(np.ascontiguousarray(bits)) if public else bits
-    digits = _window_digits(bits_t)
+    digits = _window_digits(_bits_tensor(bits, "cpu") if public else bits)
     inf = infinity(F, shape, dev)
     rows = [inf, Proj(*(c.expand_as(i) for c, i in zip(p, inf)))] + [inf] * 15
     for k in range(8):
@@ -245,3 +297,85 @@ def g2_in_subgroup(p: Proj):
     """psi(P) == -[|z|]P, or P is infinity."""
     rhs = neg(FP2, scalar_mul_bits(FP2, p, _ABS_X_BITS))
     return eq_points(FP2, psi(p), rhs) | is_infinity(FP2, p)
+
+
+# -- phi endomorphism & G1 subgroup check ---------------------------------------
+#
+# phi(x, y) = (beta x, y), beta a primitive cube root of unity in Fp, acts on
+# G1 as multiplication by a root lambda of lambda^2 + lambda + 1 = 0 mod r.
+# r = z^4 - z^2 + 1, so lambda = -z^2 is one, and P is in G1 iff
+# phi(P) == -[z^2]P (Scott 2021): a 128-bit multiplication instead of a
+# 255-bit one. Which cube root pairs with -z^2 is settled at import on the
+# ref generator.
+
+_X_SQ_BITS = np.array([((X_PARAM * X_PARAM) >> (127 - i)) & 1 for i in range(128)], dtype=np.int64)
+_R_BITS = np.array([(R_ORD >> (254 - i)) & 1 for i in range(255)], dtype=np.int64)
+
+
+def _phi_beta() -> np.ndarray:
+    """Montgomery words of the cube root beta with phi(g) == [-z^2] g."""
+    g = g1_generator()
+    target = -g.mul(X_PARAM * X_PARAM)
+    for w in (tower._OMEGA, tower._OMEGA2):
+        if Point(RefFp(w) * g.x, g.y, False, g.b) == target:
+            return fp.to_mont_host(w)
+    raise AssertionError("neither cube root matches the -z^2 eigenvalue")
+
+
+PHI_BETA = _phi_beta()
+
+
+def phi_g1(p: Proj, F: FieldOps = FP) -> Proj:
+    """(X : Y : Z) -> (beta X : Y : Z); fixes infinity."""
+    return Proj(F.mul(p.x, fp.const(PHI_BETA, p.x.device)), p.y, p.z)
+
+
+def g1_in_subgroup(p: Proj, F: FieldOps = FP):
+    """phi(P) == -[z^2]P, or P is infinity. `F` is FP or FP_PLAIN."""
+    rhs = neg(F, scalar_mul_bits(F, p, _X_SQ_BITS))
+    return eq_points(F, phi_g1(p, F), rhs) | is_infinity(F, p)
+
+
+def g1_in_subgroup_full(p: Proj):
+    """[r]P == O by the ladder: the criterion the phi check is validated against."""
+    return is_infinity(FP, scalar_mul_bits_ladder(FP, p, _R_BITS))
+
+
+def g2_in_subgroup_full(p: Proj):
+    """[r]P == O by the ladder: the criterion the psi check is validated against."""
+    return is_infinity(FP2, scalar_mul_bits_ladder(FP2, p, _R_BITS))
+
+
+def g1_subgroup_check_plain(x, y, inf):
+    """K5's plain version: g1_in_subgroup(from_affine(x, y, inf)) & ~inf over
+    the plain field operations, so PyTorch only, on any device."""
+    return g1_in_subgroup(from_affine(FP_PLAIN, x, y, inf), FP_PLAIN) & ~inf
+
+
+def g1_in_subgroup_kernel(x: torch.Tensor, y: torch.Tensor, inf: torch.Tensor) -> torch.Tensor:
+    """Subgroup verdicts of n affine G1 points, infinity reported False:
+    g1_in_subgroup(from_affine(FP, x, y, inf)) & ~inf (K5).
+
+    x, y: (n, 12) int32 Montgomery words; inf: (n,) bool; all contiguous on
+    one device. A CUDA tensor launches K5, a CPU tensor takes the plain
+    version; anything else raises. Returns (n,) bool."""
+    if inf.dtype != torch.bool or inf.dim() != 1:
+        raise TypeError(f"inf must be bool (n,), got {inf.dtype} {tuple(inf.shape)}")
+    n = inf.shape[0]
+    for t in (x, y):
+        if t.dtype != torch.int32 or t.shape != (n, fp.WORDS):
+            raise TypeError(f"coordinates must be int32 ({n}, {fp.WORDS}), got {t.dtype} {tuple(t.shape)}")
+    if not all(t.is_contiguous() for t in (x, y, inf)):
+        raise ValueError("g1_in_subgroup_kernel takes contiguous tensors")
+    if fp._is_cpu(x, y) and inf.device.type == "cpu":
+        return g1_subgroup_check_plain(x, y, inf)
+    if inf.device != x.device:
+        raise RuntimeError(f"operands on different devices: {x.device}, {inf.device}")
+    from . import kernels
+
+    beta = fp.const(PHI_BETA, x.device)
+    out = torch.empty(n, dtype=torch.bool, device=x.device)
+    kernels.launch("lh_g1_subgroup_check", x.data_ptr(), y.data_ptr(), inf.data_ptr(), beta.data_ptr(),
+                   out.data_ptr(), n)
+    fp._count("g1_subgroup_check", n)
+    return out

@@ -19,7 +19,8 @@ runs in four hand-written CUDA kernels (csrc/fp_kernels.cu):
 Each wrapper takes its kernel for a CUDA tensor and its plain PyTorch
 version (`*_plain`, below) for a CPU tensor, and raises for anything else.
 There is no fallback from the kernel to the plain version. `LAUNCHES`
-counts kernel launches per kernel.
+counts kernel launches per kernel, for these four and for K5
+(`curve.g1_in_subgroup_kernel`, csrc/g1_kernels.cu).
 
 int32 holds u32 bit patterns, so the plain versions widen to int64 and
 mask with 0xFFFFFFFF before any shift or comparison; equality tests
@@ -177,7 +178,8 @@ def zero(shape, device) -> torch.Tensor:
 
 # -- launch accounting ---------------------------------------------------------
 
-KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv")
+#: every kernel of the library: K1-K4 here, K5 in curve.py
+KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv", "g1_subgroup_check")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 #: When a dict, each launch also records its element count (or (steps, lanes)
 #: for K4) under the kernel's name: the shapes the main path gives a kernel.

@@ -1,7 +1,8 @@
 """Build, load and bind the hand-written CUDA kernels (csrc/).
 
-The sources compile with `nvcc` into a shared library with a plain C
-interface, loaded with ctypes. The library is built at first use into
+Each .cu source compiles with its own `nvcc`, all started together, and
+the objects link into one shared library with a plain C interface, loaded
+with ctypes. The library is built at first use into
 `build/torch_kernels/` under the repository root (listed in .gitignore),
 keyed by a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one is reused within a checkout. Nothing here runs when the
@@ -23,11 +24,12 @@ import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fp384.cuh", "fp_kernels.cu")
+SOURCES = ("fp384.cuh", "g1.cuh", "fp_kernels.cu", "g1_kernels.cu")
+UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -39,11 +41,14 @@ _SIGNATURES = {
     "lh_fp_addsub": [_P, _P, _P, _LL, ctypes.c_int, _P],
     "lh_fp_pow": [_P, _P, ctypes.c_int, _P, _LL, _P],
     "lh_fp_batch_inv": [_P, _P, _LL, _LL, _P],
+    "lh_g1_subgroup_check": [_P, _P, _P, _P, _P, _LL, _P],
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None
+#: what the compilers printed in the last build (ptxas: registers, spills)
+BUILD_LOG: str | None = None
 
 
 def _nvcc() -> str:
@@ -64,22 +69,37 @@ def _source_key() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise with the output of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> pathlib.Path:
     """Compile the kernels into the build directory (no-op when the
     library for these exact sources already exists); return its path."""
-    global BUILD_SECONDS
-    out = BUILD_DIR / f"libfp_kernels_{_source_key()}.so"
+    global BUILD_SECONDS, BUILD_LOG
+    key = _source_key()
+    out = BUILD_DIR / f"libfp_kernels_{key}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{key}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{pathlib.Path(u).stem}.{tag}.o" for u in UNITS]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "fp_kernels.cu")]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / u)] for u, o in zip(UNITS, objs)])
+    log += _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]])
     os.replace(tmp, out)
+    for o in objs:
+        o.unlink()
     BUILD_SECONDS = time.perf_counter() - t0
+    BUILD_LOG = log
     return out
 
 

@@ -124,3 +124,13 @@ def pack_g2_batch(pts: list[Point]):
         lambda limbs, k: (limbs[4 * k : 4 * k + 2], limbs[4 * k + 2 : 4 * k + 4]),
     )
 
+
+def precompute_limbs(pt: Point) -> None:
+    """Attach a point's wire-limb rows now (no-op for infinity or a point
+    already packed), so the first batch that stages it is a cache hit."""
+    if pt.inf or getattr(pt, "_limbs", None) is not None:
+        return
+    if isinstance(pt.x, Fp2):
+        pack_g2_batch([pt])
+    else:
+        pack_g1_batch([pt])

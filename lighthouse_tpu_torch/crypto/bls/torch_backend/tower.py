@@ -121,7 +121,7 @@ def fp2_sgn0(a):
     return s[..., 0] | (z0.to(s.dtype) & s[..., 1])
 
 
-# -- Fp6 (only what the Fp12 layout needs; fp6_mul / fp6_inv are not ported) ----
+# -- Fp6 -----------------------------------------------------------------------
 
 
 def fp6(c0, c1, c2):
@@ -138,6 +138,56 @@ def fp6_one(shape, device):
 
 def fp6_neg(a):
     return fp.neg(a)
+
+
+def _c(a, i):
+    """Fp2 coefficient i of an Fp6 (..., 3, 2, W), or of a stack of Fp2s."""
+    return a[..., i, :, :]
+
+
+def fp6_mul(a, b):
+    """Karatsuba over Fp2, as the JAX package: the six Fp2 products
+    a_i b_i and (a_i + a_j)(b_i + b_j) ride one stacked fp2_mul."""
+    a, b = torch.broadcast_tensors(a, b)
+    a0, a1, a2 = _c(a, 0), _c(a, 1), _c(a, 2)
+    b0, b1, b2 = _c(b, 0), _c(b, 1), _c(b, 2)
+    s = fp.add(torch.stack([a1, a0, a0, b1, b0, b0], dim=-3), torch.stack([a2, a1, a2, b2, b1, b2], dim=-3))
+    t = fp2_mul(torch.cat([a, s[..., :3, :, :]], dim=-3), torch.cat([b, s[..., 3:, :, :]], dim=-3))
+    t0, t1, t2 = _c(t, 0), _c(t, 1), _c(t, 2)
+    # (a1 + a2)(b1 + b2) - t1 - t2, (a0 + a1)(b0 + b1) - t0 - t1, (a0 + a2)(b0 + b2) - t0 - t2
+    d = fp.sub(fp.sub(t[..., 3:, :, :], torch.stack([t1, t0, t0], dim=-3)), torch.stack([t2, t1, t2], dim=-3))
+    xi = fp2_mul_by_nonresidue(torch.stack([_c(d, 0), t2], dim=-3))
+    return fp.add(torch.stack([_c(xi, 0), _c(d, 1), _c(d, 2)], dim=-3), torch.stack([t0, _c(xi, 1), t1], dim=-3))
+
+
+def fp6_sqr(a):
+    return fp6_mul(a, a)
+
+
+def fp6_mul_by_v(a):
+    """v (c0 + c1 v + c2 v^2) = xi c2 + c0 v + c1 v^2."""
+    return fp6(fp2_mul_by_nonresidue(_c(a, 2)), _c(a, 0), _c(a, 1))
+
+
+def fp6_scale(a, k):
+    """All three coefficients times an Fp2 element k (..., 2, W)."""
+    return fp2_mul(a, k[..., None, :, :])
+
+
+def fp6_inv(a):
+    """Inverse through the norm to Fp2, as the JAX package:
+    t0 = a0^2 - xi a1 a2, t1 = xi a2^2 - a0 a1, t2 = a1^2 - a0 a2,
+    a^-1 = (t0, t1, t2) / (a0 t0 + xi (a2 t1 + a1 t2)); 0 -> 0 (inv0)."""
+    a0, a1, a2 = _c(a, 0), _c(a, 1), _c(a, 2)
+    sq = fp2_mul(torch.stack([a0, a2, a1, a1, a0, a0], dim=-3), torch.stack([a0, a2, a1, a2, a1, a2], dim=-3))
+    xi = fp2_mul_by_nonresidue(torch.stack([_c(sq, 1), _c(sq, 3)], dim=-3))  # xi a2^2, xi a1 a2
+    t = fp.sub(
+        torch.stack([_c(sq, 0), _c(xi, 0), _c(sq, 2)], dim=-3),
+        torch.stack([_c(xi, 1), _c(sq, 4), _c(sq, 5)], dim=-3),
+    )  # t0, t1, t2
+    m = fp2_mul(torch.stack([a0, a2, a1], dim=-3), t)  # a0 t0, a2 t1, a1 t2
+    d = fp2_inv(fp.add(_c(m, 0), fp2_mul_by_nonresidue(fp.add(_c(m, 1), _c(m, 2)))))
+    return fp2_mul(t, d[..., None, :, :])
 
 
 # -- Fp12 ----------------------------------------------------------------------

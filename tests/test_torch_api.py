@@ -21,7 +21,7 @@ from lighthouse_tpu.crypto.bls.jax_backend import pairing as jpair
 from lighthouse_tpu.crypto.bls.ref import api as ref
 from lighthouse_tpu_torch.crypto.bls.torch_backend import api as tapi
 from lighthouse_tpu_torch.crypto.bls.torch_backend import pairing as tpair
-from torch_parity import assert_same, base_sets, signature_sets, verdict_batch
+from torch_parity import SPEC, assert_same, base_sets, signature_sets, verdict_batch
 
 @pytest.fixture(scope="module")
 def both_sets():
@@ -104,3 +104,47 @@ def test_pipeline_bit_identical_to_jax_s4k2():
     assert_same(partial, want_partial)
     assert bool(ok) == bool(want_ok)
     assert_same(tpair.final_exponentiation(partial), want_gt)
+
+
+def test_backend_surface_exists():
+    """Every name the JAX package requires of a backend (`_API`), plus the
+    admission and staging-cache helpers, exists on the port's api."""
+    from lighthouse_tpu.crypto.bls import _API
+
+    names = (*_API, "batch_validate_public_keys", "precompute_pubkey_limbs", "drop_staging_caches")
+    missing = [n for n in names if not hasattr(tapi, n)]
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("kind", ["valid", "tampered_message"])
+def test_verify_signature_set_matches_fast_aggregate_verify(kind):
+    """The port's single-set verify against the ref oracle's
+    fast_aggregate_verify of the same set (two signers)."""
+    s, rs = verdict_batch(tapi, kind)[1], verdict_batch(ref, kind)[1]
+    got = tapi.verify_signature_set(s, device="cpu")
+    assert got == rs.signature.fast_aggregate_verify(rs.signing_keys, rs.message) == (kind == "valid")
+
+
+def test_precomputed_limbs_stage_identically_and_hit_the_cache(monkeypatch):
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import pack as tpack
+
+    cold = signature_sets(tapi, SPEC)
+    warm = signature_sets(tapi, SPEC)
+    tapi.drop_staging_caches(cold + warm)
+    want = tapi.stage_sets(cold, rng=random.Random(9).getrandbits)
+    for s in warm:
+        for pk in s.signing_keys:
+            tapi.precompute_pubkey_limbs(pk)
+            assert pk.point._limbs is not None
+        tpack.precompute_limbs(s.signature.point)
+    tpack.precompute_limbs(tapi._pad_generator())
+
+    def no_misses(xs):
+        raise AssertionError("a precomputed point was packed again")
+
+    monkeypatch.setattr(tpack, "to_mont_wire_bulk", no_misses)
+    got = tapi.stage_sets(warm, rng=random.Random(9).getrandbits)
+    for g, w in zip(got, want):
+        assert np.asarray(g).tobytes() == np.asarray(w).tobytes()
+    tapi.drop_staging_caches(warm)
+    assert not any(hasattr(pk.point, "_limbs") for s in warm for pk in s.signing_keys)

@@ -11,8 +11,12 @@ import random
 import pytest
 import torch
 
-from lighthouse_tpu_torch.crypto.bls.constants import P
-from lighthouse_tpu_torch.crypto.bls.torch_backend import api, fp
+from lighthouse_tpu_torch.crypto.bls.constants import P, R
+from lighthouse_tpu_torch.crypto.bls.ref import api as ref
+from lighthouse_tpu_torch.crypto.bls.ref.curves import Point, _B1, g1_generator, g1_infinity
+from lighthouse_tpu_torch.crypto.bls.ref.fields import Fp
+from lighthouse_tpu_torch.crypto.bls.torch_backend import api, curve, fp
+from lighthouse_tpu_torch.crypto.bls.torch_backend.pack import pack_g1_batch
 
 pytestmark = pytest.mark.gpu
 
@@ -52,7 +56,7 @@ def test_wrappers_launch_and_count_on_card(cuda_device):
     fp.inv(a)
     fp.batch_inv(a.reshape(8, 8, 12))
     torch.cuda.synchronize()
-    assert fp.LAUNCHES == {"fp_mul": 1, "fp_addsub": 1, "fp_pow": 1, "fp_batch_inv": 1}
+    assert fp.LAUNCHES == {"fp_mul": 1, "fp_addsub": 1, "fp_pow": 1, "fp_batch_inv": 1, "g1_subgroup_check": 0}
     assert torch.equal(fp.add(a[::2], a[1::2]), fp.addsub_plain(a[::2], a[1::2], 0))
 
 
@@ -64,3 +68,39 @@ def test_verify_on_card(cuda_device):
     bad = list(sets)
     bad[1] = api.SignatureSet(sets[1].signature, sets[1].signing_keys, b"\x5b" * 32)
     assert api.verify_signature_sets(bad) is False
+
+
+def _non_g1_points(n):
+    out, x = [], 5
+    while len(out) < n:
+        x += 1
+        y = (Fp(x) * Fp(x) * Fp(x) + _B1).sqrt()
+        if y is not None and not Point(Fp(x), y, False, _B1).mul(R).inf:
+            out.append(Point(Fp(x), y, False, _B1))
+    return out
+
+
+def test_g1_subgroup_kernel_matches_plain_on_card(cuda_device):
+    """K5 against its plain version on G1 points, the order-3 point (0, 2),
+    points of E(Fp) outside G1 and infinity rows."""
+    rng = random.Random(33)
+    goods = [g1_generator()] + [g1_generator().mul(rng.randrange(1, R)) for _ in range(5)]
+    order3 = ref.g1_from_compressed(b"\x80" + bytes(47), subgroup_check=False)
+    pts = goods + [order3] + _non_g1_points(4) + [g1_infinity()] * 2
+    x, y, inf = pack_g1_batch(pts)
+    xw, yw, infb = fp.from_jax_limbs(x), fp.from_jax_limbs(y), torch.from_numpy(inf)
+    want = curve.g1_subgroup_check_plain(xw, yw, infb)
+    assert want.tolist() == [True] * len(goods) + [False] * (len(pts) - len(goods))
+    fp.reset_launches()
+    got = curve.g1_in_subgroup_kernel(xw.to(cuda_device), yw.to(cuda_device), infb.to(cuda_device))
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["g1_subgroup_check"] == 1
+    assert got.cpu().tolist() == want.tolist()
+
+
+def test_batch_validate_public_keys_launches_k5_once(cuda_device):
+    keys = [api.interop_keypair(i)[1].to_bytes() for i in range(3)] + [b"\xff" * 48, b"\x80" + bytes(47)]
+    fp.reset_launches()
+    got = api.batch_validate_public_keys(keys)
+    assert got == [True, True, True, False, False]
+    assert fp.LAUNCHES == {k: int(k == "g1_subgroup_check") for k in fp.KERNELS}

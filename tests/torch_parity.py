@@ -106,3 +106,61 @@ def verdict_batch(b, kind):
         sig = b.Signature(ref.g2_from_compressed(data, subgroup_check=False)) if b is ref else b.Signature.from_bytes(data)
         sets[1] = b.SignatureSet(sig, s.signing_keys, s.message)
     return sets
+
+
+# -- compressed G1 pubkey encodings for the admission tests ------------------------
+
+
+def curve_x(start: int, square: bool) -> int:
+    """The first x >= start whose x^3 + 4 is a nonzero square (square=True)
+    or a non-square (square=False) mod p."""
+    x = start
+    while pow((x * x * x + 4) % P, (P - 1) // 2, P) != (1 if square else P - 1):
+        x += 1
+    return x
+
+
+def non_g1_point(start: int) -> Point:
+    """A point of E(Fp) outside G1 with x >= start."""
+    from lighthouse_tpu.crypto.bls.ref.curves import _B1
+
+    x = start
+    while True:
+        x = curve_x(x, True)
+        xe = Fp(x)
+        pt = Point(xe, (xe * xe * xe + _B1).sqrt(), False, _B1)
+        if not pt.mul(R).inf:
+            return pt
+        x += 1
+
+
+#: the encodings of `pk_encodings`, in order
+PK_KINDS = ("interop_0", "interop_1", "interop_2", "garbage", "infinity", "order_3", "non_g1", "x_ge_p",
+            "not_on_curve")
+
+
+@functools.lru_cache(maxsize=1)
+def pk_encodings() -> dict:
+    """name -> 48-byte compressed G1 encoding: three interop pubkeys and one
+    of each invalid kind."""
+    keys = {f"interop_{i}": ref.interop_keypair(i)[1].to_bytes() for i in range(3)}
+    x_off = curve_x(5, False)
+    keys.update({
+        "garbage": b"\xff" * 48,
+        "infinity": b"\xc0" + bytes(47),
+        "order_3": b"\x80" + bytes(47),  # (0, 2): order 3, on the curve, not in G1
+        "non_g1": ref.g1_to_compressed(non_g1_point(5)),
+        "x_ge_p": b"\x9f" + b"\xff" * 47,
+        "not_on_curve": bytes([0x80 | (x_off >> 376)]) + (x_off % (1 << 376)).to_bytes(47, "big"),
+    })
+    assert tuple(keys) == PK_KINDS
+    return keys
+
+
+def oracle_pk_verdict(kb: bytes) -> bool:
+    """The ref oracle's admission verdict: decodes with the full subgroup
+    check, and is not infinity."""
+    try:
+        return not ref.g1_from_compressed(kb).inf
+    except ref.DecodeError:
+        return False
