@@ -7,10 +7,13 @@ Phases, one line each, any failure exits non-zero:
 
   1. device   require a CUDA device; print its name and power limit
   2. build    compile the hand-written kernels (csrc/) with nvcc, one
-              process per source; K5's registers and spills from ptxas
-  3. kernels  K1-K4 bit-identical to their plain PyTorch versions on the
-              card: edge inputs 0, 1, p-1, p-2 and 4096 seeded random
-              elements; batch inversion at N = 257 with zero lanes. After
+              process per source; K5's and K6's registers and spills
+              from ptxas
+  3. kernels  K1-K4 and K6 bit-identical to their plain PyTorch versions
+              on the card: edge inputs 0, 1, p-1, p-2 and 4096 seeded
+              random elements; batch inversion at N = 257 with zero
+              lanes; K6 also against K1, at 4104 elements and at the
+              tails 1, 31 and 33. After
               set-up, K5 bit-identical to its plain version (on CPU
               tensors) on 64 points: interop keys, the order-3 point
               (0, 2), points of E(Fp) outside G1 and infinity rows
@@ -26,9 +29,17 @@ Phases, one line each, any failure exits non-zero:
               the ref oracle's, exactly one K5 launch and no other kernel
               per call; warm ms and keys/s, host decompression and packing
               ms, K5's device ms
-  5. profile  device busy time, idle share and top kernels of one verify
+     mxu      the same verify batches, bad batches included, with
+              fp.USE_MXU_MUL set (every Fp product on K6, the JAX
+              package's LIGHTHOUSE_TPU_MXU_FP_MUL path): verdicts, K6
+              launched as often as K1 was by default and K1 never; ms per
+              batch with and without the flag, timed in turns; admission
+              at S = 16 still one K5 launch and nothing else
+  5. profile  device busy time, idle share and top kernels of one verify,
+              by default and with the flag
      timing   each kernel at the shape that carries most of its main-path
-              work, against its plain version and its bound
+              work, against its plain version and its bound (K6 at K1's
+              shape, so the two compare)
      extras   to_affine (G1, G2), fp6_mul and fp6_inv on the card
               bit-identical to the same functions on CPU tensors
   6. parity   one S=4, K=2 batch: the card's Miller partial and GT value
@@ -71,17 +82,29 @@ IMAD_PER_SM_PER_CLK = 64
 # 32 x 32 -> 64 word products of one CIOS Montgomery product: 12x12 for
 # a*b, 12x12 for m*p, 12 for m.
 WORD_PRODUCTS_PER_MUL = 300
+# K6: the H100 SXM's dense int8 tensor-core peak (data sheet, 1,979 TOPS;
+# a multiply-add counts as two operations), the operations of its two
+# m16n8k32 MMAs per element, and the word products of its reduction
+# (12 for m, 12x12 for m*p).
+INT8_TENSOR_OPS_PER_S = 1.979e15
+MMA_OPS_PER_MUL = 2 * (16 * 8 * 32) * 2
+REDC_WORD_PRODUCTS = 156
 
 SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/fp_kernels.cu"
 G1_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/g1_kernels.cu"
+MMA_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/fp_mma.cu"
 REPLACES = {
     "fp_mul": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:310",
     "fp_addsub": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:294",
     "fp_pow": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:460",
     "fp_batch_inv": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:466",
     "g1_subgroup_check": "lighthouse_tpu/crypto/bls/jax_backend/api.py:599",
+    "fp_mul_mma": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:373",
 }
 VERIFY_KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv")
+# the verify path with fp.USE_MXU_MUL set: K6 in K1's place
+MXU_KERNELS = ("fp_mul_mma", "fp_addsub", "fp_pow", "fp_batch_inv")
+K6_TAILS = (1, 31, 33)
 
 
 def phase(tag: str, **fields) -> None:
@@ -112,34 +135,50 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_events(prof):
-    """(self device microseconds, calls, name) of each event of a trace
-    that spent time on the device; raises when the trace holds none."""
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
-    if not rows:
-        raise RuntimeError("the profiler trace holds no device events")
-    return rows
+#: traces that came back with no device event and were taken again
+EMPTY_TRACES = 0
+TRACE_TRIES = 3
+
+
+def traced_device_events(window):
+    """Run window() under torch.profiler, tracing the device's activity
+    only, and return (rows, wall ms of the traced window), a row being
+    (self device microseconds, calls, name) of an event that spent time
+    on the device. The profiler now and then returns a trace with no
+    device event at all; such a trace is counted in EMPTY_TRACES and taken
+    again, and after TRACE_TRIES empty traces this raises."""
+    global EMPTY_TRACES
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(TRACE_TRIES):
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            window()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for e in prof.key_averages():
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0)
+            if dev_us > 0:
+                rows.append((dev_us, e.count, e.key))
+        if rows:
+            return rows, wall_ms
+        EMPTY_TRACES += 1
+    raise RuntimeError(f"the profiler trace held no device events in {TRACE_TRIES} tries")
 
 
 def kernel_device_ms(fn, reps: int, kernel: str) -> float:
     """Mean device milliseconds of one launch of `kernel` (a name in the
     profiler's device events) over `reps` warm calls of fn."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [(us, c) for us, c, k in device_events(prof) if kernel in k]
+    rows, _ = traced_device_events(lambda: [fn() for _ in range(reps)])
+    hits = [(us, c) for us, c, k in rows if kernel in k]
     if not hits:
         raise RuntimeError(f"the profiler trace holds no device event of {kernel}")
     return sum(us for us, _ in hits) / sum(c for _, c in hits) / 1e3
@@ -276,6 +315,13 @@ def check_kernels(torch, fp, P, dev) -> None:
     x[::5, 3] = 0
     x[:, 7] = 0
     checks["fp_batch_inv"] = (fp.batch_inv(x), fp.batch_inv_plain(x))
+    # K6 against its plain version and against K1, at whole tiles of 32
+    # elements and at tails
+    for m in (a.shape[0], *K6_TAILS):
+        x6, y6 = a[:m], b[:m]
+        got6 = fp.mul_mxu(x6, y6)
+        checks[f"fp_mul_mma_n{m}"] = (got6, fp.mul_mxu_plain(x6, y6))
+        checks[f"fp_mul_mma_vs_k1_n{m}"] = (got6, fp.mul(x6, y6))
     torch.cuda.synchronize()
     for name, (got, want) in checks.items():
         if not torch.equal(got, want):
@@ -308,12 +354,10 @@ def check_g1_kernel(torch, api, fp, curve, valid: list[bytes], invalid: list[byt
           non_g1=int((~inf).sum()) - n_valid, infinity=int(inf.sum()))
 
 
-def run_pk(torch, api, fp, keys: list[bytes], want: list[bool], card: str):
+def run_pk(torch, api, fp, keys: list[bytes], want: list[bool], card: str, tag: str = "pk"):
     """One counted admission call (launch counts reset just before, read
     just after), then WARM_REPS timed ones; the host halves timed apart,
     and K5's device time from a profiled call. Returns the launches."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.synchronize()
     fp.reset_launches()
     got = api.batch_validate_public_keys(keys)
@@ -336,13 +380,10 @@ def run_pk(torch, api, fp, keys: list[bytes], want: list[bool], card: str):
     t1 = time.perf_counter()
     api.pack_g1_batch(pts)
     t2 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        api.batch_validate_public_keys(keys)
-        torch.cuda.synchronize()
-    rows = device_events(prof)
+    rows, _ = traced_device_events(lambda: api.batch_validate_public_keys(keys))
     k5_ms = sum(us for us, _, k in rows if "g1_subgroup_check_kernel" in k) / 1e3
     busy_ms = sum(us for us, _, _ in rows) / 1e3
-    phase("pk", S=len(keys), invalid=sum(not w for w in want), ms=f"{ms:.3f}",
+    phase(tag, S=len(keys), invalid=sum(not w for w in want), ms=f"{ms:.3f}",
           keys_per_s=f"{len(keys) / ms * 1e3:.1f}", host_decompress_ms=f"{(t1 - t0) * 1e3:.3f}",
           host_pack_ms=f"{(t2 - t1) * 1e3:.3f}", k5_device_ms=f"{k5_ms:.4f}", device_busy_ms=f"{busy_ms:.4f}",
           idle_share=f"{1 - busy_ms / ms:.4f}", launches=json.dumps(launches, separators=(",", ":")),
@@ -442,6 +483,54 @@ def run_verify(torch, api, fp, sets, label: str, card: str, record_shapes: bool 
     return ok, launches, ms, shapes
 
 
+def run_mxu(torch, api, fp, default, bad, pk_keys: list[bytes], pk_want: list[bool], card: str):
+    """The verify path with fp.USE_MXU_MUL set, restored afterwards
+    whatever happens. For each valid batch of `default` (label -> (sets,
+    launches) of the default run): one counted verify, which must launch
+    K6 exactly as often as the default run launched K1 and K1 never; then
+    the two settings timed in turns (default, flag, flag, default, twice),
+    so that both medians come from the same stretch of the host's time.
+    Then the `bad` batches fail, admission still launches K5 once and
+    nothing else, and a profile of the last batch. Returns the last
+    batch's launches."""
+    saved = fp.USE_MXU_MUL
+    try:
+        for label, (sets, base) in default.items():
+            fp.USE_MXU_MUL = True
+            torch.cuda.synchronize()
+            fp.reset_launches()
+            ok = api.verify_signature_sets(sets)
+            torch.cuda.synchronize()
+            launches = dict(fp.LAUNCHES)
+            assert ok, f"mxu {label}: a valid batch did not verify"
+            missing = [k for k in MXU_KERNELS if launches[k] <= 0]
+            assert not missing, f"mxu {label}: kernels not launched: {missing}"
+            if launches["fp_mul"] != 0 or launches["fp_mul_mma"] != base["fp_mul"]:
+                raise AssertionError(f"mxu {label}: K6 should take K1's {base['fp_mul']} launches, got {launches}")
+            times = {False: [], True: []}
+            for flag in (False, True, True, False) * 2:
+                fp.USE_MXU_MUL = flag
+                t0 = time.perf_counter()
+                again = api.verify_signature_sets(sets)
+                torch.cuda.synchronize()
+                times[flag].append((time.perf_counter() - t0) * 1e3)
+                assert again is True
+            ms, base_ms = statistics.median(times[True]), statistics.median(times[False])
+            phase("mxu", shape=label, result=ok, ms_per_batch=f"{ms:.3f}", default_ms_per_batch=f"{base_ms:.3f}",
+                  sets_per_s=f"{len(sets) / ms * 1e3:.2f}", launches=json.dumps(launches, separators=(",", ":")),
+                  card=f'"{card}"')
+        fp.USE_MXU_MUL = True
+        for case, bad_sets in bad:
+            verdict = api.verify_signature_sets(bad_sets)
+            phase("mxu", case=case, result=verdict)
+            assert verdict is False, f"mxu {case}: a bad batch verified"
+        run_pk(torch, api, fp, pk_keys, pk_want, card, tag="mxu")
+        profile_verify(torch, api, sets, f"{label}_mxu", ms)
+    finally:
+        fp.USE_MXU_MUL = saved
+    return launches
+
+
 def heaviest_shape(counter):
     """The launch shape that carries the most elements over the main path's
     launches (count x elements; for K4 the shape is (steps, lanes))."""
@@ -460,16 +549,10 @@ def profile_verify(torch, api, sets, label: str, warm_ms: float) -> None:
     the most device time. The idle share is taken against `warm_ms`, the
     median wall time of the same verify run without the profiler, which
     inflates the wall time of the verify it traces."""
-    from torch.profiler import ProfilerActivity, profile
-
     api.verify_signature_sets(sets)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        api.verify_signature_sets(sets)
-        torch.cuda.synchronize()
-    profiled_wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(device_events(prof), reverse=True)
+    rows, profiled_wall_ms = traced_device_events(lambda: api.verify_signature_sets(sets))
+    rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     top = [{"kernel": k[:60], "ms": round(us / 1e3, 3), "calls": c} for us, c, k in rows[:8]]
     phase("profile", shape=label, warm_wall_ms=f"{warm_ms:.3f}", profiled_wall_ms=f"{profiled_wall_ms:.1f}",
@@ -481,17 +564,18 @@ def time_kernels(torch, fp, P, dev, shapes, launches, peak_ops_per_s):
     """Each kernel at the shape that carries most of its main-path work:
     its device time per launch (profiler), its time per call from the host
     (CUDA events, launch overhead included), the plain version's time, the
-    bound, and the largest word difference from the plain version."""
+    bound, and the largest word difference from the plain version. K6 runs
+    at K1's shape: the flag gives it the same launches."""
     results = []
     pow_products = fp.INV_EXP.bit_length() + bin(fp.INV_EXP).count("1")
-    for name in VERIFY_KERNELS:
-        shape = heaviest_shape(shapes[name])
+    for name in (*VERIFY_KERNELS, "fp_mul_mma"):
+        shape = heaviest_shape(shapes["fp_mul" if name == "fp_mul_mma" else name])
         if name == "fp_batch_inv":
             steps, lanes = shape
             x = field_inputs(fp, P, steps * lanes, 3, dev)[8 : 8 + steps * lanes].reshape(steps, lanes, fp.WORDS)
             run, plain = (lambda: fp.batch_inv(x)), (lambda: fp.batch_inv_plain(x))
             elems = steps * lanes
-            ops = lanes * (3 * steps - 1 + pow_products) * WORD_PRODUCTS_PER_MUL
+            ops_s = lanes * (3 * steps - 1 + pow_products) * WORD_PRODUCTS_PER_MUL / peak_ops_per_s
             nbytes = 2 * 48 * elems
         else:
             n = shape
@@ -499,24 +583,31 @@ def time_kernels(torch, fp, P, dev, shapes, launches, peak_ops_per_s):
             b = a.roll(1, dims=0)
             if name == "fp_mul":
                 run, plain = (lambda: fp.mul(a, b)), (lambda: fp.mul_plain(a, b))
-                ops, nbytes = n * WORD_PRODUCTS_PER_MUL, 3 * 48 * n
+                ops_s, nbytes = n * WORD_PRODUCTS_PER_MUL / peak_ops_per_s, 3 * 48 * n
+            elif name == "fp_mul_mma":
+                run, plain = (lambda: fp.mul_mxu(a, b)), (lambda: fp.mul_mxu_plain(a, b))
+                # the larger of the tensor-core time and the reduction's
+                ops_s = max(n * MMA_OPS_PER_MUL / INT8_TENSOR_OPS_PER_S, n * REDC_WORD_PRODUCTS / peak_ops_per_s)
+                nbytes = 3 * 48 * n
             elif name == "fp_addsub":
                 run, plain = (lambda: fp.add(a, b)), (lambda: fp.addsub_plain(a, b, 0))
-                ops, nbytes = n * 2 * fp.WORDS, 3 * 48 * n
+                ops_s, nbytes = n * 2 * fp.WORDS / peak_ops_per_s, 3 * 48 * n
             else:
                 run, plain = (lambda: fp.inv(a)), (lambda: fp.pow_plain(a, fp.INV_EXP))
-                ops, nbytes = n * pow_products * WORD_PRODUCTS_PER_MUL, 2 * 48 * n + 48
+                ops_s, nbytes = n * pow_products * WORD_PRODUCTS_PER_MUL / peak_ops_per_s, 2 * 48 * n + 48
         saved = dict(fp.LAUNCHES)  # comparison launches are not main-path launches
         got, want = run(), plain()
         err = int(((got.to(torch.int64) & 0xFFFFFFFF) - (want.to(torch.int64) & 0xFFFFFFFF)).abs().max())
-        reps = 50 if name in ("fp_mul", "fp_addsub") else 5
+        elementwise = name in ("fp_mul", "fp_addsub", "fp_mul_mma")
+        reps = 50 if elementwise else 5
         call_ms = cuda_ms(run, reps)
         ms = kernel_device_ms(run, reps, f"{name}_kernel")
-        plain_ms = cuda_ms(plain, 3 if name in ("fp_mul", "fp_addsub") else 1)
+        plain_ms = cuda_ms(plain, 3 if elementwise else 1)
         fp.LAUNCHES.update(saved)
-        t_ops, t_bytes = ops / peak_ops_per_s * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
+        t_ops, t_bytes = ops_s * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
         results.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": MMA_SOURCE if name == "fp_mul_mma" else SOURCE,
+            "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "shape": list(shape) if isinstance(shape, tuple) else [shape],
@@ -576,8 +667,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels.library()
+    log = kernels.BUILD_LOG or ""
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}", nvcc_seconds=kernels.BUILD_SECONDS,
-          g1_subgroup_check=f'"{ptxas_summary(kernels.BUILD_LOG or "", "g1_subgroup_check")}"')
+          g1_subgroup_check=f'"{ptxas_summary(log, "g1_subgroup_check")}"',
+          fp_mul_mma=f'"{ptxas_summary(log, "fp_mul_mma_kernel")}"')
 
     check_kernels(torch, fp, P, dev)
 
@@ -601,6 +694,7 @@ def main() -> int:
     for launches in (launches_g, launches_b):
         missing = [k for k in VERIFY_KERNELS if launches[k] <= 0]
         assert not missing, f"kernels not launched by the verify path: {missing}"
+        assert launches["fp_mul_mma"] == 0, "K6 launched on the default verify path"
 
     i = len(gossip) // 2  # the set each bad batch spoils
     s = gossip[i]
@@ -608,7 +702,8 @@ def main() -> int:
     tampered[i] = api.SignatureSet(s.signature, s.signing_keys, b"\xee" * 32)
     wrong_key[i] = api.SignatureSet(s.signature, [api.interop_keypair(99)[1]], s.message)
     non_sub[i] = api.SignatureSet(bad_sig, s.signing_keys, s.message)
-    for label, sets in (("tampered_message", tampered), ("wrong_key", wrong_key), ("non_subgroup_sig", non_sub)):
+    bad = (("tampered_message", tampered), ("wrong_key", wrong_key), ("non_subgroup_sig", non_sub))
+    for label, sets in bad:
         verdict = api.verify_signature_sets(sets)
         phase("reject", case=label, shape=gossip_shape, result=verdict)
         assert verdict is False, f"{label}: a bad batch verified"
@@ -618,13 +713,19 @@ def main() -> int:
         pk_keys[size] = admission_keys(valid, invalid, size)
         pk_launches[size] = run_pk(torch, api, fp, pk_keys[size], [oracle[kb] for kb in pk_keys[size]], name_power)
 
+    default = {gossip_shape: (gossip, launches_g), block_shape: (block, launches_b)}
+    small = PK_SIZES[-1]
+    mxu_launches = run_mxu(torch, api, fp, default, bad, pk_keys[small], [oracle[kb] for kb in pk_keys[small]],
+                           name_power)
+
     profile_verify(torch, api, block, block_shape, block_ms)
-    results = time_kernels(torch, fp, P, dev, shapes, launches_b, peak_ops)
+    results = time_kernels(torch, fp, P, dev, shapes, {**launches_b, "fp_mul_mma": mxu_launches["fp_mul_mma"]},
+                           peak_ops)
     results.append(time_g1_kernel(torch, api, fp, curve, pk_keys[PK_SIZES[0]], pk_launches[PK_SIZES[0]], peak_ops))
     check_extras(torch, fp, curve, tower, P)
     check_parity(torch, api, fp, pairing)
 
-    phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+    phase("done", seconds=f"{time.perf_counter() - t_start:.1f}", empty_traces_retaken=EMPTY_TRACES)
     print(json.dumps({"kernels": results}))
     print(name_power)
     # the run drives cuda:0 only, whatever else the machine holds

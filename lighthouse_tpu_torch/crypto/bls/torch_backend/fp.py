@@ -9,18 +9,25 @@ integers the JAX package keeps in 32 twelve-bit limbs (its fp.py uses the
 same R), so the two agree after `from_jax_limbs` / `to_jax_limbs`.
 
 Every function broadcasts over leading batch dimensions. The arithmetic
-runs in four hand-written CUDA kernels (csrc/fp_kernels.cu):
+runs in hand-written CUDA kernels (csrc/fp_kernels.cu, csrc/fp_mma.cu):
 
     K1 fp_mul        mul, sqr, to_mont, from_mont
     K2 fp_addsub     add, sub, neg
     K3 fp_pow        inv, sqrt_candidate
     K4 fp_batch_inv  batch_inv
+    K6 fp_mul_mma    mul_mxu; mul and sqr too when USE_MXU_MUL is set
 
 Each wrapper takes its kernel for a CUDA tensor and its plain PyTorch
 version (`*_plain`, below) for a CPU tensor, and raises for anything else.
 There is no fallback from the kernel to the plain version. `LAUNCHES`
-counts kernel launches per kernel, for these four and for K5
+counts kernel launches per kernel, for these and for K5
 (`curve.g1_in_subgroup_kernel`, csrc/g1_kernels.cu).
+
+K6 is the JAX package's opt-in matrix-unit product (`mul_mxu`, enabled by
+LIGHTHOUSE_TPU_MXU_FP_MUL=1) on the tensor cores. K3, K4 and K5 keep
+their in-register CIOS products whatever the flag says: each is one
+thread's chain of products, and an MMA needs a whole warp. The results
+are the same either way, since both products are canonical.
 
 int32 holds u32 bit patterns, so the plain versions widen to int64 and
 mask with 0xFFFFFFFF before any shift or comparison; equality tests
@@ -29,6 +36,7 @@ mask with 0xFFFFFFFF before any shift or comparison; equality tests
 
 from __future__ import annotations
 
+import os
 from collections import Counter
 
 import numpy as np
@@ -176,10 +184,14 @@ def zero(shape, device) -> torch.Tensor:
     return torch.zeros((*shape, WORDS), dtype=torch.int32, device=device)
 
 
+#: Route every `mul` / `sqr` through `mul_mxu` (K6), as the JAX package's
+#: flag of the same name does (its fp.py:310-314). Read once at import.
+USE_MXU_MUL = os.environ.get("LIGHTHOUSE_TPU_MXU_FP_MUL", "") == "1"
+
 # -- launch accounting ---------------------------------------------------------
 
-#: every kernel of the library: K1-K4 here, K5 in curve.py
-KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv", "g1_subgroup_check")
+#: every kernel of the library: K1-K4 and K6 here, K5 in curve.py
+KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv", "g1_subgroup_check", "fp_mul_mma")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 #: When a dict, each launch also records its element count (or (steps, lanes)
 #: for K4) under the kernel's name: the shapes the main path gives a kernel.
@@ -296,24 +308,75 @@ _P16 = _digits16_host(P)
 _NP16 = _digits16_host(N_PRIME)
 
 
-@torch.inference_mode()
-def mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K1's plain version: Montgomery product a * b * 2^-384 mod p."""
-    a, b = torch.broadcast_tensors(a, b)
-    p16, np16 = const(_P16, a.device), const(_NP16, a.device)
+def _redc16(t: torch.Tensor) -> torch.Tensor:
+    """Montgomery reduction shared by the plain products: T * 2^-384 mod p,
+    canonical words, for T < p^2 given as 47 or 48 sixteen-bit digit
+    columns, each < 2^37 (the JAX package's `redc`, fp.py:261)."""
+    p16, np16 = const(_P16, t.device), const(_NP16, t.device)
     n = 2 * WORDS
-    t = _conv(_digits16(a), _digits16(b), 2 * n - 1)  # (..., 47) columns < 2^37
     # m = -T p^-1 mod 2^384, only up to a multiple of 2^384: digits are
     # left just above 16 bits (< 2^16 + 2^10) and the carry out of the top
     # is dropped. The low columns of T need no carrying first, since the
     # columns above them only add multiples of 2^384. Then
     # (T + m p) / 2^384 < p^2 / 2^384 + 1.02 p < 2p.
     m = _passes(_conv(t[..., :n], np16.expand_as(t[..., :n]), n), 16, 3)
-    u = t + _conv(m, p16.expand_as(m), 2 * n - 1)
-    u = _passes(torch.nn.functional.pad(u, (0, 1)), 16, 3)  # carries now <= 1
+    mp = _conv(m, p16.expand_as(m), 2 * n - 1)
+    u = torch.nn.functional.pad(t, (0, 2 * n - t.shape[-1])) + torch.nn.functional.pad(mp, (0, 1))
+    u = _passes(u, 16, 3)  # carries now <= 1; T + m p < 2^768 fits the 48 digits
     hi = _add_digits(u, 16)[..., n : 2 * n]  # (T + m p) / 2^384, exact
     d, borrow = _sub_digits(hi, p16, 16)
     return _words16(torch.where(borrow[..., None], hi, d))
+
+
+@torch.inference_mode()
+def mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K1's plain version: Montgomery product a * b * 2^-384 mod p."""
+    a, b = torch.broadcast_tensors(a, b)
+    n = 2 * WORDS
+    return _redc16(_conv(_digits16(a), _digits16(b), 2 * n - 1))  # (..., 47) columns < 2^37
+
+
+# -- the tensor-core product (K6's plain version) ------------------------------
+#
+# The JAX package's `mul_mxu` (fp.py:373): byte limbs, each element's
+# 48 x 95 band matrix of b, one contraction. Every column is at most
+# 48 * 255^2 = 3,121,200 < 2^22, so it is exact in K6's s32 accumulator
+# (48 * 255^2 < 2^31 is the bound that matters there) and here in int64.
+# The JAX package derives its limb width from its float32 analyzer; 8 bits
+# is the width whose products the card's u8 tensor-core MMA takes.
+
+MXU_LIMB_BITS = 8
+MXU_LIMBS = BITS // MXU_LIMB_BITS  # 48
+_BAND_DIFF = np.arange(2 * MXU_LIMBS - 1)[None, :] - np.arange(MXU_LIMBS)[:, None]
+_BAND_VALID = (_BAND_DIFF >= 0) & (_BAND_DIFF < MXU_LIMBS)
+_BAND_IDX = np.clip(_BAND_DIFF, 0, MXU_LIMBS - 1)
+
+
+def _bytes(a: torch.Tensor) -> torch.Tensor:
+    """(..., 12) words -> (..., 48) int64 byte limbs, little-endian."""
+    return a.contiguous().view(torch.uint8).to(torch.int64)
+
+
+def _byte_columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The 95 byte columns c_k = sum_i a_i b_(k-i) of the product and a
+    zero one: (..., 96) int64, what K6's MMAs leave in shared memory.
+    The contraction is a broadcast product and a sum, which runs on every
+    device (an integer einsum does not run on the card)."""
+    a, b = torch.broadcast_tensors(a, b)
+    bb = _bytes(b)
+    band = torch.where(const(_BAND_VALID, a.device), bb[..., const(_BAND_IDX, a.device)], 0)  # (..., 48, 95)
+    cols = (_bytes(a)[..., :, None] * band).sum(dim=-2)
+    return torch.nn.functional.pad(cols, (0, 1))
+
+
+@torch.inference_mode()
+def mul_mxu_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K6's plain version: the same Montgomery product as `mul_plain`, by
+    byte columns. Pairs of byte columns fold into 48 sixteen-bit digit
+    columns d_k = c_2k + (c_2k+1 << 8) < 2^30 (the last one is
+    c_94 = a_47 b_47 alone), which the shared reduction takes."""
+    c = _byte_columns(a, b)
+    return _redc16(c[..., 0::2] + (c[..., 1::2] << 8))
 
 
 @torch.inference_mode()
@@ -393,20 +456,34 @@ def batch_inv_plain(a: torch.Tensor) -> torch.Tensor:
 # -- kernel wrappers -----------------------------------------------------------
 
 
-def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Montgomery product a * b * 2^-384 mod p (K1)."""
+def _product(a: torch.Tensor, b: torch.Tensor, plain, launcher: str, name: str) -> torch.Tensor:
+    """A Montgomery product wrapper: broadcast, then the plain version for
+    CPU tensors or one launch of `launcher`, counted under `name`."""
     cpu = _is_cpu(a, b)
     a, b = torch.broadcast_tensors(a, b)
     if cpu:
-        return mul_plain(a, b)
+        return plain(a, b)
     from . import kernels
 
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
     n = a.numel() // WORDS
-    kernels.launch("lh_fp_mul", a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
-    _count("fp_mul", n)
+    kernels.launch(launcher, a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+    _count(name, n)
     return out
+
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product a * b * 2^-384 mod p: K1, or K6 when
+    USE_MXU_MUL is set."""
+    if USE_MXU_MUL:
+        return mul_mxu(a, b)
+    return _product(a, b, mul_plain, "lh_fp_mul", "fp_mul")
+
+
+def mul_mxu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The same product on the tensor cores (K6, csrc/fp_mma.cu)."""
+    return _product(a, b, mul_mxu_plain, "lh_fp_mul_mma", "fp_mul_mma")
 
 
 def _addsub(a: torch.Tensor, b: torch.Tensor | None, op: int) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """lighthouse_tpu_torch on the card: the hand-written kernels against their
-plain versions, launch counting, and a small verify. Every test needs a
+plain versions, launch counting, and a small verify, also with every Fp
+product on the tensor cores (K6). Every test needs a
 CUDA GPU and skips without one. The file imports neither jax nor the JAX
 package, so it runs on a machine that has only PyTorch for CUDA and nvcc:
 
@@ -56,17 +57,47 @@ def test_wrappers_launch_and_count_on_card(cuda_device):
     fp.inv(a)
     fp.batch_inv(a.reshape(8, 8, 12))
     torch.cuda.synchronize()
-    assert fp.LAUNCHES == {"fp_mul": 1, "fp_addsub": 1, "fp_pow": 1, "fp_batch_inv": 1, "g1_subgroup_check": 0}
+    assert fp.LAUNCHES == {
+        "fp_mul": 1, "fp_addsub": 1, "fp_pow": 1, "fp_batch_inv": 1, "g1_subgroup_check": 0, "fp_mul_mma": 0,
+    }
     assert torch.equal(fp.add(a[::2], a[1::2]), fp.addsub_plain(a[::2], a[1::2], 0))
 
 
-def test_verify_on_card(cuda_device):
+def _small_batches():
     keys = [api.interop_keypair(i) for i in range(3)]
     msg = b"\x5a" * 32
     sets = [api.SignatureSet(signature=sk.sign(msg), signing_keys=[pk], message=msg) for sk, pk in keys]
-    assert api.verify_signature_sets(sets) is True
     bad = list(sets)
     bad[1] = api.SignatureSet(sets[1].signature, sets[1].signing_keys, b"\x5b" * 32)
+    return sets, bad
+
+
+def test_verify_on_card(cuda_device):
+    sets, bad = _small_batches()
+    assert api.verify_signature_sets(sets) is True
+    assert api.verify_signature_sets(bad) is False
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 4104])
+def test_mul_mma_matches_plain_and_k1_on_card(cuda_device, n):
+    """K6 against its plain version and K1, bit for bit, at whole tiles of
+    32 elements and at tails."""
+    a = _elements(34, max(n, 4), cuda_device)[:n]
+    b = a.roll(1, dims=0)
+    fp.reset_launches()
+    got = fp.mul_mxu(a, b)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["fp_mul_mma"] == 1
+    assert torch.equal(got, fp.mul_mxu_plain(a, b))
+    assert torch.equal(got, fp.mul(a, b))
+
+
+def test_mxu_flag_routes_verify_through_k6(cuda_device, monkeypatch):
+    monkeypatch.setattr(fp, "USE_MXU_MUL", True)
+    sets, bad = _small_batches()
+    fp.reset_launches()
+    assert api.verify_signature_sets(sets) is True
+    assert fp.LAUNCHES["fp_mul"] == 0 and fp.LAUNCHES["fp_mul_mma"] > 0
     assert api.verify_signature_sets(bad) is False
 
 

@@ -4,6 +4,7 @@ without one (no CPU fallback), and a CPU tensor runs the plain versions
 without counting a kernel launch."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -14,6 +15,7 @@ import torch
 import lighthouse_tpu_torch
 from lighthouse_tpu_torch.crypto.bls.torch_backend import api as tapi
 from lighthouse_tpu_torch.crypto.bls.torch_backend import fp as tfp
+from lighthouse_tpu_torch.crypto.bls.torch_backend import kernels as tkernels
 
 ROOT = pathlib.Path(lighthouse_tpu_torch.__file__).resolve().parent.parent
 # the port, chip_smoke.py, and the card's tests (they run where jax is absent)
@@ -94,3 +96,39 @@ def test_kernel_build_is_lazy():
         "assert kernels._lib is None and kernels.BUILD_SECONDS is None"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_tensor_core_kernel_is_registered():
+    """K6's source is hashed into the build key (an edit rebuilds the
+    library), compiled as a unit, bound, and counted."""
+    assert "fp_mma.cu" in tkernels.SOURCES and "fp_mma.cu" in tkernels.UNITS
+    assert "lh_fp_mul_mma" in tkernels._SIGNATURES
+    assert "fp_mul_mma" in tfp.KERNELS and "fp_mul_mma" in tfp.LAUNCHES
+
+
+@pytest.mark.parametrize("flag", ["unset", "", "0", "true", "1"])
+def test_mxu_flag_is_off_unless_set_to_1(flag):
+    """fp.USE_MXU_MUL is read once at import from the JAX package's own
+    variable, LIGHTHOUSE_TPU_MXU_FP_MUL, and is True only for "1"."""
+    env = {k: v for k, v in os.environ.items() if k != "LIGHTHOUSE_TPU_MXU_FP_MUL"}
+    if flag != "unset":
+        env["LIGHTHOUSE_TPU_MXU_FP_MUL"] = flag
+    code = "from lighthouse_tpu_torch.crypto.bls.torch_backend import fp; print(fp.USE_MXU_MUL)"
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                         check=True, timeout=120)
+    assert out.stdout.strip() == str(flag == "1")
+
+
+def test_mul_mxu_on_cuda_tensors_raises_without_a_gpu(monkeypatch):
+    """Operands that dispatch to the card (here: the device check told that
+    they lie on CUDA) go to K6's launch, which fails where there is no
+    card and no nvcc; the plain version is never taken instead."""
+    monkeypatch.setattr(tfp, "_is_cpu", lambda *ts: False)
+    monkeypatch.setattr(tfp, "mul_mxu_plain", lambda a, b: pytest.fail("fell back to the plain version"))
+    monkeypatch.setattr(tfp, "USE_MXU_MUL", True)
+    a = torch.from_numpy(tfp.to_mont_host_bulk([3, 5]))
+    tfp.reset_launches()
+    for fn in (tfp.mul_mxu, tfp.mul):
+        with pytest.raises((RuntimeError, AssertionError)):
+            fn(a, a)
+    assert tfp.LAUNCHES["fp_mul_mma"] == 0
