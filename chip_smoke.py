@@ -44,6 +44,23 @@ Phases, one line each, any failure exits non-zero:
               bit-identical to the same functions on CPU tensors
   6. parity   one S=4, K=2 batch: the card's Miller partial and GT value
               bit-identical to the same functions on the CPU
+  7. sharded  `parallel.sharded.sharded_verify_signature_sets` in spawned
+              ranks (kernels built by this process first, join under a
+              time limit): NCCL over W = min(4, cards) ranks, one card
+              each, and gloo over 2 ranks sharing cuda:0. Each world: a
+              128 x 1 batch True and a tampered one False on every rank,
+              with the kernels' launch counts of one sharded verify; a
+              tampered S = 8 batch whose GT value is bit-identical to the
+              one-process final_exponentiation(verify_pipeline_local(...))
+              on the card; warm ms per batch (median of 3), bytes
+              broadcast and gathered
+     coalescer  the port's BatchVerifier over the port's backend on the
+              card (s_bucket = 32): 8 threads submit 32 single sets, one
+              with a tampered message (the last set of each thread through
+              `api.verify_signature_set`, which routes to the service);
+              verdicts equal to the oracle's, no internal error,
+              `device_fingerprint` on "cuda"; dispatches, their sizes,
+              launches and wall time
 
 then a `{"kernels": [...]}` JSON line, the nvidia-smi name/power line, and
 as the last line `{"ok": true, "device": {...}}`. Signature sets are built
@@ -52,11 +69,16 @@ with the port's own ref oracle from fixed interop keys.
 
 from __future__ import annotations
 
+import datetime
 import json
+import os
+import queue
 import random
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 DEVICE = "cuda"
@@ -105,6 +127,16 @@ VERIFY_KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv")
 # the verify path with fp.USE_MXU_MUL set: K6 in K1's place
 MXU_KERNELS = ("fp_mul_mma", "fp_addsub", "fp_pow", "fp_batch_inv")
 K6_TAILS = (1, 31, 33)
+# Sharded verify: at most this many ranks, one card each, over NCCL; the
+# seed of the staged RLC scalars; the time limit on a world's join.
+SHARDED_MAX_RANKS = 4
+SHARDED_SEED = 11
+SHARDED_S8 = 8
+SHARDED_JOIN_SECONDS = 420
+# Coalescer: 8 threads of 4 single sets each, into buckets of 32.
+COALESCER_THREADS = 8
+COALESCER_PER_THREAD = 4
+COALESCER_BUCKET = 32
 
 
 def phase(tag: str, **fields) -> None:
@@ -646,6 +678,184 @@ def check_parity(torch, api, fp, pairing) -> None:
     phase("parity", ok=True, shape="S4xK2", partial_identical=True, gt_identical=True)
 
 
+def sharded_batches(api):
+    """(valid 128 x 1, tampered 128 x 1, tampered S = 8) batches."""
+    valid = make_sets(api, N_SETS, 1)
+    s = valid[N_SETS // 2]
+    tampered = list(valid)
+    tampered[N_SETS // 2] = api.SignatureSet(s.signature, s.signing_keys, b"\xee" * 32)
+    small = valid[:SHARDED_S8]
+    small[3] = api.SignatureSet(small[3].signature, small[3].signing_keys, b"\xee" * 32)
+    return valid, tampered, small
+
+
+def _sharded_rank(rank: int, world: int, backend: str, addr: str, devices: list, results) -> None:
+    """One rank of a sharded world: the verdicts of the valid and tampered
+    128 x 1 batches, the launches of one sharded verify, the median warm
+    ms of the valid one, and the GT value of the tampered S = 8 batch."""
+    import torch
+    import torch.distributed as dist
+
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import api, fp
+    from lighthouse_tpu_torch.parallel import sharded
+
+    # one host: bootstrap the collectives over loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dev = sharded.rank_device(devices[rank])
+    dist.init_process_group(backend, init_method=addr, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=SHARDED_JOIN_SECONDS))
+    try:
+        valid, tampered, small = sharded_batches(api)
+        verify = lambda sets: sharded.sharded_verify_signature_sets(sets, device=dev)  # noqa: E731
+        verify(valid)  # warm: staging caches and kernel library
+        torch.cuda.synchronize(dev)
+        fp.reset_launches()
+        ok = verify(valid)
+        torch.cuda.synchronize(dev)
+        launches = dict(fp.LAUNCHES)
+        times = []
+        for _ in range(WARM_REPS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            assert verify(valid) == ok
+            times.append((time.perf_counter() - t0) * 1e3)
+        bad = verify(tampered)
+        gt, ok8, _ = sharded.sharded_verify_parts(small, rng=random.Random(SHARDED_SEED).getrandbits, device=dev)
+        results.put((rank, ok, bad, launches, statistics.median(times), gt.cpu().numpy(), ok8))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_world(backend: str, world: int, devices: list) -> list:
+    """Spawn a world of ranks, wait for every result under a time limit,
+    and join; a rank that fails makes the join raise."""
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.get_context("spawn")
+    results = ctx.Queue()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    procs = tmp.start_processes(_sharded_rank, args=(world, backend, addr, devices, results), nprocs=world,
+                                join=False, start_method="spawn")
+    got, deadline = {}, time.monotonic() + SHARDED_JOIN_SECONDS
+    try:
+        while not procs.join(timeout=1):
+            while True:
+                try:
+                    item = results.get_nowait()
+                except queue.Empty:
+                    break
+                got[item[0]] = item
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{backend} world of {world}: ranks did not finish in {SHARDED_JOIN_SECONDS} s")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    while len(got) < world:
+        item = results.get(timeout=30)
+        got[item[0]] = item
+    return [got[r] for r in range(world)]
+
+
+def run_sharded(torch, api, fp, pairing, card: str) -> None:
+    """The sharded verify path in two worlds; see the module docstring."""
+    valid, _, small = sharded_batches(api)
+    staged = api.stage_sets(small, rng=random.Random(SHARDED_SEED).getrandbits)
+    partial, ok = api.verify_pipeline_local(*api.from_jax_staged(staged, DEVICE))
+    want = pairing.final_exponentiation(partial).cpu().numpy()
+    assert bool(ok), "the S = 8 batch failed its subgroup checks"
+    S, K = api.stage_sets(valid, rng=api._ONE_RNG)[2].shape
+    flat_bytes = 4 * sum(int(torch.Size(shape).numel()) for shape, _ in api._staged_specs(S, K))
+    nccl_world = min(SHARDED_MAX_RANKS, torch.cuda.device_count())
+    worlds = (("nccl", nccl_world, [f"cuda:{r}" for r in range(nccl_world)]), ("gloo", 2, ["cuda:0", "cuda:0"]))
+    for backend, world, devices in worlds:
+        t0 = time.perf_counter()
+        out = run_world(backend, world, devices)
+        for rank, ok_r, bad_r, launches, _, gt, ok8 in out:
+            assert ok_r is True, f"{backend} rank {rank}: the valid batch did not verify"
+            assert bad_r is False, f"{backend} rank {rank}: the tampered batch verified"
+            assert ok8 and (gt == want).all(), f"{backend} rank {rank}: GT differs from the one-process value"
+            missing = [k for k in VERIFY_KERNELS if launches[k] <= 0]
+            assert not missing, f"{backend} rank {rank}: kernels not launched by the sharded path: {missing}"
+        phase("sharded", backend=backend, W=world, nccl_world=nccl_world, shape=f"{N_SETS}x1", bucket=f"{S}x{K}",
+              result=True,
+              tampered=False, gt_identical=True, ms_per_batch=f"{out[0][4]:.3f}",
+              broadcast_bytes=16 + flat_bytes, gathered_bytes_per_rank=world * (fp.WORDS * 4 * 12 + 4),
+              launches_rank0=json.dumps(out[0][3], separators=(",", ":")),
+              world_seconds=f"{time.perf_counter() - t0:.1f}", card=f'"{card}"')
+
+
+def run_coalescer(torch, api, fp, card: str) -> None:
+    """The port's coalescer on the card; see the module docstring."""
+    from lighthouse_tpu_torch.common import metrics
+    from lighthouse_tpu_torch.crypto.bls import batch_verifier as bv
+    from lighthouse_tpu_torch.crypto.bls.ref import api as ref
+
+    n = COALESCER_THREADS * COALESCER_PER_THREAD
+    sets = make_sets(api, n, 1)
+    bad = 13
+    sets[bad] = api.SignatureSet(sets[bad].signature, sets[bad].signing_keys, b"\xee" * 32)
+    oracle = {}
+    want = [oracle.setdefault(id(s), ref.verify_signature_sets([s])) for s in sets]
+    assert want == [i != bad for i in range(n)], "oracle verdicts are wrong"
+    sizes = []
+    dispatch = api.verify_signature_sets_async
+
+    def recorded(batch, rng=None):
+        sizes.append(len(batch))
+        return dispatch(batch, rng=rng)
+
+    errors0 = metrics.BLS_COALESCER_INTERNAL_ERRORS_TOTAL.value
+    bisect0 = metrics.BLS_BISECTION_DISPATCHES_TOTAL.value
+    svc = bv.ensure_running(api, s_bucket=COALESCER_BUCKET)
+    got = [None] * n
+    barrier = threading.Barrier(COALESCER_THREADS)
+
+    def caller(t):
+        mine = range(t * COALESCER_PER_THREAD, (t + 1) * COALESCER_PER_THREAD)
+        barrier.wait()
+        futures = {i: svc.submit([sets[i]]) for i in mine[:-1]}
+        got[mine[-1]] = api.verify_signature_set(sets[mine[-1]])  # routed through the service
+        for i, f in futures.items():
+            got[i] = f.result(timeout=SHARDED_JOIN_SECONDS)[0]
+
+    try:
+        api.verify_signature_sets_async = recorded
+        info = api.device_fingerprint()
+        torch.cuda.synchronize()
+        fp.reset_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=caller, args=(t,)) for t in range(COALESCER_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(SHARDED_JOIN_SECONDS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(fp.LAUNCHES)
+        assert not any(th.is_alive() for th in threads), "a coalescer caller did not finish"
+        dispatches = svc.dispatches
+    finally:
+        api.verify_signature_sets_async = dispatch
+        bv.release(svc)
+    errors = metrics.BLS_COALESCER_INTERNAL_ERRORS_TOTAL.value - errors0
+    assert got == want, f"coalescer verdicts differ from the oracle's at {[i for i in range(n) if got[i] != want[i]]}"
+    assert errors == 0, f"{errors} coalescer internal errors"
+    assert info["platform"] == "cuda" and info["device_kind"] == torch.cuda.get_device_name(0), info
+    assert info["coalescer"]["running"] and info["coalescer"]["s_bucket"] == COALESCER_BUCKET, info
+    missing = [k for k in VERIFY_KERNELS if launches[k] <= 0]
+    assert not missing, f"kernels not launched by the coalesced path: {missing}"
+    phase("coalescer", sets=n, blamed=got.count(False), dispatches=dispatches,
+          bisection_dispatches=int(metrics.BLS_BISECTION_DISPATCHES_TOTAL.value - bisect0),
+          batch_sizes=json.dumps(sizes, separators=(",", ":")), wall_ms=f"{wall_ms:.3f}", internal_errors=int(errors),
+          fingerprint=f'"{info["platform"]}/{info["device_kind"]}/{info["chip_count"]}"',
+          launches=json.dumps(launches, separators=(",", ":")), card=f'"{card}"')
+
+
 def main() -> int:
     import torch
 
@@ -724,6 +934,8 @@ def main() -> int:
     results.append(time_g1_kernel(torch, api, fp, curve, pk_keys[PK_SIZES[0]], pk_launches[PK_SIZES[0]], peak_ops))
     check_extras(torch, fp, curve, tower, P)
     check_parity(torch, api, fp, pairing)
+    run_sharded(torch, api, fp, pairing, name_power)
+    run_coalescer(torch, api, fp, name_power)
 
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}", empty_traces_retaken=EMPTY_TRACES)
     print(json.dumps({"kernels": results}))

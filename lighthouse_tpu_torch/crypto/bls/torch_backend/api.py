@@ -27,17 +27,33 @@ repacked into 32-bit words there (`from_jax_staged`).
 Device: every entry point runs on `DEFAULT_DEVICE` ("cuda") unless given
 `device=`. Without a GPU a call that does not ask for the CPU raises; it
 never falls back to the CPU.
+
+Host dispatch is the JAX package's: `verify_signature_sets` records the
+`lighthouse_tpu_bls_*` metrics and the `bls_batch_verify` /
+`bls_device_execute` spans (staging: `bls_stage`) and marks the device busy
+for the coalescer (`batch_verifier.py`), and single-set verifies ride the
+coalescer's shared batches when one is running over this module.
 """
 
 from __future__ import annotations
 
 import secrets
+import sys
 from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
 import torch
 
+from ....common.metrics import (
+    BLS_BATCH_PADDED_SIZE,
+    BLS_BATCH_SECONDS,
+    BLS_SETS_TOTAL,
+    BLS_STAGE_SECONDS,
+    DEVICE_PROVENANCE_INFO,
+)
+from ....common.tracing import span
+from .. import batch_verifier
 from ..ref import api as _ref
 from ..ref.curves import Point, g1_infinity, g2_infinity
 from . import fp, h2c, pairing
@@ -66,6 +82,49 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _coalescer():
+    """The process-wide BatchVerifier when it is running over THIS backend
+    module (crypto/bls/batch_verifier.py), else None. Single-set entry
+    points route through it so concurrent callers share device batches
+    instead of each paying a whole verify."""
+    return batch_verifier.active_for(sys.modules[__name__])
+
+
+def device_fingerprint(refresh_gauge: bool = True) -> dict:
+    """Backend provenance, with the JAX package's keys: the platform
+    ("cuda" or "cpu") and device kind (the card's name) of DEFAULT_DEVICE,
+    the chip count (`torch.cuda.device_count()` on "cuda", 1 on "cpu"), the
+    backend, and the coalescer's state. `jit_cache` is all zeros: PyTorch
+    runs the verify eagerly and compiles nothing per batch shape, so there
+    is no cache of compiled programs to report. Sets the info gauge
+    (value 1, identity in the labels) unless `refresh_gauge` is False.
+    Raises, as every entry point does, when DEFAULT_DEVICE is a CUDA
+    device and there is no GPU."""
+    dev = resolve_device()
+    if dev.type == "cuda":
+        kind, count = torch.cuda.get_device_name(dev), torch.cuda.device_count()
+    else:
+        kind, count = dev.type, 1
+    svc = _coalescer()
+    info = {
+        "platform": dev.type,
+        "device_kind": kind,
+        "chip_count": count,
+        "backend": dev.type,
+        "jit_cache": {"verify_kernels_cached": 0, "hits": 0, "misses": 0},
+        "coalescer": {
+            "running": svc is not None,
+            "s_bucket": int(svc.s_bucket) if svc is not None else batch_verifier.DEFAULT_S_BUCKET,
+            "max_wait": float(svc.max_wait) if svc is not None else batch_verifier.DEFAULT_MAX_WAIT,
+        },
+    }
+    if refresh_gauge:
+        DEVICE_PROVENANCE_INFO.labels(
+            platform=info["platform"], device_kind=info["device_kind"], chip_count=str(info["chip_count"])
+        ).set(1)
+    return info
+
+
 class Signature(_ref.Signature):
     """Signature whose verification runs on the device. from_bytes
     decompresses and on-curve-checks on the host and defers the subgroup
@@ -86,6 +145,12 @@ class Signature(_ref.Signature):
         if not pks:
             return False
         s = SignatureSet(signature=self, signing_keys=list(pks), message=message)
+        svc = _coalescer() if device is None else None
+        if svc is not None:
+            # coalesced: the set rides a shared RLC batch (random nonzero
+            # r_i keeps the single-set verdict exact); bisection blames it
+            # individually if the shared batch fails
+            return bool(svc.submit([s]).result()[0])
         return verify_signature_sets([s], rng=_ONE_RNG, device=device)
 
     def aggregate_verify(self, pks: list[PublicKey], messages: list[bytes], device=None) -> bool:
@@ -149,9 +214,9 @@ def verify_signature_set(s: SignatureSet, device=None) -> bool:
 # -- the device pipeline -------------------------------------------------------
 
 
-def _next_pow2(n: int) -> int:
-    """Bucket size: next power of two, at least 4."""
-    return max(4, 1 << max(0, (n - 1)).bit_length())
+def _next_pow2(n: int, floor: int = 4) -> int:
+    """Bucket size: next power of two, at least `floor`."""
+    return max(floor, 1 << max(0, (n - 1)).bit_length())
 
 
 def _tree_fold(F, pts: Proj, axis: int) -> Proj:
@@ -322,52 +387,59 @@ def _batched_nonzero_scalars(n: int) -> np.ndarray:
         out[zeros] = np.frombuffer(secrets.token_bytes(8 * zeros.size), dtype=np.uint64)
 
 
-def stage_sets(sets: list[SignatureSet], rng=None):
-    """Host staging: pad the batch to the S bucket (power of two, >= 4)
-    with generator-keyed, r = 0 no-op sets and each key list to the K bucket
-    with infinity points. Returns (pk_x, pk_y, pk_inf, sig_x, sig_y,
-    sig_inf, u, r_bits) numpy arrays in wire limbs, byte-identical to the
-    JAX package's stage_sets for the same inputs and rng."""
-    S = _next_pow2(len(sets))
+def stage_sets(sets: list[SignatureSet], rng=None, s_floor: int = 4):
+    """Host staging: pad the batch to the S bucket (power of two, at least
+    max(4, s_floor)) with generator-keyed, r = 0 no-op sets and each key
+    list to the K bucket with infinity points. Returns (pk_x, pk_y, pk_inf,
+    sig_x, sig_y, sig_inf, u, r_bits) numpy arrays in wire limbs,
+    byte-identical to the JAX package's stage_sets for the same inputs, rng
+    and s_floor. Timed as the `bls_stage` span /
+    lighthouse_tpu_bls_stage_seconds."""
+    S = _next_pow2(len(sets), floor=max(4, s_floor))
     K = _next_pow2(max(len(s.signing_keys) for s in sets))
-    n = len(sets)
-    pk_pts: list[Point] = []
-    sig_pts: list[Point] = []
-    msgs: list[bytes] = []
-    inf1 = g1_infinity()
-    for s in sets:
-        keys = [pk.point for pk in s.signing_keys]
-        keys += [inf1] * (K - len(keys))
-        pk_pts.extend(keys)
-        sig_pts.append(s.signature.point)
-        msgs.append(s.message)
-    if S > n:
-        gen = _pad_generator()
-        inf2 = g2_infinity()
-        for _ in range(S - n):
-            pk_pts.extend([gen] + [inf1] * (K - 1))
-            sig_pts.append(inf2)
-            msgs.append(b"")  # r stays 0: the padded set contributes the identity
+    BLS_BATCH_PADDED_SIZE.observe(S)
 
-    r_rows = np.zeros((S, 64), dtype=np.int32)
-    if n:
-        if rng is _ONE_RNG:
-            rs = [1] * n
-        elif rng is None:
-            rs = _batched_nonzero_scalars(n)
-        else:
-            # seeded-rng seam: per-set draws in submission order
-            rs = []
-            for _ in range(n):
-                r = 0
-                while r == 0:
-                    r = rng(RAND_BITS)
-                rs.append(r)
-        r_rows[:n] = _scalar_bits_batch(rs)
+    with BLS_STAGE_SECONDS.time(), span("bls_stage"):
+        n = len(sets)
+        pk_pts: list[Point] = []
+        sig_pts: list[Point] = []
+        msgs: list[bytes] = []
+        inf1 = g1_infinity()
+        for s in sets:
+            keys = [pk.point for pk in s.signing_keys]
+            keys += [inf1] * (K - len(keys))
+            pk_pts.extend(keys)
+            sig_pts.append(s.signature.point)
+            msgs.append(s.message)
+        if S > n:
+            gen = _pad_generator()
+            inf2 = g2_infinity()
+            for _ in range(S - n):
+                pk_pts.extend([gen] + [inf1] * (K - 1))
+                sig_pts.append(inf2)
+                msgs.append(b"")  # r stays 0: the padded set contributes the identity
 
-    pk_x, pk_y, pk_inf = pack_g1_batch(pk_pts)
-    sig_x, sig_y, sig_inf = pack_g2_batch(sig_pts)
-    u = h2c.hash_to_field_limbs(msgs)
+        r_rows = np.zeros((S, 64), dtype=np.int32)
+        if n:
+            if rng is _ONE_RNG:
+                rs = [1] * n
+            elif rng is None:
+                rs = _batched_nonzero_scalars(n)
+            else:
+                # seeded-rng seam: per-set draws in submission order
+                rs = []
+                for _ in range(n):
+                    r = 0
+                    while r == 0:
+                        r = rng(RAND_BITS)
+                    rs.append(r)
+            r_rows[:n] = _scalar_bits_batch(rs)
+
+        with span("bls_pack"):
+            pk_x, pk_y, pk_inf = pack_g1_batch(pk_pts)
+            sig_x, sig_y, sig_inf = pack_g2_batch(sig_pts)
+        with span("bls_h2c_host"):
+            u = h2c.hash_to_field_limbs(msgs)
     return pk_x.reshape(S, K, -1), pk_y.reshape(S, K, -1), pk_inf.reshape(S, K), sig_x, sig_y, sig_inf, u, r_rows
 
 
@@ -433,8 +505,22 @@ def verify_signature_sets_async(sets: list[SignatureSet], rng=None, device=None)
 def verify_signature_sets(sets: list[SignatureSet], rng=None, device=None) -> bool:
     """Batch verification by random linear combination: n + 1 Miller loops,
     one final exponentiation. Returns False (never raises) for structurally
-    invalid batches."""
-    return verify_signature_sets_async(sets, rng=rng, device=device).result()
+    invalid batches.
+
+    The timer and the `bls_batch_verify` span cover staging, dispatch and
+    the wait for the verdict; `mark_device_busy` tells the coalescer's
+    device-idle flush that a dedicated batch occupies the device, so
+    concurrent single-set submissions accumulate instead of dispatching
+    alone."""
+    dev = resolve_device(device)
+    if not _structurally_valid(sets):
+        return False  # structurally invalid: no device work, no metrics
+    with batch_verifier.mark_device_busy(), BLS_BATCH_SECONDS.time(), span("bls_batch_verify"):
+        fut = verify_signature_sets_async(sets, rng=rng, device=dev)
+        with span("bls_device_execute"):
+            ok = fut.result()
+    BLS_SETS_TOTAL.inc(len(sets))
+    return ok
 
 
 # -- pubkey admission ------------------------------------------------------------

@@ -375,7 +375,7 @@ def g1_in_subgroup_kernel(x: torch.Tensor, y: torch.Tensor, inf: torch.Tensor) -
 
     beta = fp.const(PHI_BETA, x.device)
     out = torch.empty(n, dtype=torch.bool, device=x.device)
-    kernels.launch("lh_g1_subgroup_check", x.data_ptr(), y.data_ptr(), inf.data_ptr(), beta.data_ptr(),
-                   out.data_ptr(), n)
+    kernels.launch("lh_g1_subgroup_check", x.device, x.data_ptr(), y.data_ptr(), inf.data_ptr(),
+                   beta.data_ptr(), out.data_ptr(), n)
     fp._count("g1_subgroup_check", n)
     return out

@@ -468,7 +468,7 @@ def _product(a: torch.Tensor, b: torch.Tensor, plain, launcher: str, name: str) 
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
     n = a.numel() // WORDS
-    kernels.launch(launcher, a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+    kernels.launch(launcher, a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
     _count(name, n)
     return out
 
@@ -498,7 +498,7 @@ def _addsub(a: torch.Tensor, b: torch.Tensor | None, op: int) -> torch.Tensor:
     b = a if b is None else b.contiguous()
     out = torch.empty_like(a)
     n = a.numel() // WORDS
-    kernels.launch("lh_fp_addsub", a.data_ptr(), b.data_ptr(), out.data_ptr(), n, op)
+    kernels.launch("lh_fp_addsub", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), n, op)
     _count("fp_addsub", n)
     return out
 
@@ -520,7 +520,7 @@ def pow_fixed(a: torch.Tensor, e: int) -> torch.Tensor:
         _EXP_CACHE[key] = ew
     out = torch.empty_like(a)
     n = a.numel() // WORDS
-    kernels.launch("lh_fp_pow", a.data_ptr(), ew.data_ptr(), e.bit_length(), out.data_ptr(), n)
+    kernels.launch("lh_fp_pow", a.device, a.data_ptr(), ew.data_ptr(), e.bit_length(), out.data_ptr(), n)
     _count("fp_pow", n)
     return out
 
@@ -536,7 +536,7 @@ def batch_inv(a: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(a)
     steps = a.shape[0]
     lanes = a[0].numel() // WORDS if steps else 0
-    kernels.launch("lh_fp_batch_inv", a.data_ptr(), out.data_ptr(), steps, lanes)
+    kernels.launch("lh_fp_batch_inv", a.device, a.data_ptr(), out.data_ptr(), steps, lanes)
     _count("fp_batch_inv", (steps, lanes))
     return out
 

@@ -9,7 +9,8 @@ an unchanged one is reused within a checkout. Nothing here runs when the
 module is imported: the CPU tests import every module and have no nvcc.
 
 Each launcher returns `cudaGetLastError()`; `launch()` raises on a non-zero
-code, so a launch the card refuses is never silent.
+code, so a launch the card refuses is never silent. `launch()` takes the
+operands' device and launches under its guard, on its stream.
 """
 
 from __future__ import annotations
@@ -118,12 +119,15 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call launcher `name` on the current CUDA stream; raise on any error
-    code it reports."""
+def launch(name: str, device, *args) -> None:
+    """Call launcher `name` for operands on CUDA `device`: under that
+    device's guard and on its current stream, whatever device the calling
+    thread has current (a rank on cuda:1, a fresh host thread whose current
+    device is cuda:0). Raise on any error code the launcher reports."""
     import torch
 
-    stream = torch.cuda.current_stream().cuda_stream
-    code = getattr(library(), name)(*args, stream)
+    fn = getattr(library(), name)
+    with torch.cuda.device(device):
+        code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")

@@ -1,5 +1,6 @@
 """lighthouse_tpu_torch on the card: the hand-written kernels against their
-plain versions, launch counting, and a small verify, also with every Fp
+plain versions, launch counting, launches on a card other than the current
+one (and from a fresh thread), and a small verify, also with every Fp
 product on the tensor cores (K6). Every test needs a
 CUDA GPU and skips without one. The file imports neither jax nor the JAX
 package, so it runs on a machine that has only PyTorch for CUDA and nvcc:
@@ -8,6 +9,7 @@ package, so it runs on a machine that has only PyTorch for CUDA and nvcc:
 """
 
 import random
+import threading
 
 import pytest
 import torch
@@ -135,3 +137,29 @@ def test_batch_validate_public_keys_launches_k5_once(cuda_device):
     got = api.batch_validate_public_keys(keys)
     assert got == [True, True, True, False, False]
     assert fp.LAUNCHES == {k: int(k == "g1_subgroup_check") for k in fp.KERNELS}
+
+
+def test_kernels_launch_on_the_operands_card(cuda_device):
+    """K1 and K2 on cuda:1 while cuda:0 is current, and from a fresh host
+    thread (whose current device is cuda:0): the results lie on cuda:1 and
+    equal the plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA GPUs: torch.cuda.device_count() < 2")
+    a = _elements(35, 512, torch.device("cuda", 1))
+    b = a.roll(1, dims=0)
+    want = (fp.mul_plain(a.cpu(), b.cpu()), fp.addsub_plain(a.cpu(), b.cpu(), 0))
+
+    def run(out):
+        out.extend([fp.mul(a, b), fp.add(a, b)])
+        torch.cuda.synchronize(a.device)
+
+    here, there = [], []
+    with torch.cuda.device(0):
+        run(here)
+    t = threading.Thread(target=run, args=(there,))
+    t.start()
+    t.join(120)
+    assert not t.is_alive()
+    for got in (here, there):
+        assert [g.device for g in got] == [a.device] * 2
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
