@@ -7,19 +7,25 @@ Phases, one line each, any failure exits non-zero:
 
   1. device   require a CUDA device; print its name and power limit
   2. build    compile the hand-written kernels (csrc/) with nvcc, one
-              process per source; K5's and K6's registers and spills
+              process per source; K5's to K8's registers and spills
               from ptxas
   3. kernels  K1-K4 and K6 bit-identical to their plain PyTorch versions
               on the card: edge inputs 0, 1, p-1, p-2 and 4096 seeded
               random elements; batch inversion at N = 257 with zero
               lanes; K6 also against K1, at 4104 elements and at the
-              tails 1, 31 and 33. After
+              tails 1, 31 and 33. The tower products K7 (fp2 mul, sqr)
+              and K8 (fp12 full, square, sparse) bit-identical to their
+              plain versions and to the K1/K2 composition they replaced:
+              edge values 0, one, p-1 in every word slot and u, seeded
+              random elements, a broadcast operand, element counts that
+              are no multiple of a block or a six-thread group. After
               set-up, K5 bit-identical to its plain version (on CPU
               tensors) on 64 points: interop keys, the order-3 point
               (0, 2), points of E(Fp) outside G1 and infinity rows
   4. verify   the verify path, `verify_signature_sets`, on 128 sets x 1
               key and on the mainnet-block shape 128 sets x 128 keys: both
-              True, with the kernels' launch counts of one verify; then a
+              True, with the kernels' launch counts of one verify (K7 and
+              K8 among them); then a
               tampered message, a wrong key and a non-subgroup signature
               at 128 x 1, each False; warm ms per batch and sets/s
      pk       the admission path, `batch_validate_public_keys`, at
@@ -32,14 +38,18 @@ Phases, one line each, any failure exits non-zero:
      mxu      the same verify batches, bad batches included, with
               fp.USE_MXU_MUL set (every Fp product on K6, the JAX
               package's LIGHTHOUSE_TPU_MXU_FP_MUL path): verdicts, K6
-              launched as often as K1 was by default and K1 never; ms per
+              launched as often as K1 was by default and K1 never, K7 and
+              K8 as often as by default (the tower products stay on
+              them, as the JAX package's flag reaches only direct Fp
+              products); ms per
               batch with and without the flag, timed in turns; admission
               at S = 16 still one K5 launch and nothing else
   5. profile  device busy time, idle share and top kernels of one verify,
               by default and with the flag
      timing   each kernel at the shape that carries most of its main-path
               work, against its plain version and its bound (K6 at K1's
-              shape, so the two compare)
+              shape, so the two compare; K7 and K8 also against the K1/K2
+              composition they replaced)
      extras   to_affine (G1, G2), fp6_mul and fp6_inv on the card
               bit-identical to the same functions on CPU tensors
   6. parity   one S=4, K=2 batch: the card's Miller partial and GT value
@@ -115,6 +125,7 @@ REDC_WORD_PRODUCTS = 156
 SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/fp_kernels.cu"
 G1_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/g1_kernels.cu"
 MMA_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/fp_mma.cu"
+TOWER_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/tower_kernels.cu"
 REPLACES = {
     "fp_mul": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:310",
     "fp_addsub": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:294",
@@ -122,11 +133,32 @@ REPLACES = {
     "fp_batch_inv": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:466",
     "g1_subgroup_check": "lighthouse_tpu/crypto/bls/jax_backend/api.py:599",
     "fp_mul_mma": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:373",
+    "fp2_mul": "lighthouse_tpu/crypto/bls/jax_backend/tower.py:61",
+    "fp12_mul": "lighthouse_tpu/crypto/bls/jax_backend/tower.py:243",
 }
-VERIFY_KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv")
+SOURCES = {"fp_mul_mma": MMA_SOURCE, "fp2_mul": TOWER_SOURCE, "fp12_mul": TOWER_SOURCE}
+VERIFY_KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv", "fp2_mul", "fp12_mul")
 # the verify path with fp.USE_MXU_MUL set: K6 in K1's place
-MXU_KERNELS = ("fp_mul_mma", "fp_addsub", "fp_pow", "fp_batch_inv")
+MXU_KERNELS = ("fp_mul_mma", "fp_addsub", "fp_pow", "fp_batch_inv", "fp2_mul", "fp12_mul")
 K6_TAILS = (1, 31, 33)
+# K7 runs 64 elements a block, K8 16 (groups of six threads): whole blocks
+# and counts that are none
+K7_COUNTS = (1, 65, 2048, 2051)
+K8_COUNTS = (1, 17, 128, 131)
+# word products that one element needs (the operations bound): a Karatsuba
+# Fp2 product is 3 Fp products of 12 x 12 words, an Fp2 square 2, and each
+# output Fp component is reduced once (156). K7: mul, sqr. K8: full is 36
+# Fp2 products; square the 21 distinct a_i a_j, 6 of them squares; sparse 18.
+K7_WORD_PRODUCTS = {0: 3 * 144 + 2 * 156, 1: 2 * 144 + 2 * 156}
+K8_WORD_PRODUCTS = {
+    0: 36 * 3 * 144 + 12 * 156,
+    1: (6 * 2 + 15 * 3) * 144 + 12 * 156,
+    2: 18 * 3 * 144 + 12 * 156,
+}
+# bytes of one element: inputs read once, the output written once (keys as
+# above: K7 mul, sqr; K8 full, square, sparse)
+K7_BYTES = {0: 3 * 96, 1: 2 * 96}
+K8_BYTES = {0: 3 * 576, 1: 2 * 576, 2: 2 * 576 + 3 * 96}
 # Sharded verify: at most this many ranks, one card each, over NCCL; the
 # seed of the staged RLC scalars; the time limit on a world's join.
 SHARDED_MAX_RANKS = 4
@@ -229,6 +261,32 @@ def field_inputs(fp, P, n: int, seed: int, device):
     mont_edges = [(x * fp.R_MONT) % P for x in edges]
     vals = edges + mont_edges + [rng.randrange(P) for _ in range(n)]
     return torch.from_numpy(fp.ints_to_words(vals)).to(device)
+
+
+def fp2_inputs(fp, P, n: int, seed: int, device):
+    """Fp2 edge values 0, one, p - 1 in every word slot and u, then seeded
+    random elements: (n, 2, 12) int32 on device, Montgomery form."""
+    import torch
+
+    rng = random.Random(seed)
+    pairs = [(0, 0), (fp.R_MONT, 0), (P - 1, P - 1), (0, fp.R_MONT)]
+    pairs += [(rng.randrange(P), rng.randrange(P)) for _ in range(max(0, n - len(pairs)))]
+    words = fp.ints_to_words([x for pair in pairs[:n] for x in pair])
+    return torch.from_numpy(words).reshape(n, 2, fp.WORDS).to(device)
+
+
+def fp12_inputs(fp, tower, P, n: int, seed: int, device):
+    """Tower Fp12 edge values p - 1 in every word slot, 0 and one, then
+    seeded random elements: (n, 2, 3, 2, 12) int32 on device."""
+    import torch
+
+    edges = torch.stack([
+        torch.from_numpy(fp.int_to_words(P - 1)).expand(2, 3, 2, fp.WORDS),
+        torch.zeros(2, 3, 2, fp.WORDS, dtype=torch.int32),
+        tower.fp12_one((), "cpu"),
+    ]).to(device)
+    rand = fp2_inputs(fp, P, 6 * n + 4, seed, device)[4:].reshape(n, 2, 3, 2, fp.WORDS)
+    return torch.cat([edges, rand])[:n]
 
 
 def make_sets(api, n_sets: int, keys_per_set: int):
@@ -366,6 +424,44 @@ def check_kernels(torch, fp, P, dev) -> None:
     for i, v in enumerate(ints):
         assert fp.words_to_int(got[i]) == v * v * rinv % P, "plain mul disagrees with integers"
     phase("kernels", ok=True, compared=",".join(checks), elements=a.shape[0], batch_inv_steps=n)
+
+
+def check_tower_kernels(torch, fp, tower, P, dev) -> None:
+    """K7 and K8 bit-identical to their plain versions and to the K1/K2
+    composition they replaced (fp.KERNEL_OPS), in every op and mode, with a
+    broadcast operand (one element read with stride 0), at K7_COUNTS and
+    K8_COUNTS elements."""
+    cases = {}  # name -> (kernel output, composition over F)
+    x2 = fp2_inputs(fp, P, max(K7_COUNTS), 7, dev)
+    for n in K7_COUNTS:
+        a, b, c = x2[:n], x2.roll(1, dims=0)[:n], x2[2]  # c: p - 1 in every slot
+        cases[f"fp2_mul_n{n}"] = (tower.fp2_mul(a, b), lambda F, a=a, b=b: tower.fp2_mul_plain(a, b, F))
+        cases[f"fp2_sqr_n{n}"] = (tower.fp2_sqr(a), lambda F, a=a: tower.fp2_sqr_plain(a, F))
+        cases[f"fp2_mul_broadcast_n{n}"] = (tower.fp2_mul(a, c), lambda F, a=a, c=c: tower.fp2_mul_plain(a, c, F))
+    x12 = fp12_inputs(fp, tower, P, max(K8_COUNTS), 8, dev)
+    lines = fp2_inputs(fp, P, 2 * max(K8_COUNTS), 9, dev)
+    for n in K8_COUNTS:
+        a = x12[:n]
+        operands = {
+            "full": (tower.FP12_FULL, (x12.roll(1, dims=0)[:n],)),
+            "square": (tower.FP12_SQUARE, ()),
+            "sparse": (tower.FP12_SPARSE, (lines[:n], lines[n : 2 * n], x2[2])),
+            "full_broadcast": (tower.FP12_FULL, (x12[0],)),
+        }
+        for mode_name, (mode, bs) in operands.items():
+            cases[f"fp12_{mode_name}_n{n}"] = (
+                tower.fp12_product(a, bs, mode),
+                lambda F, a=a, bs=bs, mode=mode: tower.fp12_product_plain(a, bs, mode, F),
+            )
+    torch.cuda.synchronize()
+    for name, (got, composed) in cases.items():
+        for label, F in (("plain", fp.PLAIN_OPS), ("K1/K2 composition", fp.KERNEL_OPS)):
+            want = composed(F)
+            if not torch.equal(got, want):
+                bad = (got != want).flatten(got.dim() - (2 if name.startswith("fp2") else 4)).any(dim=-1)
+                raise AssertionError(f"{name}: kernel differs from its {label} at {bad.nonzero()[:4].tolist()}")
+    phase("kernels", ok=True, compared="fp2_mul,fp2_sqr,fp12_full,fp12_square,fp12_sparse,broadcast",
+          against="plain,K1/K2", k7_elements=",".join(map(str, K7_COUNTS)), k8_elements=",".join(map(str, K8_COUNTS)))
 
 
 def check_g1_kernel(torch, api, fp, curve, valid: list[bytes], invalid: list[bytes]) -> None:
@@ -539,6 +635,9 @@ def run_mxu(torch, api, fp, default, bad, pk_keys: list[bytes], pk_want: list[bo
             assert not missing, f"mxu {label}: kernels not launched: {missing}"
             if launches["fp_mul"] != 0 or launches["fp_mul_mma"] != base["fp_mul"]:
                 raise AssertionError(f"mxu {label}: K6 should take K1's {base['fp_mul']} launches, got {launches}")
+            moved = {k: (base[k], launches[k]) for k in ("fp2_mul", "fp12_mul") if launches[k] != base[k]}
+            if moved:
+                raise AssertionError(f"mxu {label}: K7/K8 launches (default, flag) differ: {moved}")
             times = {False: [], True: []}
             for flag in (False, True, True, False) * 2:
                 fp.USE_MXU_MUL = flag
@@ -563,12 +662,16 @@ def run_mxu(torch, api, fp, default, bad, pk_keys: list[bytes], pk_want: list[bo
     return launches
 
 
-def heaviest_shape(counter):
+def heaviest_shape(counter, name: str):
     """The launch shape that carries the most elements over the main path's
-    launches (count x elements; for K4 the shape is (steps, lanes))."""
+    launches (count x elements; for K4 the shape is (steps, lanes), for K7
+    and K8 (elements, op or mode))."""
     def work(kv):
         shape, count = kv
-        elems = shape[0] * shape[1] if isinstance(shape, tuple) else shape
+        if name == "fp_batch_inv":
+            elems = shape[0] * shape[1]
+        else:
+            elems = shape[0] if isinstance(shape, tuple) else shape
         return (count * elems, count)
 
     return max(counter.items(), key=work)[0]
@@ -592,16 +695,19 @@ def profile_verify(torch, api, sets, label: str, warm_ms: float) -> None:
           device_calls=sum(r[1] for r in rows), top=json.dumps(top, separators=(",", ":")))
 
 
-def time_kernels(torch, fp, P, dev, shapes, launches, peak_ops_per_s):
+def time_kernels(torch, fp, tower, P, dev, shapes, launches, peak_ops_per_s):
     """Each kernel at the shape that carries most of its main-path work:
     its device time per launch (profiler), its time per call from the host
     (CUDA events, launch overhead included), the plain version's time, the
     bound, and the largest word difference from the plain version. K6 runs
-    at K1's shape: the flag gives it the same launches."""
+    at K1's shape: the flag gives it the same launches. K7 and K8 run in
+    the op or mode of that shape, and the K1/K2 composition they replaced
+    is timed beside them (`composed_ms`, per call)."""
     results = []
     pow_products = fp.INV_EXP.bit_length() + bin(fp.INV_EXP).count("1")
     for name in (*VERIFY_KERNELS, "fp_mul_mma"):
-        shape = heaviest_shape(shapes["fp_mul" if name == "fp_mul_mma" else name])
+        shape = heaviest_shape(shapes["fp_mul" if name == "fp_mul_mma" else name], name)
+        composed = None
         if name == "fp_batch_inv":
             steps, lanes = shape
             x = field_inputs(fp, P, steps * lanes, 3, dev)[8 : 8 + steps * lanes].reshape(steps, lanes, fp.WORDS)
@@ -609,6 +715,28 @@ def time_kernels(torch, fp, P, dev, shapes, launches, peak_ops_per_s):
             elems = steps * lanes
             ops_s = lanes * (3 * steps - 1 + pow_products) * WORD_PRODUCTS_PER_MUL / peak_ops_per_s
             nbytes = 2 * 48 * elems
+        elif name == "fp2_mul":
+            n, op = shape
+            a = fp2_inputs(fp, P, n + 4, 4, dev)[4:]
+            b = None if op == tower.FP2_SQR else a.roll(1, dims=0)
+            run = lambda: tower.fp2_product(a, b, op)  # noqa: E731
+            if op == tower.FP2_SQR:
+                plain, composed = (lambda: tower.fp2_sqr_plain(a)), (lambda: tower.fp2_sqr_plain(a, fp.KERNEL_OPS))
+            else:
+                plain, composed = (lambda: tower.fp2_mul_plain(a, b)), (lambda: tower.fp2_mul_plain(a, b, fp.KERNEL_OPS))
+            ops_s, nbytes = n * K7_WORD_PRODUCTS[op] / peak_ops_per_s, n * K7_BYTES[op]
+        elif name == "fp12_mul":
+            n, mode = shape
+            a = fp12_inputs(fp, tower, P, n + 3, 4, dev)[3:]
+            bs = {
+                tower.FP12_FULL: (a.roll(1, dims=0),),
+                tower.FP12_SQUARE: (),
+                tower.FP12_SPARSE: tuple(fp2_inputs(fp, P, 3 * n + 4, 5, dev)[4:].reshape(3, n, 2, fp.WORDS)),
+            }[mode]
+            run = lambda: tower.fp12_product(a, bs, mode)  # noqa: E731
+            plain = lambda: tower.fp12_product_plain(a, bs, mode)  # noqa: E731
+            composed = lambda: tower.fp12_product_plain(a, bs, mode, fp.KERNEL_OPS)  # noqa: E731
+            ops_s, nbytes = n * K8_WORD_PRODUCTS[mode] / peak_ops_per_s, n * K8_BYTES[mode]
         else:
             n = shape
             a = field_inputs(fp, P, n, 4, dev)[8 : 8 + n]
@@ -630,23 +758,27 @@ def time_kernels(torch, fp, P, dev, shapes, launches, peak_ops_per_s):
         saved = dict(fp.LAUNCHES)  # comparison launches are not main-path launches
         got, want = run(), plain()
         err = int(((got.to(torch.int64) & 0xFFFFFFFF) - (want.to(torch.int64) & 0xFFFFFFFF)).abs().max())
-        elementwise = name in ("fp_mul", "fp_addsub", "fp_mul_mma")
+        if composed is not None and not torch.equal(got, composed()):
+            raise AssertionError(f"{name}: kernel differs from the K1/K2 composition at shape {shape}")
+        elementwise = name in ("fp_mul", "fp_addsub", "fp_mul_mma", "fp2_mul", "fp12_mul")
         reps = 50 if elementwise else 5
         call_ms = cuda_ms(run, reps)
         ms = kernel_device_ms(run, reps, f"{name}_kernel")
         plain_ms = cuda_ms(plain, 3 if elementwise else 1)
+        extra = {} if composed is None else {"composed_ms": cuda_ms(composed, 10)}
         fp.LAUNCHES.update(saved)
         t_ops, t_bytes = ops_s * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
         results.append({
-            "name": name, "route": "cuda", "source": MMA_SOURCE if name == "fp_mul_mma" else SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES.get(name, SOURCE),
             "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "shape": list(shape) if isinstance(shape, tuple) else [shape],
-            "ms_per_call": call_ms,
+            "ms_per_call": call_ms, **extra,
         })
         phase("timing", kernel=name, shape=shape, ms=f"{ms:.5f}", ms_per_call=f"{call_ms:.5f}",
-              plain_ms=f"{plain_ms:.3f}", bound_ms=f"{max(t_ops, t_bytes):.6f}", max_abs_err=err)
+              plain_ms=f"{plain_ms:.3f}", bound_ms=f"{max(t_ops, t_bytes):.6f}", max_abs_err=err,
+              **{k: f"{v:.5f}" for k, v in extra.items()})
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version at shape {shape}")
     return results
@@ -880,9 +1012,12 @@ def main() -> int:
     log = kernels.BUILD_LOG or ""
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}", nvcc_seconds=kernels.BUILD_SECONDS,
           g1_subgroup_check=f'"{ptxas_summary(log, "g1_subgroup_check")}"',
-          fp_mul_mma=f'"{ptxas_summary(log, "fp_mul_mma_kernel")}"')
+          fp_mul_mma=f'"{ptxas_summary(log, "fp_mul_mma_kernel")}"',
+          fp2_mul=f'"{ptxas_summary(log, "fp2_mul_kernel")}"',
+          fp12_mul=f'"{ptxas_summary(log, "fp12_mul_kernel")}"')
 
     check_kernels(torch, fp, P, dev)
+    check_tower_kernels(torch, fp, tower, P, dev)
 
     t0 = time.perf_counter()
     gossip = make_sets(api, N_SETS, 1)
@@ -929,8 +1064,8 @@ def main() -> int:
                            name_power)
 
     profile_verify(torch, api, block, block_shape, block_ms)
-    results = time_kernels(torch, fp, P, dev, shapes, {**launches_b, "fp_mul_mma": mxu_launches["fp_mul_mma"]},
-                           peak_ops)
+    results = time_kernels(torch, fp, tower, P, dev, shapes,
+                           {**launches_b, "fp_mul_mma": mxu_launches["fp_mul_mma"]}, peak_ops)
     results.append(time_g1_kernel(torch, api, fp, curve, pk_keys[PK_SIZES[0]], pk_launches[PK_SIZES[0]], peak_ops))
     check_extras(torch, fp, curve, tower, P)
     check_parity(torch, api, fp, pairing)

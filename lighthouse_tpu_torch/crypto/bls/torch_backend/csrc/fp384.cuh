@@ -179,3 +179,95 @@ __device__ __forceinline__ void fp_pow(uint32_t r[FP_WORDS], const uint32_t a[FP
 __device__ __forceinline__ void fp_inv(uint32_t r[FP_WORDS], const uint32_t a[FP_WORDS]) {
   fp_pow(r, a, FP_P_MINUS_2, FP_P_MINUS_2_BITS);
 }
+
+// -- lazy reduction: double-width sums of products, one reduction ---------------
+//
+// The counterpart of the JAX package's poly + redc contract (its
+// jax_backend/fp.py:190-203): a tower product forms a sum T of Fp products
+// in 24 words and reduces it once, where K1 reduces every product.
+//
+// Every operand is canonical (< p), so every product is below p^2. A
+// difference is never formed in double width: a tower formula negates the
+// Fp operand instead (-x = p - x, canonical), which turns a0 b0 - a1 b1
+// into a0 b0 + (p - a1) b1, two products below p^2. So T is a sum of N
+// nonnegative products, T < N p^2, and needs no offset of k p^2.
+//
+// Bound. The reduction adds m p with m < 2^384 (m is found word by word)
+// and divides by 2^384, so it leaves a value below T / 2^384 + p <
+// (N / 9.84 + 1) p, since 2^384 / p > 9.84. That is below 2p for N <= 9,
+// where one conditional subtraction makes it canonical (SUBS = 1), and
+// below 3p for N <= 19, where two do (SUBS = 2). On the way,
+// T + m p < 19 p^2 + 2^384 p < 2^767, so the 24 words never carry out.
+
+#define FP_WIDE 24
+
+// r = a * b in 24 words, schoolbook: 144 word products in IMAD.WIDE chains.
+__device__ __forceinline__ void fp_mul_wide(uint32_t r[FP_WIDE], const uint32_t a[FP_WORDS],
+                                            const uint32_t b[FP_WORDS]) {
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) r[i] = 0;
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < FP_WORDS; ++j) {
+      uint64_t s = (uint64_t)a[j] * b[i] + r[i + j] + c;
+      r[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    r[i + FP_WORDS] = (uint32_t)c;
+  }
+}
+
+// t += x over 24 words (the caller's bound keeps the sum below 2^768).
+__device__ __forceinline__ void fp_add_wide(uint32_t t[FP_WIDE], const uint32_t x[FP_WIDE]) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < FP_WIDE; ++i) {
+    uint64_t s = (uint64_t)t[i] + x[i] + c;
+    t[i] = (uint32_t)s;
+    c = s >> 32;
+  }
+}
+
+// t += a * b.
+__device__ __forceinline__ void fp_mac_wide(uint32_t t[FP_WIDE], const uint32_t a[FP_WORDS],
+                                            const uint32_t b[FP_WORDS]) {
+  uint32_t prod[FP_WIDE];
+  fp_mul_wide(prod, a, b);
+  fp_add_wide(t, prod);
+}
+
+// r = T * 2^-384 mod p, canonical, for T < N p^2 with N <= 9 (SUBS = 1) or
+// N <= 19 (SUBS = 2); see the bound above. Word-serial Montgomery
+// reduction: 12 rounds of m = t_i (-p^-1) mod 2^32, t += m p 2^(32 i), each
+// round's carry out of word i + 12 kept in one word for the next round.
+// T is overwritten.
+template <int SUBS>
+__device__ __forceinline__ void fp_redc_wide(uint32_t r[FP_WORDS], uint32_t t[FP_WIDE]) {
+  uint32_t hi = 0;
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) {
+    uint32_t m = t[i] * FP_PINV;
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < FP_WORDS; ++j) {
+      uint64_t s = (uint64_t)m * FP_P[j] + t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[i + FP_WORDS] + c + hi;
+    t[i + FP_WORDS] = (uint32_t)s;
+    hi = (uint32_t)(s >> 32);
+  }
+  fp_reduce_once(r, t + FP_WORDS, hi);
+#pragma unroll
+  for (int k = 1; k < SUBS; ++k) fp_reduce_once(r, r, 0);
+}
+
+// r = c ? x : y, branch-free.
+__device__ __forceinline__ void fp_select(uint32_t r[FP_WORDS], bool c, const uint32_t x[FP_WORDS],
+                                          const uint32_t y[FP_WORDS]) {
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) r[i] = c ? x[i] : y[i];
+}

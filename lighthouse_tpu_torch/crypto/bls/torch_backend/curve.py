@@ -83,13 +83,7 @@ FP2 = FieldOps(
 
 # The plain versions of K1-K3 as a field: the group law over it is PyTorch
 # operations only, on any device (K5's plain version, also on the card).
-FP_PLAIN = FP._replace(
-    add=lambda a, b: fp.addsub_plain(a, b, 0),
-    sub=lambda a, b: fp.addsub_plain(a, b, 1),
-    neg=lambda a: fp.addsub_plain(a, None, 2),
-    mul=fp.mul_plain,
-    inv=lambda a: fp.pow_plain(a, fp.INV_EXP),
-)
+FP_PLAIN = FP._replace(**fp.PLAIN_OPS._asdict())
 
 
 class Proj(NamedTuple):

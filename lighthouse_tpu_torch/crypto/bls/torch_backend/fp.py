@@ -20,8 +20,10 @@ runs in hand-written CUDA kernels (csrc/fp_kernels.cu, csrc/fp_mma.cu):
 Each wrapper takes its kernel for a CUDA tensor and its plain PyTorch
 version (`*_plain`, below) for a CPU tensor, and raises for anything else.
 There is no fallback from the kernel to the plain version. `LAUNCHES`
-counts kernel launches per kernel, for these and for K5
-(`curve.g1_in_subgroup_kernel`, csrc/g1_kernels.cu).
+counts kernel launches per kernel, for these, for K5
+(`curve.g1_in_subgroup_kernel`, csrc/g1_kernels.cu) and for the tower
+products K7 and K8 (`tower.fp2_product`, `tower.fp12_product`,
+csrc/tower_kernels.cu).
 
 K6 is the JAX package's opt-in matrix-unit product (`mul_mxu`, enabled by
 LIGHTHOUSE_TPU_MXU_FP_MUL=1) on the tensor cores. K3, K4 and K5 keep
@@ -38,6 +40,7 @@ from __future__ import annotations
 
 import os
 from collections import Counter
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -190,11 +193,14 @@ USE_MXU_MUL = os.environ.get("LIGHTHOUSE_TPU_MXU_FP_MUL", "") == "1"
 
 # -- launch accounting ---------------------------------------------------------
 
-#: every kernel of the library: K1-K4 and K6 here, K5 in curve.py
-KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv", "g1_subgroup_check", "fp_mul_mma")
+#: every kernel of the library: K1-K4 and K6 here, K5 in curve.py, K7 and K8
+#: in tower.py
+KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv", "g1_subgroup_check", "fp_mul_mma", "fp2_mul",
+           "fp12_mul")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 #: When a dict, each launch also records its element count (or (steps, lanes)
-#: for K4) under the kernel's name: the shapes the main path gives a kernel.
+#: for K4, (elements, op or mode) for K7 and K8) under the kernel's name: the
+#: shapes the main path gives a kernel.
 SHAPES: dict[str, Counter] | None = None
 
 
@@ -597,3 +603,26 @@ def select(cond, a, b):
 def sgn0_mont(a):
     """RFC 9380 sgn0 (parity of the canonical representative)."""
     return from_mont(a)[..., 0] & 1
+
+
+class FpOps(NamedTuple):
+    """The Fp operations that a composed field operation is written over."""
+
+    add: Callable
+    sub: Callable
+    neg: Callable
+    mul: Callable
+    inv: Callable
+
+
+#: K2, K1 and K3: the composition that K7 and K8 replaced on the card
+KERNEL_OPS = FpOps(add, sub, neg, mul, inv)
+#: their plain versions, PyTorch operations only, on any device: the plain
+#: versions of K5, K7 and K8 run over them
+PLAIN_OPS = FpOps(
+    add=lambda a, b: addsub_plain(a, b, 0),
+    sub=lambda a, b: addsub_plain(a, b, 1),
+    neg=lambda a: addsub_plain(a, None, 2),
+    mul=mul_plain,
+    inv=lambda a: pow_plain(a, INV_EXP),
+)

@@ -14,11 +14,19 @@ package with 12 words per Fp element instead of 32 limbs:
     Fp12: (..., 2, 3, 2, 12)  [c0, c1]
 
 Every value is canonical Montgomery, so the outputs are the unique field
-elements whatever formula computes them. Each function stacks independent
-Fp products into one K1 launch and independent additions into one K2
-launch; the JAX package's lazy reduction (poly + one redc per tower
-operation) has no counterpart here, since every Fp product is reduced
-inside K1.
+elements whatever formula computes them. The products of Fp2 and Fp12
+are one launch each of their own kernels (csrc/tower_kernels.cu), which
+sum Fp products in double width and reduce once, as the JAX package's
+lazy reduction does (poly + one redc per tower operation):
+
+    K7 fp2_mul   fp2_mul, fp2_sqr
+    K8 fp12_mul  fp12_mul, fp12_sqr, fp12_mul_sparse035 (and fp12_inv's
+                 products), reading and writing the tower layout
+
+Their plain versions (`*_plain`), taken for CPU tensors, are the
+compositions over Fp operations that the port ran before them. Every
+other function stacks independent Fp products into one K1 launch and
+independent additions into one K2 launch.
 """
 
 from __future__ import annotations
@@ -28,6 +36,12 @@ import torch
 
 from ..constants import P
 from . import fp
+
+FP2_MUL, FP2_SQR = 0, 1  # K7's op
+FP12_FULL, FP12_SQUARE, FP12_SPARSE = 0, 1, 2  # K8's mode
+_FP2_WORDS = 2 * fp.WORDS
+_FP12_WORDS = 6 * _FP2_WORDS
+
 
 # -- Fp2 -----------------------------------------------------------------------
 
@@ -64,23 +78,32 @@ def fp2_conj(a):
 
 
 def fp2_mul(a, b):
-    """Karatsuba: one stacked addition, one 3-row product, two subtractions."""
+    return fp2_product(a, b, FP2_MUL)
+
+
+def fp2_sqr(a):
+    return fp2_product(a, None, FP2_SQR)
+
+
+def fp2_mul_plain(a, b, F=fp.PLAIN_OPS):
+    """K7's plain version, op mul. Karatsuba: one stacked addition, one
+    3-row product, two subtractions."""
     a, b = torch.broadcast_tensors(a, b)
-    s = fp.add(torch.stack([a[..., 0, :], b[..., 0, :]]), torch.stack([a[..., 1, :], b[..., 1, :]]))
-    t = fp.mul(
+    s = F.add(torch.stack([a[..., 0, :], b[..., 0, :]]), torch.stack([a[..., 1, :], b[..., 1, :]]))
+    t = F.mul(
         torch.stack([a[..., 0, :], a[..., 1, :], s[0]], dim=-2),
         torch.stack([b[..., 0, :], b[..., 1, :], s[1]], dim=-2),
     )
     t0, t1, t2 = t[..., 0, :], t[..., 1, :], t[..., 2, :]
-    u = fp.sub(torch.stack([t0, t2], dim=-2), torch.stack([t1, t0], dim=-2))
-    return fp2(u[..., 0, :], fp.sub(u[..., 1, :], t1))
+    u = F.sub(torch.stack([t0, t2], dim=-2), torch.stack([t1, t0], dim=-2))
+    return fp2(u[..., 0, :], F.sub(u[..., 1, :], t1))
 
 
-def fp2_sqr(a):
-    # (a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u
+def fp2_sqr_plain(a, F=fp.PLAIN_OPS):
+    """K7's plain version, op sqr: (a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u."""
     a0, a1 = a[..., 0, :], a[..., 1, :]
-    t = fp.mul(torch.stack([fp.add(a0, a1), a0], dim=-2), torch.stack([fp.sub(a0, a1), a1], dim=-2))
-    return fp2(t[..., 0, :], fp.add(t[..., 1, :], t[..., 1, :]))
+    t = F.mul(torch.stack([F.add(a0, a1), a0], dim=-2), torch.stack([F.sub(a0, a1), a1], dim=-2))
+    return fp2(t[..., 0, :], F.add(t[..., 1, :], t[..., 1, :]))
 
 
 def fp2_scale(a, k):
@@ -201,8 +224,9 @@ def fp12_one(shape, device):
     return fp12(fp6_one(shape, device), fp6_zero(shape, device))
 
 
-# Products work in the flat basis Fp12 = Fp2[w]/(w^6 - xi) (w^2 = v): six
-# Fp2 coefficients, k = 2v + w for the tower's (w, v) index.
+# The flat basis Fp12 = Fp2[w]/(w^6 - xi) (w^2 = v): six Fp2 coefficients,
+# k = 2v + w for the tower's (w, v) index. The plain products, Frobenius
+# and Karabina's compression work in it; K8 reads the tower layout.
 
 
 def _to_flat(a):
@@ -214,6 +238,9 @@ def _to_flat(a):
 def _from_flat(x):
     t = x.reshape(*x.shape[:-3], 3, 2, 2, fp.WORDS)
     return t.transpose(-4, -3)
+
+
+_FULL, _SPARSE = (0, 1, 2, 3, 4, 5), (0, 3, 5)
 
 
 def _diag_index(ii, jj):
@@ -231,60 +258,71 @@ def _product_plan(b_positions):
     return ii, jj, _diag_index(ii, kk)
 
 
-_PLANS = {pos: _product_plan(pos) for pos in [(0, 1, 2, 3, 4, 5), (0, 3, 5)]}
+_PLANS = {pos: _product_plan(pos) for pos in (_FULL, _SPARSE)}
 
 
-def _tree_sum(x, dim):
+def _tree_sum(F, x, dim):
     """Sum Fp2 terms along `dim` (a tensor dim left of the Fp2 axes) with a
     halving tree of stacked additions."""
     x = x.movedim(dim, 0)
     while x.shape[0] > 1:
         half = x.shape[0] // 2
-        s = fp.add(x[:half], x[half : 2 * half])
+        s = F.add(x[:half], x[half : 2 * half])
         x = torch.cat([s, x[2 * half :]]) if x.shape[0] % 2 else s
     return x[0]
 
 
-def _flat_mul(af, bf, b_positions=(0, 1, 2, 3, 4, 5)):
-    """Product of flat Fp12 elements. bf holds only the coefficients at
-    `b_positions` (the pairing line has w^0, w^3, w^5): (..., len, 2, W)."""
+def flat_mul_plain(af, bf, b_positions=_FULL, F=fp.PLAIN_OPS):
+    """Product of flat Fp12 elements (K8's arithmetic). bf holds only the
+    coefficients at `b_positions` (the pairing line has w^0, w^3, w^5):
+    (..., len, 2, W)."""
     ii, jj, diag = _PLANS[tuple(b_positions)]
     shape = torch.broadcast_shapes(af.shape[:-3], bf.shape[:-3])
     af = af.expand(*shape, *af.shape[-3:])
     bf = bf.expand(*shape, *bf.shape[-3:])
     dev = af.device
     # coefficient sums c0 + c1 of both operands, one stacked addition
-    sa, sb = fp.add(af[..., 0, :], af[..., 1, :]), fp.add(bf[..., 0, :], bf[..., 1, :])
+    sa, sb = F.add(af[..., 0, :], af[..., 1, :]), F.add(bf[..., 0, :], bf[..., 1, :])
     ia, ib = fp.const(ii, dev), fp.const(jj, dev)
     la, rb = af[..., ia, :, :], bf[..., ib, :, :]
-    t = fp.mul(
+    t = F.mul(
         torch.stack([la[..., 0, :], la[..., 1, :], sa[..., ia, :]], dim=-2),
         torch.stack([rb[..., 0, :], rb[..., 1, :], sb[..., ib, :]], dim=-2),
     )  # (..., NP, 3, W): a0 b0, a1 b1, (a0 + a1)(b0 + b1)
     t0, t1, t2 = t[..., 0, :], t[..., 1, :], t[..., 2, :]
-    u = fp.sub(torch.stack([t0, t2], dim=-2), torch.stack([t1, t0], dim=-2))
-    c = fp2(u[..., 0, :], fp.sub(u[..., 1, :], t1))  # (..., NP, 2, W)
+    u = F.sub(torch.stack([t0, t2], dim=-2), torch.stack([t1, t0], dim=-2))
+    c = fp2(u[..., 0, :], F.sub(u[..., 1, :], t1))  # (..., NP, 2, W)
     c = torch.cat([c, torch.zeros_like(c[..., :1, :, :])], dim=-3)
-    d = _tree_sum(c[..., fp.const(diag, dev), :, :], dim=-3)  # (..., 11, 2, W)
-    # w^6 = xi: e_k = d_k + xi d_{k+6} for k < 5, e_5 = d_5
-    e = fp.add(d[..., :5, :, :], fp2_mul_by_nonresidue(d[..., 6:, :, :]))
+    d = _tree_sum(F, c[..., fp.const(diag, dev), :, :], dim=-3)  # (..., 11, 2, W)
+    # w^6 = xi: e_k = d_k + xi d_{k+6} for k < 5, e_5 = d_5; xi = 1 + u
+    hi0, hi1 = d[..., 6:, 0, :], d[..., 6:, 1, :]
+    e = F.add(d[..., :5, :, :], fp2(F.sub(hi0, hi1), F.add(hi0, hi1)))
     return torch.cat([e, d[..., 5:6, :, :]], dim=-3)
 
 
+def fp12_product_plain(a, bs, mode, F=fp.PLAIN_OPS):
+    """K8's plain version, in the tower layout (see fp12_product)."""
+    af = _to_flat(a)
+    if mode == FP12_FULL:
+        return _from_flat(flat_mul_plain(af, _to_flat(bs[0]), _FULL, F))
+    if mode == FP12_SQUARE:
+        return _from_flat(flat_mul_plain(af, af, _FULL, F))
+    bf = torch.stack(torch.broadcast_tensors(*bs), dim=-3)
+    return _from_flat(flat_mul_plain(af, bf, _SPARSE, F))
+
+
 def fp12_mul(a, b):
-    return _from_flat(_flat_mul(_to_flat(a), _to_flat(b)))
+    return fp12_product(a, (b,), FP12_FULL)
 
 
 def fp12_sqr(a):
-    af = _to_flat(a)
-    return _from_flat(_flat_mul(af, af))
+    return fp12_product(a, (), FP12_SQUARE)
 
 
 def fp12_mul_sparse035(a, b0, b3, b5):
     """a * (B0 + B3 w^3 + B5 w^5) for Fp2 coefficients B_i: the pairing
     line shape, 18 instead of 36 Fp2 products."""
-    bf = torch.stack(torch.broadcast_tensors(b0, b3, b5), dim=-3)
-    return _from_flat(_flat_mul(_to_flat(a), bf, b_positions=(0, 3, 5)))
+    return fp12_product(a, (b0, b3, b5), FP12_SPARSE)
 
 
 def fp12_conj(a):
@@ -379,30 +417,36 @@ def _omega_constants():
 
 
 _OMEGA, _OMEGA2 = _omega_constants()
-# Fp scalars per flat index for the Galois map phi: v -> omega v, and phi^2.
-_PHI_TABLES = np.stack(
-    [
-        np.stack([fp.ONE_MONT, fp.ONE_MONT, fp.to_mont_host(_OMEGA), fp.to_mont_host(_OMEGA),
-                  fp.to_mont_host(_OMEGA2), fp.to_mont_host(_OMEGA2)]),
-        np.stack([fp.ONE_MONT, fp.ONE_MONT, fp.to_mont_host(_OMEGA2), fp.to_mont_host(_OMEGA2),
-                  fp.to_mont_host(_OMEGA), fp.to_mont_host(_OMEGA)]),
-    ]
-)[:, :, None, :]  # (2, 6, 1, W)
+# Fp scalars per flat index for the Galois map phi: v -> omega v, and phi^2,
+# in the tower layout (flat k = 2v + w at tower (w, v)).
+_PHI_TABLES = (
+    np.stack(
+        [
+            np.stack([fp.ONE_MONT, fp.ONE_MONT, fp.to_mont_host(_OMEGA), fp.to_mont_host(_OMEGA),
+                      fp.to_mont_host(_OMEGA2), fp.to_mont_host(_OMEGA2)]),
+            np.stack([fp.ONE_MONT, fp.ONE_MONT, fp.to_mont_host(_OMEGA2), fp.to_mont_host(_OMEGA2),
+                      fp.to_mont_host(_OMEGA), fp.to_mont_host(_OMEGA)]),
+        ]
+    )
+    .reshape(2, 3, 2, 1, fp.WORDS)
+    .transpose(0, 2, 1, 3, 4)
+    .copy()
+)  # (2, w, v, 1, W)
 
 
 def fp12_inv(a):
     """Inverse by the Galois norm chain: N = a conj(a) lies in Fp6,
-    M = N phi(N) phi^2(N) in Fp2, a^-1 = conj(a) phi(N) phi^2(N) M^-1."""
-    af = _to_flat(a)
-    cf = _to_flat(fp12_conj(a))
-    n = _flat_mul(af, cf)
-    batch = n.shape[:-3]
-    tables = fp.const(_PHI_TABLES, a.device).reshape(2, *([1] * len(batch)), 6, 1, fp.WORDS)
+    M = N phi(N) phi^2(N) in Fp2, a^-1 = conj(a) phi(N) phi^2(N) M^-1.
+    Four Fp12 products (K8), all in the tower layout."""
+    c = fp12_conj(a)
+    n = fp12_mul(a, c)
+    batch = n.shape[:-4]
+    tables = fp.const(_PHI_TABLES, a.device).reshape(2, *([1] * len(batch)), 2, 3, 1, fp.WORDS)
     phi = fp.mul(n.unsqueeze(0), tables)  # [phi(N), phi^2(N)]
-    g = _flat_mul(phi[0], phi[1])
-    m = _flat_mul(n, g)  # Fp2, at w^0 only
-    minv = fp2_inv(m[..., 0, :, :])
-    return _from_flat(fp2_mul(_flat_mul(cf, g), minv[..., None, :, :]))
+    g = fp12_mul(phi[0], phi[1])
+    m = fp12_mul(n, g)  # Fp2, at w^0 only
+    minv = fp2_inv(m[..., 0, 0, :, :])
+    return fp2_mul(fp12_mul(c, g), minv[..., None, None, :, :])
 
 
 def fp12_eq(a, b):
@@ -415,3 +459,86 @@ def fp12_is_one(a):
 
 def fp12_select(cond, a, b):
     return torch.where(cond[..., None, None, None, None], a, b)
+
+
+# -- the kernel wrappers: K7 and K8 ----------------------------------------------
+
+
+def _operand(t, shape, dims, size):
+    """An operand of K7 or K8, broadcast to `shape` and read in place:
+    (tensor, element stride in words). The stride is the element's size
+    (`size` words, `dims` trailing dimensions) for a contiguous tensor and
+    0 for one element broadcast over the batch (a constant); any other
+    layout is copied once."""
+    if t.shape != shape:
+        t = t.expand(shape)
+    if t.is_contiguous():
+        return t, size
+    lead = len(shape) - dims
+    if all(st == 0 or d == 1 for st, d in zip(t.stride()[:lead], shape[:lead])) and t[(0,) * lead].is_contiguous():
+        return t, 0
+    return t.contiguous(), size
+
+
+def _broadcast(*shapes):
+    """torch.broadcast_shapes, with a fast path for shapes that already
+    agree (this runs once per tower product)."""
+    if all(sh == shapes[0] for sh in shapes[1:]):
+        return shapes[0]
+    return torch.broadcast_shapes(*shapes)
+
+
+def _check_trailing(t, trailing, what):
+    if tuple(t.shape[-len(trailing):]) != trailing:
+        raise TypeError(f"{what} operand must be (..., {', '.join(map(str, trailing))}), got {tuple(t.shape)}")
+
+
+def fp2_product(a, b, op):
+    """a * b (op FP2_MUL) or a^2 (op FP2_SQR, b None) in Fp2: one launch of
+    K7 for CUDA tensors, the plain version for CPU tensors."""
+    ts = (a,) if op == FP2_SQR else (a, b)
+    cpu = fp._is_cpu(*ts)
+    for t in ts:
+        _check_trailing(t, (2, fp.WORDS), "Fp2")
+    if cpu:
+        return fp2_mul_plain(a, b) if op == FP2_MUL else fp2_sqr_plain(a)
+    from . import kernels
+
+    shape = _broadcast(*(t.shape for t in ts))
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    n = out.numel() // _FP2_WORDS
+    a, sa = _operand(a, shape, 2, _FP2_WORDS)
+    b, sb = (a, sa) if op == FP2_SQR else _operand(b, shape, 2, _FP2_WORDS)
+    kernels.launch("lh_fp2_mul", a.device, a.data_ptr(), sa, b.data_ptr(), sb, out.data_ptr(), n, op)
+    fp._count("fp2_mul", (n, op))
+    return out
+
+
+def fp12_product(a, bs, mode):
+    """a * b (FP12_FULL, bs = (b,)), a^2 (FP12_SQUARE, bs = ()) or
+    a * (B0 + B3 w^3 + B5 w^5) (FP12_SPARSE, bs = (B0, B3, B5), Fp2) for
+    tower Fp12 a, b: one launch of K8 for CUDA tensors, the plain version
+    for CPU tensors."""
+    cpu = fp._is_cpu(a, *bs)
+    _check_trailing(a, (2, 3, 2, fp.WORDS), "Fp12")
+    tails = (2, fp.WORDS) if mode == FP12_SPARSE else (2, 3, 2, fp.WORDS)
+    for t in bs:
+        _check_trailing(t, tails, "Fp2" if mode == FP12_SPARSE else "Fp12")
+    if cpu:
+        return fp12_product_plain(a, bs, mode)
+    from . import kernels
+
+    lead = _broadcast(a.shape[:-4], *(t.shape[: -len(tails)] for t in bs))
+    shape = torch.Size((*lead, 2, 3, 2, fp.WORDS))
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    n = out.numel() // _FP12_WORDS
+    a, sa = _operand(a, shape, 4, _FP12_WORDS)
+    if mode == FP12_SPARSE:
+        line = torch.Size((*lead, *tails))
+        b = [_operand(t, line, 2, _FP2_WORDS) for t in bs]
+    else:
+        b = [_operand(bs[0], shape, 4, _FP12_WORDS) if mode == FP12_FULL else (a, sa)] * 3
+    ptrs = [x for t, st in b for x in (t.data_ptr(), st)]
+    kernels.launch("lh_fp12_mul", a.device, a.data_ptr(), sa, *ptrs, out.data_ptr(), n, mode)
+    fp._count("fp12_mul", (n, mode))
+    return out

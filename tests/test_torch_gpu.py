@@ -1,5 +1,6 @@
 """lighthouse_tpu_torch on the card: the hand-written kernels against their
-plain versions, launch counting, launches on a card other than the current
+plain versions (the tower products K7 and K8 also against the K1/K2
+composition they replaced), launch counting, launches on a card other than the current
 one (and from a fresh thread), and a small verify, also with every Fp
 product on the tensor cores (K6). Every test needs a
 CUDA GPU and skips without one. The file imports neither jax nor the JAX
@@ -18,7 +19,7 @@ from lighthouse_tpu_torch.crypto.bls.constants import P, R
 from lighthouse_tpu_torch.crypto.bls.ref import api as ref
 from lighthouse_tpu_torch.crypto.bls.ref.curves import Point, _B1, g1_generator, g1_infinity
 from lighthouse_tpu_torch.crypto.bls.ref.fields import Fp
-from lighthouse_tpu_torch.crypto.bls.torch_backend import api, curve, fp
+from lighthouse_tpu_torch.crypto.bls.torch_backend import api, curve, fp, tower
 from lighthouse_tpu_torch.crypto.bls.torch_backend.pack import pack_g1_batch
 
 pytestmark = pytest.mark.gpu
@@ -61,6 +62,7 @@ def test_wrappers_launch_and_count_on_card(cuda_device):
     torch.cuda.synchronize()
     assert fp.LAUNCHES == {
         "fp_mul": 1, "fp_addsub": 1, "fp_pow": 1, "fp_batch_inv": 1, "g1_subgroup_check": 0, "fp_mul_mma": 0,
+        "fp2_mul": 0, "fp12_mul": 0,
     }
     assert torch.equal(fp.add(a[::2], a[1::2]), fp.addsub_plain(a[::2], a[1::2], 0))
 
@@ -101,6 +103,74 @@ def test_mxu_flag_routes_verify_through_k6(cuda_device, monkeypatch):
     assert api.verify_signature_sets(sets) is True
     assert fp.LAUNCHES["fp_mul"] == 0 and fp.LAUNCHES["fp_mul_mma"] > 0
     assert api.verify_signature_sets(bad) is False
+
+
+def _fp2_elements(seed, n, device):
+    """Fp2 edge values 0, one, (p-1, p-1) and u, then random elements."""
+    rng = random.Random(seed)
+    pairs = [(0, 0), (1, 0), (P - 1, P - 1), (0, 1)] + [(rng.randrange(P), rng.randrange(P)) for _ in range(n)]
+    words = fp.to_mont_host_bulk([x for pair in pairs[:n] for x in pair])
+    return torch.from_numpy(words).reshape(n, 2, 12).to(device)
+
+
+def _fp12_elements(seed, n, device):
+    """Fp12 elements: the first with p - 1 in every word slot, then random."""
+    x = _fp2_elements(seed, 6 * n + 4, device)[4:].reshape(n, 2, 3, 2, 12).clone()
+    x[0] = torch.from_numpy(fp.int_to_words(P - 1)).to(device)
+    return x
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 200])
+def test_fp2_kernel_matches_plain_on_card(cuda_device, n):
+    """K7 against its plain version and the K1/K2 composition, bit for bit,
+    one launch per call and no K1/K2 launch, with a broadcast operand."""
+    a = _fp2_elements(36, n, cuda_device)
+    b = a.roll(1, dims=0)
+    fp.reset_launches()
+    got = {"mul": tower.fp2_mul(a, b), "sqr": tower.fp2_sqr(a), "broadcast": tower.fp2_mul(a, b[-1])}
+    torch.cuda.synchronize()
+    assert (fp.LAUNCHES["fp2_mul"], fp.LAUNCHES["fp_mul"], fp.LAUNCHES["fp_addsub"]) == (3, 0, 0)
+    for F in (fp.PLAIN_OPS, fp.KERNEL_OPS):
+        assert torch.equal(got["mul"], tower.fp2_mul_plain(a, b, F))
+        assert torch.equal(got["sqr"], tower.fp2_sqr_plain(a, F))
+        assert torch.equal(got["broadcast"], tower.fp2_mul_plain(a, b[-1], F))
+
+
+@pytest.mark.parametrize("n", [1, 15, 17, 129])
+def test_fp12_kernel_matches_plain_on_card(cuda_device, n):
+    """K8 in its three modes against its plain version and the K1/K2
+    composition, bit for bit, one launch per call, with broadcast operands."""
+    a = _fp12_elements(37, n, cuda_device)
+    b = a.roll(1, dims=0)
+    lines = _fp2_elements(38, 2 * n + 1, cuda_device)
+    b0, b3, b5 = lines[:n], lines[n : 2 * n], lines[-1]
+    cases = {
+        "full": (b,), "square": (), "sparse": (b0, b3, b5), "broadcast": (b[-1],),
+    }
+    modes = {"full": tower.FP12_FULL, "square": tower.FP12_SQUARE, "sparse": tower.FP12_SPARSE,
+             "broadcast": tower.FP12_FULL}
+    fp.reset_launches()
+    got = {name: tower.fp12_product(a, bs, modes[name]) for name, bs in cases.items()}
+    torch.cuda.synchronize()
+    assert (fp.LAUNCHES["fp12_mul"], fp.LAUNCHES["fp_mul"], fp.LAUNCHES["fp_addsub"]) == (4, 0, 0)
+    for F in (fp.PLAIN_OPS, fp.KERNEL_OPS):
+        for name, bs in cases.items():
+            assert torch.equal(got[name], tower.fp12_product_plain(a, bs, modes[name], F)), name
+
+
+def test_mxu_flag_verify_still_launches_k7_k8(cuda_device, monkeypatch):
+    """With every Fp product on K6, the tower products stay on K7 and K8
+    (as the JAX package's flag reaches only direct Fp products)."""
+    sets, _ = _small_batches()
+    counts = {}
+    for flag in (False, True):
+        monkeypatch.setattr(fp, "USE_MXU_MUL", flag)
+        fp.reset_launches()
+        assert api.verify_signature_sets(sets) is True
+        counts[flag] = dict(fp.LAUNCHES)
+    assert counts[True]["fp_mul"] == 0 and counts[True]["fp_mul_mma"] == counts[False]["fp_mul"] > 0
+    for k in ("fp2_mul", "fp12_mul"):
+        assert counts[True][k] == counts[False][k] > 0
 
 
 def _non_g1_points(n):

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from lighthouse_tpu_torch.crypto.bls.torch_backend import curve, fp, kernels
+from lighthouse_tpu_torch.crypto.bls.torch_backend import curve, fp, kernels, tower
 
 
 class _Stream:
@@ -106,3 +106,71 @@ def test_every_wrapper_passes_its_operands_device(monkeypatch):
     names = ["lh_fp_mul", "lh_fp_mul_mma", "lh_fp_addsub", "lh_fp_addsub", "lh_fp_pow", "lh_fp_batch_inv"]
     assert seen[:6] == [(n, a.device) for n in names]
     assert seen[6] == ("lh_g1_subgroup_check", a.device)
+
+
+@pytest.fixture
+def recorded_launches(monkeypatch):
+    """Operands dispatch as if they lay on a CUDA device; every launch is
+    recorded as (launcher, device, args) and does nothing."""
+    seen = []
+    monkeypatch.setattr(fp, "_is_cpu", lambda *ts: False)
+    monkeypatch.setattr(kernels, "launch", lambda name, device, *args: seen.append((name, device, args)))
+    return seen
+
+
+def _fp2s(n):
+    return torch.from_numpy(fp.to_mont_host_bulk(range(1, 2 * n + 1))).reshape(n, 2, fp.WORDS)
+
+
+def _fp12s(n):
+    return torch.from_numpy(fp.to_mont_host_bulk(range(1, 12 * n + 1))).reshape(n, 2, 3, 2, fp.WORDS)
+
+
+TOWER_PRODUCTS = {
+    "fp2_mul": ("lh_fp2_mul", lambda: tower.fp2_mul(_fp2s(4), _fp2s(4))),
+    "fp2_sqr": ("lh_fp2_mul", lambda: tower.fp2_sqr(_fp2s(4))),
+    "fp12_mul": ("lh_fp12_mul", lambda: tower.fp12_mul(_fp12s(3), _fp12s(3))),
+    "fp12_sqr": ("lh_fp12_mul", lambda: tower.fp12_sqr(_fp12s(3))),
+    "fp12_mul_sparse035": ("lh_fp12_mul", lambda: tower.fp12_mul_sparse035(_fp12s(3), *_fp2s(9).reshape(3, 3, 2, 12))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TOWER_PRODUCTS))
+def test_tower_product_is_one_launch(recorded_launches, name):
+    """Each tower product issues exactly one launch of K7 or K8, on its
+    operands' device, and none of K1 or K2."""
+    launcher, call = TOWER_PRODUCTS[name]
+    call()
+    assert [(n, d) for n, d, _ in recorded_launches] == [(launcher, torch.device("cpu"))]
+
+
+def test_fp12_inv_runs_its_products_on_k8(recorded_launches):
+    """fp12_inv's four Fp12 products are K8 launches (its Fp2 inversion
+    stays on K1-K3)."""
+    tower.fp12_inv(_fp12s(2))
+    assert [n for n, _, _ in recorded_launches].count("lh_fp12_mul") == 4
+
+
+def test_broadcast_operand_goes_in_place_with_stride_0(recorded_launches):
+    """A broadcast operand (one element over the batch) is read in place
+    with element stride 0; a contiguous one with its element's size; any
+    other layout is copied once."""
+    a, c = _fp2s(4), _fp2s(1)[0]
+    tower.fp2_mul(a, c)
+    (_, _, (pa, sa, pc, sc, _, n, op)), = recorded_launches
+    assert (pa, sa, pc, sc, n, op) == (a.data_ptr(), 24, c.data_ptr(), 0, 4, tower.FP2_MUL)
+    recorded_launches.clear()
+    strided = _fp2s(8)[::2]
+    tower.fp2_sqr(strided)
+    (_, _, (pa, sa, pb, sb, _, n, op)), = recorded_launches
+    assert pa != strided.data_ptr() and (sa, pb, sb, n, op) == (24, pa, 24, 4, tower.FP2_SQR)
+    recorded_launches.clear()
+    f, lines = _fp12s(3), _fp2s(7)
+    tower.fp12_mul_sparse035(f, lines[:3], lines[3:6], lines[6])
+    (_, _, args), = recorded_launches
+    assert args[:8] == (f.data_ptr(), 144, lines.data_ptr(), 24, lines[3:6].data_ptr(), 24, lines[6].data_ptr(), 0)
+    assert args[9:] == (3, tower.FP12_SPARSE)
+    recorded_launches.clear()
+    tower.fp12_mul(f, f[1])
+    (_, _, args), = recorded_launches
+    assert args[:4] == (f.data_ptr(), 144, f[1].data_ptr(), 0) and args[9:] == (3, tower.FP12_FULL)

@@ -142,6 +142,11 @@ def _fp12_of(w):
 
 
 def test_tower_with_flag_matches_flag_off_and_oracle(mxu_spy, monkeypatch):
+    """With the flag set, the tower products still run their own kernels
+    (K7, K8; their plain versions here) and never reach mul_mxu: as in the
+    JAX package, whose tower products call poly + redc and not fp.mul, the
+    flag reaches only direct Fp products. The values match the flag off
+    and the oracle."""
     rng = random.Random(0x3B)
     r2 = lambda: Fp2.from_ints(rng.randrange(P), rng.randrange(P))  # noqa: E731
     r12 = lambda: Fp12(Fp6(r2(), r2(), r2()), Fp6(r2(), r2(), r2()))  # noqa: E731
@@ -150,7 +155,7 @@ def test_tower_with_flag_matches_flag_off_and_oracle(mxu_spy, monkeypatch):
     a2, b2 = torch.stack([_fp2_words(x) for x in x2]), torch.stack([_fp2_words(y) for y in y2])
     a12, b12 = torch.stack([_fp12_words(x) for x in x12]), torch.stack([_fp12_words(y) for y in y12])
     on2, on12 = tt.fp2_mul(a2, b2), tt.fp12_mul(a12, b12)
-    assert len(mxu_spy) > 0
+    assert mxu_spy == []
     monkeypatch.setattr(tfp, "USE_MXU_MUL", False)
     assert torch.equal(on2, tt.fp2_mul(a2, b2))
     assert torch.equal(on12, tt.fp12_mul(a12, b12))

@@ -16,6 +16,7 @@ import lighthouse_tpu_torch
 from lighthouse_tpu_torch.crypto.bls.torch_backend import api as tapi
 from lighthouse_tpu_torch.crypto.bls.torch_backend import fp as tfp
 from lighthouse_tpu_torch.crypto.bls.torch_backend import kernels as tkernels
+from lighthouse_tpu_torch.crypto.bls.torch_backend import tower as ttower
 
 ROOT = pathlib.Path(lighthouse_tpu_torch.__file__).resolve().parent.parent
 # the port, chip_smoke.py, and the card's tests (they run where jax is absent)
@@ -84,6 +85,10 @@ def test_cpu_tensors_use_plain_versions_without_counting():
     tfp.add(a, a)
     tfp.inv(a)
     tfp.batch_inv(a)
+    a2 = torch.from_numpy(tfp.to_mont_host_bulk(range(1, 7))).reshape(3, 2, 12)
+    a12 = torch.from_numpy(tfp.to_mont_host_bulk(range(1, 13))).reshape(2, 3, 2, 12)
+    assert torch.equal(ttower.fp2_mul(a2, a2), ttower.fp2_sqr(a2))
+    assert torch.equal(ttower.fp12_mul(a12, a12), ttower.fp12_sqr(a12))
     assert all(v == 0 for v in tfp.LAUNCHES.values()), tfp.LAUNCHES
 
 
@@ -104,6 +109,16 @@ def test_tensor_core_kernel_is_registered():
     assert "fp_mma.cu" in tkernels.SOURCES and "fp_mma.cu" in tkernels.UNITS
     assert "lh_fp_mul_mma" in tkernels._SIGNATURES
     assert "fp_mul_mma" in tfp.KERNELS and "fp_mul_mma" in tfp.LAUNCHES
+
+
+def test_tower_kernels_are_registered():
+    """K7 and K8: their source is hashed into the build key and compiled
+    as a unit, both launchers are bound, and fp.KERNELS counts all eight
+    kernels."""
+    assert "tower_kernels.cu" in tkernels.SOURCES and "tower_kernels.cu" in tkernels.UNITS
+    assert "lh_fp2_mul" in tkernels._SIGNATURES and "lh_fp12_mul" in tkernels._SIGNATURES
+    assert len(tfp.KERNELS) == 8 and set(tfp.LAUNCHES) == set(tfp.KERNELS)
+    assert {"fp2_mul", "fp12_mul"} <= set(tfp.KERNELS)
 
 
 @pytest.mark.parametrize("flag", ["unset", "", "0", "true", "1"])
