@@ -7,7 +7,7 @@ Phases, one line each, any failure exits non-zero:
 
   1. device   require a CUDA device; print its name and power limit
   2. build    compile the hand-written kernels (csrc/) with nvcc, one
-              process per source; K5's to K8's registers and spills
+              process per source; K5's to K11's registers and spills
               from ptxas
   3. kernels  K1-K4 and K6 bit-identical to their plain PyTorch versions
               on the card: edge inputs 0, 1, p-1, p-2 and 4096 seeded
@@ -18,14 +18,21 @@ Phases, one line each, any failure exits non-zero:
               plain versions and to the K1/K2 composition they replaced:
               edge values 0, one, p-1 in every word slot and u, seeded
               random elements, a broadcast operand, element counts that
-              are no multiple of a block or a six-thread group. After
+              are no multiple of a block or a six-thread group. The
+              chains K9 (|z|-power, n = 1 and 4, with one and a lane
+              whose checkpoints take decompression's g2 = 0 branch), K10
+              (G1, 128 points at 64 bits) and K11 (G2, 256 points at 64
+              bits and clear_cofactor's 2 x 128 at 128 broadcast bits),
+              with infinity rows, P + (-P), a P, -P pair and all-zero and
+              all-one scalars, bit-identical to their plain versions and
+              to the K1-K4/K7/K8 composition they replaced. After
               set-up, K5 bit-identical to its plain version (on CPU
               tensors) on 64 points: interop keys, the order-3 point
               (0, 2), points of E(Fp) outside G1 and infinity rows
   4. verify   the verify path, `verify_signature_sets`, on 128 sets x 1
               key and on the mainnet-block shape 128 sets x 128 keys: both
-              True, with the kernels' launch counts of one verify (K7 and
-              K8 among them); then a
+              True, with the kernels' launch counts of one verify (K9 5,
+              K10 1, K11 2 and K4 1 at either shape); then a
               tampered message, a wrong key and a non-subgroup signature
               at 128 x 1, each False; warm ms per batch and sets/s
      pk       the admission path, `batch_validate_public_keys`, at
@@ -38,18 +45,21 @@ Phases, one line each, any failure exits non-zero:
      mxu      the same verify batches, bad batches included, with
               fp.USE_MXU_MUL set (every Fp product on K6, the JAX
               package's LIGHTHOUSE_TPU_MXU_FP_MUL path): verdicts, K6
-              launched as often as K1 was by default and K1 never, K7 and
-              K8 as often as by default (the tower products stay on
-              them, as the JAX package's flag reaches only direct Fp
+              launched as often as K1 was by default and K1 never, K7 to
+              K11 as often as by default (they keep their CUDA-core
+              products, as the JAX package's flag reaches only direct Fp
               products); ms per
               batch with and without the flag, timed in turns; admission
               at S = 16 still one K5 launch and nothing else
   5. profile  device busy time, idle share and top kernels of one verify,
-              by default and with the flag
+              at both shapes by default and at 128 x 128 with the flag; the trace holds K9, K10, K11
+              and K4 as often as a verify launches them
      timing   each kernel at the shape that carries most of its main-path
               work, against its plain version and its bound (K6 at K1's
               shape, so the two compare; K7 and K8 also against the K1/K2
-              composition they replaced)
+              composition they replaced); K9-K11 at the verify path's
+              shapes against their plain versions, the composition they
+              replaced and their bounds, K9 with its Fermat chain's share
      extras   to_affine (G1, G2), fp6_mul and fp6_inv on the card
               bit-identical to the same functions on CPU tensors
   6. parity   one S=4, K=2 batch: the card's Miller partial and GT value
@@ -112,8 +122,10 @@ MEM_BYTES_PER_S = 3.35e12
 # read from this card. One 32 x 32 -> 64-bit word product counts as one.
 IMAD_PER_SM_PER_CLK = 64
 # 32 x 32 -> 64 word products of one CIOS Montgomery product: 12x12 for
-# a*b, 12x12 for m*p, 12 for m.
+# a*b, 12x12 for m*p, 12 for m. A square needs the 78 distinct a_i a_j of
+# its 12x12, then the same reduction.
 WORD_PRODUCTS_PER_MUL = 300
+WORD_PRODUCTS_PER_SQR = 78 + 156
 # K6: the H100 SXM's dense int8 tensor-core peak (data sheet, 1,979 TOPS;
 # a multiply-add counts as two operations), the operations of its two
 # m16n8k32 MMAs per element, and the word products of its reduction
@@ -126,6 +138,8 @@ SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/fp_kernels.cu"
 G1_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/g1_kernels.cu"
 MMA_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/fp_mma.cu"
 TOWER_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/tower_kernels.cu"
+CURVE_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/curve_kernels.cu"
+FINAL_EXP_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/final_exp_kernels.cu"
 REPLACES = {
     "fp_mul": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:310",
     "fp_addsub": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:294",
@@ -135,11 +149,25 @@ REPLACES = {
     "fp_mul_mma": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:373",
     "fp2_mul": "lighthouse_tpu/crypto/bls/jax_backend/tower.py:61",
     "fp12_mul": "lighthouse_tpu/crypto/bls/jax_backend/tower.py:243",
+    "cyclotomic_pow_x": "lighthouse_tpu/crypto/bls/jax_backend/pairing.py:239",
+    "g1_scalar_mul": "lighthouse_tpu/crypto/bls/jax_backend/curve.py:282",
+    "g2_scalar_mul": "lighthouse_tpu/crypto/bls/jax_backend/curve.py:282",
 }
-SOURCES = {"fp_mul_mma": MMA_SOURCE, "fp2_mul": TOWER_SOURCE, "fp12_mul": TOWER_SOURCE}
-VERIFY_KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv", "fp2_mul", "fp12_mul")
+SOURCES = {"fp_mul_mma": MMA_SOURCE, "fp2_mul": TOWER_SOURCE, "fp12_mul": TOWER_SOURCE,
+           "cyclotomic_pow_x": FINAL_EXP_SOURCE, "g1_scalar_mul": CURVE_SOURCE, "g2_scalar_mul": CURVE_SOURCE}
+# the chain kernels K9-K11, and the field and tower kernels timed at their heaviest main-path shape
+CHAIN_KERNELS = ("cyclotomic_pow_x", "g1_scalar_mul", "g2_scalar_mul")
+TIMED_KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv", "fp2_mul", "fp12_mul")
+VERIFY_KERNELS = (*TIMED_KERNELS, *CHAIN_KERNELS)
 # the verify path with fp.USE_MXU_MUL set: K6 in K1's place
-MXU_KERNELS = ("fp_mul_mma", "fp_addsub", "fp_pow", "fp_batch_inv", "fp2_mul", "fp12_mul")
+MXU_KERNELS = ("fp_mul_mma", *VERIFY_KERNELS[1:])
+# launches of one verify, whatever its shape: the five |z|-power chains of the
+# final exponentiation (K9), r_i aggpk_i (K10), the signatures' 2-stacked
+# multiplication and clear_cofactor's (K11), and the Miller pairs' batch
+# inversion (K4)
+VERIFY_LAUNCHES = {"cyclotomic_pow_x": 5, "g1_scalar_mul": 1, "g2_scalar_mul": 2, "fp_batch_inv": 1}
+# the kernels that keep their CUDA-core products with fp.USE_MXU_MUL set
+MXU_UNMOVED = ("fp2_mul", "fp12_mul", *CHAIN_KERNELS)
 K6_TAILS = (1, 31, 33)
 # K7 runs 64 elements a block, K8 16 (groups of six threads): whole blocks
 # and counts that are none
@@ -159,6 +187,29 @@ K8_WORD_PRODUCTS = {
 # above: K7 mul, sqr; K8 full, square, sparse)
 K7_BYTES = {0: 3 * 96, 1: 2 * 96}
 K8_BYTES = {0: 3 * 576, 1: 2 * 576, 2: 2 * 576 + 3 * 96}
+# K9-K11, word products one element needs (the operations bound). A
+# Karatsuba Fp2 product 744, an Fp2 square 600, an Fp12 product 17,424 (K8
+# full); products by small constants are additions and count as none. K9:
+# 63 compressed squarings (4 Fp2 squares, 2 products), six decompressions
+# (2 squares, 3 products, a norm of two Fp squares summed and reduced once,
+# 2 Fp products, 1 product, 1 square), the shared inversion (15 Fp products
+# and the Fermat chain of p - 2: 380 squarings, 228 products), five Fp12
+# products.
+FP2_MUL_WP, FP2_SQR_WP, FP12_MUL_WP = 744, 600, 36 * 3 * 144 + 12 * 156
+K9_WORD_PRODUCTS = (63 * (4 * FP2_SQR_WP + 2 * FP2_MUL_WP)
+                    + 6 * (3 * FP2_SQR_WP + 4 * FP2_MUL_WP + 2 * 78 + 156 + 2 * WORD_PRODUCTS_PER_MUL)
+                    + (15 + 228) * WORD_PRODUCTS_PER_MUL + 380 * WORD_PRODUCTS_PER_SQR + 5 * FP12_MUL_WP)
+K9_BYTES = 2 * 576
+
+
+def scalar_mul_word_products(nbits: int, mul: int, sqr: int) -> int:
+    """Word products of one windowed scalar multiplication (K10, K11), from
+    a field product's and a square's: 15 complete additions build the table
+    (row 16 is never read), each 4-bit digit costs 4 doublings and 1
+    addition. An addition is 12 products, a doubling 6 products and 2
+    squares; the products by 3b are additions."""
+    digits = (nbits + 3) // 4
+    return (15 + digits) * 12 * mul + 4 * digits * (6 * mul + 2 * sqr)
 # Sharded verify: at most this many ranks, one card each, over NCCL; the
 # seed of the staged RLC scalars; the time limit on a world's join.
 SHARDED_MAX_RANKS = 4
@@ -289,6 +340,58 @@ def fp12_inputs(fp, tower, P, n: int, seed: int, device):
     return torch.cat([edges, rand])[:n]
 
 
+def curve_inputs(torch, fp, curve, group: str, n: int, seed: int):
+    """n projective points of G1 or G2 on the card, with Z != 1: sums of
+    pairs of 8 seeded random subgroup points, the negative of the first and
+    infinity. Row 0 is P + (-P) (an infinity that the complete addition
+    forms), row 1 infinity + infinity, rows 2 and 3 the pair P and -P."""
+    from lighthouse_tpu_torch.crypto.bls.ref.curves import g1_generator, g1_infinity, g2_generator, g2_infinity
+    from lighthouse_tpu_torch.crypto.bls.torch_backend.pack import pack_g1_batch, pack_g2_batch
+
+    gen, inf, pack, F = {
+        "g1": (g1_generator, g1_infinity, pack_g1_batch, curve.FP),
+        "g2": (g2_generator, g2_infinity, pack_g2_batch, curve.FP2),
+    }[group]
+    rng = random.Random(seed)
+    base = [gen().mul(rng.getrandbits(64) | 1) for _ in range(8)]
+    base += [-base[0], inf()]
+    x, y, i = pack(base)
+    p = curve.from_affine(F, fp.from_jax_limbs(x, DEVICE), fp.from_jax_limbs(y, DEVICE),
+                          torch.from_numpy(i).to(DEVICE))
+    ia = torch.tensor([0, 9, 0, 8] + [k % 8 for k in range(4, n)], device=DEVICE)
+    ib = torch.tensor([8, 9, 9, 9] + [(3 * k + 1) % 10 for k in range(4, n)], device=DEVICE)
+    return curve.add(F, curve.Proj(*(c[ia] for c in p)), curve.Proj(*(c[ib] for c in p)))
+
+
+def scalar_bits(torch, n: int, width: int, seed: int):
+    """(n, width) int32 seeded random MSB-first bits, as the verify path's
+    r_bits: rows 2 and 3 equal (the P, -P pair of `curve_inputs`), row 4
+    all zero, row 5 all one."""
+    g = torch.Generator().manual_seed(seed)
+    bits = torch.randint(0, 2, (n, width), generator=g, dtype=torch.int32)
+    bits[3] = bits[2]
+    bits[4] = 0
+    bits[5] = 1
+    return bits.to(DEVICE)
+
+
+def cyclotomic_inputs(torch, fp, tower, pairing, P, n: int, seed: int):
+    """(n, 2, 3, 2, 12) Fp12 on the card: the final exponentiation's easy
+    part f^((p^6 - 1)(p^2 + 1)) of seeded random f; from n = 3 on, lane 2
+    is one (compressed all zero) and lane 3 a random element with b0 = b2 = 0,
+    whose compressed squarings keep g2 = g5 = 0, so that every checkpoint
+    decompresses through the g2 = 0 branch."""
+    f = fp12_inputs(fp, tower, P, n + 3, seed, DEVICE)[3:]
+    g = tower.fp12_mul(tower.fp12_conj(f), tower.fp12_inv(f))
+    g = tower.fp12_mul(pairing.frobenius2(g), g)
+    if n > 3:
+        g[2] = tower.fp12_one((), DEVICE)
+        g[3] = f[3]
+        g[3, 1, 0] = 0
+        g[3, 1, 2] = 0
+    return g
+
+
 def make_sets(api, n_sets: int, keys_per_set: int):
     """bench.py's shapes: 8 distinct single-key sets tiled to n_sets, or one
     aggregate set of keys_per_set signers repeated n_sets times. The
@@ -385,6 +488,19 @@ def ptxas_summary(log: str, kernel: str) -> str:
     return "not found"
 
 
+def ptxas_spills(log: str) -> dict[str, int]:
+    """Spill-store bytes of every function in the build log that spills,
+    device functions (`__noinline__`) included, by ptxas's name for it."""
+    lines = log.splitlines()
+    spills = {}
+    for line, props in zip(lines, lines[1:]):
+        if "Function properties for" in line and "bytes spill stores" in props:
+            stores = int(props.split("bytes spill stores")[0].rsplit(",", 1)[-1])
+            if stores:
+                spills[line.rsplit(" ", 1)[-1]] = stores
+    return spills
+
+
 # -- phases ----------------------------------------------------------------------
 
 
@@ -464,6 +580,62 @@ def check_tower_kernels(torch, fp, tower, P, dev) -> None:
           against="plain,K1/K2", k7_elements=",".join(map(str, K7_COUNTS)), k8_elements=",".join(map(str, K8_COUNTS)))
 
 
+def chain_cases(torch, fp, curve, tower, pairing, h2c, P):
+    """name -> (shape, kernel call, plain version, K1-K4/K7/K8 composition)
+    for K9-K11 at the verify path's shapes (128 x 128 verify): K10 on S
+    points at 64 bits, K11 on the 2 S stacked signatures at 64 bits and on
+    clear_cofactor's 2 x S points at 128 broadcast bits, K9 on one element
+    and on four with the edge lanes."""
+    S = N_SETS
+    p1 = curve_inputs(torch, fp, curve, "g1", S, 21)
+    b1 = scalar_bits(torch, S, 64, 22)
+    p2 = curve_inputs(torch, fp, curve, "g2", 2 * S, 23)
+    b2 = scalar_bits(torch, 2 * S, 64, 24)
+    base = curve.Proj(*(c.reshape(2, S, 2, fp.WORDS) for c in p2))
+    cc = fp.const(h2c._CC_BITS, DEVICE).reshape(2, 1, h2c._CC_WIDTH)
+    g4 = cyclotomic_inputs(torch, fp, tower, pairing, P, 4, 25)
+    smul = curve.scalar_mul_bits_plain
+    cases = {
+        "g1_scalar_mul_n128_b64": ([S, 64], lambda: curve.scalar_mul_bits(curve.FP, p1, b1),
+                                   lambda: smul(curve.FP_PLAIN, p1, b1), lambda: smul(curve.FP, p1, b1)),
+        "g2_scalar_mul_n256_b64": ([2 * S, 64], lambda: curve.scalar_mul_bits(curve.FP2, p2, b2),
+                                   lambda: smul(curve.FP2_PLAIN, p2, b2), lambda: smul(curve.FP2, p2, b2)),
+        "g2_scalar_mul_2x128_b128": ([2, S, h2c._CC_WIDTH], lambda: curve.scalar_mul_bits(curve.FP2, base, cc),
+                                     lambda: smul(curve.FP2_PLAIN, base, cc), lambda: smul(curve.FP2, base, cc)),
+    }
+    for n in (1, 4):
+        g = g4[:n].contiguous()
+        cases[f"cyclotomic_pow_x_n{n}"] = ([n], lambda g=g: pairing.pow_abs_x(g), lambda g=g: pairing.pow_abs_x_plain(g),
+                                          lambda g=g: pairing.pow_abs_x_composed(g, tower.KERNEL_TOWER))
+    return cases
+
+
+def _stacked(out):
+    """A kernel's output as one int64 tensor of u32 words (a point's three
+    coordinates stacked)."""
+    import torch
+
+    t = torch.stack(list(out)) if isinstance(out, tuple) else out
+    return t.to(torch.int64) & 0xFFFFFFFF
+
+
+def max_word_err(got, want) -> int:
+    return int((_stacked(got) - _stacked(want)).abs().max())
+
+
+def check_chain_kernels(torch, cases) -> None:
+    """K9-K11 bit-identical to their plain versions and to the K1-K4/K7/K8
+    composition they replaced, at the verify path's shapes with the edge
+    rows of `curve_inputs`, `scalar_bits` and `cyclotomic_inputs`."""
+    for name, (_, run, plain, composed) in cases.items():
+        got = run()
+        for label, fn in (("plain version", plain), ("K1-K4/K7/K8 composition", composed)):
+            want = fn()
+            if not torch.equal(_stacked(got), _stacked(want)):
+                raise AssertionError(f"{name}: kernel differs from its {label}")
+    phase("kernels", ok=True, compared=",".join(cases), against="plain,K1-K4/K7/K8")
+
+
 def check_g1_kernel(torch, api, fp, curve, valid: list[bytes], invalid: list[bytes]) -> None:
     """K5 on the card bit-identical to its plain version, the composed
     g1_in_subgroup on CPU tensors, on K5_POINTS points: valid keys, the
@@ -539,12 +711,14 @@ def time_g1_kernel(torch, api, fp, curve, keys: list[bytes], launches, peak_ops_
     ms = kernel_device_ms(run, 5, "g1_subgroup_check_kernel")
     plain_ms = cuda_ms(plain, 1)
     fp.LAUNCHES.update(saved)
-    # [z^2] P as two chains over |z|: per chain bit_length - 1 doublings (9
-    # products) and popcount - 1 additions (14); phi and the comparison 5.
+    # [z^2] P as two chains over |z|: per chain bit_length - 1 doublings (6
+    # products, 2 squares) and popcount - 1 additions (12); the products by
+    # 3b are additions; phi and the comparison 5 products.
     absz = abs(X)
-    muls = 2 * (absz.bit_length() - 1) * 9 + 2 * (bin(absz).count("1") - 1) * 14 + 5
+    dbls, adds = 2 * (absz.bit_length() - 1), 2 * (bin(absz).count("1") - 1)
+    word_products = (dbls * 6 + adds * 12 + 5) * WORD_PRODUCTS_PER_MUL + dbls * 2 * WORD_PRODUCTS_PER_SQR
     live = int((~infd).sum())
-    t_ops = live * muls * WORD_PRODUCTS_PER_MUL / peak_ops_per_s * 1e3
+    t_ops = live * word_products / peak_ops_per_s * 1e3
     t_bytes = (n * (2 * 48 + 1) + n + 48) / MEM_BYTES_PER_S * 1e3
     phase("timing", kernel="g1_subgroup_check", shape=n, live=live, ms=f"{ms:.5f}", ms_per_call=f"{call_ms:.5f}",
           plain_ms=f"{plain_ms:.3f}", bound_ms=f"{max(t_ops, t_bytes):.6f}", max_abs_err=err)
@@ -635,9 +809,9 @@ def run_mxu(torch, api, fp, default, bad, pk_keys: list[bytes], pk_want: list[bo
             assert not missing, f"mxu {label}: kernels not launched: {missing}"
             if launches["fp_mul"] != 0 or launches["fp_mul_mma"] != base["fp_mul"]:
                 raise AssertionError(f"mxu {label}: K6 should take K1's {base['fp_mul']} launches, got {launches}")
-            moved = {k: (base[k], launches[k]) for k in ("fp2_mul", "fp12_mul") if launches[k] != base[k]}
+            moved = {k: (base[k], launches[k]) for k in MXU_UNMOVED if launches[k] != base[k]}
             if moved:
-                raise AssertionError(f"mxu {label}: K7/K8 launches (default, flag) differ: {moved}")
+                raise AssertionError(f"mxu {label}: K7-K11 launches (default, flag) differ: {moved}")
             times = {False: [], True: []}
             for flag in (False, True, True, False) * 2:
                 fp.USE_MXU_MUL = flag
@@ -683,16 +857,21 @@ def profile_verify(torch, api, sets, label: str, warm_ms: float) -> None:
     verify is too large to summarise quickly), and the kernels that take
     the most device time. The idle share is taken against `warm_ms`, the
     median wall time of the same verify run without the profiler, which
-    inflates the wall time of the verify it traces."""
+    inflates the wall time of the verify it traces. The trace must hold
+    each kernel of VERIFY_LAUNCHES as many times as the verify launches it."""
     api.verify_signature_sets(sets)
     torch.cuda.synchronize()
     rows, profiled_wall_ms = traced_device_events(lambda: api.verify_signature_sets(sets))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     top = [{"kernel": k[:60], "ms": round(us / 1e3, 3), "calls": c} for us, c, k in rows[:8]]
+    traced = {k: sum(c for _, c, key in rows if f"{k}_kernel" in key) for k in VERIFY_LAUNCHES}
     phase("profile", shape=label, warm_wall_ms=f"{warm_ms:.3f}", profiled_wall_ms=f"{profiled_wall_ms:.1f}",
           device_busy_ms=f"{busy_ms:.3f}", idle_share=f"{1 - busy_ms / warm_ms:.4f}",
-          device_calls=sum(r[1] for r in rows), top=json.dumps(top, separators=(",", ":")))
+          device_calls=sum(r[1] for r in rows), traced=json.dumps(traced, separators=(",", ":")),
+          top=json.dumps(top, separators=(",", ":")))
+    if traced != VERIFY_LAUNCHES:
+        raise AssertionError(f"profile {label}: the trace holds {traced}, a verify launches {VERIFY_LAUNCHES}")
 
 
 def time_kernels(torch, fp, tower, P, dev, shapes, launches, peak_ops_per_s):
@@ -704,8 +883,10 @@ def time_kernels(torch, fp, tower, P, dev, shapes, launches, peak_ops_per_s):
     the op or mode of that shape, and the K1/K2 composition they replaced
     is timed beside them (`composed_ms`, per call)."""
     results = []
-    pow_products = fp.INV_EXP.bit_length() + bin(fp.INV_EXP).count("1")
-    for name in (*VERIFY_KERNELS, "fp_mul_mma"):
+    # square and multiply: a square per bit, a product per set bit
+    pow_word_products = (fp.INV_EXP.bit_length() * WORD_PRODUCTS_PER_SQR
+                         + bin(fp.INV_EXP).count("1") * WORD_PRODUCTS_PER_MUL)
+    for name in (*TIMED_KERNELS, "fp_mul_mma"):
         shape = heaviest_shape(shapes["fp_mul" if name == "fp_mul_mma" else name], name)
         composed = None
         if name == "fp_batch_inv":
@@ -713,7 +894,7 @@ def time_kernels(torch, fp, tower, P, dev, shapes, launches, peak_ops_per_s):
             x = field_inputs(fp, P, steps * lanes, 3, dev)[8 : 8 + steps * lanes].reshape(steps, lanes, fp.WORDS)
             run, plain = (lambda: fp.batch_inv(x)), (lambda: fp.batch_inv_plain(x))
             elems = steps * lanes
-            ops_s = lanes * (3 * steps - 1 + pow_products) * WORD_PRODUCTS_PER_MUL / peak_ops_per_s
+            ops_s = lanes * ((3 * steps - 1) * WORD_PRODUCTS_PER_MUL + pow_word_products) / peak_ops_per_s
             nbytes = 2 * 48 * elems
         elif name == "fp2_mul":
             n, op = shape
@@ -754,7 +935,7 @@ def time_kernels(torch, fp, tower, P, dev, shapes, launches, peak_ops_per_s):
                 ops_s, nbytes = n * 2 * fp.WORDS / peak_ops_per_s, 3 * 48 * n
             else:
                 run, plain = (lambda: fp.inv(a)), (lambda: fp.pow_plain(a, fp.INV_EXP))
-                ops_s, nbytes = n * pow_products * WORD_PRODUCTS_PER_MUL / peak_ops_per_s, 2 * 48 * n + 48
+                ops_s, nbytes = n * pow_word_products / peak_ops_per_s, 2 * 48 * n + 48
         saved = dict(fp.LAUNCHES)  # comparison launches are not main-path launches
         got, want = run(), plain()
         err = int(((got.to(torch.int64) & 0xFFFFFFFF) - (want.to(torch.int64) & 0xFFFFFFFF)).abs().max())
@@ -782,6 +963,60 @@ def time_kernels(torch, fp, tower, P, dev, shapes, launches, peak_ops_per_s):
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version at shape {shape}")
     return results
+
+
+def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s):
+    """K9-K11 at the verify path's shapes (`chain_cases`): device ms per
+    launch (profiler), ms per call (CUDA events), the plain version's and
+    the composition's ms per call, and the bound. K11 runs at two shapes
+    (the signatures' 64 bits, clear_cofactor's 128): its JSON entry is the
+    first, with the second beside it. K9's inversion is not timed inside
+    K9: K3 runs alone on one element (the Fermat chain of p - 2 that K9's
+    one thread also walks), and that time is set against K9's device time
+    (`k3_same_chain_ms`, `k3_same_chain_over_k9`)."""
+    S = N_SETS
+    bounds = {  # case -> (kernel, word products, bytes: points in and out, bits read once)
+        "g1_scalar_mul_n128_b64": ("g1_scalar_mul",
+                                   S * scalar_mul_word_products(64, WORD_PRODUCTS_PER_MUL, WORD_PRODUCTS_PER_SQR),
+                                   S * (288 + 64 * 4)),
+        "g2_scalar_mul_n256_b64": ("g2_scalar_mul", 2 * S * scalar_mul_word_products(64, FP2_MUL_WP, FP2_SQR_WP),
+                                   2 * S * (576 + 64 * 4)),
+        "g2_scalar_mul_2x128_b128": ("g2_scalar_mul", 2 * S * scalar_mul_word_products(128, FP2_MUL_WP, FP2_SQR_WP),
+                                     2 * S * 576 + 2 * 128 * 8),
+        "cyclotomic_pow_x_n1": ("cyclotomic_pow_x", K9_WORD_PRODUCTS, K9_BYTES),
+    }
+    rows = {}
+    for case, (name, ops, nbytes) in bounds.items():
+        shape, run, plain, composed = cases[case]
+        saved = dict(fp.LAUNCHES)  # comparison launches are not main-path launches
+        err = max_word_err(run(), plain())
+        call_ms = cuda_ms(run, 5)
+        ms = kernel_device_ms(run, 5, f"{name}_kernel")
+        plain_ms, composed_ms = cuda_ms(plain, 1), cuda_ms(composed, 2)
+        extra = {}
+        if name == "cyclotomic_pow_x":
+            one = field_inputs(fp, P, 1, 9, DEVICE)[8:9]
+            k3_ms = kernel_device_ms(lambda: fp.inv(one), 5, "fp_pow_kernel")
+            extra = {"k3_same_chain_ms": k3_ms, "k3_same_chain_over_k9": k3_ms / ms}
+        fp.LAUNCHES.update(saved)
+        t_ops, t_bytes = ops / peak_ops_per_s * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
+        row = {
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "shape": shape, "ms_per_call": call_ms, "composed_ms": composed_ms, **extra,
+        }
+        phase("timing", kernel=name, shape=shape, ms=f"{ms:.5f}", ms_per_call=f"{call_ms:.5f}",
+              plain_ms=f"{plain_ms:.3f}", composed_ms=f"{composed_ms:.3f}", bound_ms=f"{row['bound_ms']:.6f}",
+              launches=launches[name], max_abs_err=err, **{k: f"{v:.5f}" for k, v in extra.items()})
+        if err != 0:
+            raise AssertionError(f"{case}: kernel differs from its plain version")
+        if name in rows:
+            rows[name]["clear_cofactor"] = {k: row[k] for k in ("shape", "ms", "ms_per_call", "plain_ms",
+                                                               "composed_ms", "bound_ms", "bound_by")}
+        else:
+            rows[name] = row
+    return list(rows.values())
 
 
 def check_parity(torch, api, fp, pairing) -> None:
@@ -995,7 +1230,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from lighthouse_tpu_torch.crypto.bls.constants import P
-    from lighthouse_tpu_torch.crypto.bls.torch_backend import api, curve, fp, kernels, pairing, tower
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import api, curve, fp, h2c, kernels, pairing, tower
 
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -1011,13 +1246,19 @@ def main() -> int:
     kernels.library()
     log = kernels.BUILD_LOG or ""
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}", nvcc_seconds=kernels.BUILD_SECONDS,
+          spill_stores=json.dumps(ptxas_spills(log), separators=(",", ":")),
           g1_subgroup_check=f'"{ptxas_summary(log, "g1_subgroup_check")}"',
           fp_mul_mma=f'"{ptxas_summary(log, "fp_mul_mma_kernel")}"',
           fp2_mul=f'"{ptxas_summary(log, "fp2_mul_kernel")}"',
-          fp12_mul=f'"{ptxas_summary(log, "fp12_mul_kernel")}"')
+          fp12_mul=f'"{ptxas_summary(log, "fp12_mul_kernel")}"',
+          cyclotomic_pow_x=f'"{ptxas_summary(log, "cyclotomic_pow_x_kernel")}"',
+          g1_scalar_mul=f'"{ptxas_summary(log, "g1_scalar_mul_kernel")}"',
+          g2_scalar_mul=f'"{ptxas_summary(log, "g2_scalar_mul_kernel")}"')
 
     check_kernels(torch, fp, P, dev)
     check_tower_kernels(torch, fp, tower, P, dev)
+    chains = chain_cases(torch, fp, curve, tower, pairing, h2c, P)
+    check_chain_kernels(torch, chains)
 
     t0 = time.perf_counter()
     gossip = make_sets(api, N_SETS, 1)
@@ -1033,13 +1274,15 @@ def main() -> int:
     check_g1_kernel(torch, api, fp, curve, valid, invalid)
 
     gossip_shape, block_shape = f"{N_SETS}x1", f"{N_SETS}x{BLOCK_KEYS}"
-    ok_g, launches_g, _, _ = run_verify(torch, api, fp, gossip, gossip_shape, name_power)
+    ok_g, launches_g, gossip_ms, _ = run_verify(torch, api, fp, gossip, gossip_shape, name_power)
     ok_b, launches_b, block_ms, shapes = run_verify(torch, api, fp, block, block_shape, name_power, record_shapes=True)
     assert ok_g and ok_b, "a valid batch did not verify"
     for launches in (launches_g, launches_b):
         missing = [k for k in VERIFY_KERNELS if launches[k] <= 0]
         assert not missing, f"kernels not launched by the verify path: {missing}"
         assert launches["fp_mul_mma"] == 0, "K6 launched on the default verify path"
+        counts = {k: launches[k] for k in VERIFY_LAUNCHES}
+        assert counts == VERIFY_LAUNCHES, f"a verify launched {counts}, expected {VERIFY_LAUNCHES}"
 
     i = len(gossip) // 2  # the set each bad batch spoils
     s = gossip[i]
@@ -1063,9 +1306,11 @@ def main() -> int:
     mxu_launches = run_mxu(torch, api, fp, default, bad, pk_keys[small], [oracle[kb] for kb in pk_keys[small]],
                            name_power)
 
+    profile_verify(torch, api, gossip, gossip_shape, gossip_ms)
     profile_verify(torch, api, block, block_shape, block_ms)
     results = time_kernels(torch, fp, tower, P, dev, shapes,
                            {**launches_b, "fp_mul_mma": mxu_launches["fp_mul_mma"]}, peak_ops)
+    results += time_chain_kernels(torch, fp, P, chains, launches_b, peak_ops)
     results.append(time_g1_kernel(torch, api, fp, curve, pk_keys[PK_SIZES[0]], pk_launches[PK_SIZES[0]], peak_ops))
     check_extras(torch, fp, curve, tower, P)
     check_parity(torch, api, fp, pairing)

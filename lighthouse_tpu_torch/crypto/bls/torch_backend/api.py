@@ -2,7 +2,8 @@
 admission on a CUDA device.
 
 The verification workload runs as one plain PyTorch function per batch over
-the K1-K4 field kernels:
+the hand-written kernels (the field's K1-K4, the tower's K7 and K8, the
+scalar multiplications K10 and K11, the |z|-power chain K9):
 
     host:   expand_message_xmd (SHA-256), point decompression (no subgroup
             check: deferred to the device), RLC scalar sampling, packing
@@ -493,9 +494,9 @@ def _structurally_valid(sets: list[SignatureSet]) -> bool:
 @torch.inference_mode()
 def verify_signature_sets_async(sets: list[SignatureSet], rng=None, device=None) -> VerifyFuture:
     """Stage and queue a batch without waiting for the verdict."""
-    dev = resolve_device(device)
     if not _structurally_valid(sets):
         return _INVALID
+    dev = resolve_device(device)
     staged = stage_sets(sets, rng=rng)
     S, K = staged[2].shape
     flat = torch.from_numpy(_pack_staged(staged)).to(dev)
@@ -512,9 +513,9 @@ def verify_signature_sets(sets: list[SignatureSet], rng=None, device=None) -> bo
     device-idle flush that a dedicated batch occupies the device, so
     concurrent single-set submissions accumulate instead of dispatching
     alone."""
-    dev = resolve_device(device)
     if not _structurally_valid(sets):
         return False  # structurally invalid: no device work, no metrics
+    dev = resolve_device(device)
     with batch_verifier.mark_device_busy(), BLS_BATCH_SECONDS.time(), span("bls_batch_verify"):
         fut = verify_signature_sets_async(sets, rng=rng, device=dev)
         with span("bls_device_execute"):

@@ -1,0 +1,158 @@
+// Fp2 = Fp[u]/(u^2 + 1) in one thread, and G2 (y^2 = x^3 + 4(1 + u) over
+// Fp2) in homogeneous projective coordinates (X : Y : Z), infinity =
+// (0 : 1 : 0), as __device__ building blocks over fp384.cuh for K9
+// (final_exp_kernels.cu) and K11 (curve_kernels.cu).
+//
+// An Fp2 element is uint32_t[2][12]: [c0, c1], canonical Montgomery words.
+// A product forms each output component as one double-width sum and
+// reduces it once (fp384.cuh, "lazy reduction"): c0 = a0 b0 + (-a1) b1 and
+// c1 = a0 b1 + a1 b0, each a sum of N = 2 products below 2 p^2, so one
+// conditional subtraction leaves it canonical (fp384.cuh's bound: N <= 9).
+// 4 x 144 + 2 x 156 = 888 word products, where Karatsuba with a
+// reduction per product would take 3 x 300 = 900.
+//
+// The group law is g1.cuh's, the complete formulas of Renes-Costello-
+// Batina 2016 for a = 0 (Algorithm 7, addition; Algorithm 9, doubling),
+// over Fp2 with 3b = 12 (1 + u). A product by 3b is
+// 12 ((x0 - x1) + (x0 + x1) u), formed by additions; every value is
+// canonical, so it is the same integers as the Fp2 product by the constant
+// that curve.py's FP2 field forms.
+
+#pragma once
+
+#include <stdint.h>
+
+#include "fp384.cuh"
+
+typedef uint32_t fp2_t[2][FP_WORDS];
+
+__device__ __forceinline__ void fp2_copy(fp2_t r, const fp2_t a) {
+  fp_copy(r[0], a[0]);
+  fp_copy(r[1], a[1]);
+}
+
+__device__ __forceinline__ void fp2_add(fp2_t r, const fp2_t a, const fp2_t b) {
+  fp_add(r[0], a[0], b[0]);
+  fp_add(r[1], a[1], b[1]);
+}
+
+__device__ __forceinline__ void fp2_sub(fp2_t r, const fp2_t a, const fp2_t b) {
+  fp_sub(r[0], a[0], b[0]);
+  fp_sub(r[1], a[1], b[1]);
+}
+
+__device__ __forceinline__ bool fp2_is_zero(const fp2_t a) { return fp_is_zero(a[0]) && fp_is_zero(a[1]); }
+
+// r = a b. r may alias a or b. Not inlined: the group law makes 12 or 8
+// products a step, and one copy of the 888 unrolled word products keeps
+// the kernels small enough to build in seconds.
+static __device__ __noinline__ void fp2_mul(fp2_t r, const fp2_t a, const fp2_t b) {
+  uint32_t t[FP_WIDE], u[FP_WORDS], c0[FP_WORDS];
+  fp_mul_wide(t, a[0], b[0]);
+  fp_neg(u, a[1]);
+  fp_mac_wide(t, u, b[1]);
+  fp_redc_wide<1>(c0, t);
+  fp_mul_wide(t, a[0], b[1]);
+  fp_mac_wide(t, a[1], b[0]);
+  fp_redc_wide<1>(r[1], t);
+  fp_copy(r[0], c0);
+}
+
+// r = xi a, xi = 1 + u: (a0 - a1) + (a0 + a1) u. r may alias a.
+__device__ __forceinline__ void fp2_mul_xi(fp2_t r, const fp2_t a) {
+  uint32_t d[FP_WORDS];
+  fp_sub(d, a[0], a[1]);
+  fp_add(r[1], a[0], a[1]);
+  fp_copy(r[0], d);
+}
+
+// r = 12 a in Fp, by additions (2a, 3a, 6a, 12a).
+__device__ __forceinline__ void fp_mul12(uint32_t r[FP_WORDS], const uint32_t a[FP_WORDS]) {
+  uint32_t t[FP_WORDS];
+  fp_add(t, a, a);
+  fp_add(t, t, a);
+  fp_add(t, t, t);
+  fp_add(r, t, t);
+}
+
+// r = 3b a = 12 (1 + u) a. r may alias a.
+__device__ __forceinline__ void fp2_mul_b3(fp2_t r, const fp2_t a) {
+  fp2_mul_xi(r, a);
+  fp_mul12(r[0], r[0]);
+  fp_mul12(r[1], r[1]);
+}
+
+struct G2Proj {
+  fp2_t x;
+  fp2_t y;
+  fp2_t z;
+};
+
+// r = p + q, RCB 2016 Algorithm 7 (a = 0), g1_add's steps over Fp2. r may
+// alias p or q.
+__device__ __forceinline__ void g2_add(G2Proj& r, const G2Proj& p, const G2Proj& q) {
+  fp2_t t0, t1, t2, t3, t4, x3, y3, z3;
+  fp2_mul(t0, p.x, q.x);
+  fp2_mul(t1, p.y, q.y);
+  fp2_mul(t2, p.z, q.z);
+  fp2_add(t3, p.x, p.y);
+  fp2_add(t4, q.x, q.y);
+  fp2_mul(t3, t3, t4);
+  fp2_add(t4, t0, t1);
+  fp2_sub(t3, t3, t4);  // X1 Y2 + X2 Y1
+  fp2_add(t4, p.y, p.z);
+  fp2_add(x3, q.y, q.z);
+  fp2_mul(t4, t4, x3);
+  fp2_add(x3, t1, t2);
+  fp2_sub(t4, t4, x3);  // Y1 Z2 + Y2 Z1
+  fp2_add(x3, p.x, p.z);
+  fp2_add(y3, q.x, q.z);
+  fp2_mul(x3, x3, y3);
+  fp2_add(y3, t0, t2);
+  fp2_sub(y3, x3, y3);  // X1 Z2 + X2 Z1
+  fp2_add(x3, t0, t0);
+  fp2_add(t0, x3, t0);  // 3 X1 X2
+  fp2_mul_b3(t2, t2);
+  fp2_add(z3, t1, t2);
+  fp2_sub(t1, t1, t2);
+  fp2_mul_b3(y3, y3);
+  fp2_mul(x3, t4, y3);
+  fp2_mul(t2, t3, t1);
+  fp2_sub(x3, t2, x3);
+  fp2_mul(y3, y3, t0);
+  fp2_mul(t1, t1, z3);
+  fp2_add(y3, t1, y3);
+  fp2_mul(t0, t0, t3);
+  fp2_mul(z3, z3, t4);
+  fp2_add(z3, z3, t0);
+  fp2_copy(r.x, x3);
+  fp2_copy(r.y, y3);
+  fp2_copy(r.z, z3);
+}
+
+// r = 2 p, RCB 2016 Algorithm 9 (a = 0), g1_dbl's steps over Fp2. r may
+// alias p.
+__device__ __forceinline__ void g2_dbl(G2Proj& r, const G2Proj& p) {
+  fp2_t t0, t1, t2, x3, y3, z3;
+  fp2_mul(t0, p.y, p.y);
+  fp2_add(z3, t0, t0);
+  fp2_add(z3, z3, z3);
+  fp2_add(z3, z3, z3);  // 8 Y^2
+  fp2_mul(t1, p.y, p.z);
+  fp2_mul(t2, p.z, p.z);
+  fp2_mul_b3(t2, t2);  // 3b Z^2
+  fp2_mul(x3, t2, z3);
+  fp2_add(y3, t0, t2);
+  fp2_mul(z3, t1, z3);
+  fp2_add(t1, t2, t2);
+  fp2_add(t2, t1, t2);
+  fp2_sub(t0, t0, t2);  // Y^2 - 9b Z^2
+  fp2_mul(y3, t0, y3);
+  fp2_add(y3, x3, y3);
+  fp2_mul(t1, p.x, p.y);
+  fp2_mul(x3, t0, t1);
+  fp2_add(x3, x3, x3);
+  fp2_copy(r.x, x3);
+  fp2_copy(r.y, y3);
+  fp2_copy(r.z, z3);
+}

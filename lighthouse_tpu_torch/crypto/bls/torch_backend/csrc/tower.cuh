@@ -1,0 +1,78 @@
+// Tower-layout Fp12 helpers shared by K8 (tower_kernels.cu) and K9
+// (final_exp_kernels.cu), as __device__ building blocks over fp384.cuh.
+//
+// Fp12 lies in tower order (w:2, v:3, c:2, 12) words; flat coefficient
+// k = 2v + w of Fp12 = Fp2[w]/(w^6 - xi) sits at offset (3w + v) x 24
+// words. `fp12_mul_thread` is one thread's share of a product formed by a
+// group of six threads, thread k forming e_k; its bound and work are
+// stated with K8 in tower_kernels.cu.
+
+#pragma once
+
+#include <stdint.h>
+
+#include "fp384.cuh"
+
+namespace {
+
+constexpr int kFp2Words = 2 * FP_WORDS;
+constexpr int kFp12Words = 6 * kFp2Words;
+
+enum Fp12Mode { kFull = 0, kSquare = 1, kSparse = 2 };
+
+__device__ __forceinline__ int tower_offset(int k) { return ((k & 1) * 3 + (k >> 1)) * kFp2Words; }
+
+// The four operands of one output component's term pair, chosen without a
+// branch: t += x0 y0 + (-x1) y1 for component 0, x0 y1 + x1 y0 for 1.
+__device__ __forceinline__ void fp2_component_mac(uint32_t t[FP_WIDE], bool c1, const uint32_t x0[FP_WORDS],
+                                                  const uint32_t x1[FP_WORDS], const uint32_t y0[FP_WORDS],
+                                                  const uint32_t y1[FP_WORDS]) {
+  uint32_t u[FP_WORDS], v[FP_WORDS];
+  fp_neg(u, x1);
+  fp_select(u, c1, x1, u);
+  fp_select(v, c1, y1, y0);
+  fp_mac_wide(t, x0, v);
+  fp_select(v, c1, y0, y1);
+  fp_mac_wide(t, u, v);
+}
+
+// Thread k of a six-thread group: flat coefficient e_k of a * b, both
+// components, written to `out` (tower layout) at e_k's offset. `a` is a
+// tower-layout element; `b` is one too (kFull, kSquare: pass a), or in
+// kSparse mode the w^0, w^3, w^5 coefficients in three consecutive Fp2
+// slots. e_k = sum_j a_((k-j) mod 6) b_j, with xi = 1 + u applied to the a
+// operand of the terms that wrap (j > k): xi (x0 + x1 u) = (x0 - x1) +
+// (x0 + x1) u. `out` must not overlap a or b.
+__device__ __forceinline__ void fp12_mul_thread(const uint32_t* a, const uint32_t* b, int k, int mode,
+                                                uint32_t* out) {
+  const int terms = mode == kSparse ? 3 : 6;
+  uint32_t x0[FP_WORDS], x1[FP_WORDS], y0[FP_WORDS], y1[FP_WORDS], d[FP_WORDS], s[FP_WORDS], acc[FP_WIDE];
+#pragma unroll 1
+  for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int i = 0; i < FP_WIDE; ++i) acc[i] = 0;
+#pragma unroll 1
+    for (int q = 0; q < terms; ++q) {
+      const int j = mode == kSparse ? (q == 0 ? 0 : q == 1 ? 3 : 5) : q;
+      const int i = (k - j + 6) % 6;
+      const uint32_t* bj = b + (mode == kSparse ? q * kFp2Words : tower_offset(j));
+      const uint32_t* ai = a + tower_offset(i);
+      fp_load(x0, ai);
+      fp_load(x1, ai + FP_WORDS);
+      fp_load(y0, bj);
+      fp_load(y1, bj + FP_WORDS);
+      // the wrapped terms carry w^6 = xi: a_i -> (a0 - a1, a0 + a1)
+      const bool wrap = j > k;
+      fp_sub(d, x0, x1);
+      fp_add(s, x0, x1);
+      fp_select(x0, wrap, d, x0);
+      fp_select(x1, wrap, s, x1);
+      fp2_component_mac(acc, c == 1, x0, x1, y0, y1);
+    }
+    uint32_t r[FP_WORDS];
+    fp_redc_wide<2>(r, acc);
+    fp_store(out + tower_offset(k) + c * FP_WORDS, r);
+  }
+}
+
+}  // namespace

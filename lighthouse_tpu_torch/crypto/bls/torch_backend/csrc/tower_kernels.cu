@@ -57,39 +57,21 @@
 //   thread's chain of 24 products.
 //   Flat index k = 2v + w lies at tower offset (3w + v) x 24 words, so
 //   operands and output stay in the tower layout and no copy to the flat
-//   basis is made.
+//   basis is made. A thread's share is `fp12_mul_thread` (tower.cuh),
+//   which K9 reuses for its product of six.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fp384.cuh"
+#include "tower.cuh"
 
 namespace {
 
-constexpr int kFp2Words = 2 * FP_WORDS;
-constexpr int kFp12Words = 6 * kFp2Words;
 constexpr int kFp2Threads = 128;  // 64 elements a block
 constexpr int kGroup = 6;         // threads per Fp12 element
 constexpr int kFp12PerBlock = 16;
 constexpr int kFp12Threads = kGroup * kFp12PerBlock;  // three warps
-
-enum Fp12Mode { kFull = 0, kSquare = 1, kSparse = 2 };
-
-__device__ __forceinline__ int tower_offset(int k) { return ((k & 1) * 3 + (k >> 1)) * kFp2Words; }
-
-// The four operands of one output component's term pair, chosen without a
-// branch: t += x0 y0 + (-x1) y1 for component 0, x0 y1 + x1 y0 for 1.
-__device__ __forceinline__ void fp2_component_mac(uint32_t t[FP_WIDE], bool c1, const uint32_t x0[FP_WORDS],
-                                                  const uint32_t x1[FP_WORDS], const uint32_t y0[FP_WORDS],
-                                                  const uint32_t y1[FP_WORDS]) {
-  uint32_t u[FP_WORDS], v[FP_WORDS];
-  fp_neg(u, x1);
-  fp_select(u, c1, x1, u);
-  fp_select(v, c1, y1, y0);
-  fp_mac_wide(t, x0, v);
-  fp_select(v, c1, y0, y1);
-  fp_mac_wide(t, u, v);
-}
 
 __global__ void __launch_bounds__(kFp2Threads) fp2_mul_kernel(const uint32_t* __restrict__ a, long long sa,
                                                               const uint32_t* __restrict__ b, long long sb,
@@ -155,35 +137,7 @@ __global__ void __launch_bounds__(kFp12Threads) fp12_mul_kernel(
   if (e >= n) return;
   const uint32_t* ea = sh_a + g * kFp12Words;
   const uint32_t* eb = (mode == kSquare ? sh_a : sh_b) + g * kFp12Words;
-  const int terms = mode == kSparse ? 3 : 6;
-
-  uint32_t x0[FP_WORDS], x1[FP_WORDS], y0[FP_WORDS], y1[FP_WORDS], d[FP_WORDS], s[FP_WORDS], acc[FP_WIDE];
-#pragma unroll 1
-  for (int c = 0; c < 2; ++c) {
-#pragma unroll
-    for (int i = 0; i < FP_WIDE; ++i) acc[i] = 0;
-#pragma unroll 1
-    for (int q = 0; q < terms; ++q) {
-      const int j = mode == kSparse ? (q == 0 ? 0 : q == 1 ? 3 : 5) : q;
-      const int i = (k - j + 6) % 6;
-      const uint32_t* bj = eb + (mode == kSparse ? q * kFp2Words : tower_offset(j));
-      const uint32_t* ai = ea + tower_offset(i);
-      fp_load(x0, ai);
-      fp_load(x1, ai + FP_WORDS);
-      fp_load(y0, bj);
-      fp_load(y1, bj + FP_WORDS);
-      // the wrapped terms carry w^6 = xi: a_i -> (a0 - a1, a0 + a1)
-      const bool wrap = j > k;
-      fp_sub(d, x0, x1);
-      fp_add(s, x0, x1);
-      fp_select(x0, wrap, d, x0);
-      fp_select(x1, wrap, s, x1);
-      fp2_component_mac(acc, c == 1, x0, x1, y0, y1);
-    }
-    uint32_t r[FP_WORDS];
-    fp_redc_wide<2>(r, acc);
-    fp_store(out + e * kFp12Words + tower_offset(k) + c * FP_WORDS, r);
-  }
+  fp12_mul_thread(ea, eb, k, mode, out + e * kFp12Words);
 }
 
 }  // namespace

@@ -8,8 +8,10 @@ are not unique, so the formulas and their order mirror the JAX package
 bit-identical to its points, not only equal as points.
 
 Scalar multiplication is the 4-bit fixed-window form with a 17-row table
-built by 2-stacked complete additions. `lax.scan` becomes a Python loop
-and the table gather becomes `torch.gather`.
+built by 2-stacked complete additions: one launch of K10 (G1) or K11 (G2)
+(csrc/curve_kernels.cu) on the card, and beside it the plain version,
+where `lax.scan` becomes a Python loop and the table gather becomes
+`torch.gather`.
 
 G2 subgroup membership is Scott's psi criterion: P in G2 iff
 psi(P) == [z]P (z < 0), a 64-bit multiplication instead of a 255-bit one.
@@ -49,6 +51,7 @@ class FieldOps(NamedTuple):
     zero: Callable
     b3: np.ndarray  # 3 * b, Montgomery-packed
     elem_dims: int  # trailing dims of one coordinate: 1 (Fp) or 2 (Fp2)
+    kernel: str | None = None  # the scalar multiplication's kernel (K10, K11); None: plain ops
 
 
 FP = FieldOps(
@@ -64,6 +67,7 @@ FP = FieldOps(
     zero=fp.zero,
     b3=fp.to_mont_host(3 * B_G1),
     elem_dims=1,
+    kernel="g1_scalar_mul",
 )
 
 FP2 = FieldOps(
@@ -79,11 +83,22 @@ FP2 = FieldOps(
     zero=tower.fp2_zero,
     b3=pack_fp2(3 * B_G2[0], 3 * B_G2[1]),
     elem_dims=2,
+    kernel="g2_scalar_mul",
 )
 
-# The plain versions of K1-K3 as a field: the group law over it is PyTorch
-# operations only, on any device (K5's plain version, also on the card).
-FP_PLAIN = FP._replace(**fp.PLAIN_OPS._asdict())
+# The plain versions of K1-K3 and K7 as fields: the group law over them is
+# PyTorch operations only, on any device (the plain versions of K5, K10 and
+# K11, also on the card).
+FP_PLAIN = FP._replace(**fp.PLAIN_OPS._asdict(), kernel=None)
+FP2_PLAIN = FP2._replace(
+    add=fp.PLAIN_OPS.add,
+    sub=fp.PLAIN_OPS.sub,
+    neg=fp.PLAIN_OPS.neg,
+    mul=tower.fp2_mul_plain,
+    inv=lambda a: tower.fp2_inv(a, fp.PLAIN_OPS),
+    kernel=None,
+)
+_PLAIN_FIELD = {1: FP_PLAIN, 2: FP2_PLAIN}
 
 
 class Proj(NamedTuple):
@@ -202,6 +217,7 @@ def scalar_mul_bits_ladder(F: FieldOps, p: Proj, bits) -> Proj:
 
 
 _WINDOW = 4
+_WINDOW_WEIGHTS = np.array([8, 4, 2, 1], dtype=np.int64)
 
 
 def _window_digits(bits: torch.Tensor) -> torch.Tensor:
@@ -211,8 +227,7 @@ def _window_digits(bits: torch.Tensor) -> torch.Tensor:
     pad = (-n) % _WINDOW
     bits = torch.nn.functional.pad(bits.to(torch.int64), (pad, 0))
     chunks = bits.reshape(*bits.shape[:-1], -1, _WINDOW)
-    weights = torch.tensor([8, 4, 2, 1], dtype=torch.int64, device=bits.device)
-    return (chunks * weights).sum(dim=-1)
+    return (chunks * fp.const(_WINDOW_WEIGHTS, bits.device)).sum(dim=-1)
 
 
 def _table_gather(coord, digit, shape, elem_dims):
@@ -223,8 +238,10 @@ def _table_gather(coord, digit, shape, elem_dims):
     return torch.gather(coord, 0, idx)[0]
 
 
-def scalar_mul_bits(F: FieldOps, p: Proj, bits) -> Proj:
-    """Fixed-window (4-bit) scalar multiplication, MSB-first.
+def scalar_mul_bits_plain(F: FieldOps, p: Proj, bits) -> Proj:
+    """Fixed-window (4-bit) scalar multiplication, MSB-first, composed over
+    the field operations F: the plain version of K10 and K11 over FP_PLAIN
+    and FP2_PLAIN, the composition they replaced over FP and FP2.
 
     bits: (n,) public bits as a numpy array, or a (..., n) tensor of 0/1
     per-element bits broadcast against the batch. Table row k = [k]P,
@@ -256,6 +273,72 @@ def scalar_mul_bits(F: FieldOps, p: Proj, bits) -> Proj:
         t = Proj(*(_table_gather(c, digits[..., j], shape, F.elem_dims) for c in tab))
         acc = add(F, acc, t)
     return acc
+
+
+def scalar_mul_bits(F: FieldOps, p: Proj, bits) -> Proj:
+    """[k]P by `scalar_mul_bits_plain`'s algorithm, bit-identical to it:
+    one launch of K10 (F = FP, G1) or K11 (F = FP2, G2) for CUDA tensors,
+    the plain version for CPU tensors and for the plain fields."""
+    if F.kernel is None:
+        return scalar_mul_bits_plain(F, p, bits)
+    if fp._is_cpu(*p):
+        return scalar_mul_bits_plain(_PLAIN_FIELD[F.elem_dims], p, bits)
+    return _scalar_mul_kernel(F, p, bits)
+
+
+def _row_strides(b: torch.Tensor):
+    """Element strides of the bit rows of `b` (..., n) (last dim
+    contiguous), as two levels: row e starts at (e // inner) * hi +
+    (e % inner) * lo elements. Returns (b, inner, hi, lo); a layout that
+    two levels cannot describe is copied once."""
+    dims = []
+    for size, stride in zip(b.shape[:-1], b.stride()[:-1]):
+        if size == 1:
+            continue
+        if dims and dims[-1][1] == stride * size:
+            dims[-1] = (dims[-1][0] * size, stride)  # merges with the dim before
+        else:
+            dims.append((size, stride))
+    if len(dims) > 2:
+        b = b.contiguous()
+        dims = [(b.numel() // b.shape[-1], b.shape[-1])]
+    if len(dims) == 2:
+        return b, dims[1][0], dims[0][1], dims[1][1]
+    if len(dims) == 1:
+        return b, dims[0][0], 0, dims[0][1]
+    return b, 1, 0, 0
+
+
+def _scalar_mul_kernel(F: FieldOps, p: Proj, bits) -> Proj:
+    """One launch of K10 or K11 (csrc/curve_kernels.cu). The coordinates are
+    read in place (element stride 0 where one point is broadcast), and so
+    are the bits, int32 or int64 0/1 rows read a byte each: per element, or
+    one row broadcast over some dims (`clear_cofactor`'s (2, 1, ..., n))."""
+    from . import kernels
+
+    dev = p.z.device
+    elem = tuple(p.z.shape[-F.elem_dims :])
+    batch = p.z.shape[: -F.elem_dims]
+    if isinstance(bits, np.ndarray):
+        bits = fp.const(bits, dev)
+    if bits.device != dev:
+        raise RuntimeError(f"bits on {bits.device}, points on {dev}")
+    nbits = bits.shape[-1]
+    b = bits.expand(*batch, nbits)
+    if b.stride(-1) != 1:
+        b = b.contiguous()
+    b, inner, hi, lo = _row_strides(b)
+    size = b.element_size()
+    words = fp.WORDS * (2 if F.elem_dims == 2 else 1)
+    shape = torch.Size((*batch, *elem))
+    ops = [tower._operand(c, shape, F.elem_dims, words) for c in p]
+    ptrs = [x for t, st in ops for x in (t.data_ptr(), st)]
+    out = torch.empty((3, *shape), dtype=torch.int32, device=dev)
+    n = batch.numel()
+    kernels.launch(f"lh_{F.kernel}", dev, *ptrs, b.data_ptr(), inner, hi * size, lo * size, size, nbits,
+                   out.data_ptr(), n)
+    fp._count(F.kernel, (n, nbits))
+    return Proj(out[0], out[1], out[2])
 
 
 def eq_points(F: FieldOps, p: Proj, q: Proj):

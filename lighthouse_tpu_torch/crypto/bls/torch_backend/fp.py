@@ -21,14 +21,16 @@ Each wrapper takes its kernel for a CUDA tensor and its plain PyTorch
 version (`*_plain`, below) for a CPU tensor, and raises for anything else.
 There is no fallback from the kernel to the plain version. `LAUNCHES`
 counts kernel launches per kernel, for these, for K5
-(`curve.g1_in_subgroup_kernel`, csrc/g1_kernels.cu) and for the tower
+(`curve.g1_in_subgroup_kernel`, csrc/g1_kernels.cu), for the tower
 products K7 and K8 (`tower.fp2_product`, `tower.fp12_product`,
-csrc/tower_kernels.cu).
+csrc/tower_kernels.cu), for the scalar multiplications K10 and K11
+(`curve.scalar_mul_bits`, csrc/curve_kernels.cu) and for the |z|-power
+chain K9 (`pairing.pow_abs_x`, csrc/final_exp_kernels.cu).
 
 K6 is the JAX package's opt-in matrix-unit product (`mul_mxu`, enabled by
-LIGHTHOUSE_TPU_MXU_FP_MUL=1) on the tensor cores. K3, K4 and K5 keep
-their in-register CIOS products whatever the flag says: each is one
-thread's chain of products, and an MMA needs a whole warp. The results
+LIGHTHOUSE_TPU_MXU_FP_MUL=1) on the tensor cores. K3, K4, K5 and K7 to
+K11 keep their in-register CIOS products whatever the flag says: each is
+one thread's chain of products, and an MMA needs a whole warp. The results
 are the same either way, since both products are canonical.
 
 int32 holds u32 bit patterns, so the plain versions widen to int64 and
@@ -193,14 +195,14 @@ USE_MXU_MUL = os.environ.get("LIGHTHOUSE_TPU_MXU_FP_MUL", "") == "1"
 
 # -- launch accounting ---------------------------------------------------------
 
-#: every kernel of the library: K1-K4 and K6 here, K5 in curve.py, K7 and K8
-#: in tower.py
+#: every kernel of the library: K1-K4 and K6 here, K5, K10 and K11 in
+#: curve.py, K7 and K8 in tower.py, K9 in pairing.py
 KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv", "g1_subgroup_check", "fp_mul_mma", "fp2_mul",
-           "fp12_mul")
+           "fp12_mul", "cyclotomic_pow_x", "g1_scalar_mul", "g2_scalar_mul")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 #: When a dict, each launch also records its element count (or (steps, lanes)
-#: for K4, (elements, op or mode) for K7 and K8) under the kernel's name: the
-#: shapes the main path gives a kernel.
+#: for K4, (elements, op or mode) for K7 and K8, (elements, bits) for K10 and
+#: K11) under the kernel's name: the shapes the main path gives a kernel.
 SHAPES: dict[str, Counter] | None = None
 
 

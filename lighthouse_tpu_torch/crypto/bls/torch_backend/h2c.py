@@ -4,7 +4,8 @@ HOST  : expand_message_xmd (SHA-256) and the reduction to two Fp2 field
         elements per message, packed to the wire limbs `stage_sets` emits,
         behind a process-wide LRU keyed by (message, dst).
 DEVICE: simplified SWU onto E', the 3-isogeny to E2, point addition and
-        psi-method cofactor clearing, all over the K1-K4 field kernels.
+        psi-method cofactor clearing, over the field and tower kernels;
+        the cofactor's two scalar multiplications are one launch of K11.
 
 Semantics are pinned to the ref oracle (ref/hash_to_curve.py). The device
 formulas mirror the JAX package (lighthouse_tpu jax_backend/h2c.py), so

@@ -25,7 +25,10 @@ import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fp384.cuh", "g1.cuh", "fp_kernels.cu", "g1_kernels.cu", "fp_mma.cu", "tower_kernels.cu")
+SOURCES = (
+    "fp384.cuh", "g1.cuh", "g2.cuh", "tower.cuh",
+    "fp_kernels.cu", "g1_kernels.cu", "fp_mma.cu", "tower_kernels.cu", "curve_kernels.cu", "final_exp_kernels.cu",
+)
 UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -46,6 +49,9 @@ _SIGNATURES = {
     "lh_fp_mul_mma": [_P, _P, _P, _LL, _P],
     "lh_fp2_mul": [_P, _LL, _P, _LL, _P, _LL, ctypes.c_int, _P],
     "lh_fp12_mul": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, ctypes.c_int, _P],
+    "lh_g1_scalar_mul": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _LL, ctypes.c_int, ctypes.c_int, _P, _LL, _P],
+    "lh_g2_scalar_mul": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _LL, ctypes.c_int, ctypes.c_int, _P, _LL, _P],
+    "lh_cyclotomic_pow_x": [_P, _LL, _P, _LL, _P],
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-"""Batched optimal-ate pairing on BLS12-381, over the K1-K4 field kernels.
+"""Batched optimal-ate pairing on BLS12-381, over the field and tower kernels.
 
 The Miller loop works on E'(Fp2) in Jacobian coordinates with projective
 line evaluation (no inversions): each line is the sparse element
@@ -13,9 +13,10 @@ the doubling step runs every bit and the addition step, under a plain
 by generators and their f is set to one afterwards.
 
 The final exponentiation is the ref oracle's decomposition (3x the hard
-part), so GT values are bit-identical to ref/pairing.py. The |z|-power
-chains run compressed (Karabina) and decompress their six checkpoints with
-one shared inversion.
+part), so GT values are bit-identical to ref/pairing.py. Its five
+|z|-power chains (`pow_abs_x`) are one launch each of K9
+(csrc/final_exp_kernels.cu): 63 compressed (Karabina) squarings, the six
+checkpoints decompressed with one shared inversion, and their product.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from .tower import (
 _ABS_X = abs(X_PARAM)
 # MSB-first bits of |z| below the leading bit (T starts at Q).
 _ML_BITS = [(_ABS_X >> i) & 1 for i in range(_ABS_X.bit_length() - 2, -1, -1)]
+_FP12_WORDS = 12 * fp.WORDS
 # all 64 MSB-first bits of |z|
 _ABS_X_BITS_MSB = np.array(
     [(_ABS_X >> i) & 1 for i in range(_ABS_X.bit_length() - 1, -1, -1)], dtype=np.int32
@@ -164,21 +166,46 @@ def frobenius2(f):
 # -- final exponentiation ------------------------------------------------------
 
 
-def _pow_abs_x(g):
+def pow_abs_x_composed(g, T: tower.TowerOps):
     """g^|z| for cyclotomic g: 63 compressed squarings, the six checkpoints
-    g^(2^k) (set bits k of |z|) decompressed together, then multiplied."""
+    g^(2^k) (set bits k of |z|) decompressed together, then multiplied,
+    over the operations T: the composition K9 replaced (T =
+    tower.KERNEL_TOWER) or K9's plain version (tower.PLAIN_TOWER)."""
     c = tower.karabina_compress(g)
     powers = []
     for _ in range(63):
-        c = tower.karabina_sqr(c)
+        c = tower.karabina_sqr(c, T)
         powers.append(c)  # powers[i] = compressed g^(2^(i+1))
     cps = torch.stack([powers[k - 1] for k in _ABS_X_SET_BITS])
-    return product_reduce(tower.karabina_decompress(cps))
+    return product_reduce(tower.karabina_decompress(cps, T), T.fp12_mul)
+
+
+def pow_abs_x_plain(g):
+    """K9's plain version: PyTorch operations only, on any device."""
+    return pow_abs_x_composed(g, tower.PLAIN_TOWER)
+
+
+def pow_abs_x(g):
+    """g^|z| for tower Fp12 g (..., 2, 3, 2, W), any leading batch shape:
+    one launch of K9 (csrc/final_exp_kernels.cu), a block per element, for
+    a CUDA tensor; the plain version for a CPU tensor."""
+    cpu = fp._is_cpu(g)
+    tower._check_trailing(g, (2, 3, 2, fp.WORDS), "Fp12")
+    if cpu:
+        return pow_abs_x_plain(g)
+    from . import kernels
+
+    out = torch.empty(g.shape, dtype=torch.int32, device=g.device)
+    n = out.numel() // _FP12_WORDS
+    a, sa = tower._operand(g, g.shape, 4, _FP12_WORDS)
+    kernels.launch("lh_cyclotomic_pow_x", g.device, a.data_ptr(), sa, out.data_ptr(), n)
+    fp._count("cyclotomic_pow_x", n)
+    return out
 
 
 def _pow_x_minus_1(g):
     """g^(z-1) = conj(g^|z| * g) for cyclotomic g (z < 0)."""
-    return fp12_conj(fp12_mul(_pow_abs_x(g), g))
+    return fp12_conj(fp12_mul(pow_abs_x(g), g))
 
 
 def final_exponentiation(f):
@@ -186,19 +213,19 @@ def final_exponentiation(f):
     f = fp12_mul(fp12_conj(f), fp12_inv(f))
     f = fp12_mul(frobenius2(f), f)
     a = _pow_x_minus_1(_pow_x_minus_1(f))
-    b = fp12_mul(fp12_conj(_pow_abs_x(a)), frobenius(a))  # a^z * a^p
-    c = fp12_mul(fp12_mul(_pow_abs_x(_pow_abs_x(b)), frobenius2(b)), fp12_conj(b))
+    b = fp12_mul(fp12_conj(pow_abs_x(a)), frobenius(a))  # a^z * a^p
+    c = fp12_mul(fp12_mul(pow_abs_x(pow_abs_x(b)), frobenius2(b)), fp12_conj(b))
     return fp12_mul(c, fp12_mul(f, fp12_mul(f, f)))
 
 
 # -- products ------------------------------------------------------------------
 
 
-def product_reduce(fs):
+def product_reduce(fs, mul=fp12_mul):
     """Multiply a batch of Fp12 values along axis 0 with a log-depth tree."""
     while fs.shape[0] > 1:
         half = fs.shape[0] // 2
-        prod = fp12_mul(fs[:half], fs[half : 2 * half])
+        prod = mul(fs[:half], fs[half : 2 * half])
         fs = torch.cat([prod, fs[2 * half :]]) if fs.shape[0] % 2 else prod
     return fs[0]
 

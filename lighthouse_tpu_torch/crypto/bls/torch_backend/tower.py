@@ -26,10 +26,15 @@ lazy reduction does (poly + one redc per tower operation):
 Their plain versions (`*_plain`), taken for CPU tensors, are the
 compositions over Fp operations that the port ran before them. Every
 other function stacks independent Fp products into one K1 launch and
-independent additions into one K2 launch.
+independent additions into one K2 launch. Karabina's compressed squaring
+and decompression take a `TowerOps` (the kernels, or their plain
+versions): the |z|-power chain over them is K9's composition and its
+plain version (`pairing.pow_abs_x`).
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -111,18 +116,18 @@ def fp2_scale(a, k):
     return fp.mul(a, k[..., None, :])
 
 
-def fp2_mul_by_nonresidue(a):
+def fp2_mul_by_nonresidue(a, F=fp.KERNEL_OPS):
     # xi = 1 + u: (c0 - c1) + (c0 + c1) u
     a0, a1 = a[..., 0, :], a[..., 1, :]
-    return fp2(fp.sub(a0, a1), fp.add(a0, a1))
+    return fp2(F.sub(a0, a1), F.add(a0, a1))
 
 
-def fp2_inv(a):
-    """1/(a0 + a1 u) = (a0 - a1 u)/(a0^2 + a1^2); 0 -> 0 (inv0, from fp.inv)."""
-    sq = fp.sqr(a)
-    d = fp.inv(fp.add(sq[..., 0, :], sq[..., 1, :]))
-    t = fp.mul(a, d[..., None, :])
-    return fp2(t[..., 0, :], fp.neg(t[..., 1, :]))
+def fp2_inv(a, F=fp.KERNEL_OPS):
+    """1/(a0 + a1 u) = (a0 - a1 u)/(a0^2 + a1^2); 0 -> 0 (inv0, from F.inv)."""
+    sq = F.mul(a, a)
+    d = F.inv(F.add(sq[..., 0, :], sq[..., 1, :]))
+    t = F.mul(a, d[..., None, :])
+    return fp2(t[..., 0, :], F.neg(t[..., 1, :]))
 
 
 def fp2_is_zero(a):
@@ -330,6 +335,34 @@ def fp12_conj(a):
     return fp12(a[..., 0, :, :, :], fp6_neg(a[..., 1, :, :, :]))
 
 
+# -- the operations a composed tower function runs over ---------------------------
+
+
+class TowerOps(NamedTuple):
+    """Fp operations, the batch inversion and the Fp2 / Fp12 products that a
+    composed tower function (Karabina's chain, `pairing.pow_abs_x_composed`)
+    is written over."""
+
+    fp: fp.FpOps
+    batch_inv: Callable
+    fp2_mul: Callable
+    fp2_sqr: Callable
+    fp12_mul: Callable
+
+
+#: K1-K4, K7 and K8: the composition that K9 (`pairing.pow_abs_x`) replaced
+KERNEL_TOWER = TowerOps(fp.KERNEL_OPS, fp.batch_inv, fp2_mul, fp2_sqr, fp12_mul)
+#: their plain versions, PyTorch operations only, on any device: K9's plain
+#: version runs over them
+PLAIN_TOWER = TowerOps(
+    fp.PLAIN_OPS,
+    fp.batch_inv_plain,
+    fp2_mul_plain,
+    fp2_sqr_plain,
+    lambda a, b: fp12_product_plain(a, (b,), FP12_FULL),
+)
+
+
 # -- Karabina compressed cyclotomic squaring -----------------------------------
 #
 # For f in the cyclotomic subgroup, with tower f = (a0 + a1 v + a2 v^2) +
@@ -355,50 +388,52 @@ def karabina_compress(a):
     return _to_flat(a)[..., fp.const(KARABINA_FLAT_IDX, a.device), :, :]
 
 
-def karabina_sqr(c):
+def karabina_sqr(c, T=KERNEL_TOWER):
     """One compressed cyclotomic squaring."""
+    F = T.fp
     g2, g3, g4, g5 = (c[..., i, :, :] for i in range(4))
-    sq = fp2_mul(
+    sq = T.fp2_mul(
         torch.stack([g2, g4, g3, g5, g4, g2], dim=-3),
         torch.stack([g2, g4, g3, g5, g5, g3], dim=-3),
     )  # [g2^2, g4^2, g3^2, g5^2, g4 g5, g2 g3]
-    xi = fp2_mul_by_nonresidue(sq[..., 2:5, :, :])  # xi g3^2, xi g5^2, xi g4 g5
-    a = fp.add(sq[..., 0:2, :, :], xi[..., 0:2, :, :])  # g2^2 + xi g3^2, g4^2 + xi g5^2
-    m = fp.mul(
+    xi = fp2_mul_by_nonresidue(sq[..., 2:5, :, :], F)  # xi g3^2, xi g5^2, xi g4 g5
+    a = F.add(sq[..., 0:2, :, :], xi[..., 0:2, :, :])  # g2^2 + xi g3^2, g4^2 + xi g5^2
+    m = F.mul(
         torch.stack([xi[..., 2, :, :], a[..., 1, :, :], a[..., 0, :, :], sq[..., 5, :, :], g2, g3, g4, g5], dim=-3),
         fp.const(_KARABINA_SCALE, c.device),
     )  # 6 xi g4 g5, 3 (g4^2 + xi g5^2), 3 (g2^2 + xi g3^2), 6 g2 g3, 2 g2, 2 g3, 2 g4, 2 g5
     m0, m3, m4, m7 = m[..., 0, :, :], m[..., 3, :, :], m[..., 4, :, :], m[..., 7, :, :]
-    hp = fp.add(torch.stack([m0, m3], dim=-3), torch.stack([m4, m7], dim=-3))  # h2, h5
-    hm = fp.sub(m[..., 1:3, :, :], m[..., 5:7, :, :])  # h3, h4
+    hp = F.add(torch.stack([m0, m3], dim=-3), torch.stack([m4, m7], dim=-3))  # h2, h5
+    hm = F.sub(m[..., 1:3, :, :], m[..., 5:7, :, :])  # h3, h4
     return torch.stack([hp[..., 0, :, :], hm[..., 0, :, :], hm[..., 1, :, :], hp[..., 1, :, :]], dim=-3)
 
 
-def karabina_decompress(c):
+def karabina_decompress(c, T=KERNEL_TOWER):
     """Compressed (..., 4, 2, W) -> tower Fp12, sharing ONE Fp inversion
-    (K4) across every lane. The all-zero compressed identity decompresses
-    to one through inv0."""
+    (T.batch_inv, K4) across every lane. The all-zero compressed identity
+    decompresses to one through inv0."""
+    F = T.fp
     dev = c.device
     g2, g3, g4, g5 = (c[..., i, :, :] for i in range(4))
-    pr = fp2_mul(torch.stack([g5, g4, g4, g3, g2]), torch.stack([g5, g4, g5, g4, g5]))
+    pr = T.fp2_mul(torch.stack([g5, g4, g4, g3, g2]), torch.stack([g5, g4, g5, g4, g5]))
     s5, s4, b45, g3g4, g2g5 = pr
-    s4_3 = fp.add(fp.add(s4, s4), s4)
-    num1 = fp.sub(fp.add(fp2_mul_by_nonresidue(s5), s4_3), fp.add(g3, g3))
-    num2 = fp.add(b45, b45)
+    s4_3 = F.add(F.add(s4, s4), s4)
+    num1 = F.sub(F.add(fp2_mul_by_nonresidue(s5, F), s4_3), F.add(g3, g3))
+    num2 = F.add(b45, b45)
     g2nz = ~fp2_is_zero(g2)
-    four_g2 = fp.add(fp.add(g2, g2), fp.add(g2, g2))
+    four_g2 = F.add(F.add(g2, g2), F.add(g2, g2))
     num = fp2_select(g2nz, num1, num2)
     den = fp2_select(g2nz, four_g2, g3)
     # 1/(d0 + d1 u) = (d0 - d1 u)/(d0^2 + d1^2), the norms on one batch_inv
-    nsq = fp.sqr(den)
-    norm = fp.add(nsq[..., 0, :], nsq[..., 1, :])
-    ninv = fp.batch_inv(norm.reshape(-1, fp.WORDS)).reshape(norm.shape)
-    dm = fp.mul(den, ninv[..., None, :])
-    dinv = fp2(dm[..., 0, :], fp.neg(dm[..., 1, :]))
-    g1 = fp2_mul(num, dinv)
-    s1 = fp2_sqr(g1)
-    g0 = fp.add(
-        fp2_mul_by_nonresidue(fp.sub(fp.add(fp.add(s1, s1), g2g5), fp.add(fp.add(g3g4, g3g4), g3g4))),
+    nsq = F.mul(den, den)
+    norm = F.add(nsq[..., 0, :], nsq[..., 1, :])
+    ninv = T.batch_inv(norm.reshape(-1, fp.WORDS)).reshape(norm.shape)
+    dm = F.mul(den, ninv[..., None, :])
+    dinv = fp2(dm[..., 0, :], F.neg(dm[..., 1, :]))
+    g1 = T.fp2_mul(num, dinv)
+    s1 = T.fp2_sqr(g1)
+    g0 = F.add(
+        fp2_mul_by_nonresidue(F.sub(F.add(F.add(s1, s1), g2g5), F.add(F.add(g3g4, g3g4), g3g4)), F),
         fp2_one(c.shape[:-3], dev),
     )
     return _from_flat(torch.stack([g0, g2, g4, g1, g3, g5], dim=-3))

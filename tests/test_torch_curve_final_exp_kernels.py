@@ -1,0 +1,553 @@
+"""K9 `cyclotomic_pow_x` (csrc/final_exp_kernels.cu) and K10 / K11
+`g1_scalar_mul` / `g2_scalar_mul` (csrc/curve_kernels.cu) on the CPU.
+
+1. The plain versions against the ref oracle, exactly:
+   `curve.scalar_mul_bits_plain` against the oracle's point multiplication
+   in G1 and G2 at 64 and 127 bits (and r - 1 at 255), with edge scalars,
+   infinity and P + (-P); `pairing.pow_abs_x_plain` against the oracle's
+   exponentiation by |z| on cyclotomic elements (the final
+   exponentiation's easy part of seeded random ones) and one, and on a
+   lane whose checkpoints all take decompression's g2 = 0 branch against
+   the algorithm evaluated in the oracle's tower.
+2. `pow_abs_x_plain` bit-identical to the jitted JAX `pairing._pow_abs_x`
+   on the same inputs.
+3. An emulation in Python integers of each kernel's per-thread schedule:
+   K10/K11's table build and digit loop (one thread per element, G2's
+   products as K7's lazy sums, its products by 3b as additions), and K9's
+   twelve-thread squaring, eight-thread update, six parallel
+   decompressions, shared inversion and six-thread Fp12 products, every
+   double-width sum checked against fp384.cuh's bound
+   (test_torch_tower_kernels.redc_wide). Each is held to the plain
+   version bit for bit.
+4. The wrappers: one launch per call with the operands read in place
+   (strides of broadcast bits and points), no fallback to the plain
+   version on a CUDA tensor; the bits' window digits made without a host
+   tensor; and a structurally invalid batch returning False without a GPU.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lighthouse_tpu.crypto.bls.constants import P, R, X as X_PARAM
+from lighthouse_tpu.crypto.bls.jax_backend import pack as jpack
+from lighthouse_tpu.crypto.bls.jax_backend import pairing as jpair
+from lighthouse_tpu.crypto.bls.ref.curves import g1_generator, g1_infinity, g2_generator, g2_infinity
+from lighthouse_tpu.crypto.bls.ref.fields import Fp2, Fp6, Fp12
+from lighthouse_tpu.crypto.bls.ref.pairing import frobenius_n
+from lighthouse_tpu_torch.crypto.bls.torch_backend import api as tapi
+from lighthouse_tpu_torch.crypto.bls.torch_backend import curve as tc
+from lighthouse_tpu_torch.crypto.bls.torch_backend import fp as tfp
+from lighthouse_tpu_torch.crypto.bls.torch_backend import h2c as th2c
+from lighthouse_tpu_torch.crypto.bls.torch_backend import kernels as tkernels
+from lighthouse_tpu_torch.crypto.bls.torch_backend import pairing as tpair
+from lighthouse_tpu_torch.crypto.bls.torch_backend import tower as tt
+from test_torch_tower_kernels import k7_thread, k8_thread, redc_wide
+from torch_parity import assert_same, to_port
+
+rng = np.random.default_rng(0x6B9)
+ABS_Z = abs(X_PARAM)
+R_MONT = (1 << 384) % P
+R_INV = pow(1 << 384, -1, P)
+
+
+def _scalar(bits):
+    return int.from_bytes(rng.bytes(bits // 8 + 1), "little") % (1 << bits)
+
+
+def _bits(ks, width):
+    return torch.tensor([[(k >> (width - 1 - i)) & 1 for i in range(width)] for k in ks], dtype=torch.int64)
+
+
+# -- inputs ------------------------------------------------------------------------
+
+GROUPS = {
+    "g1": (g1_generator, g1_infinity, jpack.pack_g1_batch, tc.FP_PLAIN),
+    "g2": (g2_generator, g2_infinity, jpack.pack_g2_batch, tc.FP2_PLAIN),
+}
+
+
+def _points(group, n_random):
+    """Projective inputs (port words) and the oracle's points: seeded random
+    subgroup points, P and -P, infinity, and P + (-P) formed by the complete
+    addition (an infinity other than (0 : 1 : 0)); the random ones go
+    through one addition too, so that Z != 1."""
+    gen, inf, pack, F = GROUPS[group]
+    base = [gen().mul(int(rng.integers(1, 1 << 62))) for _ in range(n_random + 1)]
+    firsts = base[:-1] + [base[-1], -base[-1], inf(), base[-1]]
+    seconds = [inf()] * (n_random + 3) + [-base[-1]]
+    proj = [tc.from_affine(F, to_port(x), to_port(y), torch.from_numpy(i)) for x, y, i in
+            (pack(firsts), pack(seconds))]
+    pts = tc.add(F, proj[0], proj[1])
+    return pts, [a + b for a, b in zip(firsts, seconds)]
+
+
+def _affine(F, p, i):
+    """The i-th projective point as oracle integers (None for infinity)."""
+    if F.elem_dims == 1:
+        x, y, z = (tfp.from_mont_host(c[i]) for c in p)
+        if z == 0:
+            return None
+        zi = pow(z, P - 2, P)
+        return x * zi % P, y * zi % P
+    x, y, z = (Fp2.from_ints(tfp.from_mont_host(c[i][0]), tfp.from_mont_host(c[i][1])) for c in p)
+    if z.is_zero():
+        return None
+    zi = z.inv()
+    return x * zi, y * zi
+
+
+def _ref_affine(pt):
+    if pt.inf:
+        return None
+    return (pt.x.n, pt.y.n) if not isinstance(pt.x, Fp2) else (pt.x, pt.y)
+
+
+# -- 1. the plain versions against the oracle ---------------------------------------
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("width", [64, 127])
+def test_scalar_mul_plain_matches_ref(group, width):
+    """Per-element scalars 0, 1, all ones and random, on random points, P,
+    -P, infinity and P + (-P)."""
+    F = GROUPS[group][3]
+    pts, ref_pts = _points(group, 3)
+    ks = [0, 1, (1 << width) - 1, _scalar(width), _scalar(width), 1, 7]
+    out = tc.scalar_mul_bits_plain(F, pts, _bits(ks, width))
+    for i, (pt, k) in enumerate(zip(ref_pts, ks)):
+        assert _affine(F, out, i) == _ref_affine(pt.mul(k)), f"row {i}, k={k}"
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_scalar_mul_plain_r_minus_1_is_negation(group):
+    """[r - 1] P = -P for subgroup points (255 bits, broadcast public bits)."""
+    F = GROUPS[group][3]
+    pts, ref_pts = _points(group, 1)
+    bits = np.array([((R - 1) >> (254 - i)) & 1 for i in range(255)], dtype=np.int64)
+    out = tc.scalar_mul_bits_plain(F, pts, bits)
+    for i, pt in enumerate(ref_pts):
+        assert _affine(F, out, i) == _ref_affine(-pt), f"row {i}"
+
+
+def _fp12(vals):
+    return Fp12(Fp6(*(Fp2.from_ints(*vals[i : i + 2]) for i in (0, 2, 4))),
+                Fp6(*(Fp2.from_ints(*vals[i : i + 2]) for i in (6, 8, 10))))
+
+
+def _cyclotomic():
+    """The final exponentiation's easy part f^((p^6 - 1)(p^2 + 1)) of a
+    seeded random f."""
+    f = _fp12([int.from_bytes(rng.bytes(48), "little") % P for _ in range(12)])
+    g = f.conj() * f.inv()
+    return frobenius_n(g, 2) * g
+
+
+def _g2_zero_lane():
+    """An Fp12 with b0 = b2 = 0 (compressed g2 = g5 = 0, g3 and g4 not):
+    compressed squaring keeps g2 = g5 = 0, so every checkpoint decompresses
+    through the g2 = 0 branch with den = g3 != 0."""
+    v = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(12)]
+    v[6:8] = [0, 0]
+    v[10:12] = [0, 0]
+    return _fp12(v)
+
+
+CYC = [_cyclotomic(), _cyclotomic(), Fp12.one()]
+G2_ZERO = _g2_zero_lane()
+POW_IN = np.stack([jpack.pack_fp12_el(x) for x in CYC + [G2_ZERO]])
+
+
+def _from_gs(g0, g1, g2, g3, g4, g5):
+    """Flat (g0, g2, g4, g1, g3, g5) at k = 0..5 as an oracle Fp12."""
+    return Fp12(Fp6(g0, g4, g3), Fp6(g2, g1, g5))
+
+
+def _ref_pow_algorithm(x: Fp12):
+    """The JAX package's |z|-power algorithm in the oracle's tower: compressed
+    squarings, decompression with the g2 = 0 branch, product. Also returns
+    the checkpoints' (g2, g3)."""
+    xi = Fp2.xi()
+    c = [x.c1.c0, x.c0.c2, x.c0.c1, x.c1.c2]  # g2, g3, g4, g5
+    two, three, six = (Fp2.from_ints(k, 0) for k in (2, 3, 6))
+    cps = []
+    for s in range(1, 64):
+        g2, g3, g4, g5 = c
+        c = [
+            two * g2 + six * xi * g4 * g5,
+            three * (g4 * g4 + xi * g5 * g5) - two * g3,
+            three * (g2 * g2 + xi * g3 * g3) - two * g4,
+            two * g5 + six * g2 * g3,
+        ]
+        if (ABS_Z >> s) & 1:
+            cps.append(c)
+    acc = Fp12.one()
+    for g2, g3, g4, g5 in cps:
+        if not g2.is_zero():
+            g1 = (xi * g5 * g5 + three * g4 * g4 - two * g3) * (Fp2.from_ints(4, 0) * g2).inv()
+        else:
+            g1 = Fp2.zero() if g3.is_zero() else (two * g4 * g5) * g3.inv()
+        g0 = xi * (two * g1 * g1 + g2 * g5 - three * g3 * g4) + Fp2.one()
+        acc = acc * _from_gs(g0, g1, g2, g3, g4, g5)
+    return acc, [(cp[0], cp[1]) for cp in cps]
+
+
+def test_pow_abs_x_plain_matches_ref():
+    """g^|z| on cyclotomic elements and one; the g2 = 0 lane against the
+    same algorithm in the oracle's tower, every checkpoint with g2 = 0 and
+    g3 != 0."""
+    got = tpair.pow_abs_x_plain(to_port(POW_IN))
+    for i, x in enumerate(CYC):
+        assert jpack.unpack_fp12_el(tfp.to_jax_limbs(got[i])) == x.pow(ABS_Z), f"lane {i}"
+    want, cps = _ref_pow_algorithm(G2_ZERO)
+    assert all(g2.is_zero() and not g3.is_zero() for g2, g3 in cps)
+    assert jpack.unpack_fp12_el(tfp.to_jax_limbs(got[-1])) == want
+    assert _ref_pow_algorithm(CYC[0])[0] == CYC[0].pow(ABS_Z)  # the model itself
+
+
+# -- 2. against the jitted JAX function ----------------------------------------------
+
+
+def test_pow_abs_x_plain_bit_identical_to_jax():
+    want = jax.jit(jpair._pow_abs_x)(jnp.asarray(POW_IN))
+    assert_same(tpair.pow_abs_x_plain(to_port(POW_IN)), want)
+
+
+# -- 3. the kernels' threads in Python integers ---------------------------------------
+
+
+def _mmul(a, b):
+    """K1's CIOS product (csrc/fp384.cuh `fp_mul`): canonical in and out."""
+    assert 0 <= a < P and 0 <= b < P
+    return a * b * R_INV % P
+
+
+def _fp2_mul(a, b):
+    """g2.cuh `fp2_mul`: each component one lazy sum of two products."""
+    return tuple(k7_thread(a, b, c, tt.FP2_MUL) for c in (0, 1))
+
+
+class _G1:
+    b3 = tfp.words_to_int(tc.FP.b3)
+    zero, one = 0, R_MONT
+    add = staticmethod(lambda a, b: (a + b) % P)
+    sub = staticmethod(lambda a, b: (a - b) % P)
+    mul = staticmethod(_mmul)
+
+    @classmethod
+    def mul_b3(cls, a):
+        return _mmul(cls.b3, a)
+
+
+class _G2:
+    zero, one = (0, 0), (R_MONT, 0)
+    add = staticmethod(lambda a, b: ((a[0] + b[0]) % P, (a[1] + b[1]) % P))
+    sub = staticmethod(lambda a, b: ((a[0] - b[0]) % P, (a[1] - b[1]) % P))
+    mul = staticmethod(_fp2_mul)
+
+    @staticmethod
+    def mul_b3(a):
+        """12 (1 + u) a by additions: xi a, then 2x, 3x, 6x, 12x."""
+        def mul12(x):
+            t = (x + x) % P
+            t = (t + x) % P
+            t = (t + t) % P
+            return (t + t) % P
+
+        return mul12((a[0] - a[1]) % P), mul12((a[0] + a[1]) % P)
+
+
+def _add(G, p, q):
+    """g1.cuh `g1_add` / g2.cuh `g2_add`, step for step."""
+    (x1, y1, z1), (x2, y2, z2) = p, q
+    t0, t1, t2 = G.mul(x1, x2), G.mul(y1, y2), G.mul(z1, z2)
+    t3 = G.sub(G.mul(G.add(x1, y1), G.add(x2, y2)), G.add(t0, t1))
+    t4 = G.sub(G.mul(G.add(y1, z1), G.add(y2, z2)), G.add(t1, t2))
+    y3 = G.sub(G.mul(G.add(x1, z1), G.add(x2, z2)), G.add(t0, t2))
+    t0 = G.add(G.add(t0, t0), t0)
+    t2 = G.mul_b3(t2)
+    z3 = G.add(t1, t2)
+    t1 = G.sub(t1, t2)
+    y3 = G.mul_b3(y3)
+    x3 = G.sub(G.mul(t3, t1), G.mul(t4, y3))
+    y3b = G.add(G.mul(t1, z3), G.mul(y3, t0))
+    z3b = G.add(G.mul(z3, t4), G.mul(t0, t3))
+    return x3, y3b, z3b
+
+
+def _dbl(G, p):
+    """g1.cuh `g1_dbl` / g2.cuh `g2_dbl`, step for step."""
+    x, y, z = p
+    t0 = G.mul(y, y)
+    z3 = G.add(t0, t0)
+    z3 = G.add(z3, z3)
+    z3 = G.add(z3, z3)
+    t1 = G.mul(y, z)
+    t2 = G.mul_b3(G.mul(z, z))
+    x3 = G.mul(t2, z3)
+    y3 = G.add(t0, t2)
+    z3 = G.mul(t1, z3)
+    t2 = G.add(G.add(t2, t2), t2)
+    t0 = G.sub(t0, t2)
+    y3 = G.add(x3, G.mul(t0, y3))
+    x3 = G.mul(t0, G.mul(x, y))
+    return G.add(x3, x3), y3, z3
+
+
+def scalar_mul_thread(G, point, bits):
+    """One thread of K10 / K11 (csrc/curve_kernels.cu `scalar_mul`)."""
+    inf = (G.zero, G.one, G.zero)
+    tab = [inf, point] + [None] * 14
+    for k in range(8):
+        u = _add(G, tab[k], tab[k + 1])
+        if 2 * k + 2 < 16:
+            tab[2 * k + 2] = _add(G, tab[k + 1], tab[k + 1])
+        tab[2 * k + 1] = u
+    padded = [0] * ((-len(bits)) % 4) + list(bits)
+    acc = inf
+    for j in range(len(padded) // 4):
+        for _ in range(4):
+            acc = _dbl(G, acc)
+        d = int("".join(map(str, padded[4 * j : 4 * j + 4])), 2)
+        acc = _add(G, acc, tab[d])
+    return acc
+
+
+def _coord_ints(c, i, elem_dims):
+    if elem_dims == 1:
+        return tfp.words_to_int(c[i])
+    return tuple(tfp.words_to_int(w) for w in c[i])
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("width", [64, 127])
+def test_scalar_mul_thread_matches_plain(group, width):
+    """The kernel's schedule in Python integers equals the plain version's
+    projective coordinates word for word (row 1 of the table rebuilt as
+    T_0 + T_1, digit 0 adding infinity, the MSB padding)."""
+    F = GROUPS[group][3]
+    G = _G1 if group == "g1" else _G2
+    pts, _ = _points(group, 1)
+    ks = [0, (1 << width) - 1, _scalar(width), 1, 5]
+    bits = _bits(ks, width)
+    want = tc.scalar_mul_bits_plain(F, pts, bits)
+    for i in range(len(ks)):
+        point = tuple(_coord_ints(c, i, F.elem_dims) for c in pts)
+        got = scalar_mul_thread(G, point, bits[i].tolist())
+        assert got == tuple(_coord_ints(c, i, F.elem_dims) for c in want), f"row {i}"
+
+
+def _mont_inv(a):
+    """fp384.cuh `fp_inv` on a Montgomery value: (a R^-1)^(p - 2) R; 0 -> 0."""
+    return pow(a * R_INV % P, P - 2, P) * R_MONT % P
+
+
+def _tower_flat(x):
+    """Port tower Fp12 (2, 3, 2, 12) -> flat list of six (c0, c1) ints."""
+    return [tuple(tfp.words_to_int(w) for w in c) for c in tt._to_flat(x)]
+
+
+def cyclotomic_pow_x_block(g):
+    """One block of K9 (csrc/final_exp_kernels.cu), thread by thread: g and
+    the result as flat lists of six Fp2 (c0, c1) Montgomery ints."""
+    add = lambda a, b: (a + b) % P  # noqa: E731
+    sub = lambda a, b: (a - b) % P  # noqa: E731
+    xi_c = lambda b, c: sub(b[0], b[1]) if c == 0 else add(b[0], b[1])  # noqa: E731
+    c = [g[1], g[4], g[2], g[5]]  # compress: g2, g3, g4, g5
+    xs, ys = [0, 2, 1, 3, 2, 0], [0, 2, 1, 3, 3, 1]
+    cps = []
+    for s in range(1, 64):
+        # twelve threads: product t // 2, component t % 2
+        sq = [tuple(k7_thread(c[xs[k]], c[ys[k]], comp, tt.FP2_MUL) for comp in (0, 1)) for k in range(6)]
+        new = [[None, None] for _ in range(4)]
+        for t in range(8):  # eight threads: coordinate t // 2, component t % 2
+            h, comp = t >> 1, t & 1
+            two_g = add(c[h][comp], c[h][comp])
+            if h in (0, 3):
+                a = xi_c(sq[4], comp) if h == 0 else sq[5][comp]
+                x = add(add(a, a), a)
+                new[h][comp] = add(add(x, x), two_g)
+            else:
+                a = add(sq[1 if h == 1 else 0][comp], xi_c(sq[3 if h == 1 else 2], comp))
+                new[h][comp] = sub(add(add(a, a), a), two_g)
+        c = [tuple(v) for v in new]
+        if (ABS_Z >> s) & 1:
+            cps.append(c)
+    # six threads decompress side by side, up to den's norm
+    dec = []
+    for g2, g3, g4, g5 in cps:
+        g3g4, g2g5 = _fp2_mul(g3, g4), _fp2_mul(g2, g5)
+        s5 = _fp2_mul(g5, g5)
+        s5 = (sub(s5[0], s5[1]), add(s5[0], s5[1]))
+        s4 = _fp2_mul(g4, g4)
+        num1 = tuple(sub(add(s5[i], add(add(s4[i], s4[i]), s4[i])), add(g3[i], g3[i])) for i in (0, 1))
+        b45 = _fp2_mul(g4, g5)
+        num2 = tuple(add(b45[i], b45[i]) for i in (0, 1))
+        four_g2 = tuple(add(add(g2[i], g2[i]), add(g2[i], g2[i])) for i in (0, 1))
+        nz = g2 != (0, 0)
+        num, den = (num1, four_g2) if nz else (num2, g3)
+        norm = redc_wide(den[0] * den[0] + den[1] * den[1], 2, 1)
+        dec.append((num, den, g3g4, g2g5, norm))
+    # thread 0: Montgomery's trick over the nonzero norms
+    ms = [d[4] or R_MONT for d in dec]
+    pre = [ms[0]]
+    for m in ms[1:]:
+        pre.append(_mmul(pre[-1], m))
+    inv = _mont_inv(pre[-1])
+    invs = [None] * 6
+    for i in range(5, 0, -1):
+        invs[i] = _mmul(inv, pre[i - 1])
+        inv = _mmul(inv, ms[i])
+    invs[0] = inv
+    fs = []
+    for (g2, g3, g4, g5), (num, den, g3g4, g2g5, norm), ninv in zip(cps, dec, invs):
+        ninv = ninv if norm else 0
+        assert ninv == _mont_inv(norm)
+        dinv = (_mmul(den[0], ninv), (P - _mmul(den[1], ninv)) % P)
+        g1 = _fp2_mul(num, dinv)
+        s1 = _fp2_mul(g1, g1)
+        a = tuple(sub(add(add(s1[i], s1[i]), g2g5[i]), add(add(g3g4[i], g3g4[i]), g3g4[i])) for i in (0, 1))
+        g0 = (add(sub(a[0], a[1]), R_MONT), add(a[0], a[1]))
+        fs.append([g0, g2, g4, g1, g3, g5])
+
+    def fp12_mul(a, b):  # six threads of K8's routine
+        return [tuple(k8_thread(a, b, k, comp, range(6)) for comp in (0, 1)) for k in range(6)]
+
+    return fp12_mul(fp12_mul(fp12_mul(fs[0], fs[3]), fp12_mul(fs[1], fs[4])), fp12_mul(fs[2], fs[5]))
+
+
+def test_cyclotomic_pow_x_block_matches_plain():
+    x = to_port(POW_IN)
+    want = tpair.pow_abs_x_plain(x)
+    for i in range(x.shape[0]):
+        assert cyclotomic_pow_x_block(_tower_flat(x[i])) == _tower_flat(want[i]), f"lane {i}"
+
+
+# -- 4. the wrappers -----------------------------------------------------------------
+
+
+@pytest.fixture
+def recorded_launches(monkeypatch):
+    """Operands dispatch as if they lay on a CUDA device; every launch is
+    recorded as (launcher, args) and does nothing; the plain versions fail."""
+    seen = []
+    monkeypatch.setattr(tfp, "_is_cpu", lambda *ts: False)
+    monkeypatch.setattr(tkernels, "launch", lambda name, device, *args: seen.append((name, args)))
+    monkeypatch.setattr(tc, "scalar_mul_bits_plain", lambda *a: pytest.fail("took the plain version"))
+    monkeypatch.setattr(tpair, "pow_abs_x_plain", lambda *a: pytest.fail("took the plain version"))
+    return seen
+
+
+def _proj(n, elem_dims):
+    """n points of stand-in words (the launches are recorded, not run)."""
+    shape = (n, 2, 12) if elem_dims == 2 else (n, 12)
+    t = torch.arange(3 * int(np.prod(shape)), dtype=torch.int32).reshape(3, *shape)
+    return tc.Proj(t[0], t[1], t[2])
+
+
+def test_scalar_mul_wrapper_reads_bits_in_place(recorded_launches):
+    """K10 with per-element int32 bits; K11 with clear_cofactor's broadcast
+    int64 rows (2, 1, 128) over a (2, 3) batch and with public numpy bits
+    (stride 0), one launch each and no copy of the bits."""
+    p1 = _proj(4, 1)
+    r_bits = torch.zeros(4, 64, dtype=torch.int32)
+    out = tc.scalar_mul_bits(tc.FP, p1, r_bits)
+    (name, args), = recorded_launches
+    assert name == "lh_g1_scalar_mul"
+    assert args[:6] == (p1.x.data_ptr(), 12, p1.y.data_ptr(), 12, p1.z.data_ptr(), 12)
+    assert args[6:] == (r_bits.data_ptr(), 4, 0, 64 * 4, 4, 64, out.x.data_ptr(), 4)
+    assert out.x.shape == (4, 12) and out.z.data_ptr() == out.x.data_ptr() + 2 * 4 * 48
+
+    recorded_launches.clear()
+    p2 = tc.Proj(*(c.reshape(2, 3, 2, 12) for c in _proj(6, 2)))
+    cc = tfp.const(th2c._CC_BITS, "cpu").reshape(2, 1, th2c._CC_WIDTH)
+    tc.scalar_mul_bits(tc.FP2, p2, cc)
+    tc.scalar_mul_bits(tc.FP2, p2, tc._ABS_X_BITS)
+    (n1, a1), (n2, a2) = recorded_launches
+    assert n1 == n2 == "lh_g2_scalar_mul" and a1[:6] == (p2.x.data_ptr(), 24, p2.y.data_ptr(), 24, p2.z.data_ptr(), 24)
+    width = th2c._CC_WIDTH  # 128
+    assert a1[6:12] == (cc.data_ptr(), 3, width * 8, 0, 8, width) and a1[13] == 6
+    assert a2[7:12] == (6, 0, 0, 8, 64)
+
+    recorded_launches.clear()  # three levels of strides: copied once, then per element
+    p3 = tc.Proj(*(c.reshape(2, 3, 4, 12) for c in _proj(24, 1)))
+    b3 = torch.zeros(2, 1, 4, 64, dtype=torch.int32)
+    tc.scalar_mul_bits(tc.FP, p3, b3)
+    (_, a3), = recorded_launches
+    assert a3[6] != b3.data_ptr() and a3[7:12] == (24, 0, 64 * 4, 4, 64)
+
+
+def test_pow_abs_x_wrapper_is_one_launch(recorded_launches):
+    """K9: one launch, a contiguous batch with element stride 144 words, one
+    element broadcast with 0; any leading shape."""
+    f = torch.from_numpy(tfp.to_mont_host_bulk(range(1, 12 * 6 + 1))).reshape(2, 3, 2, 3, 2, 12)
+    out = tpair.pow_abs_x(f)
+    tpair.pow_abs_x(f[0, 0].expand(4, 2, 3, 2, 12))
+    (n1, a1), (n2, a2) = recorded_launches
+    assert n1 == n2 == "lh_cyclotomic_pow_x" and out.shape == f.shape
+    assert a1 == (f.data_ptr(), 144, out.data_ptr(), 6) and (a2[1], a2[3]) == (0, 4)
+
+
+def test_scalar_mul_and_pow_raise_on_a_failed_launch(monkeypatch):
+    """On a CUDA tensor the wrappers launch or raise: a failed build or
+    launch (here: no nvcc) is never replaced by the plain version."""
+    monkeypatch.setattr(tfp, "_is_cpu", lambda *ts: False)
+    monkeypatch.setattr(tc, "scalar_mul_bits_plain", lambda *a: pytest.fail("took the plain version"))
+    monkeypatch.setattr(tpair, "pow_abs_x_plain", lambda *a: pytest.fail("took the plain version"))
+
+    def failing(name, device, *args):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(tkernels, "launch", failing)
+    tfp.reset_launches()
+    with pytest.raises(RuntimeError):
+        tc.scalar_mul_bits(tc.FP2, _proj(2, 2), torch.zeros(2, 64, dtype=torch.int64))
+    with pytest.raises(RuntimeError):
+        tpair.pow_abs_x(torch.zeros(1, 2, 3, 2, 12, dtype=torch.int32))
+    assert tfp.LAUNCHES["g2_scalar_mul"] == tfp.LAUNCHES["cyclotomic_pow_x"] == 0
+
+
+def test_window_digits_copies_no_host_tensor(monkeypatch):
+    """The plain version's digit weights come from a cached device constant,
+    not a tensor built from a Python list on every call."""
+    bits = _bits([0xD201000000010000, 5], 64)
+    tc._window_digits(bits)  # the constant is cached on first use
+
+    def no_tensor(*args, **kwargs):
+        raise AssertionError("torch.tensor called inside _window_digits")
+
+    monkeypatch.setattr(torch, "tensor", no_tensor)
+    got = tc._window_digits(bits)
+    assert got[0].tolist() == [int(h, 16) for h in "d201000000010000"] and got[1, -1] == 5
+
+
+def test_invalid_batches_return_false_without_a_gpu(monkeypatch):
+    """With no CUDA device, an empty batch and a batch with a keyless set
+    return False (and a False future) instead of raising; a valid batch
+    still raises, since the entry points never fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sk, pk = tapi.interop_keypair(0)
+    msg = b"\x42" * 32
+    good = tapi.SignatureSet(signature=sk.sign(msg), signing_keys=[pk], message=msg)
+    ragged = [good, tapi.SignatureSet(signature=sk.sign(msg), signing_keys=[], message=msg)]
+    for sets in ([], ragged):
+        assert tapi.verify_signature_sets(sets) is False
+        assert tapi.verify_signature_sets_async(sets).result() is False
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tapi.verify_signature_sets([good])
+
+
+def test_final_exponentiation_runs_five_chains(monkeypatch):
+    """All five |z|-power chains of the final exponentiation go through
+    `pow_abs_x` (K9 on the card), and the result is the oracle's."""
+    calls = []
+    pow_x = tpair.pow_abs_x
+    monkeypatch.setattr(tpair, "pow_abs_x", lambda g: calls.append(g.shape) or pow_x(g))
+    f = _fp12([int.from_bytes(rng.bytes(48), "little") % P for _ in range(12)])
+    got = tpair.final_exponentiation(to_port(jpack.pack_fp12_el(f)))
+    assert len(calls) == 5
+    from lighthouse_tpu.crypto.bls.ref.pairing import final_exponentiation
+
+    assert jpack.unpack_fp12_el(tfp.to_jax_limbs(got)) == final_exponentiation(f)

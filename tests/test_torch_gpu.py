@@ -1,6 +1,7 @@
 """lighthouse_tpu_torch on the card: the hand-written kernels against their
 plain versions (the tower products K7 and K8 also against the K1/K2
-composition they replaced), launch counting, launches on a card other than the current
+composition they replaced, the chains K9-K11 against the K1-K4/K7/K8
+composition), launch counting, launches on a card other than the current
 one (and from a fresh thread), and a small verify, also with every Fp
 product on the tensor cores (K6). Every test needs a
 CUDA GPU and skips without one. The file imports neither jax nor the JAX
@@ -62,7 +63,7 @@ def test_wrappers_launch_and_count_on_card(cuda_device):
     torch.cuda.synchronize()
     assert fp.LAUNCHES == {
         "fp_mul": 1, "fp_addsub": 1, "fp_pow": 1, "fp_batch_inv": 1, "g1_subgroup_check": 0, "fp_mul_mma": 0,
-        "fp2_mul": 0, "fp12_mul": 0,
+        "fp2_mul": 0, "fp12_mul": 0, "cyclotomic_pow_x": 0, "g1_scalar_mul": 0, "g2_scalar_mul": 0,
     }
     assert torch.equal(fp.add(a[::2], a[1::2]), fp.addsub_plain(a[::2], a[1::2], 0))
 
@@ -80,6 +81,87 @@ def test_verify_on_card(cuda_device):
     sets, bad = _small_batches()
     assert api.verify_signature_sets(sets) is True
     assert api.verify_signature_sets(bad) is False
+
+
+def test_verify_launches_the_chain_kernels(cuda_device):
+    """A 128 x 1 verify launches K9 five times (the final exponentiation's
+    |z|-power chains), K10 once (r_i aggpk_i), K11 twice (the signatures'
+    2-stacked multiplication and clear_cofactor) and K4 once (the Miller
+    pairs' batch inversion); valid and tampered verdicts are unchanged."""
+    sets, bad = _small_batches()
+    sets = [sets[i % len(sets)] for i in range(128)]
+    bad = [bad[i % len(bad)] for i in range(128)]
+    fp.reset_launches()
+    assert api.verify_signature_sets(sets) is True
+    torch.cuda.synchronize()
+    counts = {k: fp.LAUNCHES[k] for k in ("cyclotomic_pow_x", "g1_scalar_mul", "g2_scalar_mul", "fp_batch_inv")}
+    assert counts == {"cyclotomic_pow_x": 5, "g1_scalar_mul": 1, "g2_scalar_mul": 2, "fp_batch_inv": 1}
+    assert api.verify_signature_sets(bad) is False
+
+
+def _points(group, n, seed):
+    """n projective points with Z != 1 (sums of seeded random subgroup
+    points), row 0 P + (-P), row 1 infinity."""
+    from lighthouse_tpu_torch.crypto.bls.ref.curves import g2_generator, g2_infinity
+    from lighthouse_tpu_torch.crypto.bls.torch_backend.pack import pack_g2_batch
+
+    gen, inf, pack, F = {
+        "g1": (g1_generator, g1_infinity, pack_g1_batch, curve.FP),
+        "g2": (g2_generator, g2_infinity, pack_g2_batch, curve.FP2),
+    }[group]
+    rng = random.Random(seed)
+    base = [gen().mul(rng.getrandbits(64) | 1) for _ in range(4)]
+    base += [-base[0], inf()]
+    x, y, i = pack(base)
+    p = curve.from_affine(F, fp.from_jax_limbs(x, "cuda"), fp.from_jax_limbs(y, "cuda"), torch.from_numpy(i).cuda())
+    ia = torch.tensor([0, 5] + [k % 6 for k in range(2, n)], device="cuda")
+    ib = torch.tensor([4, 5] + [(5 * k + 1) % 6 for k in range(2, n)], device="cuda")
+    return curve.add(F, curve.Proj(*(c[ia] for c in p)), curve.Proj(*(c[ib] for c in p)))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_scalar_mul_kernels_match_plain_on_card(cuda_device, group):
+    """K10 (G1) and K11 (G2) against their plain versions and the
+    composition they replaced, bit for bit, one launch per call: per-element
+    int32 bits with an all-zero and an all-one row, and public 128-bit rows
+    broadcast over a (2, n) batch."""
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import h2c
+
+    F, plain, kernel = {"g1": (curve.FP, curve.FP_PLAIN, "g1_scalar_mul"),
+                        "g2": (curve.FP2, curve.FP2_PLAIN, "g2_scalar_mul")}[group]
+    p = _points(group, 40, 39)
+    bits = torch.randint(0, 2, (40, 64), dtype=torch.int32, generator=torch.Generator().manual_seed(40)).cuda()
+    bits[2], bits[3] = 0, 1
+    pairs = curve.Proj(*(c.reshape(2, 20, *c.shape[1:]) for c in p))
+    cc = fp.const(h2c._CC_BITS, cuda_device).reshape(2, 1, h2c._CC_WIDTH)
+    fp.reset_launches()
+    got = [curve.scalar_mul_bits(F, p, bits), curve.scalar_mul_bits(F, pairs, cc)]
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES[kernel] == 2
+    for out, (q, b) in zip(got, [(p, bits), (pairs, cc)]):
+        for field in (plain, F):
+            want = curve.scalar_mul_bits_plain(field, q, b)
+            assert all(torch.equal(g, w) for g, w in zip(out, want))
+
+
+def test_pow_abs_x_kernel_matches_plain_on_card(cuda_device):
+    """K9 against its plain version and the composition it replaced, bit
+    for bit, one launch per call: cyclotomic elements, one, and a lane
+    whose checkpoints take decompression's g2 = 0 branch."""
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import pairing
+
+    f = _fp12_elements(41, 5, cuda_device)
+    g = tower.fp12_mul(tower.fp12_conj(f), tower.fp12_inv(f))
+    g = tower.fp12_mul(pairing.frobenius2(g), g)
+    g[2] = tower.fp12_one((), cuda_device)
+    g[3] = f[3]
+    g[3, 1, 0], g[3, 1, 2] = 0, 0  # b0 = b2 = 0: compressed g2 = g5 = 0 at every step
+    fp.reset_launches()
+    got = pairing.pow_abs_x(g)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["cyclotomic_pow_x"] == 1
+    assert torch.equal(got, pairing.pow_abs_x_plain(g))
+    assert torch.equal(got, pairing.pow_abs_x_composed(g, tower.KERNEL_TOWER))
 
 
 @pytest.mark.parametrize("n", [1, 31, 33, 4104])

@@ -113,12 +113,22 @@ def test_tensor_core_kernel_is_registered():
 
 def test_tower_kernels_are_registered():
     """K7 and K8: their source is hashed into the build key and compiled
-    as a unit, both launchers are bound, and fp.KERNELS counts all eight
+    as a unit, both launchers are bound, and fp.KERNELS counts all eleven
     kernels."""
     assert "tower_kernels.cu" in tkernels.SOURCES and "tower_kernels.cu" in tkernels.UNITS
     assert "lh_fp2_mul" in tkernels._SIGNATURES and "lh_fp12_mul" in tkernels._SIGNATURES
-    assert len(tfp.KERNELS) == 8 and set(tfp.LAUNCHES) == set(tfp.KERNELS)
+    assert len(tfp.KERNELS) == 11 and set(tfp.LAUNCHES) == set(tfp.KERNELS)
     assert {"fp2_mul", "fp12_mul"} <= set(tfp.KERNELS)
+
+
+def test_curve_and_final_exp_kernels_are_registered():
+    """K9, K10 and K11: their sources and the headers they include are
+    hashed into the build key, the .cu files compiled as units, the three
+    launchers bound and counted."""
+    assert {"g2.cuh", "tower.cuh", "curve_kernels.cu", "final_exp_kernels.cu"} <= set(tkernels.SOURCES)
+    assert {"curve_kernels.cu", "final_exp_kernels.cu"} <= set(tkernels.UNITS)
+    for name in ("cyclotomic_pow_x", "g1_scalar_mul", "g2_scalar_mul"):
+        assert f"lh_{name}" in tkernels._SIGNATURES and name in tfp.KERNELS
 
 
 @pytest.mark.parametrize("flag", ["unset", "", "0", "true", "1"])
