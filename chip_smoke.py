@@ -7,7 +7,7 @@ Phases, one line each, any failure exits non-zero:
 
   1. device   require a CUDA device; print its name and power limit
   2. build    compile the hand-written kernels (csrc/) with nvcc, one
-              process per source; K5's to K11's registers and spills
+              process per source; K5's to K14's registers and spills
               from ptxas
   3. kernels  K1-K4 and K6 bit-identical to their plain PyTorch versions
               on the card: edge inputs 0, 1, p-1, p-2 and 4096 seeded
@@ -24,15 +24,20 @@ Phases, one line each, any failure exits non-zero:
               (G1, 128 points at 64 bits) and K11 (G2, 256 points at 64
               bits and clear_cofactor's 2 x 128 at 128 broadcast bits),
               with infinity rows, P + (-P), a P, -P pair and all-zero and
-              all-one scalars, bit-identical to their plain versions and
-              to the K1-K4/K7/K8 composition they replaced. After
+              all-one scalars, and K12 (the Miller loop, 129 pairs with P,
+              Q and both at infinity: the generator-substitution lanes),
+              K13 (SSWU, 256 u's with 0, one, u and -1 among them) and K14
+              (the isogeny, SSWU's 256 points and the kernel point X0),
+              bit-identical to their plain versions and to the K1-K4/K7/K8
+              composition they replaced. After
               set-up, K5 bit-identical to its plain version (on CPU
               tensors) on 64 points: interop keys, the order-3 point
               (0, 2), points of E(Fp) outside G1 and infinity rows
   4. verify   the verify path, `verify_signature_sets`, on 128 sets x 1
               key and on the mainnet-block shape 128 sets x 128 keys: both
               True, with the kernels' launch counts of one verify (K9 5,
-              K10 1, K11 2 and K4 1 at either shape); then a
+              K10 1, K11 2, K4 1, K12 1, K13 1, K14 1 and K3 1 at either
+              shape); then a
               tampered message, a wrong key and a non-subgroup signature
               at 128 x 1, each False; warm ms per batch and sets/s
      pk       the admission path, `batch_validate_public_keys`, at
@@ -46,18 +51,19 @@ Phases, one line each, any failure exits non-zero:
               fp.USE_MXU_MUL set (every Fp product on K6, the JAX
               package's LIGHTHOUSE_TPU_MXU_FP_MUL path): verdicts, K6
               launched as often as K1 was by default and K1 never, K7 to
-              K11 as often as by default (they keep their CUDA-core
+              K14 as often as by default (they keep their CUDA-core
               products, as the JAX package's flag reaches only direct Fp
               products); ms per
               batch with and without the flag, timed in turns; admission
               at S = 16 still one K5 launch and nothing else
   5. profile  device busy time, idle share and top kernels of one verify,
-              at both shapes by default and at 128 x 128 with the flag; the trace holds K9, K10, K11
-              and K4 as often as a verify launches them
+              at both shapes by default and at 128 x 128 with the flag; the
+              trace holds K3, K4 and K9-K14 as often as a verify launches
+              them
      timing   each kernel at the shape that carries most of its main-path
               work, against its plain version and its bound (K6 at K1's
               shape, so the two compare; K7 and K8 also against the K1/K2
-              composition they replaced); K9-K11 at the verify path's
+              composition they replaced); K9-K14 at the verify path's
               shapes against their plain versions, the composition they
               replaced and their bounds, K9 with its Fermat chain's share
      extras   to_affine (G1, G2), fp6_mul and fp6_inv on the card
@@ -69,7 +75,7 @@ Phases, one line each, any failure exits non-zero:
               time limit): NCCL over W = min(4, cards) ranks, one card
               each, and gloo over 2 ranks sharing cuda:0. Each world: a
               128 x 1 batch True and a tampered one False on every rank,
-              with the kernels' launch counts of one sharded verify; a
+              with the kernels' launch counts of one verify on every rank; a
               tampered S = 8 batch whose GT value is bit-identical to the
               one-process final_exponentiation(verify_pipeline_local(...))
               on the card; warm ms per batch (median of 3), bytes
@@ -80,7 +86,7 @@ Phases, one line each, any failure exits non-zero:
               `api.verify_signature_set`, which routes to the service);
               verdicts equal to the oracle's, no internal error,
               `device_fingerprint` on "cuda"; dispatches, their sizes,
-              launches and wall time
+              launches (each dispatch one verify's) and wall time
 
 then a `{"kernels": [...]}` JSON line, the nvidia-smi name/power line, and
 as the last line `{"ok": true, "device": {...}}`. Signature sets are built
@@ -140,6 +146,8 @@ MMA_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/fp_mma.cu"
 TOWER_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/tower_kernels.cu"
 CURVE_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/curve_kernels.cu"
 FINAL_EXP_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/final_exp_kernels.cu"
+PAIRING_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/pairing_kernels.cu"
+H2C_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/h2c_kernels.cu"
 REPLACES = {
     "fp_mul": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:310",
     "fp_addsub": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:294",
@@ -152,20 +160,26 @@ REPLACES = {
     "cyclotomic_pow_x": "lighthouse_tpu/crypto/bls/jax_backend/pairing.py:239",
     "g1_scalar_mul": "lighthouse_tpu/crypto/bls/jax_backend/curve.py:282",
     "g2_scalar_mul": "lighthouse_tpu/crypto/bls/jax_backend/curve.py:282",
+    "miller_loop": "lighthouse_tpu/crypto/bls/jax_backend/pairing.py:163",
+    "sswu": "lighthouse_tpu/crypto/bls/jax_backend/h2c.py:117",
+    "iso3_map": "lighthouse_tpu/crypto/bls/jax_backend/h2c.py:146",
 }
 SOURCES = {"fp_mul_mma": MMA_SOURCE, "fp2_mul": TOWER_SOURCE, "fp12_mul": TOWER_SOURCE,
-           "cyclotomic_pow_x": FINAL_EXP_SOURCE, "g1_scalar_mul": CURVE_SOURCE, "g2_scalar_mul": CURVE_SOURCE}
-# the chain kernels K9-K11, and the field and tower kernels timed at their heaviest main-path shape
-CHAIN_KERNELS = ("cyclotomic_pow_x", "g1_scalar_mul", "g2_scalar_mul")
+           "cyclotomic_pow_x": FINAL_EXP_SOURCE, "g1_scalar_mul": CURVE_SOURCE, "g2_scalar_mul": CURVE_SOURCE,
+           "miller_loop": PAIRING_SOURCE, "sswu": H2C_SOURCE, "iso3_map": H2C_SOURCE}
+# the chain kernels K9-K14, and the field and tower kernels timed at their heaviest main-path shape
+CHAIN_KERNELS = ("cyclotomic_pow_x", "g1_scalar_mul", "g2_scalar_mul", "miller_loop", "sswu", "iso3_map")
 TIMED_KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv", "fp2_mul", "fp12_mul")
 VERIFY_KERNELS = (*TIMED_KERNELS, *CHAIN_KERNELS)
 # the verify path with fp.USE_MXU_MUL set: K6 in K1's place
 MXU_KERNELS = ("fp_mul_mma", *VERIFY_KERNELS[1:])
 # launches of one verify, whatever its shape: the five |z|-power chains of the
 # final exponentiation (K9), r_i aggpk_i (K10), the signatures' 2-stacked
-# multiplication and clear_cofactor's (K11), and the Miller pairs' batch
-# inversion (K4)
-VERIFY_LAUNCHES = {"cyclotomic_pow_x": 5, "g1_scalar_mul": 1, "g2_scalar_mul": 2, "fp_batch_inv": 1}
+# multiplication and clear_cofactor's (K11), the Miller pairs' batch
+# inversion (K4), the Miller loop (K12), SSWU (K13), the isogeny (K14) and
+# fp12_inv's Fp2 inversion (K3)
+VERIFY_LAUNCHES = {"cyclotomic_pow_x": 5, "g1_scalar_mul": 1, "g2_scalar_mul": 2, "fp_batch_inv": 1,
+                   "miller_loop": 1, "sswu": 1, "iso3_map": 1, "fp_pow": 1}
 # the kernels that keep their CUDA-core products with fp.USE_MXU_MUL set
 MXU_UNMOVED = ("fp2_mul", "fp12_mul", *CHAIN_KERNELS)
 K6_TAILS = (1, 31, 33)
@@ -193,13 +207,60 @@ K8_BYTES = {0: 3 * 576, 1: 2 * 576, 2: 2 * 576 + 3 * 96}
 # 63 compressed squarings (4 Fp2 squares, 2 products), six decompressions
 # (2 squares, 3 products, a norm of two Fp squares summed and reduced once,
 # 2 Fp products, 1 product, 1 square), the shared inversion (15 Fp products
-# and the Fermat chain of p - 2: 380 squarings, 228 products), five Fp12
-# products.
+# and the power p - 2, `inversion_word_products`), five Fp12 products.
 FP2_MUL_WP, FP2_SQR_WP, FP12_MUL_WP = 744, 600, 36 * 3 * 144 + 12 * 156
-K9_WORD_PRODUCTS = (63 * (4 * FP2_SQR_WP + 2 * FP2_MUL_WP)
-                    + 6 * (3 * FP2_SQR_WP + 4 * FP2_MUL_WP + 2 * 78 + 156 + 2 * WORD_PRODUCTS_PER_MUL)
-                    + (15 + 228) * WORD_PRODUCTS_PER_MUL + 380 * WORD_PRODUCTS_PER_SQR + 5 * FP12_MUL_WP)
+K9_WORD_PRODUCTS_BUT_POWER = (63 * (4 * FP2_SQR_WP + 2 * FP2_MUL_WP)
+                              + 6 * (3 * FP2_SQR_WP + 4 * FP2_MUL_WP + 2 * 78 + 156 + 2 * WORD_PRODUCTS_PER_MUL)
+                              + 15 * WORD_PRODUCTS_PER_MUL + 5 * FP12_MUL_WP)
 K9_BYTES = 2 * 576
+# K12: a doubling step is 6 Fp2 squares, 5 Fp2 products and 4 Fp products
+# (the line's scalings by xp, yp), an addition step 3 squares, 10 products
+# and 4 Fp products; each of the 63 bits of |z| below the leading one takes
+# an Fp12 square (K8's 10,080), a doubling and a sparse product (9,648), the
+# five set bits an addition and another sparse product. Bytes of a pair:
+# P and Q in, the two flags, f out.
+K12_DBL_WP = 6 * FP2_SQR_WP + 5 * FP2_MUL_WP + 4 * WORD_PRODUCTS_PER_MUL
+K12_ADD_WP = 3 * FP2_SQR_WP + 10 * FP2_MUL_WP + 4 * WORD_PRODUCTS_PER_MUL
+K12_WORD_PRODUCTS = (63 * (K8_WORD_PRODUCTS[1] + K12_DBL_WP + K8_WORD_PRODUCTS[2])
+                     + 5 * (K12_ADD_WP + K8_WORD_PRODUCTS[2]))
+K12_BYTES = 2 * 48 + 2 * 96 + 2 + 576
+K13_BYTES, K14_BYTES = 3 * 96, 5 * 96  # u in, x and y out; x and y in, X, Y, Z out
+H2C_CONST_BYTES = 10 * 96  # K13's and K14's constant operand, read once
+
+
+def pow_word_products(e: int, mul: int, sqr: int) -> int:
+    """A power by a public exponent on the plain version's schedule
+    (`fp.pow_windowed`, 4-bit windows, MSB first): the table's square and
+    13 products, 4 squares per digit below the leading one, a product per
+    nonzero digit below it."""
+    digits = []
+    while e:
+        digits.append(e & 15)
+        e >>= 4
+    return (1 + 4 * (len(digits) - 1)) * sqr + (13 + sum(1 for d in digits[:-1] if d)) * mul
+
+
+def inversion_word_products(P: int) -> int:
+    """An Fp inversion, the power p - 2 (K3's function on the verify path)."""
+    return pow_word_products(P - 2, WORD_PRODUCTS_PER_MUL, WORD_PRODUCTS_PER_SQR)
+
+
+def h2c_word_products(P: int) -> tuple[int, int]:
+    """(K13, K14) word products one element needs. The Fp2 inversion: the
+    norm's two Fp squares summed and reduced once, the power p - 2, two Fp
+    products. K13: u^2, (Z u^2)^2, the inversion, x1, x2, gx1 and gx2 (a
+    square and a product each), two square-root candidates (the powers
+    (p - 3) / 4 and (p - 1) / 2, three products), y1^2, and sgn0 of u and y
+    (four reductions out of Montgomery form); the products by Z = -(2 + u)
+    and A = 240 u are additions. K14: the inversion, d^2, six products,
+    four Fp products (1/9, -1/27)."""
+    inv = 2 * 78 + REDC_WORD_PRODUCTS + inversion_word_products(P) + 2 * WORD_PRODUCTS_PER_MUL
+    sqrt = (pow_word_products((P - 3) // 4, FP2_MUL_WP, FP2_SQR_WP)
+            + pow_word_products((P - 1) // 2, FP2_MUL_WP, FP2_SQR_WP) + 3 * FP2_MUL_WP)
+    sswu = (2 * FP2_SQR_WP + inv + 2 * FP2_MUL_WP + 2 * (FP2_SQR_WP + FP2_MUL_WP) + 2 * sqrt
+            + FP2_SQR_WP + 4 * REDC_WORD_PRODUCTS)
+    iso = inv + FP2_SQR_WP + 6 * FP2_MUL_WP + 4 * WORD_PRODUCTS_PER_MUL
+    return sswu, iso
 
 
 def scalar_mul_word_products(nbits: int, mul: int, sqr: int) -> int:
@@ -392,6 +453,39 @@ def cyclotomic_inputs(torch, fp, tower, pairing, P, n: int, seed: int):
     return g
 
 
+def miller_inputs(torch, fp, n: int, seed: int, device=DEVICE):
+    """n Miller pairs on the card, as the verify path hands them to K12:
+    8 seeded random G1 and G2 points, affine, tiled; lanes 1, 2 and 3 with
+    P, Q and both at infinity (the generator-substitution lanes). Also
+    tests/test_torch_gpu.py's."""
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+    from lighthouse_tpu_torch.crypto.bls.ref.curves import g1_generator, g1_infinity, g2_generator, g2_infinity
+    from lighthouse_tpu_torch.crypto.bls.torch_backend.pack import pack_g1_batch, pack_g2_batch
+
+    rng = random.Random(seed)
+    g1 = [g1_generator().mul(rng.randrange(1, R)) for _ in range(8)]
+    g2 = [g2_generator().mul(rng.randrange(1, R)) for _ in range(8)]
+    ps = [g1[i % 8] for i in range(n)]
+    qs = [g2[(i // 8) % 8] for i in range(n)]
+    ps[1], qs[2], ps[3], qs[3] = g1_infinity(), g2_infinity(), g1_infinity(), g2_infinity()
+    px, py, pi = pack_g1_batch(ps)
+    qx, qy, qi = pack_g2_batch(qs)
+    return (fp.from_jax_limbs(px, device), fp.from_jax_limbs(py, device), torch.from_numpy(pi).to(device),
+            fp.from_jax_limbs(qx, device), fp.from_jax_limbs(qy, device), torch.from_numpy(qi).to(device))
+
+
+def sswu_inputs(fp, P, n: int, seed: int, device=DEVICE):
+    """n SSWU inputs u on the card, Montgomery form: 0 (SSWU's t1 = 0
+    branch), one, u, -1, then seeded random elements. Also
+    tests/test_torch_gpu.py's."""
+    import torch
+
+    rng = random.Random(seed)
+    pairs = [(0, 0), (1, 0), (0, 1), (P - 1, 0)] + [(rng.randrange(P), rng.randrange(P)) for _ in range(n)]
+    words = fp.to_mont_host_bulk([x for pair in pairs[:n] for x in pair])
+    return torch.from_numpy(words).reshape(n, 2, fp.WORDS).to(device)
+
+
 def make_sets(api, n_sets: int, keys_per_set: int):
     """bench.py's shapes: 8 distinct single-key sets tiled to n_sets, or one
     aggregate set of keys_per_set signers repeated n_sets times. The
@@ -582,10 +676,11 @@ def check_tower_kernels(torch, fp, tower, P, dev) -> None:
 
 def chain_cases(torch, fp, curve, tower, pairing, h2c, P):
     """name -> (shape, kernel call, plain version, K1-K4/K7/K8 composition)
-    for K9-K11 at the verify path's shapes (128 x 128 verify): K10 on S
+    for K9-K14 at the verify path's shapes (128 x 128 verify): K10 on S
     points at 64 bits, K11 on the 2 S stacked signatures at 64 bits and on
     clear_cofactor's 2 x S points at 128 broadcast bits, K9 on one element
-    and on four with the edge lanes."""
+    and on four with the edge lanes, K12 on the S + 1 Miller pairs, K13 on
+    the 2 S stacked u's, K14 on SSWU's 2 S points and the kernel point."""
     S = N_SETS
     p1 = curve_inputs(torch, fp, curve, "g1", S, 21)
     b1 = scalar_bits(torch, S, 64, 22)
@@ -607,6 +702,17 @@ def chain_cases(torch, fp, curve, tower, pairing, h2c, P):
         g = g4[:n].contiguous()
         cases[f"cyclotomic_pow_x_n{n}"] = ([n], lambda g=g: pairing.pow_abs_x(g), lambda g=g: pairing.pow_abs_x_plain(g),
                                           lambda g=g: pairing.pow_abs_x_composed(g, tower.KERNEL_TOWER))
+    mil = miller_inputs(torch, fp, S + 1, 26)
+    cases[f"miller_loop_n{S + 1}"] = ([S + 1], lambda: pairing.miller_loop(*mil),
+                                      lambda: pairing.miller_loop_plain(*mil),
+                                      lambda: pairing.miller_loop_composed(*mil, tower.KERNEL_TOWER))
+    u = sswu_inputs(fp, P, 2 * S, 27)
+    cases[f"sswu_m{2 * S}"] = ([2 * S], lambda: h2c.sswu(u), lambda: h2c.sswu_plain(u),
+                               lambda: h2c.sswu_composed(u, tower.KERNEL_TOWER))
+    x, y = h2c.sswu_plain(u)
+    xs, ys = torch.cat([x, fp.const(h2c._X0, DEVICE)[None]]), torch.cat([y, y[:1]])
+    cases[f"iso3_map_m{2 * S + 1}"] = ([2 * S + 1], lambda: h2c.iso3_map(xs, ys), lambda: h2c.iso3_map_plain(xs, ys),
+                                       lambda: h2c.iso3_map_composed(xs, ys, tower.KERNEL_TOWER))
     return cases
 
 
@@ -624,9 +730,10 @@ def max_word_err(got, want) -> int:
 
 
 def check_chain_kernels(torch, cases) -> None:
-    """K9-K11 bit-identical to their plain versions and to the K1-K4/K7/K8
+    """K9-K14 bit-identical to their plain versions and to the K1-K4/K7/K8
     composition they replaced, at the verify path's shapes with the edge
-    rows of `curve_inputs`, `scalar_bits` and `cyclotomic_inputs`."""
+    rows of `curve_inputs`, `scalar_bits`, `cyclotomic_inputs`,
+    `miller_inputs` and `sswu_inputs` (and the isogeny's kernel point)."""
     for name, (_, run, plain, composed) in cases.items():
         got = run()
         for label, fn in (("plain version", plain), ("K1-K4/K7/K8 composition", composed)):
@@ -883,9 +990,7 @@ def time_kernels(torch, fp, tower, P, dev, shapes, launches, peak_ops_per_s):
     the op or mode of that shape, and the K1/K2 composition they replaced
     is timed beside them (`composed_ms`, per call)."""
     results = []
-    # square and multiply: a square per bit, a product per set bit
-    pow_word_products = (fp.INV_EXP.bit_length() * WORD_PRODUCTS_PER_SQR
-                         + bin(fp.INV_EXP).count("1") * WORD_PRODUCTS_PER_MUL)
+    inv_word_products = inversion_word_products(P)
     for name in (*TIMED_KERNELS, "fp_mul_mma"):
         shape = heaviest_shape(shapes["fp_mul" if name == "fp_mul_mma" else name], name)
         composed = None
@@ -894,7 +999,7 @@ def time_kernels(torch, fp, tower, P, dev, shapes, launches, peak_ops_per_s):
             x = field_inputs(fp, P, steps * lanes, 3, dev)[8 : 8 + steps * lanes].reshape(steps, lanes, fp.WORDS)
             run, plain = (lambda: fp.batch_inv(x)), (lambda: fp.batch_inv_plain(x))
             elems = steps * lanes
-            ops_s = lanes * ((3 * steps - 1) * WORD_PRODUCTS_PER_MUL + pow_word_products) / peak_ops_per_s
+            ops_s = lanes * ((3 * steps - 1) * WORD_PRODUCTS_PER_MUL + inv_word_products) / peak_ops_per_s
             nbytes = 2 * 48 * elems
         elif name == "fp2_mul":
             n, op = shape
@@ -935,7 +1040,7 @@ def time_kernels(torch, fp, tower, P, dev, shapes, launches, peak_ops_per_s):
                 ops_s, nbytes = n * 2 * fp.WORDS / peak_ops_per_s, 3 * 48 * n
             else:
                 run, plain = (lambda: fp.inv(a)), (lambda: fp.pow_plain(a, fp.INV_EXP))
-                ops_s, nbytes = n * pow_word_products / peak_ops_per_s, 2 * 48 * n + 48
+                ops_s, nbytes = n * inv_word_products / peak_ops_per_s, 2 * 48 * n + 48
         saved = dict(fp.LAUNCHES)  # comparison launches are not main-path launches
         got, want = run(), plain()
         err = int(((got.to(torch.int64) & 0xFFFFFFFF) - (want.to(torch.int64) & 0xFFFFFFFF)).abs().max())
@@ -966,7 +1071,7 @@ def time_kernels(torch, fp, tower, P, dev, shapes, launches, peak_ops_per_s):
 
 
 def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s):
-    """K9-K11 at the verify path's shapes (`chain_cases`): device ms per
+    """K9-K14 at the verify path's shapes (`chain_cases`): device ms per
     launch (profiler), ms per call (CUDA events), the plain version's and
     the composition's ms per call, and the bound. K11 runs at two shapes
     (the signatures' 64 bits, clear_cofactor's 128): its JSON entry is the
@@ -983,7 +1088,11 @@ def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s):
                                    2 * S * (576 + 64 * 4)),
         "g2_scalar_mul_2x128_b128": ("g2_scalar_mul", 2 * S * scalar_mul_word_products(128, FP2_MUL_WP, FP2_SQR_WP),
                                      2 * S * 576 + 2 * 128 * 8),
-        "cyclotomic_pow_x_n1": ("cyclotomic_pow_x", K9_WORD_PRODUCTS, K9_BYTES),
+        "cyclotomic_pow_x_n1": ("cyclotomic_pow_x", K9_WORD_PRODUCTS_BUT_POWER + inversion_word_products(P), K9_BYTES),
+        f"miller_loop_n{S + 1}": ("miller_loop", (S + 1) * K12_WORD_PRODUCTS, (S + 1) * K12_BYTES + 6 * 48),
+        f"sswu_m{2 * S}": ("sswu", 2 * S * h2c_word_products(P)[0], 2 * S * K13_BYTES + H2C_CONST_BYTES),
+        f"iso3_map_m{2 * S + 1}": ("iso3_map", (2 * S + 1) * h2c_word_products(P)[1],
+                                   (2 * S + 1) * K14_BYTES + H2C_CONST_BYTES),
     }
     rows = {}
     for case, (name, ops, nbytes) in bounds.items():
@@ -1008,7 +1117,8 @@ def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s):
         }
         phase("timing", kernel=name, shape=shape, ms=f"{ms:.5f}", ms_per_call=f"{call_ms:.5f}",
               plain_ms=f"{plain_ms:.3f}", composed_ms=f"{composed_ms:.3f}", bound_ms=f"{row['bound_ms']:.6f}",
-              launches=launches[name], max_abs_err=err, **{k: f"{v:.5f}" for k, v in extra.items()})
+              word_products=ops, launches=launches[name], max_abs_err=err,
+              **{k: f"{v:.5f}" for k, v in extra.items()})
         if err != 0:
             raise AssertionError(f"{case}: kernel differs from its plain version")
         if name in rows:
@@ -1148,6 +1258,8 @@ def run_sharded(torch, api, fp, pairing, card: str) -> None:
             assert ok8 and (gt == want).all(), f"{backend} rank {rank}: GT differs from the one-process value"
             missing = [k for k in VERIFY_KERNELS if launches[k] <= 0]
             assert not missing, f"{backend} rank {rank}: kernels not launched by the sharded path: {missing}"
+            counts = {k: launches[k] for k in VERIFY_LAUNCHES}
+            assert counts == VERIFY_LAUNCHES, f"{backend} rank {rank}: a sharded verify launched {counts}"
         phase("sharded", backend=backend, W=world, nccl_world=nccl_world, shape=f"{N_SETS}x1", bucket=f"{S}x{K}",
               result=True,
               tampered=False, gt_identical=True, ms_per_batch=f"{out[0][4]:.3f}",
@@ -1216,6 +1328,9 @@ def run_coalescer(torch, api, fp, card: str) -> None:
     assert info["coalescer"]["running"] and info["coalescer"]["s_bucket"] == COALESCER_BUCKET, info
     missing = [k for k in VERIFY_KERNELS if launches[k] <= 0]
     assert not missing, f"kernels not launched by the coalesced path: {missing}"
+    counts = {k: launches[k] for k in VERIFY_LAUNCHES}
+    want_counts = {k: v * len(sizes) for k, v in VERIFY_LAUNCHES.items()}
+    assert counts == want_counts, f"{len(sizes)} coalesced dispatches launched {counts}, expected {want_counts}"
     phase("coalescer", sets=n, blamed=got.count(False), dispatches=dispatches,
           bisection_dispatches=int(metrics.BLS_BISECTION_DISPATCHES_TOTAL.value - bisect0),
           batch_sizes=json.dumps(sizes, separators=(",", ":")), wall_ms=f"{wall_ms:.3f}", internal_errors=int(errors),
@@ -1253,7 +1368,10 @@ def main() -> int:
           fp12_mul=f'"{ptxas_summary(log, "fp12_mul_kernel")}"',
           cyclotomic_pow_x=f'"{ptxas_summary(log, "cyclotomic_pow_x_kernel")}"',
           g1_scalar_mul=f'"{ptxas_summary(log, "g1_scalar_mul_kernel")}"',
-          g2_scalar_mul=f'"{ptxas_summary(log, "g2_scalar_mul_kernel")}"')
+          g2_scalar_mul=f'"{ptxas_summary(log, "g2_scalar_mul_kernel")}"',
+          miller_loop=f'"{ptxas_summary(log, "miller_loop_kernel")}"',
+          sswu=f'"{ptxas_summary(log, "sswu_kernel")}"',
+          iso3_map=f'"{ptxas_summary(log, "iso3_map_kernel")}"')
 
     check_kernels(torch, fp, P, dev)
     check_tower_kernels(torch, fp, tower, P, dev)

@@ -30,9 +30,9 @@
 // K3 fp_pow_kernel
 //   Replaces: fp.py:422 `_pow_bits_windowed` as used by fp.py:460 `inv`
 //   and fp.py:497 `sqrt_candidate` (a 95-step lax.scan of windowed steps).
-//   Bound: operations: ~nbits squarings + popcount multiplies, i.e. about
-//   610 Montgomery products (183,000 word products) per element for
-//   p - 2, against 96 bytes moved.
+//   Bound: operations: the power p - 2 on the plain version's 4-bit
+//   windows needs 381 squares and 104 products (120,354 word products)
+//   per element, against 96 bytes moved.
 //   Design: plain MSB-first square-and-multiply in registers with the
 //   public exponent read from a uniform (cached) global array; 0 -> 0.
 // K4 fp_batch_inv_kernel

@@ -1,7 +1,8 @@
-// Fp2 = Fp[u]/(u^2 + 1) in one thread, and G2 (y^2 = x^3 + 4(1 + u) over
-// Fp2) in homogeneous projective coordinates (X : Y : Z), infinity =
-// (0 : 1 : 0), as __device__ building blocks over fp384.cuh for K9
-// (final_exp_kernels.cu) and K11 (curve_kernels.cu).
+// Fp2 = Fp[u]/(u^2 + 1) in one thread or split over two, and G2
+// (y^2 = x^3 + 4(1 + u) over Fp2) in homogeneous projective coordinates
+// (X : Y : Z), infinity = (0 : 1 : 0), as __device__ building blocks over
+// fp384.cuh for K9 (final_exp_kernels.cu), K11 (curve_kernels.cu), K12
+// (pairing_kernels.cu) and K13 / K14 (h2c_kernels.cu).
 //
 // An Fp2 element is uint32_t[2][12]: [c0, c1], canonical Montgomery words.
 // A product forms each output component as one double-width sum and
@@ -56,6 +57,69 @@ static __device__ __noinline__ void fp2_mul(fp2_t r, const fp2_t a, const fp2_t 
   fp_mac_wide(t, a[1], b[0]);
   fp_redc_wide<1>(r[1], t);
   fp_copy(r[0], c0);
+}
+
+// Component c of a b, as one of the two threads that form an Fp2 product
+// together (K7's split): c0 = a0 b0 + (-a1) b1, c1 = a0 b1 + a1 b0, one
+// lazy sum of N = 2 products below 2 p^2, reduced once (fp384.cuh: N <= 9).
+// The operands are chosen by selects, so both threads run one instruction
+// stream. a and b may lie in shared memory.
+__device__ __forceinline__ void fp2_mul_part(uint32_t r[FP_WORDS], const fp2_t a, const fp2_t b, int c) {
+  uint32_t t[FP_WIDE], u[FP_WORDS], v0[FP_WORDS], v1[FP_WORDS];
+  fp_neg(u, a[1]);
+  fp_select(u, c == 1, a[1], u);
+  fp_select(v0, c == 1, b[1], b[0]);
+  fp_select(v1, c == 1, b[0], b[1]);
+  fp_mul_wide(t, a[0], v0);
+  fp_mac_wide(t, u, v1);
+  fp_redc_wide<1>(r, t);
+}
+
+// Component c of a^2: c0 = (a0 + a1)(a0 - a1), c1 = (a0 + a0) a1, one
+// product below p^2, reduced once (K7's square).
+__device__ __forceinline__ void fp2_sqr_part(uint32_t r[FP_WORDS], const fp2_t a, int c) {
+  uint32_t t[FP_WIDE], x[FP_WORDS], y[FP_WORDS], s[FP_WORDS];
+  fp_add(x, a[0], a[1]);
+  fp_add(s, a[0], a[0]);
+  fp_select(x, c == 1, s, x);
+  fp_sub(y, a[0], a[1]);
+  fp_select(y, c == 1, a[1], y);
+  fp_mul_wide(t, x, y);
+  fp_redc_wide<1>(r, t);
+}
+
+__device__ __forceinline__ void fp2_neg(fp2_t r, const fp2_t a) {
+  fp_neg(r[0], a[0]);
+  fp_neg(r[1], a[1]);
+}
+
+// r = c ? x : y, branch-free.
+__device__ __forceinline__ void fp2_select(fp2_t r, bool c, const fp2_t x, const fp2_t y) {
+  fp_select(r[0], c, x[0], y[0]);
+  fp_select(r[1], c, x[1], y[1]);
+}
+
+// Word equality: a field equality, since every value is canonical.
+__device__ __forceinline__ bool fp2_eq(const fp2_t a, const fp2_t b) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) acc |= (a[0][i] ^ b[0][i]) | (a[1][i] ^ b[1][i]);
+  return acc == 0;
+}
+
+// r = 1 / a = (a0 - a1 u) / (a0^2 + a1^2), 0 -> 0 (inv0, as the port's
+// tower.fp2_inv): the norm as one lazy sum of N = 2 squares reduced once,
+// its Fermat inverse (fp384.cuh `fp_inv`, a chain of 380 squarings and 228
+// products), two products. r may alias a.
+static __device__ __noinline__ void fp2_inv(fp2_t r, const fp2_t a) {
+  uint32_t t[FP_WIDE], n[FP_WORDS];
+  fp_mul_wide(t, a[0], a[0]);
+  fp_mac_wide(t, a[1], a[1]);
+  fp_redc_wide<1>(n, t);
+  fp_inv(n, n);
+  fp_mul(t, a[1], n);
+  fp_mul(r[0], a[0], n);
+  fp_neg(r[1], t);
 }
 
 // r = xi a, xi = 1 + u: (a0 - a1) + (a0 + a1) u. r may alias a.

@@ -1,0 +1,293 @@
+// Hash-to-G2's maps onto the curve, one launch per call each, with plain C
+// launchers (extern "C", bound from Python with ctypes). Every launcher
+// runs on the caller's stream, allocates nothing, does not synchronise,
+// and returns cudaGetLastError().
+//
+// Both kernels read a constant operand of ten Fp2 rows (`h2c._H2C_CONSTS`,
+// Montgomery words): A, B, Z of the isogenous curve E' and SSWU, the x1
+// constants C1 = -B/A and C2 = B/(Z A), the isogeny's kernel point X0 and
+// its T, U, then 1/9 and -1/27 (the sign pin) in c0. Every value is
+// canonical, so the arithmetic inside a formula is arranged freely: a
+// power is one number, whatever the addition chain.
+//
+// K13 sswu_kernel
+//   Replaces: lighthouse_tpu/crypto/bls/jax_backend/h2c.py:117 `sswu`, with
+//   :102 `fp2_sqrt_candidate` inside it (and :95 `_fp2_pow_bits`); the
+//   port's `h2c.sswu`, called once per verify on u0 and u1 of every set,
+//   stacked (m = 2 S = 256 at S = 128).
+//   Computes: per element u, the plain version's steps
+//   (`h2c.sswu_composed`): u^2, Z u^2, t1 = (Z u^2)^2 + Z u^2, its inverse
+//   with inv0 (tower.fp2_inv); x1 = C1 (1 + 1/t1), or C2 where t1 = 0;
+//   x2 = Z u^2 x1; gx_j = x_j^3 + A x_j + B; the square-root candidate of
+//   each gx_j (Adj-Rodriguez-Henriquez for p = 3 mod 4: a1 = x^((p-3)/4),
+//   x0 = a1 x, alpha = a1 x0, cand = (alpha + 1)^((p-1)/2) x0, or u x0
+//   where alpha = -1, a word compare); is_square = (y1^2 == gx1) picks
+//   (x1, y1) or (x2, y2); y is negated where sgn0(u) != sgn0(y), sgn0 the
+//   parity of the standard value (a product with 1 takes it out of
+//   Montgomery form).
+//   Design: four threads per element, eight elements a warp-sized block:
+//   thread (j, c) takes candidate j and component c. The four run the
+//   prologue up to gx_j side by side in one instruction stream (the
+//   inversion's Fermat chain, 608 dependent Fp products, in every thread).
+//   Each candidate's two power chains (e = p >> 2 and p >> 1, read from p's
+//   bits, MSB first, square and multiply) split every Fp2 square and
+//   product over the thread pair, thread c forming component c as one
+//   lazy sum (g2.cuh `fp2_sqr_part`, `fp2_mul_part`) and taking the other
+//   component from its partner with `__shfl_xor_sync`; the two candidates
+//   run side by side. Then the candidates and gx1 are exchanged between
+//   the pairs, and the four threads select, fix the sign, and store a
+//   component of x or y each.
+//   Work per element, in the word products the function needs (an Fp2
+//   product 744, an Fp2 square 600, an Fp product 300, an Fp square 234,
+//   a reduction alone 156; products by small constants, Z = -(2 + u) and
+//   A = 240 u among them, are additions; each power counted on the plain
+//   version's 4-bit windows, its table's square and 13 products
+//   included): u^2, (Z u^2)^2 1,200; the inversion (a norm of two
+//   squares summed and reduced once 312, the power p - 2, 381 squares
+//   and 104 products, 120,354, two products) 121,266; x1, x2 1,488; two
+//   gx 2,688; two candidates of 608,640 (the powers 377 squares and 104
+//   products, 377 and 103; three products) 1,217,280; y1^2 600; sgn0 of
+//   u and y, four reductions 624: 1,345,146, against 288 bytes moved
+//   (u in, x and y out). Operations bound; at the verify path's 256
+//   elements bound by one thread pair's chain of about 1,820 dependent
+//   products (the kernel's chains are binary, square and multiply).
+//   Bound (reduction): every Fp2 component is a sum of N <= 2 products
+//   below 2 p^2, one conditional subtraction (fp384.cuh: N <= 9), the norm
+//   too.
+// K14 iso3_map_kernel
+//   Replaces: lighthouse_tpu/crypto/bls/jax_backend/h2c.py:146 `iso3_map`;
+//   the port's `h2c.iso3_map`, called once per verify on SSWU's m points.
+//   Computes: the plain version's steps (`h2c.iso3_map_composed`):
+//   d = x - X0, 1/d with inv0, d^2, d^3; xo = (x + T/d + U/d^2) / 9,
+//   yo = y (1 - T/d^2 - 2U/d^3) (-1/27); (xo, yo, 1), or the canonical
+//   infinity (0, 1, 0) where d = 0 (x is the kernel point X0).
+//   Design: one thread per element, 32 a block; the Fp2 products are
+//   g2.cuh's `fp2_mul` (each component one lazy sum of N = 2).
+//   Work per element: the inversion 121,266; d^2 600; d^3, T/d, U/d^2,
+//   T/d^2, 2U/d^3 and the product by y, six products, 4,464; the two
+//   scalings by 1/9 and -1/27, four Fp products, 1,200: 127,530, against
+//   480 bytes moved (x, y in; X, Y, Z out). Operations bound; at 256
+//   elements bound by one thread's Fermat chain.
+//   Bound (reduction): N <= 2 per component, one conditional subtraction.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "fp384.cuh"
+#include "g2.cuh"
+
+namespace {
+
+constexpr int kSswuThreads = 32;  // eight elements of four threads
+constexpr int kSswuPerBlock = kSswuThreads / 4;
+constexpr int kIsoThreads = 32;
+constexpr int kFp2Words = 2 * FP_WORDS;
+constexpr int kPBits = 381;  // bit length of p
+enum Const { kConstA, kConstB, kConstZ, kConstC1, kConstC2, kConstX0, kConstT, kConstU, kConstInv9, kConstInv27 };
+
+__device__ __forceinline__ void fp2_load(fp2_t r, const uint32_t* src) {
+  fp_load(r[0], src);
+  fp_load(r[1], src + FP_WORDS);
+}
+
+__device__ __forceinline__ void fp2_store(uint32_t* dst, const fp2_t a) {
+  fp_store(dst, a[0]);
+  fp_store(dst + FP_WORDS, a[1]);
+}
+
+// acc = {component c: r, component 1 - c: the partner's r}, the partner
+// being the lane with the other parity.
+__device__ __forceinline__ void join_parts(fp2_t acc, const uint32_t r[FP_WORDS], int c) {
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) {
+    const uint32_t o = __shfl_xor_sync(0xffffffffu, r[i], 1);
+    acc[0][i] = c ? o : r[i];
+    acc[1][i] = c ? r[i] : o;
+  }
+}
+
+// r = x^(p >> shift) (0 -> 0), in the thread pair whose threads take
+// component c each: MSB-first square and multiply over p's bits 379 ..
+// shift (bit 380, the leading one, starts the accumulator at x).
+__device__ __noinline__ void fp2_pow_p_shift(fp2_t r, const fp2_t x, int shift, int c) {
+  fp2_t acc;
+  uint32_t part[FP_WORDS];
+  fp2_copy(acc, x);
+#pragma unroll 1
+  for (int i = kPBits - 2; i >= shift; --i) {
+    fp2_sqr_part(part, acc, c);
+    join_parts(acc, part, c);
+    if ((FP_P[i >> 5] >> (i & 31)) & 1u) {
+      fp2_mul_part(part, acc, x, c);
+      join_parts(acc, part, c);
+    }
+  }
+  fp2_copy(r, acc);
+}
+
+// The square-root candidate of x (h2c.fp2_sqrt_candidate), in the pair.
+__device__ __forceinline__ void sqrt_candidate(fp2_t r, const fp2_t x, int c) {
+  fp2_t a1, x0, alpha, b, m1;
+  fp2_pow_p_shift(a1, x, 2, c);  // x^((p-3)/4)
+  fp2_mul(x0, a1, x);
+  fp2_mul(alpha, a1, x0);
+  fp_add(b[0], alpha[0], FP_ONE);
+  fp_copy(b[1], alpha[1]);
+  fp2_pow_p_shift(b, b, 1, c);  // (alpha + 1)^((p-1)/2)
+  fp2_mul(r, b, x0);
+  fp_neg(m1[0], FP_ONE);
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) m1[1][i] = 0u;
+  const bool is_m1 = fp2_eq(alpha, m1);
+  fp_neg(b[0], x0[1]);  // u x0 = (-x0_1, x0_0)
+  fp_select(r[0], is_m1, b[0], r[0]);
+  fp_select(r[1], is_m1, x0[0], r[1]);
+}
+
+// RFC 9380 sgn0 of an Fp2 element: the parity of the standard values.
+__device__ __forceinline__ bool fp2_sgn0(const fp2_t a) {
+  uint32_t one[FP_WORDS], s0[FP_WORDS], s1[FP_WORDS];
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) one[i] = i == 0;
+  fp_mul(s0, a[0], one);
+  fp_mul(s1, a[1], one);
+  return (s0[0] & 1u) | (fp_is_zero(a[0]) & (s1[0] & 1u));
+}
+
+__global__ void __launch_bounds__(kSswuThreads) sswu_kernel(const uint32_t* __restrict__ u_in, long long su,
+                                                            const uint32_t* __restrict__ cst,
+                                                            uint32_t* __restrict__ out, long long n) {
+  const int lane = threadIdx.x;
+  const int j = (lane >> 1) & 1, c = lane & 1;
+  const long long e0 = (long long)blockIdx.x * kSswuPerBlock + (lane >> 2);
+  const bool live = e0 < n;
+  const long long e = live ? e0 : n - 1;  // every lane takes part in the shuffles
+
+  fp2_t u, zu2, t1, x1, x2, xj, gx, k;
+  fp2_load(u, u_in + e * su);
+  fp2_mul(t1, u, u);
+  fp2_load(k, cst + kConstZ * kFp2Words);
+  fp2_mul(zu2, k, t1);
+  fp2_mul(t1, zu2, zu2);
+  fp2_add(t1, t1, zu2);
+  const bool t1_zero = fp2_is_zero(t1);
+  fp2_inv(t1, t1);
+  fp_add(t1[0], t1[0], FP_ONE);
+  fp2_load(k, cst + kConstC1 * kFp2Words);
+  fp2_mul(x1, k, t1);
+  fp2_load(k, cst + kConstC2 * kFp2Words);
+  fp2_select(x1, t1_zero, k, x1);
+  fp2_mul(x2, zu2, x1);
+  // gx_j = x_j^3 + A x_j + B
+  fp2_select(xj, j == 1, x2, x1);
+  fp2_mul(gx, xj, xj);
+  fp2_mul(gx, gx, xj);
+  fp2_load(k, cst + kConstA * kFp2Words);
+  fp2_mul(t1, k, xj);
+  fp2_add(gx, gx, t1);
+  fp2_load(k, cst + kConstB * kFp2Words);
+  fp2_add(gx, gx, k);
+
+  fp2_t y, other, gx1;
+  sqrt_candidate(y, gx, c);
+  // the other pair's candidate and gx (lane ^ 2)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int i = 0; i < FP_WORDS; ++i) {
+      other[h][i] = __shfl_xor_sync(0xffffffffu, y[h][i], 2);
+      gx1[h][i] = __shfl_xor_sync(0xffffffffu, gx[h][i], 2);
+    }
+  }
+  fp2_select(gx1, j == 0, gx, gx1);
+  fp2_t y1, y2;
+  fp2_select(y1, j == 0, y, other);
+  fp2_select(y2, j == 0, other, y);
+  fp2_mul(t1, y1, y1);
+  const bool is_sq = fp2_eq(t1, gx1);
+  fp2_select(xj, is_sq, x1, x2);
+  fp2_select(y, is_sq, y1, y2);
+  if (fp2_sgn0(u) != fp2_sgn0(y)) fp2_neg(y, y);
+  // thread (j, c) stores component c of x (j = 0) or y (j = 1)
+  if (live) {
+    uint32_t* dst = out + (j * n + e) * kFp2Words + c * FP_WORDS;
+    fp_store(dst, j == 0 ? xj[c] : y[c]);
+  }
+}
+
+__global__ void __launch_bounds__(kIsoThreads) iso3_map_kernel(const uint32_t* __restrict__ x_in, long long sx,
+                                                               const uint32_t* __restrict__ y_in, long long sy,
+                                                               const uint32_t* __restrict__ cst,
+                                                               uint32_t* __restrict__ out, long long n) {
+  const long long e = (long long)blockIdx.x * kIsoThreads + threadIdx.x;
+  if (e >= n) return;
+  fp2_t x, y, d, dinv, d2, d3, a, b, k;
+  fp2_load(x, x_in + e * sx);
+  fp2_load(y, y_in + e * sy);
+  fp2_load(k, cst + kConstX0 * kFp2Words);
+  fp2_sub(d, x, k);
+  const bool kernel_point = fp2_is_zero(d);
+  fp2_inv(dinv, d);
+  fp2_mul(d2, dinv, dinv);
+  fp2_mul(d3, d2, dinv);
+  // xo = (x + (T / d + U / d^2)) / 9
+  fp2_load(k, cst + kConstT * kFp2Words);
+  fp2_mul(a, k, dinv);
+  fp2_mul(b, k, d2);  // T / d^2, for yo
+  fp2_load(k, cst + kConstU * kFp2Words);
+  fp2_mul(d2, k, d2);
+  fp2_add(a, a, d2);
+  fp2_add(a, x, a);
+  // yo = y (1 - (T / d^2 + 2U / d^3)) (-1/27)
+  fp2_add(k, k, k);
+  fp2_mul(d3, k, d3);
+  fp2_add(b, b, d3);
+  fp_sub(b[0], FP_ONE, b[0]);
+  fp_neg(b[1], b[1]);
+  fp2_mul(b, y, b);
+  uint32_t s[FP_WORDS];
+  fp_load(s, cst + kConstInv9 * kFp2Words);
+  fp_mul(a[0], a[0], s);
+  fp_mul(a[1], a[1], s);
+  fp_load(s, cst + kConstInv27 * kFp2Words);
+  fp_mul(b[0], b[0], s);
+  fp_mul(b[1], b[1], s);
+  // (xo, yo, 1), or (0, 1, 0) at the kernel point
+  fp2_t zero, one;
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) {
+    zero[0][i] = zero[1][i] = one[1][i] = 0u;
+    one[0][i] = FP_ONE[i];
+  }
+  fp2_select(a, kernel_point, zero, a);
+  fp2_select(b, kernel_point, one, b);
+  fp2_select(d, kernel_point, zero, one);
+  fp2_store(out + e * kFp2Words, a);
+  fp2_store(out + (n + e) * kFp2Words, b);
+  fp2_store(out + (2 * n + e) * kFp2Words, d);
+}
+
+}  // namespace
+
+extern "C" {
+
+int lh_sswu(const void* u, long long su, const void* cst, void* out, long long n, void* stream) {
+  if (n > 0) {
+    const unsigned blocks = (unsigned)((n + kSswuPerBlock - 1) / kSswuPerBlock);
+    sswu_kernel<<<blocks, kSswuThreads, 0, (cudaStream_t)stream>>>((const uint32_t*)u, su, (const uint32_t*)cst,
+                                                                   (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+int lh_iso3_map(const void* x, long long sx, const void* y, long long sy, const void* cst, void* out, long long n,
+                void* stream) {
+  if (n > 0) {
+    const unsigned blocks = (unsigned)((n + kIsoThreads - 1) / kIsoThreads);
+    iso3_map_kernel<<<blocks, kIsoThreads, 0, (cudaStream_t)stream>>>((const uint32_t*)x, sx, (const uint32_t*)y, sy,
+                                                                      (const uint32_t*)cst, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -24,12 +24,15 @@ counts kernel launches per kernel, for these, for K5
 (`curve.g1_in_subgroup_kernel`, csrc/g1_kernels.cu), for the tower
 products K7 and K8 (`tower.fp2_product`, `tower.fp12_product`,
 csrc/tower_kernels.cu), for the scalar multiplications K10 and K11
-(`curve.scalar_mul_bits`, csrc/curve_kernels.cu) and for the |z|-power
-chain K9 (`pairing.pow_abs_x`, csrc/final_exp_kernels.cu).
+(`curve.scalar_mul_bits`, csrc/curve_kernels.cu), for the |z|-power
+chain K9 (`pairing.pow_abs_x`, csrc/final_exp_kernels.cu), for the Miller
+loop K12 (`pairing.miller_loop`, csrc/pairing_kernels.cu) and for
+hash-to-G2's SSWU map K13 and 3-isogeny K14 (`h2c.sswu`, `h2c.iso3_map`,
+csrc/h2c_kernels.cu).
 
 K6 is the JAX package's opt-in matrix-unit product (`mul_mxu`, enabled by
 LIGHTHOUSE_TPU_MXU_FP_MUL=1) on the tensor cores. K3, K4, K5 and K7 to
-K11 keep their in-register CIOS products whatever the flag says: each is
+K14 keep their in-register CIOS products whatever the flag says: each is
 one thread's chain of products, and an MMA needs a whole warp. The results
 are the same either way, since both products are canonical.
 
@@ -196,9 +199,10 @@ USE_MXU_MUL = os.environ.get("LIGHTHOUSE_TPU_MXU_FP_MUL", "") == "1"
 # -- launch accounting ---------------------------------------------------------
 
 #: every kernel of the library: K1-K4 and K6 here, K5, K10 and K11 in
-#: curve.py, K7 and K8 in tower.py, K9 in pairing.py
+#: curve.py, K7 and K8 in tower.py, K9 and K12 in pairing.py, K13 and K14
+#: in h2c.py
 KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv", "g1_subgroup_check", "fp_mul_mma", "fp2_mul",
-           "fp12_mul", "cyclotomic_pow_x", "g1_scalar_mul", "g2_scalar_mul")
+           "fp12_mul", "cyclotomic_pow_x", "g1_scalar_mul", "g2_scalar_mul", "miller_loop", "sswu", "iso3_map")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 #: When a dict, each launch also records its element count (or (steps, lanes)
 #: for K4, (elements, op or mode) for K7 and K8, (elements, bits) for K10 and
@@ -600,11 +604,6 @@ def eq(a, b):
 def select(cond, a, b):
     """Branch-free select: cond (...,) bool; a, b (..., 12)."""
     return torch.where(cond[..., None], a, b)
-
-
-def sgn0_mont(a):
-    """RFC 9380 sgn0 (parity of the canonical representative)."""
-    return from_mont(a)[..., 0] & 1
 
 
 class FpOps(NamedTuple):

@@ -3,9 +3,12 @@
 HOST  : expand_message_xmd (SHA-256) and the reduction to two Fp2 field
         elements per message, packed to the wire limbs `stage_sets` emits,
         behind a process-wide LRU keyed by (message, dst).
-DEVICE: simplified SWU onto E', the 3-isogeny to E2, point addition and
-        psi-method cofactor clearing, over the field and tower kernels;
-        the cofactor's two scalar multiplications are one launch of K11.
+DEVICE: simplified SWU onto E' with its Fp2 square roots (one launch of
+        K13), the 3-isogeny to E2 (one launch of K14), point addition
+        and psi-method cofactor clearing, whose two scalar
+        multiplications are one launch of K11. `sswu_composed` and
+        `iso3_map_composed` keep K13 and K14 as compositions over a
+        `TowerOps`, their plain versions over the plain operations.
 
 Semantics are pinned to the ref oracle (ref/hash_to_curve.py). The device
 formulas mirror the JAX package (lighthouse_tpu jax_backend/h2c.py), so
@@ -23,23 +26,10 @@ import torch
 from ..constants import DST, P, X as X_PARAM
 from ..ref import hash_to_curve as ref_h2c
 from ..ref.fields import Fp as RefFp, Fp2 as RefFp2
-from . import fp
+from . import fp, tower
 from .curve import FP2, Proj, add as proj_add, dbl, neg as proj_neg, psi, scalar_mul_bits, stack2, unstack
 from .pack import pack_fp2_el, to_mont_wire_bulk
-from .tower import (
-    fp2,
-    fp2_add,
-    fp2_eq,
-    fp2_inv,
-    fp2_is_zero,
-    fp2_mul,
-    fp2_neg,
-    fp2_one,
-    fp2_select,
-    fp2_sgn0,
-    fp2_sqr,
-    fp2_sub,
-)
+from .tower import fp2, fp2_eq, fp2_inv, fp2_is_zero, fp2_one, fp2_select, fp2_sgn0
 
 # -- constants (device words) ----------------------------------------------------
 
@@ -58,6 +48,10 @@ _MINUS_ONE = pack_fp2_el(RefFp2(RefFp(P - 1), RefFp(0)))
 
 _SQRT_E1 = (P - 3) // 4
 _SQRT_E2 = (P - 1) // 2
+# K13's and K14's constant operand, one Fp2 row each (INV9 and INV27 with a
+# zero c1): A, B, Z, C1, C2, X0, T, U, INV9, INV27
+_H2C_CONSTS = np.stack([_A, _B, _Z, _C1, _C2, _X0, _T, _U,
+                        np.stack([_INV9, fp.ZERO]), np.stack([_INV27, fp.ZERO])])
 
 
 def _one_like(x):
@@ -65,64 +59,117 @@ def _one_like(x):
     return fp2_one(x.shape[:-2], x.device)
 
 
-def _fp2_pow(base, e: int):
-    """base^e in Fp2 for a public exponent (fp.pow_windowed)."""
-    return fp.pow_windowed(base, e, fp2_mul, fp2_sqr, _one_like(base))
-
-
-def fp2_sqrt_candidate(x):
+def fp2_sqrt_candidate(x, T: tower.TowerOps):
     """Branch-free Fp2 square-root candidate (Adj-Rodriguez-Henriquez for
-    p = 3 mod 4, as ref/fields.py). Callers check cand^2 == x."""
-    a1 = _fp2_pow(x, _SQRT_E1)  # x^((p-3)/4)
-    x0 = fp2_mul(a1, x)
-    alpha = fp2_mul(a1, x0)
-    ux0 = fp2(fp.neg(x0[..., 1, :]), x0[..., 0, :])  # u * x0
-    b = _fp2_pow(fp2_add(alpha, _one_like(alpha)), _SQRT_E2)
-    cand = fp2_mul(b, x0)
+    p = 3 mod 4, as ref/fields.py), over the operations T; on the card it
+    runs inside K13 (`sswu`). Callers check cand^2 == x."""
+    F = T.fp
+    a1 = fp.pow_windowed(x, _SQRT_E1, T.fp2_mul, T.fp2_sqr, _one_like(x))  # x^((p-3)/4)
+    x0 = T.fp2_mul(a1, x)
+    alpha = T.fp2_mul(a1, x0)
+    ux0 = fp2(F.neg(x0[..., 1, :]), x0[..., 0, :])  # u * x0
+    b = fp.pow_windowed(F.add(alpha, _one_like(alpha)), _SQRT_E2, T.fp2_mul, T.fp2_sqr, _one_like(x))
+    cand = T.fp2_mul(b, x0)
     is_m1 = fp2_eq(alpha, fp.const(_MINUS_ONE, x.device))
     return fp2_select(is_m1, ux0, cand)
 
 
-def sswu(u):
-    """Simplified SWU onto E' (branch-free). u: (..., 2, W) -> affine (x, y)."""
+def sswu_composed(u, T: tower.TowerOps):
+    """Simplified SWU onto E' (branch-free), over the operations T: the
+    composition K13 replaced (T = tower.KERNEL_TOWER) or K13's plain version
+    (tower.PLAIN_TOWER). u: (..., 2, W) -> affine (x, y)."""
+    F = T.fp
     dev = u.device
     A, B, Z = (fp.const(c, dev) for c in (_A, _B, _Z))
-    u2 = fp2_sqr(u)
-    zu2 = fp2_mul(Z, u2)
-    t1 = fp2_add(fp2_sqr(zu2), zu2)
+    u2 = T.fp2_sqr(u)
+    zu2 = T.fp2_mul(Z, u2)
+    t1 = F.add(T.fp2_sqr(zu2), zu2)
     t1_zero = fp2_is_zero(t1)
-    x1_generic = fp2_mul(fp.const(_C1, dev), fp2_add(_one_like(t1), fp2_inv(t1)))
+    x1_generic = T.fp2_mul(fp.const(_C1, dev), F.add(_one_like(t1), fp2_inv(t1, F)))
     x1 = fp2_select(t1_zero, fp.const(_C2, dev), x1_generic)
-    x2 = fp2_mul(zu2, x1)
+    x2 = T.fp2_mul(zu2, x1)
     xs = torch.stack([x1, x2])
-    gx = fp2_add(fp2_add(fp2_mul(fp2_sqr(xs), xs), fp2_mul(A, xs)), B)
-    cand = fp2_sqrt_candidate(gx)  # both candidates in one stacked chain
+    gx = F.add(F.add(T.fp2_mul(T.fp2_sqr(xs), xs), T.fp2_mul(A, xs)), B)
+    cand = fp2_sqrt_candidate(gx, T)  # both candidates in one stacked chain
     y1, y2 = cand[0], cand[1]
-    is_sq = fp2_eq(fp2_sqr(y1), gx[0])
+    is_sq = fp2_eq(T.fp2_sqr(y1), gx[0])
     x = fp2_select(is_sq, x1, x2)
     y = fp2_select(is_sq, y1, y2)
-    flip = fp2_sgn0(u) != fp2_sgn0(y)
-    return x, fp2_select(flip, fp2_neg(y), y)
+    flip = fp2_sgn0(u, F) != fp2_sgn0(y, F)
+    return x, fp2_select(flip, F.neg(y), y)
 
 
-def iso3_map(x, y) -> Proj:
-    """The 3-isogeny E' -> E2 (ref/hash_to_curve.py), as a projective point;
-    its kernel point maps to the canonical infinity (0, 1, 0)."""
+def sswu_plain(u):
+    """K13's plain version: PyTorch operations only, on any device."""
+    return sswu_composed(u, tower.PLAIN_TOWER)
+
+
+def sswu(u):
+    """Simplified SWU onto E' (branch-free). u: (..., 2, W) -> affine (x, y):
+    one launch of K13 (csrc/h2c_kernels.cu) for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    cpu = fp._is_cpu(u)
+    tower._check_trailing(u, (2, fp.WORDS), "Fp2")
+    if cpu:
+        return sswu_plain(u)
+    from . import kernels
+
+    out = torch.empty((2, *u.shape), dtype=torch.int32, device=u.device)
+    n = u.numel() // (2 * fp.WORDS)
+    a, sa = tower._operand(u, u.shape, 2, 2 * fp.WORDS)
+    kernels.launch("lh_sswu", u.device, a.data_ptr(), sa, fp.const(_H2C_CONSTS, u.device).data_ptr(),
+                   out.data_ptr(), n)
+    fp._count("sswu", n)
+    return out[0], out[1]
+
+
+def iso3_map_composed(x, y, T: tower.TowerOps) -> Proj:
+    """The 3-isogeny E' -> E2 (ref/hash_to_curve.py) as a projective point,
+    over the operations T: the composition K14 replaced (T =
+    tower.KERNEL_TOWER) or K14's plain version (tower.PLAIN_TOWER). Its
+    kernel point maps to the canonical infinity (0, 1, 0)."""
+    F = T.fp
     dev = x.device
-    d = fp2_sub(x, fp.const(_X0, dev))
-    dinv = fp2_inv(d)  # inv0: the kernel point is masked below
-    d2 = fp2_sqr(dinv)
-    d3 = fp2_mul(d2, dinv)
-    T, U = fp.const(_T, dev), fp.const(_U, dev)
-    xo = fp.mul(fp2_add(x, fp2_add(fp2_mul(T, dinv), fp2_mul(U, d2))), fp.const(_INV9, dev))
+    d = F.sub(x, fp.const(_X0, dev))
+    dinv = fp2_inv(d, F)  # inv0: the kernel point is masked below
+    d2 = T.fp2_sqr(dinv)
+    d3 = T.fp2_mul(d2, dinv)
+    Tc, U = fp.const(_T, dev), fp.const(_U, dev)
+    xo = F.mul(F.add(x, F.add(T.fp2_mul(Tc, dinv), T.fp2_mul(U, d2))), fp.const(_INV9, dev))
     one = _one_like(x)
-    yo = fp.mul(
-        fp2_mul(y, fp2_sub(one, fp2_add(fp2_mul(T, d2), fp2_mul(fp2_add(U, U), d3)))),
+    yo = F.mul(
+        T.fp2_mul(y, F.sub(one, F.add(T.fp2_mul(Tc, d2), T.fp2_mul(F.add(U, U), d3)))),
         fp.const(_INV27, dev),
     )
     kernel = fp2_is_zero(d)
     zero = FP2.zero(kernel.shape, dev)
     return Proj(fp2_select(kernel, zero, xo), fp2_select(kernel, one, yo), fp2_select(kernel, zero, one))
+
+
+def iso3_map_plain(x, y) -> Proj:
+    """K14's plain version: PyTorch operations only, on any device."""
+    return iso3_map_composed(x, y, tower.PLAIN_TOWER)
+
+
+def iso3_map(x, y) -> Proj:
+    """The 3-isogeny E' -> E2 on affine (x, y), each (..., 2, W): one
+    launch of K14 (csrc/h2c_kernels.cu) for CUDA tensors, the plain version
+    for CPU tensors."""
+    cpu = fp._is_cpu(x, y)
+    for t in (x, y):
+        tower._check_trailing(t, (2, fp.WORDS), "Fp2")
+    if cpu:
+        return iso3_map_plain(x, y)
+    from . import kernels
+
+    shape = tower._broadcast(x.shape, y.shape)
+    out = torch.empty((3, *shape), dtype=torch.int32, device=x.device)
+    n = shape.numel() // (2 * fp.WORDS)
+    (a, sa), (b, sb) = (tower._operand(t, shape, 2, 2 * fp.WORDS) for t in (x, y))
+    kernels.launch("lh_iso3_map", x.device, a.data_ptr(), sa, b.data_ptr(), sb,
+                   fp.const(_H2C_CONSTS, x.device).data_ptr(), out.data_ptr(), n)
+    fp._count("iso3_map", n)
+    return Proj(out[0], out[1], out[2])
 
 
 # [X^2 - X - 1] and [X - 1] for the psi-method cofactor clearing.

@@ -28,6 +28,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "fp384.cuh", "g1.cuh", "g2.cuh", "tower.cuh",
     "fp_kernels.cu", "g1_kernels.cu", "fp_mma.cu", "tower_kernels.cu", "curve_kernels.cu", "final_exp_kernels.cu",
+    "pairing_kernels.cu", "h2c_kernels.cu",
 )
 UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "torch_kernels"
@@ -52,6 +53,9 @@ _SIGNATURES = {
     "lh_g1_scalar_mul": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _LL, ctypes.c_int, ctypes.c_int, _P, _LL, _P],
     "lh_g2_scalar_mul": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _LL, ctypes.c_int, ctypes.c_int, _P, _LL, _P],
     "lh_cyclotomic_pow_x": [_P, _LL, _P, _LL, _P],
+    "lh_miller_loop": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _LL, _P],
+    "lh_sswu": [_P, _LL, _P, _P, _LL, _P],
+    "lh_iso3_map": [_P, _LL, _P, _LL, _P, _P, _LL, _P],
 }
 
 _lock = threading.Lock()

@@ -7,10 +7,13 @@ removes. The line formulas mirror the JAX package (lighthouse_tpu
 jax_backend/pairing.py) so the Miller value f is bit-identical to its f,
 not only equal after the final exponentiation.
 
-The loop is a Python loop over the 63 bits of |z| below the leading one:
-the doubling step runs every bit and the addition step, under a plain
-`if` on the static bit, on the five set bits. Infinity inputs are replaced
-by generators and their f is set to one afterwards.
+The loop runs over the 63 bits of |z| below the leading one: the doubling
+step every bit and the addition step on the five set bits. Infinity
+inputs are replaced by generators and their f is set to one afterwards.
+On the card the whole loop is one launch of K12
+(csrc/pairing_kernels.cu); `miller_loop_composed` keeps it as a
+composition over a `TowerOps`, which is K12's plain version over the
+plain operations.
 
 The final exponentiation is the ref oracle's decomposition (3x the hard
 part), so GT values are bit-identical to ref/pairing.py. Its five
@@ -30,22 +33,7 @@ from ..ref.pairing import _H
 from . import fp, tower
 from .curve import Proj
 from .pack import G1_GEN_X_L, G1_GEN_Y_L, G2_GEN_X_L, G2_GEN_Y_L, pack_fp2_el
-from .tower import (
-    fp2_add,
-    fp2_mul,
-    fp2_mul_by_nonresidue,
-    fp2_neg,
-    fp2_select,
-    fp2_sqr,
-    fp2_sub,
-    fp12_conj,
-    fp12_inv,
-    fp12_mul,
-    fp12_mul_sparse035,
-    fp12_one,
-    fp12_select,
-    fp12_sqr,
-)
+from .tower import fp2_mul, fp2_mul_by_nonresidue, fp2_select, fp12_conj, fp12_inv, fp12_mul, fp12_one, fp12_select
 
 _ABS_X = abs(X_PARAM)
 # MSB-first bits of |z| below the leading bit (T starts at Q).
@@ -74,61 +62,62 @@ _FROB_GAMMAS = _frob_constants()  # (6, 2, W)
 # -- Miller loop ---------------------------------------------------------------
 
 
-def _scale_pair(a, b, xp, yp):
+def _scale_pair(a, b, xp, yp, F):
     """(a * yp, b * xp) for Fp2 a, b and Fp xp, yp: one stacked product."""
-    m = fp.mul(torch.stack([a, b]), torch.stack([yp, xp])[..., None, :])
+    m = F.mul(torch.stack([a, b]), torch.stack([yp, xp])[..., None, :])
     return m[0], m[1]
 
 
-def _dbl_step(t: Proj, xp, yp):
+def _dbl_step(t: Proj, xp, yp, T: tower.TowerOps):
     """Double T and evaluate the tangent line at P = (xp, yp):
         A0 = -xi * Z3 * Z^2 * yp,  A3 = 2Y^2 - 3X^3,  A5 = 3X^2 * Z^2 * xp."""
+    F = T.fp
     X, Y, Z = t
-    A, B, ZZ = fp2_sqr(torch.stack([X, Y, Z]))
-    E = fp2_add(fp2_add(A, A), A)  # 3 X^2
-    XB = fp2_add(X, B)
-    Y2 = fp2_add(Y, Y)
-    sq = fp2_mul(torch.stack([B, XB, E, E, E, Y2]), torch.stack([B, XB, E, X, ZZ, Z]))
+    A, B, ZZ = T.fp2_sqr(torch.stack([X, Y, Z]))
+    E = F.add(F.add(A, A), A)  # 3 X^2
+    XB = F.add(X, B)
+    Y2 = F.add(Y, Y)
+    sq = T.fp2_mul(torch.stack([B, XB, E, E, E, Y2]), torch.stack([B, XB, E, X, ZZ, Z]))
     C, XB2, F6, EX, EZZ, z3 = sq
-    t0 = fp2_sub(XB2, fp2_add(A, C))
-    D = fp2_add(t0, t0)  # 4 X Y^2
-    x3 = fp2_sub(F6, fp2_add(D, D))
-    c4 = fp2_add(C, C)
-    c8 = fp2_add(fp2_add(c4, c4), fp2_add(c4, c4))
-    m = fp2_mul(torch.stack([E, z3]), torch.stack([fp2_sub(D, x3), ZZ]))
-    y3 = fp2_sub(m[0], c8)
-    zy, a5 = _scale_pair(m[1], EZZ, xp, yp)
-    a0 = fp2_mul_by_nonresidue(fp2_neg(zy))
-    a3 = fp2_sub(fp2_add(B, B), EX)
+    t0 = F.sub(XB2, F.add(A, C))
+    D = F.add(t0, t0)  # 4 X Y^2
+    x3 = F.sub(F6, F.add(D, D))
+    c4 = F.add(C, C)
+    c8 = F.add(F.add(c4, c4), F.add(c4, c4))
+    m = T.fp2_mul(torch.stack([E, z3]), torch.stack([F.sub(D, x3), ZZ]))
+    y3 = F.sub(m[0], c8)
+    zy, a5 = _scale_pair(m[1], EZZ, xp, yp, F)
+    a0 = fp2_mul_by_nonresidue(F.neg(zy), F)
+    a3 = F.sub(F.add(B, B), EX)
     return Proj(x3, y3, z3), (a0, a3, a5)
 
 
-def _add_step(t: Proj, qx, qy, xp, yp):
+def _add_step(t: Proj, qx, qy, xp, yp, T: tower.TowerOps):
     """Mixed addition T + Q (Q affine) and the chord line at P. With
     H = qx Z^2 - X, D = qy Z^3 - Y:
         A0 = -xi * H * Z * yp,  A3 = qy * H * Z - D * qx,  A5 = D * xp."""
+    F = T.fp
     X, Y, Z = t
-    ZZ = fp2_sqr(Z)
-    m = fp2_mul(torch.stack([qx, Z]), torch.stack([ZZ, ZZ]))
-    H = fp2_sub(m[0], X)
-    D = fp2_sub(fp2_mul(qy, m[1]), Y)
-    HH = fp2_sqr(H)
-    m = fp2_mul(torch.stack([H, X, H, D]), torch.stack([HH, HH, Z, D]))
+    ZZ = T.fp2_sqr(Z)
+    m = T.fp2_mul(torch.stack([qx, Z]), torch.stack([ZZ, ZZ]))
+    H = F.sub(m[0], X)
+    D = F.sub(T.fp2_mul(qy, m[1]), Y)
+    HH = T.fp2_sqr(H)
+    m = T.fp2_mul(torch.stack([H, X, H, D]), torch.stack([HH, HH, Z, D]))
     HHH, V, hz, DD = m
-    x3 = fp2_sub(fp2_sub(DD, HHH), fp2_add(V, V))
-    m = fp2_mul(torch.stack([D, Y, qy, D]), torch.stack([fp2_sub(V, x3), HHH, hz, qx]))
-    y3 = fp2_sub(m[0], m[1])
-    hy, a5 = _scale_pair(hz, D, xp, yp)
-    a0 = fp2_mul_by_nonresidue(fp2_neg(hy))
-    a3 = fp2_sub(m[2], m[3])
+    x3 = F.sub(F.sub(DD, HHH), F.add(V, V))
+    m = T.fp2_mul(torch.stack([D, Y, qy, D]), torch.stack([F.sub(V, x3), HHH, hz, qx]))
+    y3 = F.sub(m[0], m[1])
+    hy, a5 = _scale_pair(hz, D, xp, yp, F)
+    a0 = fp2_mul_by_nonresidue(F.neg(hy), F)
+    a3 = F.sub(m[2], m[3])
     return Proj(x3, y3, hz), (a0, a3, a5)
 
 
-def miller_loop(px, py, p_inf, qx, qy, q_inf):
-    """f_{|z|, Q}(P), conjugated for z < 0, batched.
-
-    px, py: (..., W) G1 affine; qx, qy: (..., 2, W) G2 affine; p_inf,
-    q_inf: (...,) bool. Infinity pairs yield f = 1."""
+def miller_loop_composed(px, py, p_inf, qx, qy, q_inf, T: tower.TowerOps):
+    """f_{|z|, Q}(P), conjugated for z < 0, over the operations T: the
+    composition K12 replaced (T = tower.KERNEL_TOWER) or K12's plain
+    version (tower.PLAIN_TOWER). Infinity pairs yield f = 1."""
     dev = px.device
     inf_any = p_inf | q_inf
     shape = inf_any.shape
@@ -140,14 +129,63 @@ def miller_loop(px, py, p_inf, qx, qy, q_inf):
     t = Proj(qx, qy, tower.fp2_one(shape, dev))
     f = fp12_one(shape, dev)
     for bit in _ML_BITS:
-        f = fp12_sqr(f)
-        t, line = _dbl_step(t, px, py)
-        f = fp12_mul_sparse035(f, *line)
+        f = T.fp12_sqr(f)
+        t, line = _dbl_step(t, px, py, T)
+        f = T.fp12_mul_sparse035(f, *line)
         if bit:
-            t, line = _add_step(t, qx, qy, px, py)
-            f = fp12_mul_sparse035(f, *line)
-    f = fp12_conj(f)  # z < 0 for BLS12-381
+            t, line = _add_step(t, qx, qy, px, py, T)
+            f = T.fp12_mul_sparse035(f, *line)
+    f = fp12_conj(f, T.fp)  # z < 0 for BLS12-381
     return fp12_select(inf_any, fp12_one(shape, dev), f)
+
+
+def miller_loop_plain(px, py, p_inf, qx, qy, q_inf):
+    """K12's plain version: PyTorch operations only, on any device."""
+    return miller_loop_composed(px, py, p_inf, qx, qy, q_inf, tower.PLAIN_TOWER)
+
+
+# the substitutes for infinity lanes, in K12's constant operand: G1's
+# generator (x, y), then G2's (x, y)
+_ML_GENERATORS = np.concatenate([G1_GEN_X_L[None], G1_GEN_Y_L[None], G2_GEN_X_L, G2_GEN_Y_L])
+
+
+def _flags(t, shape, device, what):
+    """A bool operand of a kernel on `device`, broadcast to `shape`, one
+    byte an element."""
+    if t.dtype != torch.bool:
+        raise TypeError(f"{what} must be bool, got {t.dtype}")
+    if t.device != device:
+        raise RuntimeError(f"{what} on {t.device}, points on {device}")
+    return t.expand(shape).contiguous()
+
+
+def miller_loop(px, py, p_inf, qx, qy, q_inf):
+    """f_{|z|, Q}(P), conjugated for z < 0, batched: one launch of K12
+    (csrc/pairing_kernels.cu), a block per pair, for CUDA tensors; the
+    plain version for CPU tensors.
+
+    px, py: (..., W) G1 affine; qx, qy: (..., 2, W) G2 affine; p_inf,
+    q_inf: (...,) bool. Infinity pairs yield f = 1."""
+    cpu = fp._is_cpu(px, py, qx, qy)
+    for t in (qx, qy):
+        tower._check_trailing(t, (2, fp.WORDS), "Fp2")
+    if cpu:
+        return miller_loop_plain(px, py, p_inf, qx, qy, q_inf)
+    from . import kernels
+
+    dev = px.device
+    lead = tower._broadcast(px.shape[:-1], py.shape[:-1], qx.shape[:-2], qy.shape[:-2], p_inf.shape, q_inf.shape)
+    out = torch.empty((*lead, 2, 3, 2, fp.WORDS), dtype=torch.int32, device=dev)
+    n = lead.numel()
+    g1, g2 = torch.Size((*lead, fp.WORDS)), torch.Size((*lead, 2, fp.WORDS))
+    ops = [tower._operand(t, g1, 1, fp.WORDS) for t in (px, py)]
+    ops += [tower._operand(t, g2, 2, 2 * fp.WORDS) for t in (qx, qy)]
+    pi, qi = _flags(p_inf, lead, dev, "p_inf"), _flags(q_inf, lead, dev, "q_inf")
+    ptrs = [x for t, st in ops for x in (t.data_ptr(), st)]
+    gens = fp.const(_ML_GENERATORS, dev)
+    kernels.launch("lh_miller_loop", dev, *ptrs, pi.data_ptr(), qi.data_ptr(), gens.data_ptr(), out.data_ptr(), n)
+    fp._count("miller_loop", n)
+    return out
 
 
 # -- Frobenius -----------------------------------------------------------------

@@ -142,9 +142,11 @@ def fp2_select(cond, a, b):
     return torch.where(cond[..., None, None], a, b)
 
 
-def fp2_sgn0(a):
-    """RFC 9380 sgn0 for Fp2 (little-endian component order)."""
-    s = fp.sgn0_mont(a)
+def fp2_sgn0(a, F=fp.KERNEL_OPS):
+    """RFC 9380 sgn0 for Fp2 (little-endian component order): the parity of
+    each component's canonical value, out of Montgomery form by a product
+    with 1."""
+    s = F.mul(a, fp.const(fp._ONE_STD, a.device))[..., 0] & 1
     z0 = fp.is_zero(a[..., 0, :])
     return s[..., 0] | (z0.to(s.dtype) & s[..., 1])
 
@@ -162,10 +164,6 @@ def fp6_zero(shape, device):
 
 def fp6_one(shape, device):
     return fp6(fp2_one(shape, device), fp2_zero(shape, device), fp2_zero(shape, device))
-
-
-def fp6_neg(a):
-    return fp.neg(a)
 
 
 def _c(a, i):
@@ -330,9 +328,9 @@ def fp12_mul_sparse035(a, b0, b3, b5):
     return fp12_product(a, (b0, b3, b5), FP12_SPARSE)
 
 
-def fp12_conj(a):
+def fp12_conj(a, F=fp.KERNEL_OPS):
     """Conjugation (Frobenius^6): the inverse on the cyclotomic subgroup."""
-    return fp12(a[..., 0, :, :, :], fp6_neg(a[..., 1, :, :, :]))
+    return fp12(a[..., 0, :, :, :], F.neg(a[..., 1, :, :, :]))
 
 
 # -- the operations a composed tower function runs over ---------------------------
@@ -340,26 +338,31 @@ def fp12_conj(a):
 
 class TowerOps(NamedTuple):
     """Fp operations, the batch inversion and the Fp2 / Fp12 products that a
-    composed tower function (Karabina's chain, `pairing.pow_abs_x_composed`)
-    is written over."""
+    composed tower function (Karabina's chain, `pairing.pow_abs_x_composed`,
+    the Miller loop `pairing.miller_loop_composed`, hash-to-G2's
+    `h2c.sswu_composed` and `h2c.iso3_map_composed`) is written over."""
 
     fp: fp.FpOps
     batch_inv: Callable
     fp2_mul: Callable
     fp2_sqr: Callable
     fp12_mul: Callable
+    fp12_sqr: Callable
+    fp12_mul_sparse035: Callable
 
 
-#: K1-K4, K7 and K8: the composition that K9 (`pairing.pow_abs_x`) replaced
-KERNEL_TOWER = TowerOps(fp.KERNEL_OPS, fp.batch_inv, fp2_mul, fp2_sqr, fp12_mul)
-#: their plain versions, PyTorch operations only, on any device: K9's plain
-#: version runs over them
+#: K1-K4, K7 and K8: the composition that K9, K12, K13 and K14 replaced
+KERNEL_TOWER = TowerOps(fp.KERNEL_OPS, fp.batch_inv, fp2_mul, fp2_sqr, fp12_mul, fp12_sqr, fp12_mul_sparse035)
+#: their plain versions, PyTorch operations only, on any device: the plain
+#: versions of K9, K12, K13 and K14 run over them
 PLAIN_TOWER = TowerOps(
     fp.PLAIN_OPS,
     fp.batch_inv_plain,
     fp2_mul_plain,
     fp2_sqr_plain,
     lambda a, b: fp12_product_plain(a, (b,), FP12_FULL),
+    lambda a: fp12_product_plain(a, (), FP12_SQUARE),
+    lambda a, b0, b3, b5: fp12_product_plain(a, (b0, b3, b5), FP12_SPARSE),
 )
 
 

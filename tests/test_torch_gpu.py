@@ -1,6 +1,6 @@
 """lighthouse_tpu_torch on the card: the hand-written kernels against their
 plain versions (the tower products K7 and K8 also against the K1/K2
-composition they replaced, the chains K9-K11 against the K1-K4/K7/K8
+composition they replaced, the chains K9-K14 against the K1-K4/K7/K8
 composition), launch counting, launches on a card other than the current
 one (and from a fresh thread), and a small verify, also with every Fp
 product on the tensor cores (K6). Every test needs a
@@ -16,6 +16,7 @@ import threading
 import pytest
 import torch
 
+import chip_smoke
 from lighthouse_tpu_torch.crypto.bls.constants import P, R
 from lighthouse_tpu_torch.crypto.bls.ref import api as ref
 from lighthouse_tpu_torch.crypto.bls.ref.curves import Point, _B1, g1_generator, g1_infinity
@@ -64,6 +65,7 @@ def test_wrappers_launch_and_count_on_card(cuda_device):
     assert fp.LAUNCHES == {
         "fp_mul": 1, "fp_addsub": 1, "fp_pow": 1, "fp_batch_inv": 1, "g1_subgroup_check": 0, "fp_mul_mma": 0,
         "fp2_mul": 0, "fp12_mul": 0, "cyclotomic_pow_x": 0, "g1_scalar_mul": 0, "g2_scalar_mul": 0,
+        "miller_loop": 0, "sswu": 0, "iso3_map": 0,
     }
     assert torch.equal(fp.add(a[::2], a[1::2]), fp.addsub_plain(a[::2], a[1::2], 0))
 
@@ -83,19 +85,25 @@ def test_verify_on_card(cuda_device):
     assert api.verify_signature_sets(bad) is False
 
 
+#: launches of one verify, whatever its shape: the final exponentiation's
+#: five |z|-power chains (K9), r_i aggpk_i (K10), the signatures' 2-stacked
+#: multiplication and clear_cofactor (K11), the Miller pairs' batch
+#: inversion (K4), the Miller loop (K12), SSWU (K13), the isogeny (K14) and
+#: fp12_inv's Fp2 inversion (K3)
+VERIFY_LAUNCHES = {"cyclotomic_pow_x": 5, "g1_scalar_mul": 1, "g2_scalar_mul": 2, "fp_batch_inv": 1,
+                   "miller_loop": 1, "sswu": 1, "iso3_map": 1, "fp_pow": 1}
+
+
 def test_verify_launches_the_chain_kernels(cuda_device):
-    """A 128 x 1 verify launches K9 five times (the final exponentiation's
-    |z|-power chains), K10 once (r_i aggpk_i), K11 twice (the signatures'
-    2-stacked multiplication and clear_cofactor) and K4 once (the Miller
-    pairs' batch inversion); valid and tampered verdicts are unchanged."""
+    """A 128 x 1 verify launches each chain kernel as VERIFY_LAUNCHES says;
+    valid and tampered verdicts are unchanged."""
     sets, bad = _small_batches()
     sets = [sets[i % len(sets)] for i in range(128)]
     bad = [bad[i % len(bad)] for i in range(128)]
     fp.reset_launches()
     assert api.verify_signature_sets(sets) is True
     torch.cuda.synchronize()
-    counts = {k: fp.LAUNCHES[k] for k in ("cyclotomic_pow_x", "g1_scalar_mul", "g2_scalar_mul", "fp_batch_inv")}
-    assert counts == {"cyclotomic_pow_x": 5, "g1_scalar_mul": 1, "g2_scalar_mul": 2, "fp_batch_inv": 1}
+    assert {k: fp.LAUNCHES[k] for k in VERIFY_LAUNCHES} == VERIFY_LAUNCHES
     assert api.verify_signature_sets(bad) is False
 
 
@@ -162,6 +170,48 @@ def test_pow_abs_x_kernel_matches_plain_on_card(cuda_device):
     assert fp.LAUNCHES["cyclotomic_pow_x"] == 1
     assert torch.equal(got, pairing.pow_abs_x_plain(g))
     assert torch.equal(got, pairing.pow_abs_x_composed(g, tower.KERNEL_TOWER))
+
+
+def test_miller_loop_kernel_matches_plain_on_card(cuda_device):
+    """K12 at the verify path's 129 pairs, infinity lanes included, against
+    its plain version and the K1-K4/K7/K8 composition it replaced, bit for
+    bit, one launch."""
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import pairing
+
+    args = chip_smoke.miller_inputs(torch, fp, 129, 42, cuda_device)
+    fp.reset_launches()
+    got = pairing.miller_loop(*args)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["miller_loop"] == 1 and fp.LAUNCHES["fp12_mul"] == 0
+    assert torch.equal(got, pairing.miller_loop_plain(*args))
+    assert torch.equal(got, pairing.miller_loop_composed(*args, tower.KERNEL_TOWER))
+    one = tower.fp12_one((), cuda_device)
+    assert all(torch.equal(got[i], one) for i in (1, 2, 3)) and not torch.equal(got[0], one)
+
+
+def test_sswu_and_iso3_kernels_match_plain_on_card(cuda_device):
+    """K13 at the verify path's m = 256 (u0 and u1 of 128 sets) with the
+    edge u's, and K14 on its output plus the isogeny's kernel point X0,
+    against their plain versions and the K1-K4/K7/K8 composition they
+    replaced, bit for bit, one launch each."""
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import h2c
+
+    u = chip_smoke.sswu_inputs(fp, P, 256, 43, cuda_device)
+    fp.reset_launches()
+    x, y = h2c.sswu(u)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["sswu"] == 1 and fp.LAUNCHES["fp2_mul"] == 0
+    for want in (h2c.sswu_plain(u), h2c.sswu_composed(u, tower.KERNEL_TOWER)):
+        assert torch.equal(x, want[0]) and torch.equal(y, want[1])
+    xs = torch.cat([x, fp.const(h2c._X0, cuda_device)[None]])
+    ys = torch.cat([y, y[:1]])
+    fp.reset_launches()
+    q = h2c.iso3_map(xs, ys)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["iso3_map"] == 1 and fp.LAUNCHES["fp_pow"] == 0
+    for want in (h2c.iso3_map_plain(xs, ys), h2c.iso3_map_composed(xs, ys, tower.KERNEL_TOWER)):
+        assert all(torch.equal(a, b) for a, b in zip(q, want))
+    assert bool(tower.fp2_is_zero(q.z[-1])) and not bool(tower.fp2_is_zero(q.z[:-1]).any())
 
 
 @pytest.mark.parametrize("n", [1, 31, 33, 4104])

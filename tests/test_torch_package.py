@@ -113,11 +113,11 @@ def test_tensor_core_kernel_is_registered():
 
 def test_tower_kernels_are_registered():
     """K7 and K8: their source is hashed into the build key and compiled
-    as a unit, both launchers are bound, and fp.KERNELS counts all eleven
-    kernels."""
+    as a unit, both launchers are bound, and fp.KERNELS counts all
+    fourteen kernels."""
     assert "tower_kernels.cu" in tkernels.SOURCES and "tower_kernels.cu" in tkernels.UNITS
     assert "lh_fp2_mul" in tkernels._SIGNATURES and "lh_fp12_mul" in tkernels._SIGNATURES
-    assert len(tfp.KERNELS) == 11 and set(tfp.LAUNCHES) == set(tfp.KERNELS)
+    assert len(tfp.KERNELS) == 14 and set(tfp.LAUNCHES) == set(tfp.KERNELS)
     assert {"fp2_mul", "fp12_mul"} <= set(tfp.KERNELS)
 
 
@@ -129,6 +129,16 @@ def test_curve_and_final_exp_kernels_are_registered():
     assert {"curve_kernels.cu", "final_exp_kernels.cu"} <= set(tkernels.UNITS)
     for name in ("cyclotomic_pow_x", "g1_scalar_mul", "g2_scalar_mul"):
         assert f"lh_{name}" in tkernels._SIGNATURES and name in tfp.KERNELS
+
+
+def test_miller_and_h2c_kernels_are_registered():
+    """K12, K13 and K14: their sources are hashed into the build key and
+    compiled as units, the three launchers bound (one argument type per
+    launcher parameter, the stream last) and counted."""
+    assert {"pairing_kernels.cu", "h2c_kernels.cu"} <= set(tkernels.UNITS)
+    arity = {"miller_loop": 14, "sswu": 6, "iso3_map": 8}
+    for name, n in arity.items():
+        assert len(tkernels._SIGNATURES[f"lh_{name}"]) == n and name in tfp.KERNELS
 
 
 @pytest.mark.parametrize("flag", ["unset", "", "0", "true", "1"])
