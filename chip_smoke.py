@@ -7,7 +7,7 @@ Phases, one line each, any failure exits non-zero:
 
   1. device   require a CUDA device; print its name and power limit
   2. build    compile the hand-written kernels (csrc/) with nvcc, one
-              process per source; K5's to K14's registers and spills
+              process per source; K5's to K18's registers and spills
               from ptxas
   3. kernels  K1-K4 and K6 bit-identical to their plain PyTorch versions
               on the card: edge inputs 0, 1, p-1, p-2 and 4096 seeded
@@ -29,17 +29,25 @@ Phases, one line each, any failure exits non-zero:
               K13 (SSWU, 256 u's with 0, one, u and -1 among them) and K14
               (the isogeny, SSWU's 256 points and the kernel point X0),
               bit-identical to their plain versions and to the K1-K4/K7/K8
-              composition they replaced. After
+              composition they replaced. The tree sums K15 (G1, 2 columns)
+              and K16 (G2, one column) at column lengths 1, 2, 3, 5, 128
+              and 512 with P == Q, P == -Q and infinity rows, K17 (sum and
+              cofactor clearing, 19 elements with u = 0's point, q1 = q0,
+              q1 = -q0 and q1 at infinity, and without the sum) and K18
+              (Fp12 product, n = 1, 2, 3, 129), and all four at the verify
+              path's shapes, bit-identical to their plain versions and to
+              the composition they replaced. After
               set-up, K5 bit-identical to its plain version (on CPU
               tensors) on 64 points: interop keys, the order-3 point
               (0, 2), points of E(Fp) outside G1 and infinity rows
   4. verify   the verify path, `verify_signature_sets`, on 128 sets x 1
               key and on the mainnet-block shape 128 sets x 128 keys: both
               True, with the kernels' launch counts of one verify (K9 5,
-              K10 1, K11 2, K4 1, K12 1, K13 1, K14 1 and K3 1 at either
-              shape); then a
+              K10 1, K11 1, K4 1, K12 1, K13 1, K14 1, K3 1 and K15-K18 1
+              each at either shape); then a
               tampered message, a wrong key and a non-subgroup signature
-              at 128 x 1, each False; warm ms per batch and sets/s
+              at 128 x 1, each False; warm ms per batch and sets/s,
+              and the warm host staging's ms alone
      pk       the admission path, `batch_validate_public_keys`, at
               S = 16384 (a checkpoint-start admission chunk) and S = 16
               (one block's deposits): 256 distinct interop pubkeys tiled,
@@ -51,19 +59,19 @@ Phases, one line each, any failure exits non-zero:
               fp.USE_MXU_MUL set (every Fp product on K6, the JAX
               package's LIGHTHOUSE_TPU_MXU_FP_MUL path): verdicts, K6
               launched as often as K1 was by default and K1 never, K7 to
-              K14 as often as by default (they keep their CUDA-core
+              K18 as often as by default (they keep their CUDA-core
               products, as the JAX package's flag reaches only direct Fp
               products); ms per
               batch with and without the flag, timed in turns; admission
               at S = 16 still one K5 launch and nothing else
   5. profile  device busy time, idle share and top kernels of one verify,
               at both shapes by default and at 128 x 128 with the flag; the
-              trace holds K3, K4 and K9-K14 as often as a verify launches
+              trace holds K3, K4 and K9-K18 as often as a verify launches
               them
      timing   each kernel at the shape that carries most of its main-path
               work, against its plain version and its bound (K6 at K1's
               shape, so the two compare; K7 and K8 also against the K1/K2
-              composition they replaced); K9-K14 at the verify path's
+              composition they replaced); K9-K18 at the verify path's
               shapes against their plain versions, the composition they
               replaced and their bounds, K9 with its Fermat chain's share
      extras   to_affine (G1, G2), fp6_mul and fp6_inv on the card
@@ -75,7 +83,8 @@ Phases, one line each, any failure exits non-zero:
               time limit): NCCL over W = min(4, cards) ranks, one card
               each, and gloo over 2 ranks sharing cuda:0. Each world: a
               128 x 1 batch True and a tampered one False on every rank,
-              with the kernels' launch counts of one verify on every rank; a
+              with the kernels' launch counts of one verify on every rank
+              (K18 twice: the rank's Miller values and the partials); a
               tampered S = 8 batch whose GT value is bit-identical to the
               one-process final_exponentiation(verify_pipeline_local(...))
               on the card; warm ms per batch (median of 3), bytes
@@ -113,6 +122,9 @@ BATCH_INV_STEPS = 257  # K4's leading axis on the verify path: 2 S + 1
 N_SETS = 128
 BLOCK_KEYS = 128
 WARM_REPS = 3
+# a verify's wall time varies by several ms from call to call (host
+# staging is Python): its median is taken over more calls
+VERIFY_REPS = 11
 # Pubkey admission: one chunk of a checkpoint-start admission (1/64 of a
 # million-key registry) and one block's deposits (MAX_DEPOSITS).
 PK_SIZES = (16384, 16)
@@ -148,6 +160,8 @@ CURVE_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/curve_kernels
 FINAL_EXP_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/final_exp_kernels.cu"
 PAIRING_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/pairing_kernels.cu"
 H2C_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/h2c_kernels.cu"
+FOLD_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/fold_kernels.cu"
+COFACTOR_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/cofactor_kernels.cu"
 REPLACES = {
     "fp_mul": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:310",
     "fp_addsub": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:294",
@@ -163,23 +177,40 @@ REPLACES = {
     "miller_loop": "lighthouse_tpu/crypto/bls/jax_backend/pairing.py:163",
     "sswu": "lighthouse_tpu/crypto/bls/jax_backend/h2c.py:117",
     "iso3_map": "lighthouse_tpu/crypto/bls/jax_backend/h2c.py:146",
+    "g1_tree_sum": "lighthouse_tpu/crypto/bls/jax_backend/curve.py:138",
+    "g2_tree_sum": "lighthouse_tpu/crypto/bls/jax_backend/curve.py:138",
+    "clear_cofactor": "lighthouse_tpu/crypto/bls/jax_backend/h2c.py:189",
+    "product_reduce": "lighthouse_tpu/crypto/bls/jax_backend/pairing.py:282",
 }
 SOURCES = {"fp_mul_mma": MMA_SOURCE, "fp2_mul": TOWER_SOURCE, "fp12_mul": TOWER_SOURCE,
            "cyclotomic_pow_x": FINAL_EXP_SOURCE, "g1_scalar_mul": CURVE_SOURCE, "g2_scalar_mul": CURVE_SOURCE,
-           "miller_loop": PAIRING_SOURCE, "sswu": H2C_SOURCE, "iso3_map": H2C_SOURCE}
-# the chain kernels K9-K14, and the field and tower kernels timed at their heaviest main-path shape
-CHAIN_KERNELS = ("cyclotomic_pow_x", "g1_scalar_mul", "g2_scalar_mul", "miller_loop", "sswu", "iso3_map")
+           "miller_loop": PAIRING_SOURCE, "sswu": H2C_SOURCE, "iso3_map": H2C_SOURCE, "g1_tree_sum": FOLD_SOURCE,
+           "g2_tree_sum": FOLD_SOURCE, "clear_cofactor": COFACTOR_SOURCE, "product_reduce": FOLD_SOURCE}
+# the chain kernels K9-K18, and the field and tower kernels timed at their heaviest main-path shape
+CHAIN_KERNELS = ("cyclotomic_pow_x", "g1_scalar_mul", "g2_scalar_mul", "miller_loop", "sswu", "iso3_map",
+                 "g1_tree_sum", "g2_tree_sum", "clear_cofactor", "product_reduce")
 TIMED_KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv", "fp2_mul", "fp12_mul")
 VERIFY_KERNELS = (*TIMED_KERNELS, *CHAIN_KERNELS)
 # the verify path with fp.USE_MXU_MUL set: K6 in K1's place
 MXU_KERNELS = ("fp_mul_mma", *VERIFY_KERNELS[1:])
 # launches of one verify, whatever its shape: the five |z|-power chains of the
 # final exponentiation (K9), r_i aggpk_i (K10), the signatures' 2-stacked
-# multiplication and clear_cofactor's (K11), the Miller pairs' batch
-# inversion (K4), the Miller loop (K12), SSWU (K13), the isogeny (K14) and
-# fp12_inv's Fp2 inversion (K3)
-VERIFY_LAUNCHES = {"cyclotomic_pow_x": 5, "g1_scalar_mul": 1, "g2_scalar_mul": 2, "fp_batch_inv": 1,
-                   "miller_loop": 1, "sswu": 1, "iso3_map": 1, "fp_pow": 1}
+# multiplication (K11), the Miller pairs' batch inversion (K4), the Miller
+# loop (K12), SSWU (K13), the isogeny (K14), fp12_inv's Fp2 inversion (K3),
+# the sums of each set's keys (K15) and of the r_i sig_i (K16), the sum of
+# the SSWU points with the cofactor clearing (K17) and the product of the
+# Miller values (K18)
+VERIFY_LAUNCHES = {"cyclotomic_pow_x": 5, "g1_scalar_mul": 1, "g2_scalar_mul": 1, "fp_batch_inv": 1,
+                   "miller_loop": 1, "sswu": 1, "iso3_map": 1, "fp_pow": 1, "g1_tree_sum": 1, "g2_tree_sum": 1,
+                   "clear_cofactor": 1, "product_reduce": 1}
+# a sharded rank also multiplies the gathered partials (K18)
+SHARDED_LAUNCHES = {**VERIFY_LAUNCHES, "product_reduce": 2}
+# the tree sums' edge column lengths (512: a sync-committee aggregate's
+# keys) and the Fp12 product's edge counts (129: the Miller values of a
+# 128-set verify); K17's edge batch, no multiple of its 16 pairs a block
+FOLD_LENGTHS = (1, 2, 3, 5, 128, 512)
+REDUCE_COUNTS = (1, 2, 3, 129)
+COFACTOR_EDGE = 19
 # the kernels that keep their CUDA-core products with fp.USE_MXU_MUL set
 MXU_UNMOVED = ("fp2_mul", "fp12_mul", *CHAIN_KERNELS)
 K6_TAILS = (1, 31, 33)
@@ -226,6 +257,14 @@ K12_WORD_PRODUCTS = (63 * (K8_WORD_PRODUCTS[1] + K12_DBL_WP + K8_WORD_PRODUCTS[2
 K12_BYTES = 2 * 48 + 2 * 96 + 2 + 576
 K13_BYTES, K14_BYTES = 3 * 96, 5 * 96  # u in, x and y out; x and y in, X, Y, Z out
 H2C_CONST_BYTES = 10 * 96  # K13's and K14's constant operand, read once
+# K15, K16: an addition is 12 field products (products by 3b are additions);
+# a point is 3 coordinates of 48 or 96 bytes. K17: the sum (12 products),
+# psi three times (2 each), the doubling (6 products, 2 squares), the two
+# final additions (24), and the two 128-bit chains; q0, q1 in, H out, and
+# the constants (CX, CY; 2 x 128 bit bytes) read once. K18: n - 1 Fp12
+# products (K8 full), a value 576 bytes.
+G1_ADD_WP, G2_ADD_WP = 12 * WORD_PRODUCTS_PER_MUL, 12 * FP2_MUL_WP
+K17_BYTES, K17_CONST_BYTES = 3 * 3 * 96, 2 * 96 + 2 * 128
 
 
 def pow_word_products(e: int, mul: int, sqr: int) -> int:
@@ -261,6 +300,12 @@ def h2c_word_products(P: int) -> tuple[int, int]:
             + FP2_SQR_WP + 4 * REDC_WORD_PRODUCTS)
     iso = inv + FP2_SQR_WP + 6 * FP2_MUL_WP + 4 * WORD_PRODUCTS_PER_MUL
     return sswu, iso
+
+
+def k17_word_products() -> int:
+    """Word products one element of K17 needs (see K17_BYTES)."""
+    return ((12 + 3 * 2 + 6 + 24) * FP2_MUL_WP + 2 * FP2_SQR_WP
+            + 2 * scalar_mul_word_products(128, FP2_MUL_WP, FP2_SQR_WP))
 
 
 def scalar_mul_word_products(nbits: int, mul: int, sqr: int) -> int:
@@ -486,6 +531,49 @@ def sswu_inputs(fp, P, n: int, seed: int, device=DEVICE):
     return torch.from_numpy(words).reshape(n, 2, fp.WORDS).to(device)
 
 
+def fold_inputs(torch, fp, curve, group: str, length: int, columns: int, seed: int):
+    """Points for the tree sums on the card, from `curve_inputs` (Z != 1,
+    infinity rows): G1 (columns, length), summed along axis 1 as the
+    verify sums each set's keys; G2 (length,), one column summed along
+    axis 0 as the verify sums the r_i sig_i. In every column the first
+    level of the tree meets a P == Q pair (rows 0 and half), a P == -Q pair
+    (rows 1 and half + 1) and an infinity row (the last). Also
+    tests/test_torch_gpu.py's."""
+    F = curve.FP if group == "g1" else curve.FP2
+    n = length * columns
+    p = curve_inputs(torch, fp, curve, group, max(n, 4), seed)
+    cols = curve.Proj(*(c[:n].reshape(columns, length, *c.shape[1:]).clone() for c in p))
+    half = length // 2
+    if half >= 1:
+        for c in cols:
+            c[:, half] = c[:, 0]
+    if half >= 2:
+        cols.x[:, half + 1] = cols.x[:, 1]
+        cols.y[:, half + 1] = F.neg(cols.y[:, 1])
+        cols.z[:, half + 1] = cols.z[:, 1]
+    if length >= 3:
+        for c, v in zip(cols, curve.infinity(F, (columns,), cols.x.device)):
+            c[:, length - 1] = v
+    return cols if group == "g1" else curve.Proj(*(c[0] for c in cols))
+
+
+def cofactor_inputs(torch, fp, curve, h2c, P, m: int, seed: int):
+    """K17's operands on the card as the verify path hands them over: the
+    isogeny's images q0, q1 (K14) of m seeded pairs u0, u1, the u0 of the
+    first four lanes `sswu_inputs`' edges (0: SSWU's t1 = 0 branch, one,
+    u, -1); lane 1 with q1 = q0 (P == Q), lane 2 with q1 = -q0 (the sum
+    is infinity), lane 3 with q1 at infinity. Also tests/test_torch_gpu.py's."""
+    u = sswu_inputs(fp, P, 2 * m, seed, DEVICE).reshape(2, m, 2, fp.WORDS)
+    q = h2c.iso3_map(*h2c.sswu(u))
+    q0, q1 = (curve.Proj(*(c[i].clone() for c in q)) for i in (0, 1))
+    for c0, c1 in zip(q0, q1):
+        c1[1] = c0[1]
+    q1.x[2], q1.y[2], q1.z[2] = q0.x[2], curve.FP2.neg(q0.y[2]), q0.z[2]
+    for c, v in zip(q1, curve.infinity(curve.FP2, (), q0.x.device)):
+        c[3] = v
+    return q0, q1
+
+
 def make_sets(api, n_sets: int, keys_per_set: int):
     """bench.py's shapes: 8 distinct single-key sets tiled to n_sets, or one
     aggregate set of keys_per_set signers repeated n_sets times. The
@@ -675,12 +763,16 @@ def check_tower_kernels(torch, fp, tower, P, dev) -> None:
 
 
 def chain_cases(torch, fp, curve, tower, pairing, h2c, P):
-    """name -> (shape, kernel call, plain version, K1-K4/K7/K8 composition)
-    for K9-K14 at the verify path's shapes (128 x 128 verify): K10 on S
-    points at 64 bits, K11 on the 2 S stacked signatures at 64 bits and on
-    clear_cofactor's 2 x S points at 128 broadcast bits, K9 on one element
-    and on four with the edge lanes, K12 on the S + 1 Miller pairs, K13 on
-    the 2 S stacked u's, K14 on SSWU's 2 S points and the kernel point."""
+    """name -> (shape, kernel call, plain version, the composition it
+    replaced) for K9-K18 at the verify path's shapes (128 x 128 verify):
+    K10 on S points at 64 bits, K11 on the 2 S stacked signatures at 64
+    bits and on the cofactor clearing's 2 x S points at 128 broadcast bits
+    (the chains K17 now runs: K11's launch of them before K17), K9 on one
+    element and on four with the edge lanes, K12 on the S + 1 Miller pairs,
+    K13 on the 2 S stacked u's, K14 on SSWU's 2 S points and the kernel
+    point, K15 on S columns of K keys, K16 on one column of S points, K17
+    on the isogeny's 2-stacked images of S messages, K18 on the S + 1
+    Miller values."""
     S = N_SETS
     p1 = curve_inputs(torch, fp, curve, "g1", S, 21)
     b1 = scalar_bits(torch, S, 64, 22)
@@ -713,6 +805,43 @@ def chain_cases(torch, fp, curve, tower, pairing, h2c, P):
     xs, ys = torch.cat([x, fp.const(h2c._X0, DEVICE)[None]]), torch.cat([y, y[:1]])
     cases[f"iso3_map_m{2 * S + 1}"] = ([2 * S + 1], lambda: h2c.iso3_map(xs, ys), lambda: h2c.iso3_map_plain(xs, ys),
                                        lambda: h2c.iso3_map_composed(xs, ys, tower.KERNEL_TOWER))
+    cases.update(fold_cases(torch, fp, curve, tower, pairing, h2c, P, [(S, BLOCK_KEYS)], [S], S, [S + 1], 28))
+    return cases
+
+
+def fold_cases(torch, fp, curve, tower, pairing, h2c, P, g1_shapes, g2_lengths, cofactor_m, counts, seed,
+               nosum=False):
+    """name -> (shape, kernel call, plain version, the composition it
+    replaced) for K15-K18: K15 on G1 columns of each (columns, length) in
+    `g1_shapes` and K16 on one G2 column of each length in `g2_lengths`
+    (`fold_inputs`), K17 on K14's 2-stacked images of `cofactor_m`
+    messages (`cofactor_inputs`; with `nosum`, also on q0 alone), K18 on
+    each count of Fp12 values in `counts` (`fp12_inputs`: p - 1 in every
+    word slot, zero, one, seeded random values)."""
+    cases = {}
+    trees = [("g1", columns, length, 1) for columns, length in g1_shapes]
+    trees += [("g2", 1, length, 0) for length in g2_lengths]
+    for group, columns, length, axis in trees:
+        F, F_plain = (curve.FP, curve.FP_PLAIN) if group == "g1" else (curve.FP2, curve.FP2_PLAIN)
+        pts = fold_inputs(torch, fp, curve, group, length, columns, seed + length)
+        shape = [columns, length] if group == "g1" else [length]
+        cases[f"{group}_tree_sum_{'x'.join(map(str, shape))}"] = (
+            shape, lambda F=F, pts=pts, axis=axis: curve.tree_sum(F, pts, axis),
+            lambda F=F_plain, pts=pts, axis=axis: curve.tree_sum_plain(F, pts, axis),
+            lambda F=F, pts=pts, axis=axis: curve.tree_sum_plain(F, pts, axis))
+    q0, q1 = cofactor_inputs(torch, fp, curve, h2c, P, cofactor_m, seed)
+    cases[f"clear_cofactor_m{cofactor_m}"] = ([cofactor_m], lambda: h2c.clear_cofactor(q0, q1),
+                                              lambda: h2c.clear_cofactor_plain(q0, q1),
+                                              lambda: h2c.clear_cofactor_composed(q0, q1, curve.FP2))
+    if nosum:
+        cases[f"clear_cofactor_nosum_m{cofactor_m}"] = ([cofactor_m], lambda: h2c.clear_cofactor(q0),
+                                                        lambda: h2c.clear_cofactor_plain(q0),
+                                                        lambda: h2c.clear_cofactor_composed(q0, None, curve.FP2))
+    for n in counts:
+        fs = fp12_inputs(fp, tower, P, n, seed + n, DEVICE)
+        cases[f"product_reduce_n{n}"] = ([n], lambda fs=fs: pairing.product_reduce(fs),
+                                         lambda fs=fs: pairing.product_reduce_plain(fs),
+                                         lambda fs=fs: pairing.product_reduce_composed(fs, tower.KERNEL_TOWER))
     return cases
 
 
@@ -730,17 +859,18 @@ def max_word_err(got, want) -> int:
 
 
 def check_chain_kernels(torch, cases) -> None:
-    """K9-K14 bit-identical to their plain versions and to the K1-K4/K7/K8
-    composition they replaced, at the verify path's shapes with the edge
+    """Each kernel of `cases` (`chain_cases`, `fold_cases`) bit-identical to
+    its plain version and to the composition it replaced, with the edge
     rows of `curve_inputs`, `scalar_bits`, `cyclotomic_inputs`,
-    `miller_inputs` and `sswu_inputs` (and the isogeny's kernel point)."""
+    `miller_inputs`, `sswu_inputs`, `fold_inputs` and `cofactor_inputs`
+    (and the isogeny's kernel point)."""
     for name, (_, run, plain, composed) in cases.items():
         got = run()
-        for label, fn in (("plain version", plain), ("K1-K4/K7/K8 composition", composed)):
+        for label, fn in (("plain version", plain), ("composition replaced", composed)):
             want = fn()
             if not torch.equal(_stacked(got), _stacked(want)):
                 raise AssertionError(f"{name}: kernel differs from its {label}")
-    phase("kernels", ok=True, compared=",".join(cases), against="plain,K1-K4/K7/K8")
+    phase("kernels", ok=True, compared=",".join(cases), against="plain,composition")
 
 
 def check_g1_kernel(torch, api, fp, curve, valid: list[bytes], invalid: list[bytes]) -> None:
@@ -868,7 +998,9 @@ def check_extras(torch, fp, curve, tower, P) -> None:
 
 def run_verify(torch, api, fp, sets, label: str, card: str, record_shapes: bool = False):
     """One counted verify (launch counts reset just before, read just after),
-    then WARM_REPS timed ones. Returns (verdict, launches, ms, shapes)."""
+    then VERIFY_REPS timed ones, then VERIFY_REPS of its host staging alone
+    (`stage_sets`, warm caches: the part of a verify's wall time before
+    its first launch). Returns (verdict, launches, ms, shapes)."""
     torch.cuda.synchronize()
     fp.SHAPES = {} if record_shapes else None
     fp.reset_launches()
@@ -877,15 +1009,20 @@ def run_verify(torch, api, fp, sets, label: str, card: str, record_shapes: bool 
     launches = dict(fp.LAUNCHES)
     shapes, fp.SHAPES = fp.SHAPES, None
     times = []
-    for _ in range(WARM_REPS):
+    for _ in range(VERIFY_REPS):
         t0 = time.perf_counter()
         again = api.verify_signature_sets(sets)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         assert again == ok
     ms = statistics.median(times)
+    stage = []
+    for _ in range(VERIFY_REPS):
+        t0 = time.perf_counter()
+        api.stage_sets(sets)
+        stage.append((time.perf_counter() - t0) * 1e3)
     phase(
-        "verify", shape=label, result=ok, ms_per_batch=f"{ms:.3f}",
+        "verify", shape=label, result=ok, ms_per_batch=f"{ms:.3f}", host_stage_ms=f"{statistics.median(stage):.3f}",
         sets_per_s=f"{len(sets) / ms * 1e3:.2f}", launches=json.dumps(launches, separators=(",", ":")),
         card=f'"{card}"',
     )
@@ -1071,14 +1208,15 @@ def time_kernels(torch, fp, tower, P, dev, shapes, launches, peak_ops_per_s):
 
 
 def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s):
-    """K9-K14 at the verify path's shapes (`chain_cases`): device ms per
+    """K9-K18 at the verify path's shapes (`chain_cases`): device ms per
     launch (profiler), ms per call (CUDA events), the plain version's and
     the composition's ms per call, and the bound. K11 runs at two shapes
-    (the signatures' 64 bits, clear_cofactor's 128): its JSON entry is the
-    first, with the second beside it. K9's inversion is not timed inside
-    K9: K3 runs alone on one element (the Fermat chain of p - 2 that K9's
-    one thread also walks), and that time is set against K9's device time
-    (`k3_same_chain_ms`, `k3_same_chain_over_k9`)."""
+    (the signatures' 64 bits; the cofactor clearing's 128, which K17 now
+    runs): its JSON entry is the first, with the second beside it. K9's
+    inversion is not timed inside K9: K3 runs alone on one element (the
+    Fermat chain of p - 2 that K9's one thread also walks), and that time
+    is set against K9's device time (`k3_same_chain_ms`,
+    `k3_same_chain_over_k9`)."""
     S = N_SETS
     bounds = {  # case -> (kernel, word products, bytes: points in and out, bits read once)
         "g1_scalar_mul_n128_b64": ("g1_scalar_mul",
@@ -1093,6 +1231,11 @@ def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s):
         f"sswu_m{2 * S}": ("sswu", 2 * S * h2c_word_products(P)[0], 2 * S * K13_BYTES + H2C_CONST_BYTES),
         f"iso3_map_m{2 * S + 1}": ("iso3_map", (2 * S + 1) * h2c_word_products(P)[1],
                                    (2 * S + 1) * K14_BYTES + H2C_CONST_BYTES),
+        f"g1_tree_sum_{S}x{BLOCK_KEYS}": ("g1_tree_sum", S * (BLOCK_KEYS - 1) * G1_ADD_WP,
+                                          S * (BLOCK_KEYS + 1) * 3 * 48),
+        f"g2_tree_sum_{S}": ("g2_tree_sum", (S - 1) * G2_ADD_WP, (S + 1) * 3 * 96),
+        f"clear_cofactor_m{S}": ("clear_cofactor", S * k17_word_products(), S * K17_BYTES + K17_CONST_BYTES),
+        f"product_reduce_n{S + 1}": ("product_reduce", S * FP12_MUL_WP, (S + 2) * 576),
     }
     rows = {}
     for case, (name, ops, nbytes) in bounds.items():
@@ -1122,8 +1265,8 @@ def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s):
         if err != 0:
             raise AssertionError(f"{case}: kernel differs from its plain version")
         if name in rows:
-            rows[name]["clear_cofactor"] = {k: row[k] for k in ("shape", "ms", "ms_per_call", "plain_ms",
-                                                               "composed_ms", "bound_ms", "bound_by")}
+            rows[name]["at_cofactor_shape"] = {k: row[k] for k in ("shape", "ms", "ms_per_call", "plain_ms",
+                                                                  "composed_ms", "bound_ms", "bound_by")}
         else:
             rows[name] = row
     return list(rows.values())
@@ -1258,8 +1401,8 @@ def run_sharded(torch, api, fp, pairing, card: str) -> None:
             assert ok8 and (gt == want).all(), f"{backend} rank {rank}: GT differs from the one-process value"
             missing = [k for k in VERIFY_KERNELS if launches[k] <= 0]
             assert not missing, f"{backend} rank {rank}: kernels not launched by the sharded path: {missing}"
-            counts = {k: launches[k] for k in VERIFY_LAUNCHES}
-            assert counts == VERIFY_LAUNCHES, f"{backend} rank {rank}: a sharded verify launched {counts}"
+            counts = {k: launches[k] for k in SHARDED_LAUNCHES}
+            assert counts == SHARDED_LAUNCHES, f"{backend} rank {rank}: a sharded verify launched {counts}"
         phase("sharded", backend=backend, W=world, nccl_world=nccl_world, shape=f"{N_SETS}x1", bucket=f"{S}x{K}",
               result=True,
               tampered=False, gt_identical=True, ms_per_batch=f"{out[0][4]:.3f}",
@@ -1371,12 +1514,19 @@ def main() -> int:
           g2_scalar_mul=f'"{ptxas_summary(log, "g2_scalar_mul_kernel")}"',
           miller_loop=f'"{ptxas_summary(log, "miller_loop_kernel")}"',
           sswu=f'"{ptxas_summary(log, "sswu_kernel")}"',
-          iso3_map=f'"{ptxas_summary(log, "iso3_map_kernel")}"')
+          iso3_map=f'"{ptxas_summary(log, "iso3_map_kernel")}"',
+          g1_tree_sum=f'"{ptxas_summary(log, "g1_tree_sum_kernel")}"',
+          g2_tree_sum=f'"{ptxas_summary(log, "g2_tree_sum_kernel")}"',
+          clear_cofactor=f'"{ptxas_summary(log, "clear_cofactor_kernel")}"',
+          product_reduce=f'"{ptxas_summary(log, "product_reduce_kernel")}"')
 
     check_kernels(torch, fp, P, dev)
     check_tower_kernels(torch, fp, tower, P, dev)
     chains = chain_cases(torch, fp, curve, tower, pairing, h2c, P)
     check_chain_kernels(torch, chains)
+    edges = fold_cases(torch, fp, curve, tower, pairing, h2c, P, [(2, n) for n in FOLD_LENGTHS], FOLD_LENGTHS,
+                       COFACTOR_EDGE, REDUCE_COUNTS, 29, nosum=True)
+    check_chain_kernels(torch, edges)
 
     t0 = time.perf_counter()
     gossip = make_sets(api, N_SETS, 1)

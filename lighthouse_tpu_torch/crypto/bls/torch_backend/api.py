@@ -3,7 +3,9 @@ admission on a CUDA device.
 
 The verification workload runs as one plain PyTorch function per batch over
 the hand-written kernels (the field's K1-K4, the tower's K7 and K8, the
-scalar multiplications K10 and K11, the |z|-power chain K9):
+|z|-power chain K9, the scalar multiplications K10 and K11, the Miller
+loop K12, hash-to-G2's K13, K14 and K17, the tree sums K15 and K16 and
+the Miller values' product K18):
 
     host:   expand_message_xmd (SHA-256), point decompression (no subgroup
             check: deferred to the device), RLC scalar sampling, packing
@@ -59,7 +61,7 @@ from ..ref import api as _ref
 from ..ref.curves import Point, g1_infinity, g2_infinity
 from . import fp, h2c, pairing
 from .curve import FP, FP2, Proj, eq_points, from_affine, g1_in_subgroup_kernel, is_infinity, psi
-from .curve import add as p_add, neg as p_neg, scalar_mul_bits, stack2, unstack
+from .curve import neg as p_neg, scalar_mul_bits, stack2, tree_sum, unstack
 from .pack import G1_GEN_NEG_Y_L, G1_GEN_X_L, pack_g1_batch, pack_g2_batch, precompute_limbs
 from .tower import fp2_mul, fp12_is_one
 
@@ -220,21 +222,6 @@ def _next_pow2(n: int, floor: int = 4) -> int:
     return max(floor, 1 << max(0, (n - 1)).bit_length())
 
 
-def _tree_fold(F, pts: Proj, axis: int) -> Proj:
-    """Sum points along `axis` with a pairwise halving tree (the complete
-    formulas make doubling and identity operands safe). Odd leftovers ride
-    along unpaired."""
-    pts = Proj(*(c.movedim(axis, 0) for c in pts))
-    while pts.x.shape[0] > 1:
-        n = pts.x.shape[0]
-        half = n // 2
-        summed = p_add(F, Proj(*(c[:half] for c in pts)), Proj(*(c[half : 2 * half] for c in pts)))
-        if n % 2:
-            summed = Proj(*(torch.cat([s, c[2 * half :]]) for s, c in zip(summed, pts)))
-        pts = summed
-    return unstack(pts, 0)
-
-
 _ABS_X_BITS64 = pairing._ABS_X_BITS_MSB[-64:]
 
 
@@ -251,8 +238,9 @@ def verify_pipeline_local(pk_x, pk_y, pk_inf, sig_x, sig_y, sig_inf, u, r_bits):
     # 1. Hash messages to G2 (the host already ran SHA-256).
     H = h2c.hash_to_g2_device(u)
 
-    # 2. Aggregate each set's keys with a halving tree over the K axis.
-    agg = _tree_fold(FP, from_affine(FP, pk_x, pk_y, pk_inf), axis=1)
+    # 2. Aggregate each set's keys with a halving tree over the K axis (the
+    #    JAX package's `_tree_fold`).
+    agg = tree_sum(FP, from_affine(FP, pk_x, pk_y, pk_inf), axis=1)
     agg_inf = is_infinity(FP, agg)
 
     # 3. r_i * aggpk_i.
@@ -267,7 +255,7 @@ def verify_pipeline_local(pk_x, pk_y, pk_inf, sig_x, sig_y, sig_inf, u, r_bits):
     sub_ok = eq_points(FP2, psi(sigs), p_neg(FP2, zsig)) | is_infinity(FP2, sigs)
 
     # 5. sig_acc = sum_i r_i sig_i.
-    sig_acc = _tree_fold(FP2, rsig, axis=0)
+    sig_acc = tree_sum(FP2, rsig, axis=0)
 
     # 6. S + 1 Miller pairs, batch-affine: every denominator is one Fp value
     #    (a G1 z, or a G2 z's norm z0^2 + z1^2), all inverted by one K4

@@ -8,21 +8,17 @@
 //   `scalar_mul_bits` (registered curve.scalar_mul_bits.g1 / .g2), over
 //   :184 `dbl_fast` and :138 `add`. On the verify path K10 runs
 //   r_i [aggpk_i] (S elements, 64 secret bits each) and K11 the 2-stacked
-//   [|z|] sig_i and r_i sig_i (2 S elements, 64 bits) and, inside
-//   hash-to-G2's `clear_cofactor`, the 2-stacked [z^2 - z - 1] P and
-//   [|z - 1|] psi(P) (2 S elements, 128 public bits broadcast over S).
+//   [|z|] sig_i and r_i sig_i (2 S elements, 64 bits); hash-to-G2's
+//   cofactor multiplications run the same routine inside K17
+//   (cofactor_kernels.cu).
 //   Computes: [k] P for a projective P and MSB-first 0/1 bits of k, by the
 //   plain version's algorithm step for step, so that the projective
 //   output is bit-identical to it (a coordinate is not unique; the
-//   formulas that produce it are): a 16-row table built by the eight
-//   2-stacked complete additions [T_k + T_(k+1), T_(k+1) + T_(k+1)] =
-//   [T_(2k+1), T_(2k+2)], doublings included, from T_0 = (0 : 1 : 0) and
-//   T_1 = P (row 1 is overwritten by T_0 + T_1, another representative
-//   of P; the plain version's row 16 is never read and is not formed);
-//   the accumulator starts at infinity; each 4-bit digit, zero-padded at
-//   the MSB end (127 bits: 32 digits), costs four doublings (RCB
-//   Algorithm 9) and one complete addition (Algorithm 7) of row d, row 0
-//   included. The formulas are g1.cuh's (K10) and g2.cuh's (K11).
+//   formulas that produce it are): curve.cuh `scalar_mul_point`, whose
+//   header states the schedule (a 16-row table, four doublings (RCB
+//   Algorithm 9) and one complete addition (Algorithm 7) a 4-bit digit,
+//   127 bits making 32 digits). The formulas are g1.cuh's (K10) and
+//   g2.cuh's (K11).
 //   Operands: X, Y, Z each with an element stride in words (the
 //   coordinate's size, or 0 for one point broadcast over the batch); the
 //   bits as int32 or int64 rows (one byte read per bit, the low byte of a
@@ -58,59 +54,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fp384.cuh"
-#include "g1.cuh"
-#include "g2.cuh"
+#include "curve.cuh"
 
 namespace {
 
 constexpr int kThreads = 32;  // one warp a block
-constexpr int kWindow = 4;
-constexpr int kRows = 16;
-
-// Digit j (0 = most significant) of the MSB-first bits in `row`, zero-padded
-// at the MSB end to a multiple of four bits.
-__device__ __forceinline__ int window_digit(const uint8_t* row, int j, int nbits, int step) {
-  const int pad = (kWindow - nbits % kWindow) % kWindow;
-  int d = 0;
-#pragma unroll
-  for (int t = 0; t < kWindow; ++t) {
-    const int i = kWindow * j + t - pad;
-    d = 2 * d + ((i >= 0 && row[(long long)i * step] != 0) ? 1 : 0);
-  }
-  return d;
-}
-
-// The group laws, each one copy that both the table build and the digit
-// loop call (not inlined at both: that doubles what ptxas compiles).
-struct G1 {
-  using Point = G1Proj;
-  static constexpr int kWords = FP_WORDS;  // per coordinate
-  static __device__ __noinline__ void add(Point& r, const Point& p, const Point& q) { g1_add(r, p, q); }
-  static __device__ __noinline__ void dbl(Point& r, const Point& p) { g1_dbl(r, p); }
-};
-
-struct G2 {
-  using Point = G2Proj;
-  static constexpr int kWords = 2 * FP_WORDS;
-  static __device__ __noinline__ void add(Point& r, const Point& p, const Point& q) { g2_add(r, p, q); }
-  static __device__ __noinline__ void dbl(Point& r, const Point& p) { g2_dbl(r, p); }
-};
-
-// Coordinate c (0 = X, 1 = Y, 2 = Z) of a point as kWords consecutive words.
-template <typename G>
-__device__ __forceinline__ uint32_t* coord(typename G::Point& p, int c) {
-  return reinterpret_cast<uint32_t*>(&p) + c * G::kWords;
-}
-
-template <typename G>
-__device__ __forceinline__ void set_infinity(typename G::Point& p) {
-#pragma unroll 1
-  for (int c = 0; c < 3; ++c) {
-    uint32_t* w = coord<G>(p, c);
-    for (int i = 0; i < G::kWords; ++i) w[i] = (c == 1 && i < FP_WORDS) ? FP_ONE[i] : 0u;
-  }
-}
 
 template <typename G>
 __device__ __forceinline__ void scalar_mul(const uint32_t* x, long long sx, const uint32_t* y, long long sy,
@@ -121,33 +69,9 @@ __device__ __forceinline__ void scalar_mul(const uint32_t* x, long long sx, cons
   if (e >= n) return;
   using Point = typename G::Point;
   constexpr int W = G::kWords;
-  Point tab[kRows];
-  set_infinity<G>(tab[0]);
-  const uint32_t* src[3] = {x + e * sx, y + e * sy, z + e * sz};
-#pragma unroll 1
-  for (int c = 0; c < 3; ++c) {
-    uint32_t* w = coord<G>(tab[1], c);
-    for (int i = 0; i < W; ++i) w[i] = src[c][i];
-  }
-  // [T_(2k+1), T_(2k+2)] = [T_k + T_(k+1), T_(k+1) + T_(k+1)], both from the
-  // rows as they stood before the step
-#pragma unroll 1
-  for (int k = 0; k < kRows / 2; ++k) {
-    Point u;
-    G::add(u, tab[k], tab[k + 1]);
-    if (2 * k + 2 < kRows) G::add(tab[2 * k + 2], tab[k + 1], tab[k + 1]);
-    tab[2 * k + 1] = u;
-  }
-  const uint8_t* row = bits + (e / inner) * hi + (e % inner) * lo;
-  Point acc;
-  set_infinity<G>(acc);
-  const int digits = (nbits + kWindow - 1) / kWindow;
-#pragma unroll 1
-  for (int j = 0; j < digits; ++j) {
-#pragma unroll 1
-    for (int t = 0; t < kWindow; ++t) G::dbl(acc, acc);
-    G::add(acc, acc, tab[window_digit(row, j, nbits, step)]);
-  }
+  Point p, acc;
+  load_point<G>(p, x + e * sx, y + e * sy, z + e * sz);
+  scalar_mul_point<G>(acc, p, bits + (e / inner) * hi + (e % inner) * lo, nbits, step);
 #pragma unroll 1
   for (int c = 0; c < 3; ++c) {
     const uint32_t* w = coord<G>(acc, c);

@@ -11,7 +11,9 @@ Scalar multiplication is the 4-bit fixed-window form with a 17-row table
 built by 2-stacked complete additions: one launch of K10 (G1) or K11 (G2)
 (csrc/curve_kernels.cu) on the card, and beside it the plain version,
 where `lax.scan` becomes a Python loop and the table gather becomes
-`torch.gather`.
+`torch.gather`. The verify's sums of many points (`tree_sum`: a set's
+keys, the r_i sig_i) are one launch of K15 (G1) or K16 (G2)
+(csrc/fold_kernels.cu), on the plain version's halving tree.
 
 G2 subgroup membership is Scott's psi criterion: P in G2 iff
 psi(P) == [z]P (z < 0), a 64-bit multiplication instead of a 255-bit one.
@@ -51,7 +53,9 @@ class FieldOps(NamedTuple):
     zero: Callable
     b3: np.ndarray  # 3 * b, Montgomery-packed
     elem_dims: int  # trailing dims of one coordinate: 1 (Fp) or 2 (Fp2)
-    kernel: str | None = None  # the scalar multiplication's kernel (K10, K11); None: plain ops
+    # "g1" / "g2": the group's kernels, scalar multiplication (K10, K11) and
+    # tree sum (K15, K16); None: plain ops
+    group: str | None = None
 
 
 FP = FieldOps(
@@ -67,7 +71,7 @@ FP = FieldOps(
     zero=fp.zero,
     b3=fp.to_mont_host(3 * B_G1),
     elem_dims=1,
-    kernel="g1_scalar_mul",
+    group="g1",
 )
 
 FP2 = FieldOps(
@@ -83,20 +87,20 @@ FP2 = FieldOps(
     zero=tower.fp2_zero,
     b3=pack_fp2(3 * B_G2[0], 3 * B_G2[1]),
     elem_dims=2,
-    kernel="g2_scalar_mul",
+    group="g2",
 )
 
 # The plain versions of K1-K3 and K7 as fields: the group law over them is
-# PyTorch operations only, on any device (the plain versions of K5, K10 and
-# K11, also on the card).
-FP_PLAIN = FP._replace(**fp.PLAIN_OPS._asdict(), kernel=None)
+# PyTorch operations only, on any device (the plain versions of K5, K10,
+# K11, K15, K16 and K17, also on the card).
+FP_PLAIN = FP._replace(**fp.PLAIN_OPS._asdict(), group=None)
 FP2_PLAIN = FP2._replace(
     add=fp.PLAIN_OPS.add,
     sub=fp.PLAIN_OPS.sub,
     neg=fp.PLAIN_OPS.neg,
     mul=tower.fp2_mul_plain,
     inv=lambda a: tower.fp2_inv(a, fp.PLAIN_OPS),
-    kernel=None,
+    group=None,
 )
 _PLAIN_FIELD = {1: FP_PLAIN, 2: FP2_PLAIN}
 
@@ -279,7 +283,7 @@ def scalar_mul_bits(F: FieldOps, p: Proj, bits) -> Proj:
     """[k]P by `scalar_mul_bits_plain`'s algorithm, bit-identical to it:
     one launch of K10 (F = FP, G1) or K11 (F = FP2, G2) for CUDA tensors,
     the plain version for CPU tensors and for the plain fields."""
-    if F.kernel is None:
+    if F.group is None:
         return scalar_mul_bits_plain(F, p, bits)
     if fp._is_cpu(*p):
         return scalar_mul_bits_plain(_PLAIN_FIELD[F.elem_dims], p, bits)
@@ -335,9 +339,70 @@ def _scalar_mul_kernel(F: FieldOps, p: Proj, bits) -> Proj:
     ptrs = [x for t, st in ops for x in (t.data_ptr(), st)]
     out = torch.empty((3, *shape), dtype=torch.int32, device=dev)
     n = batch.numel()
-    kernels.launch(f"lh_{F.kernel}", dev, *ptrs, b.data_ptr(), inner, hi * size, lo * size, size, nbits,
+    name = f"{F.group}_scalar_mul"
+    kernels.launch(f"lh_{name}", dev, *ptrs, b.data_ptr(), inner, hi * size, lo * size, size, nbits,
                    out.data_ptr(), n)
-    fp._count(F.kernel, (n, nbits))
+    fp._count(name, (n, nbits))
+    return Proj(out[0], out[1], out[2])
+
+
+# -- tree sums (K15, K16) ----------------------------------------------------------
+
+
+def tree_sum_plain(F: FieldOps, pts: Proj, axis: int) -> Proj:
+    """Sum points along `axis` with a pairwise halving tree over the field
+    operations F (the complete formulas make doubling and identity
+    operands safe): at each level n points become n // 2 additions of rows
+    i and i + n // 2, and an odd leftover rides along unpaired at the end.
+    The plain version of K15 and K16 over FP_PLAIN and FP2_PLAIN, the
+    composition they replaced over FP and FP2."""
+    pts = Proj(*(c.movedim(axis, 0) for c in pts))
+    while pts.x.shape[0] > 1:
+        n = pts.x.shape[0]
+        half = n // 2
+        summed = add(F, Proj(*(c[:half] for c in pts)), Proj(*(c[half : 2 * half] for c in pts)))
+        if n % 2:
+            summed = Proj(*(torch.cat([s, c[2 * half :]]) for s, c in zip(summed, pts)))
+        pts = summed
+    return unstack(pts, 0)
+
+
+def tree_sum(F: FieldOps, pts: Proj, axis: int) -> Proj:
+    """The sum of the points along `axis` by `tree_sum_plain`'s tree,
+    bit-identical to it: one launch of K15 (F = FP, G1) or K16 (F = FP2,
+    G2) for CUDA tensors, the plain version for CPU tensors and for the
+    plain fields."""
+    if F.group is None:
+        return tree_sum_plain(F, pts, axis)
+    if fp._is_cpu(*pts):
+        return tree_sum_plain(_PLAIN_FIELD[F.elem_dims], pts, axis)
+    return _tree_sum_kernel(F, pts, axis)
+
+
+def _tree_sum_kernel(F: FieldOps, pts: Proj, axis: int) -> Proj:
+    """One launch of K15 or K16 (csrc/fold_kernels.cu), a block per column.
+    Each coordinate is read in place as (length, columns) points with a
+    row and a column stride in words (a layout that two strides cannot
+    describe is copied once); the kernel's scratch, two halves of
+    ceil(length / 2) points per column, comes from torch.empty."""
+    from . import kernels
+
+    dev = pts.z.device
+    words = fp.WORDS * F.elem_dims
+    coords = [c.movedim(axis, 0) for c in torch.broadcast_tensors(*pts)]
+    L, elem = coords[0].shape[0], coords[0].shape[coords[0].dim() - F.elem_dims :]
+    rest = coords[0].shape[1 : coords[0].dim() - F.elem_dims]
+    C = rest.numel()
+    if L == 0:
+        raise ValueError("tree_sum of an empty axis")
+    ops = [c.reshape(L, C, words) for c in coords]
+    ops = [c if c.stride(2) == 1 else c.contiguous() for c in ops]
+    scratch = torch.empty(2 * C * ((L + 1) // 2) * 3 * words, dtype=torch.int32, device=dev)
+    out = torch.empty((3, *rest, *elem), dtype=torch.int32, device=dev)
+    ptrs = [x for c in ops for x in (c.data_ptr(), c.stride(0), c.stride(1))]
+    name = f"{F.group}_tree_sum"
+    kernels.launch(f"lh_{name}", dev, *ptrs, scratch.data_ptr(), out.data_ptr(), L, C)
+    fp._count(name, (C, L))
     return Proj(out[0], out[1], out[2])
 
 
@@ -361,12 +426,14 @@ _PSI_C = np.stack([pack_fp2_el(_PSI_CX), pack_fp2_el(_PSI_CY)])
 _ABS_X_BITS = np.array([(abs(X_PARAM) >> (63 - i)) & 1 for i in range(64)], dtype=np.int64)
 
 
-def psi(p: Proj) -> Proj:
-    """Untwist-Frobenius-twist endomorphism in homogeneous coordinates."""
-    c = tower.fp2_conj(torch.stack([p.x, p.y, p.z]))
+def psi(p: Proj, F: FieldOps = FP2) -> Proj:
+    """Untwist-Frobenius-twist endomorphism in homogeneous coordinates, over
+    the field operations F (FP2_PLAIN in the plain versions)."""
+    xyz = torch.stack([p.x, p.y, p.z])
+    c = tower.fp2(xyz[..., 0, :], F.neg(xyz[..., 1, :]))  # conjugates
     batch = p.x.shape[:-2]
     consts = fp.const(_PSI_C, p.x.device).reshape(2, *([1] * len(batch)), 2, fp.WORDS)
-    xy = tower.fp2_mul(c[:2], consts)
+    xy = F.mul(c[:2], consts)
     return Proj(xy[0], xy[1], c[2])
 
 

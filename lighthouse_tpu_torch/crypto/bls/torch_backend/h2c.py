@@ -4,11 +4,12 @@ HOST  : expand_message_xmd (SHA-256) and the reduction to two Fp2 field
         elements per message, packed to the wire limbs `stage_sets` emits,
         behind a process-wide LRU keyed by (message, dst).
 DEVICE: simplified SWU onto E' with its Fp2 square roots (one launch of
-        K13), the 3-isogeny to E2 (one launch of K14), point addition
-        and psi-method cofactor clearing, whose two scalar
-        multiplications are one launch of K11. `sswu_composed` and
-        `iso3_map_composed` keep K13 and K14 as compositions over a
-        `TowerOps`, their plain versions over the plain operations.
+        K13), the 3-isogeny to E2 (one launch of K14), and the sum of
+        the two points with the psi-method cofactor clearing (one
+        launch of K17). `sswu_composed`, `iso3_map_composed` and
+        `clear_cofactor_composed` keep K13, K14 and K17 as compositions
+        over a `TowerOps` or the curve's field operations, their plain
+        versions over the plain operations.
 
 Semantics are pinned to the ref oracle (ref/hash_to_curve.py). The device
 formulas mirror the JAX package (lighthouse_tpu jax_backend/h2c.py), so
@@ -27,7 +28,8 @@ from ..constants import DST, P, X as X_PARAM
 from ..ref import hash_to_curve as ref_h2c
 from ..ref.fields import Fp as RefFp, Fp2 as RefFp2
 from . import fp, tower
-from .curve import FP2, Proj, add as proj_add, dbl, neg as proj_neg, psi, scalar_mul_bits, stack2, unstack
+from .curve import _PSI_C, FP2, FP2_PLAIN, FieldOps, Proj, add as proj_add, dbl, neg as proj_neg, psi
+from .curve import scalar_mul_bits, stack2, unstack
 from .pack import pack_fp2_el, to_mont_wire_bulk
 from .tower import fp2, fp2_eq, fp2_inv, fp2_is_zero, fp2_one, fp2_select, fp2_sgn0
 
@@ -175,7 +177,7 @@ def iso3_map(x, y) -> Proj:
 # [X^2 - X - 1] and [X - 1] for the psi-method cofactor clearing.
 _CC_K1 = X_PARAM * X_PARAM - X_PARAM - 1  # positive
 _CC_K2 = X_PARAM - 1  # negative
-_CC_WIDTH = _CC_K1.bit_length()  # 127
+_CC_WIDTH = _CC_K1.bit_length()  # 128
 _CC_BITS = np.array(
     [
         [(_CC_K1 >> (_CC_WIDTH - 1 - i)) & 1 for i in range(_CC_WIDTH)],
@@ -185,24 +187,64 @@ _CC_BITS = np.array(
 )
 
 
-def clear_cofactor(p: Proj) -> Proj:
-    """Budroni-Pintore: [X^2 - X - 1]P + [X - 1]psi(P) + psi^2(2P); the two
-    multiplications run as one 2-stacked windowed multiplication."""
-    base = stack2(p, psi(p))
+# K17's operand: the two rows as bytes, one per bit
+_CC_BITS_U8 = _CC_BITS.astype(np.uint8)
+
+
+def clear_cofactor_composed(p: Proj, q: Proj | None, F: FieldOps) -> Proj:
+    """Budroni-Pintore: [X^2 - X - 1]P + [X - 1]psi(P) + psi^2(2P) of
+    P = p + q (map_to_g2's sum of its two SSWU points), or of P = p when q
+    is None, over the field operations F: the composition K17 replaced
+    (F = FP2: K2, K7 and one launch of K11 for the two multiplications,
+    2-stacked) or K17's plain version (FP2_PLAIN)."""
+    if q is not None:
+        p = proj_add(F, p, q)
+    base = stack2(p, psi(p, F))
     batch_rank = p.z.ndim - 2
     bits = fp.const(_CC_BITS, p.z.device).reshape(2, *([1] * batch_rank), _CC_WIDTH)
-    u = scalar_mul_bits(FP2, base, bits)
+    u = scalar_mul_bits(F, base, bits)
     t1 = unstack(u, 0)
-    t2 = proj_neg(FP2, unstack(u, 1))  # X - 1 < 0
-    t3 = psi(psi(dbl(FP2, p)))
-    return proj_add(FP2, proj_add(FP2, t1, t2), t3)
+    t2 = proj_neg(F, unstack(u, 1))  # X - 1 < 0
+    t3 = psi(psi(dbl(F, p), F), F)
+    return proj_add(F, proj_add(F, t1, t2), t3)
+
+
+def clear_cofactor_plain(p: Proj, q: Proj | None = None) -> Proj:
+    """K17's plain version: PyTorch operations only, on any device."""
+    return clear_cofactor_composed(p, q, FP2_PLAIN)
+
+
+def clear_cofactor(p: Proj, q: Proj | None = None) -> Proj:
+    """The cofactor clearing of p + q (or of p when q is None), G2
+    projective coordinates (..., 2, W): one launch of K17
+    (csrc/cofactor_kernels.cu), a thread pair per element, for CUDA
+    tensors; the plain version for CPU tensors."""
+    pts = (*p, *q) if q is not None else tuple(p)
+    cpu = fp._is_cpu(*pts)
+    for t in pts:
+        tower._check_trailing(t, (2, fp.WORDS), "Fp2")
+    if cpu:
+        return clear_cofactor_plain(p, q)
+    from . import kernels
+
+    dev = p.z.device
+    shape = tower._broadcast(*(t.shape for t in pts))
+    ops = [tower._operand(t, shape, 2, 2 * fp.WORDS) for t in pts]
+    ops += ops if q is None else []  # q's slots: unread when there is no sum
+    ptrs = [x for t, st in ops for x in (t.data_ptr(), st)]
+    out = torch.empty((3, *shape), dtype=torch.int32, device=dev)
+    n = shape.numel() // (2 * fp.WORDS)
+    kernels.launch("lh_clear_cofactor", dev, *ptrs, int(q is not None), fp.const(_PSI_C, dev).data_ptr(),
+                   fp.const(_CC_BITS_U8, dev).data_ptr(), _CC_WIDTH, out.data_ptr(), n)
+    fp._count("clear_cofactor", n)
+    return Proj(out[0], out[1], out[2])
 
 
 def map_to_g2(u0, u1) -> Proj:
-    """SSWU + isogeny once on the 2-stacked (u0, u1), then the sum and the
-    cofactor clearing."""
+    """SSWU + isogeny once on the 2-stacked (u0, u1) (K13, K14), then the
+    sum and the cofactor clearing (K17)."""
     q = iso3_map(*sswu(torch.stack([u0, u1])))
-    return clear_cofactor(proj_add(FP2, unstack(q, 0), unstack(q, 1)))
+    return clear_cofactor(unstack(q, 0), unstack(q, 1))
 
 
 def hash_to_g2_device(u) -> Proj:

@@ -26,9 +26,9 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = (
-    "fp384.cuh", "g1.cuh", "g2.cuh", "tower.cuh",
+    "fp384.cuh", "g1.cuh", "g2.cuh", "tower.cuh", "curve.cuh",
     "fp_kernels.cu", "g1_kernels.cu", "fp_mma.cu", "tower_kernels.cu", "curve_kernels.cu", "final_exp_kernels.cu",
-    "pairing_kernels.cu", "h2c_kernels.cu",
+    "pairing_kernels.cu", "h2c_kernels.cu", "fold_kernels.cu", "cofactor_kernels.cu",
 )
 UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "torch_kernels"
@@ -56,6 +56,11 @@ _SIGNATURES = {
     "lh_miller_loop": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _LL, _P],
     "lh_sswu": [_P, _LL, _P, _P, _LL, _P],
     "lh_iso3_map": [_P, _LL, _P, _LL, _P, _P, _LL, _P],
+    "lh_g1_tree_sum": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _LL, _LL, _P],
+    "lh_g2_tree_sum": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _LL, _LL, _P],
+    "lh_clear_cofactor": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, ctypes.c_int, _P, _P, ctypes.c_int,
+                          _P, _LL, _P],
+    "lh_product_reduce": [_P, _LL, _P, _P, _LL, _P],
 }
 
 _lock = threading.Lock()

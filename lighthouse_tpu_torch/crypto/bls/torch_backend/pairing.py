@@ -20,6 +20,8 @@ part), so GT values are bit-identical to ref/pairing.py. Its five
 |z|-power chains (`pow_abs_x`) are one launch each of K9
 (csrc/final_exp_kernels.cu): 63 compressed (Karabina) squarings, the six
 checkpoints decompressed with one shared inversion, and their product.
+The product of the Miller values (`product_reduce`) is one launch of K18
+(csrc/fold_kernels.cu).
 """
 
 from __future__ import annotations
@@ -215,7 +217,7 @@ def pow_abs_x_composed(g, T: tower.TowerOps):
         c = tower.karabina_sqr(c, T)
         powers.append(c)  # powers[i] = compressed g^(2^(i+1))
     cps = torch.stack([powers[k - 1] for k in _ABS_X_SET_BITS])
-    return product_reduce(tower.karabina_decompress(cps, T), T.fp12_mul)
+    return product_reduce_composed(tower.karabina_decompress(cps, T), T)
 
 
 def pow_abs_x_plain(g):
@@ -259,11 +261,40 @@ def final_exponentiation(f):
 # -- products ------------------------------------------------------------------
 
 
-def product_reduce(fs, mul=fp12_mul):
-    """Multiply a batch of Fp12 values along axis 0 with a log-depth tree."""
+def product_reduce_composed(fs, T: tower.TowerOps):
+    """Multiply a batch of Fp12 values along axis 0 with a log-depth tree
+    (rows i and i + n // 2 a level, an odd leftover carried to the end),
+    over the operations T: the composition K18 replaced (T =
+    tower.KERNEL_TOWER) or K18's plain version (tower.PLAIN_TOWER)."""
     while fs.shape[0] > 1:
         half = fs.shape[0] // 2
-        prod = mul(fs[:half], fs[half : 2 * half])
+        prod = T.fp12_mul(fs[:half], fs[half : 2 * half])
         fs = torch.cat([prod, fs[2 * half :]]) if fs.shape[0] % 2 else prod
     return fs[0]
 
+
+def product_reduce_plain(fs):
+    """K18's plain version: PyTorch operations only, on any device."""
+    return product_reduce_composed(fs, tower.PLAIN_TOWER)
+
+
+def product_reduce(fs):
+    """The product of the tower Fp12 values fs (n, 2, 3, 2, W) along axis 0
+    by `product_reduce_composed`'s tree: one launch of K18
+    (csrc/fold_kernels.cu), one block, for a CUDA tensor; the plain version
+    for a CPU tensor."""
+    cpu = fp._is_cpu(fs)
+    tower._check_trailing(fs, (2, 3, 2, fp.WORDS), "Fp12")
+    if fs.dim() != 5 or fs.shape[0] == 0:
+        raise ValueError(f"product_reduce takes (n >= 1, 2, 3, 2, {fp.WORDS}), got {tuple(fs.shape)}")
+    if cpu:
+        return product_reduce_plain(fs)
+    from . import kernels
+
+    n = fs.shape[0]
+    a, sa = tower._operand(fs, fs.shape, 4, _FP12_WORDS)
+    scratch = torch.empty(2 * ((n + 1) // 2) * _FP12_WORDS, dtype=torch.int32, device=fs.device)
+    out = torch.empty(fs.shape[1:], dtype=torch.int32, device=fs.device)
+    kernels.launch("lh_product_reduce", fs.device, a.data_ptr(), sa, scratch.data_ptr(), out.data_ptr(), n)
+    fp._count("product_reduce", n)
+    return out

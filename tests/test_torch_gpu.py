@@ -1,7 +1,8 @@
 """lighthouse_tpu_torch on the card: the hand-written kernels against their
 plain versions (the tower products K7 and K8 also against the K1/K2
 composition they replaced, the chains K9-K14 against the K1-K4/K7/K8
-composition), launch counting, launches on a card other than the current
+composition, the tree sums K15 and K16, the cofactor clearing K17 and the
+Fp12 product K18 against the composition each replaced), launch counting, launches on a card other than the current
 one (and from a fresh thread), and a small verify, also with every Fp
 product on the tensor cores (K6). Every test needs a
 CUDA GPU and skips without one. The file imports neither jax nor the JAX
@@ -65,7 +66,8 @@ def test_wrappers_launch_and_count_on_card(cuda_device):
     assert fp.LAUNCHES == {
         "fp_mul": 1, "fp_addsub": 1, "fp_pow": 1, "fp_batch_inv": 1, "g1_subgroup_check": 0, "fp_mul_mma": 0,
         "fp2_mul": 0, "fp12_mul": 0, "cyclotomic_pow_x": 0, "g1_scalar_mul": 0, "g2_scalar_mul": 0,
-        "miller_loop": 0, "sswu": 0, "iso3_map": 0,
+        "miller_loop": 0, "sswu": 0, "iso3_map": 0, "g1_tree_sum": 0, "g2_tree_sum": 0, "clear_cofactor": 0,
+        "product_reduce": 0,
     }
     assert torch.equal(fp.add(a[::2], a[1::2]), fp.addsub_plain(a[::2], a[1::2], 0))
 
@@ -87,11 +89,14 @@ def test_verify_on_card(cuda_device):
 
 #: launches of one verify, whatever its shape: the final exponentiation's
 #: five |z|-power chains (K9), r_i aggpk_i (K10), the signatures' 2-stacked
-#: multiplication and clear_cofactor (K11), the Miller pairs' batch
-#: inversion (K4), the Miller loop (K12), SSWU (K13), the isogeny (K14) and
-#: fp12_inv's Fp2 inversion (K3)
-VERIFY_LAUNCHES = {"cyclotomic_pow_x": 5, "g1_scalar_mul": 1, "g2_scalar_mul": 2, "fp_batch_inv": 1,
-                   "miller_loop": 1, "sswu": 1, "iso3_map": 1, "fp_pow": 1}
+#: multiplication (K11), the Miller pairs' batch inversion (K4), the Miller
+#: loop (K12), SSWU (K13), the isogeny (K14), fp12_inv's Fp2 inversion
+#: (K3), the two tree sums (K15, K16), the cofactor clearing with the sum
+#: of the SSWU points (K17) and the product of the Miller values (K18)
+VERIFY_LAUNCHES = chip_smoke.VERIFY_LAUNCHES
+assert VERIFY_LAUNCHES == {"cyclotomic_pow_x": 5, "g1_scalar_mul": 1, "g2_scalar_mul": 1, "fp_batch_inv": 1,
+                           "miller_loop": 1, "sswu": 1, "iso3_map": 1, "fp_pow": 1, "g1_tree_sum": 1,
+                           "g2_tree_sum": 1, "clear_cofactor": 1, "product_reduce": 1}
 
 
 def test_verify_launches_the_chain_kernels(cuda_device):
@@ -212,6 +217,37 @@ def test_sswu_and_iso3_kernels_match_plain_on_card(cuda_device):
     for want in (h2c.iso3_map_plain(xs, ys), h2c.iso3_map_composed(xs, ys, tower.KERNEL_TOWER)):
         assert all(torch.equal(a, b) for a, b in zip(q, want))
     assert bool(tower.fp2_is_zero(q.z[-1])) and not bool(tower.fp2_is_zero(q.z[:-1]).any())
+
+
+@pytest.fixture(scope="module")
+def fold_edge_cases():
+    """chip_smoke's [kernels] edge cases of K15-K18 (`fold_cases`): tree
+    sums over columns of 1, 2, 3, 5, 128 and 512 points with P == Q,
+    P == -Q and infinity rows; the cofactor clearing of 19 elements with
+    u = 0's point and q1 = q0, -q0 and infinity, with and without the sum;
+    the Fp12 product of 1, 2, 3 and 129 values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: torch.cuda.is_available() is False")
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import h2c, pairing
+
+    return chip_smoke.fold_cases(torch, fp, curve, tower, pairing, h2c, P,
+                                 [(2, n) for n in chip_smoke.FOLD_LENGTHS], chip_smoke.FOLD_LENGTHS,
+                                 chip_smoke.COFACTOR_EDGE, chip_smoke.REDUCE_COUNTS, 44, nosum=True)
+
+
+@pytest.mark.parametrize("kernel", ["g1_tree_sum", "g2_tree_sum", "clear_cofactor", "product_reduce"])
+def test_fold_and_cofactor_kernels_match_plain_on_card(fold_edge_cases, kernel):
+    """K15-K18 at their edge shapes against their plain versions and the
+    composition each replaced, bit for bit: one launch per call and no
+    other kernel."""
+    cases = {name: case for name, case in fold_edge_cases.items() if name.startswith(kernel)}
+    fp.reset_launches()
+    got = {name: run() for name, (_, run, _, _) in cases.items()}
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fp.LAUNCHES.items() if v} == {kernel: len(cases)}
+    for name, (_, _, plain, composed) in cases.items():
+        for want in (plain(), composed()):
+            assert torch.equal(chip_smoke._stacked(got[name]), chip_smoke._stacked(want)), name
 
 
 @pytest.mark.parametrize("n", [1, 31, 33, 4104])

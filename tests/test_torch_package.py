@@ -114,10 +114,10 @@ def test_tensor_core_kernel_is_registered():
 def test_tower_kernels_are_registered():
     """K7 and K8: their source is hashed into the build key and compiled
     as a unit, both launchers are bound, and fp.KERNELS counts all
-    fourteen kernels."""
+    eighteen kernels."""
     assert "tower_kernels.cu" in tkernels.SOURCES and "tower_kernels.cu" in tkernels.UNITS
     assert "lh_fp2_mul" in tkernels._SIGNATURES and "lh_fp12_mul" in tkernels._SIGNATURES
-    assert len(tfp.KERNELS) == 14 and set(tfp.LAUNCHES) == set(tfp.KERNELS)
+    assert len(tfp.KERNELS) == 18 and set(tfp.LAUNCHES) == set(tfp.KERNELS)
     assert {"fp2_mul", "fp12_mul"} <= set(tfp.KERNELS)
 
 
@@ -137,6 +137,18 @@ def test_miller_and_h2c_kernels_are_registered():
     launcher parameter, the stream last) and counted."""
     assert {"pairing_kernels.cu", "h2c_kernels.cu"} <= set(tkernels.UNITS)
     arity = {"miller_loop": 14, "sswu": 6, "iso3_map": 8}
+    for name, n in arity.items():
+        assert len(tkernels._SIGNATURES[f"lh_{name}"]) == n and name in tfp.KERNELS
+
+
+def test_fold_and_cofactor_kernels_are_registered():
+    """K15-K18: their sources and the header they share with K10 and K11
+    are hashed into the build key, the .cu files compiled as units, the
+    four launchers bound (one argument type per launcher parameter, the
+    stream last) and counted."""
+    assert "curve.cuh" in tkernels.SOURCES
+    assert {"fold_kernels.cu", "cofactor_kernels.cu"} <= set(tkernels.UNITS)
+    arity = {"g1_tree_sum": 14, "g2_tree_sum": 14, "clear_cofactor": 19, "product_reduce": 6}
     for name, n in arity.items():
         assert len(tkernels._SIGNATURES[f"lh_{name}"]) == n and name in tfp.KERNELS
 
