@@ -7,7 +7,7 @@ Phases, one line each, any failure exits non-zero:
 
   1. device   require a CUDA device; print its name and power limit
   2. build    compile the hand-written kernels (csrc/) with nvcc, one
-              process per source; K5's to K18's registers and spills
+              process per source; K5's to K21's registers and spills
               from ptxas
   3. kernels  K1-K4 and K6 bit-identical to their plain PyTorch versions
               on the card: edge inputs 0, 1, p-1, p-2 and 4096 seeded
@@ -36,15 +36,19 @@ Phases, one line each, any failure exits non-zero:
               q1 = -q0 and q1 at infinity, and without the sum) and K18
               (Fp12 product, n = 1, 2, 3, 129), and all four at the verify
               path's shapes, bit-identical to their plain versions and to
-              the composition they replaced. After
+              the composition they replaced. The final exponentiation K19
+              (n = 1 as on the verify path, n = 3 with p - 1 in every word
+              slot, zero and one, and zero alone), the psi comparison K20
+              (S = 128 and 19: G2 points, points of E2 outside G2,
+              infinity, and a multiple of another point) and the Miller
+              inputs K21 (S = 128 and 1, infinity lanes), likewise. After
               set-up, K5 bit-identical to its plain version (on CPU
               tensors) on 64 points: interop keys, the order-3 point
               (0, 2), points of E(Fp) outside G1 and infinity rows
   4. verify   the verify path, `verify_signature_sets`, on 128 sets x 1
               key and on the mainnet-block shape 128 sets x 128 keys: both
-              True, with the kernels' launch counts of one verify (K9 5,
-              K10 1, K11 1, K4 1, K12 1, K13 1, K14 1, K3 1 and K15-K18 1
-              each at either shape); then a
+              True, with the kernels' launch counts of one verify (K10-K21
+              once each, K1-K9 never, at either shape); then a
               tampered message, a wrong key and a non-subgroup signature
               at 128 x 1, each False; warm ms per batch and sets/s,
               and the warm host staging's ms alone
@@ -56,24 +60,27 @@ Phases, one line each, any failure exits non-zero:
               per call; warm ms and keys/s, host decompression and packing
               ms, K5's device ms
      mxu      the same verify batches, bad batches included, with
-              fp.USE_MXU_MUL set (every Fp product on K6, the JAX
+              fp.USE_MXU_MUL set (every direct Fp product on K6, the JAX
               package's LIGHTHOUSE_TPU_MXU_FP_MUL path): verdicts, K6
-              launched as often as K1 was by default and K1 never, K7 to
-              K18 as often as by default (they keep their CUDA-core
-              products, as the JAX package's flag reaches only direct Fp
-              products); ms per
-              batch with and without the flag, timed in turns; admission
-              at S = 16 still one K5 launch and nothing else
+              launched as often as K1 was by default and K1 never, every
+              other kernel as often as by default (K7 to K21 keep their
+              CUDA-core products, as the JAX package's flag reaches only
+              direct Fp products; a verify has none left, so K6's count is
+              K1's 0); ms per batch with and without the flag, timed in
+              turns; admission at S = 16 still one K5 launch and nothing
+              else
   5. profile  device busy time, idle share and top kernels of one verify,
               at both shapes by default and at 128 x 128 with the flag; the
-              trace holds K3, K4 and K9-K18 as often as a verify launches
-              them
-     timing   each kernel at the shape that carries most of its main-path
-              work, against its plain version and its bound (K6 at K1's
-              shape, so the two compare; K7 and K8 also against the K1/K2
-              composition they replaced); K9-K18 at the verify path's
-              shapes against their plain versions, the composition they
-              replaced and their bounds, K9 with its Fermat chain's share
+              trace holds every kernel as often as a verify launches it
+              (K10-K21 once, the rest never)
+     timing   each kernel against its plain version and its bound: K1-K4,
+              K6, K7 and K8, which a verify no longer launches, at the
+              shapes that carried most of their main-path work before
+              (`OFF_PATH_SHAPES`; K6 at K1's, so the two compare; K7 and
+              K8 also against the K1/K2 composition they replaced);
+              K9-K21 at the verify path's shapes against their plain
+              versions, the composition they replaced and their bounds, K9
+              with its Fermat chain's share
      extras   to_affine (G1, G2), fp6_mul and fp6_inv on the card
               bit-identical to the same functions on CPU tensors
   6. parity   one S=4, K=2 batch: the card's Miller partial and GT value
@@ -84,7 +91,8 @@ Phases, one line each, any failure exits non-zero:
               each, and gloo over 2 ranks sharing cuda:0. Each world: a
               128 x 1 batch True and a tampered one False on every rank,
               with the kernels' launch counts of one verify on every rank
-              (K18 twice: the rank's Miller values and the partials); a
+              (K18 twice: the rank's Miller values and the partials; K19
+              once, on the partials' product); a
               tampered S = 8 batch whose GT value is bit-identical to the
               one-process final_exponentiation(verify_pipeline_local(...))
               on the card; warm ms per batch (median of 3), bytes
@@ -162,6 +170,8 @@ PAIRING_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/pairing_ker
 H2C_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/h2c_kernels.cu"
 FOLD_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/fold_kernels.cu"
 COFACTOR_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/cofactor_kernels.cu"
+FINAL_EXPONENTIATION_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/final_exponentiation_kernels.cu"
+VERIFY_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/verify_kernels.cu"
 REPLACES = {
     "fp_mul": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:310",
     "fp_addsub": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:294",
@@ -181,38 +191,49 @@ REPLACES = {
     "g2_tree_sum": "lighthouse_tpu/crypto/bls/jax_backend/curve.py:138",
     "clear_cofactor": "lighthouse_tpu/crypto/bls/jax_backend/h2c.py:189",
     "product_reduce": "lighthouse_tpu/crypto/bls/jax_backend/pairing.py:282",
+    "final_exponentiation": "lighthouse_tpu/crypto/bls/jax_backend/pairing.py:263",
+    "g2_psi_check": "lighthouse_tpu/crypto/bls/jax_backend/curve.py:389",
+    "miller_inputs": "lighthouse_tpu/crypto/bls/jax_backend/api.py:307",
 }
 SOURCES = {"fp_mul_mma": MMA_SOURCE, "fp2_mul": TOWER_SOURCE, "fp12_mul": TOWER_SOURCE,
            "cyclotomic_pow_x": FINAL_EXP_SOURCE, "g1_scalar_mul": CURVE_SOURCE, "g2_scalar_mul": CURVE_SOURCE,
            "miller_loop": PAIRING_SOURCE, "sswu": H2C_SOURCE, "iso3_map": H2C_SOURCE, "g1_tree_sum": FOLD_SOURCE,
-           "g2_tree_sum": FOLD_SOURCE, "clear_cofactor": COFACTOR_SOURCE, "product_reduce": FOLD_SOURCE}
-# the chain kernels K9-K18, and the field and tower kernels timed at their heaviest main-path shape
-CHAIN_KERNELS = ("cyclotomic_pow_x", "g1_scalar_mul", "g2_scalar_mul", "miller_loop", "sswu", "iso3_map",
-                 "g1_tree_sum", "g2_tree_sum", "clear_cofactor", "product_reduce")
-TIMED_KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv", "fp2_mul", "fp12_mul")
-VERIFY_KERNELS = (*TIMED_KERNELS, *CHAIN_KERNELS)
-# the verify path with fp.USE_MXU_MUL set: K6 in K1's place
-MXU_KERNELS = ("fp_mul_mma", *VERIFY_KERNELS[1:])
-# launches of one verify, whatever its shape: the five |z|-power chains of the
-# final exponentiation (K9), r_i aggpk_i (K10), the signatures' 2-stacked
-# multiplication (K11), the Miller pairs' batch inversion (K4), the Miller
-# loop (K12), SSWU (K13), the isogeny (K14), fp12_inv's Fp2 inversion (K3),
-# the sums of each set's keys (K15) and of the r_i sig_i (K16), the sum of
-# the SSWU points with the cofactor clearing (K17) and the product of the
-# Miller values (K18)
-VERIFY_LAUNCHES = {"cyclotomic_pow_x": 5, "g1_scalar_mul": 1, "g2_scalar_mul": 1, "fp_batch_inv": 1,
-                   "miller_loop": 1, "sswu": 1, "iso3_map": 1, "fp_pow": 1, "g1_tree_sum": 1, "g2_tree_sum": 1,
-                   "clear_cofactor": 1, "product_reduce": 1}
+           "g2_tree_sum": FOLD_SOURCE, "clear_cofactor": COFACTOR_SOURCE, "product_reduce": FOLD_SOURCE,
+           "final_exponentiation": FINAL_EXPONENTIATION_SOURCE, "g2_psi_check": VERIFY_SOURCE,
+           "miller_inputs": VERIFY_SOURCE}
+# launches of one verify, whatever its shape, for every kernel: hash-to-G2's
+# SSWU (K13), isogeny (K14) and sum with the cofactor clearing (K17); the sums
+# of each set's keys (K15) and of the r_i sig_i (K16); r_i aggpk_i (K10); the
+# signatures' 2-stacked multiplication (K11) and the psi comparison (K20);
+# the Miller pairs' affine inputs (K21), the Miller loop (K12), the product
+# of the Miller values (K18) and the final exponentiation (K19). The field
+# and tower kernels K1-K4, K7 and K8 and the |z|-power chain K9 run only
+# inside those; K5 is admission's, K6 the flag's.
+VERIFY_LAUNCHES = {"fp_mul": 0, "fp_addsub": 0, "fp_pow": 0, "fp_batch_inv": 0, "g1_subgroup_check": 0,
+                   "fp_mul_mma": 0, "fp2_mul": 0, "fp12_mul": 0, "cyclotomic_pow_x": 0, "g1_scalar_mul": 1,
+                   "g2_scalar_mul": 1, "miller_loop": 1, "sswu": 1, "iso3_map": 1, "g1_tree_sum": 1,
+                   "g2_tree_sum": 1, "clear_cofactor": 1, "product_reduce": 1, "final_exponentiation": 1,
+                   "g2_psi_check": 1, "miller_inputs": 1}
+VERIFY_KERNELS = tuple(k for k, n in VERIFY_LAUNCHES.items() if n)
 # a sharded rank also multiplies the gathered partials (K18)
 SHARDED_LAUNCHES = {**VERIFY_LAUNCHES, "product_reduce": 2}
+# the field and tower kernels, off the verify path since K19-K21, timed at the
+# shapes that carried most of their main-path work until then: K1 n, K2 n
+# (add), K3 n (p - 2), K4 (steps, lanes), K7 (n, op), K8 (n, mode); K6 at K1's
+OFF_PATH_SHAPES = {"fp_mul": 258, "fp_addsub": 384, "fp_pow": 1, "fp_batch_inv": (257, 1), "fp2_mul": (512, 0),
+                   "fp12_mul": (1, 0), "fp_mul_mma": 258}
 # the tree sums' edge column lengths (512: a sync-committee aggregate's
 # keys) and the Fp12 product's edge counts (129: the Miller values of a
 # 128-set verify); K17's edge batch, no multiple of its 16 pairs a block
 FOLD_LENGTHS = (1, 2, 3, 5, 128, 512)
 REDUCE_COUNTS = (1, 2, 3, 129)
 COFACTOR_EDGE = 19
-# the kernels that keep their CUDA-core products with fp.USE_MXU_MUL set
-MXU_UNMOVED = ("fp2_mul", "fp12_mul", *CHAIN_KERNELS)
+# K19's, K20's and K21's edge shapes: n = 3 Fp12 values (p - 1 in every word
+# slot, zero, one); K20 at 19 elements, no multiple of its 32 a block; K21 at
+# one set
+FINAL_EXP_EDGE = 3
+PSI_EDGE = 19
+MILLER_INPUTS_EDGE = 1
 K6_TAILS = (1, 31, 33)
 # K7 runs 64 elements a block, K8 16 (groups of six threads): whole blocks
 # and counts that are none
@@ -265,6 +286,13 @@ H2C_CONST_BYTES = 10 * 96  # K13's and K14's constant operand, read once
 # products (K8 full), a value 576 bytes.
 G1_ADD_WP, G2_ADD_WP = 12 * WORD_PRODUCTS_PER_MUL, 12 * FP2_MUL_WP
 K17_BYTES, K17_CONST_BYTES = 3 * 3 * 96, 2 * 96 + 2 * 128
+# K19: f in and out, the constants (24 Fp rows) read once. K20: sig and
+# zsig in, a byte out; CX, CY once. K21: a G1 and a G2 point in per set, a
+# G1 and a G2 pair of coordinates and two flags out per lane (S + 1), and
+# sig_acc and -g1 read once.
+K19_BYTES = 2 * 576 + 24 * 48
+K20_BYTES, K20_CONST_BYTES = 6 * 96 + 1, 2 * 96
+K21_BYTES_PER_SET, K21_BYTES_PER_LANE, K21_CONST_BYTES = 3 * 48 + 3 * 96, 2 * 48 + 2 * 96 + 2, 3 * 96 + 2 * 48
 
 
 def pow_word_products(e: int, mul: int, sqr: int) -> int:
@@ -306,6 +334,30 @@ def k17_word_products() -> int:
     """Word products one element of K17 needs (see K17_BYTES)."""
     return ((12 + 3 * 2 + 6 + 24) * FP2_MUL_WP + 2 * FP2_SQR_WP
             + 2 * scalar_mul_word_products(128, FP2_MUL_WP, FP2_SQR_WP))
+
+
+def k19_word_products(P: int) -> int:
+    """Word products one element of K19 needs: five K9 chains; fourteen
+    Fp12 products (ten, and fp12_inv's four); five Frobenius maps of six
+    Fp2 products; phi(N) and phi^2(N), eight Fp products (N lies in Fp6);
+    the Fp2 inversion (its norm's two Fp squares summed and reduced once,
+    the power p - 2, two Fp products); the product by its result, six Fp2
+    products."""
+    k9 = K9_WORD_PRODUCTS_BUT_POWER + inversion_word_products(P)
+    fp2_inv = 2 * 78 + REDC_WORD_PRODUCTS + inversion_word_products(P) + 2 * WORD_PRODUCTS_PER_MUL
+    return (5 * k9 + 14 * FP12_MUL_WP + 5 * 6 * FP2_MUL_WP + 8 * WORD_PRODUCTS_PER_MUL + fp2_inv
+            + 6 * FP2_MUL_WP)
+
+
+def k21_word_products(P: int, S: int) -> int:
+    """Word products K21 needs for S sets: the S + 1 G2 norms (two Fp
+    squares summed and reduced once), Montgomery's trick over n = 2S + 1
+    values (3(n - 1) Fp products and one inversion), two Fp products a G1
+    lane, two Fp products and two Fp2 products a G2 lane."""
+    n = 2 * S + 1
+    return ((S + 1) * (2 * 78 + REDC_WORD_PRODUCTS) + 3 * (n - 1) * WORD_PRODUCTS_PER_MUL
+            + inversion_word_products(P) + 2 * S * WORD_PRODUCTS_PER_MUL
+            + (S + 1) * (2 * WORD_PRODUCTS_PER_MUL + 2 * FP2_MUL_WP))
 
 
 def scalar_mul_word_products(nbits: int, mul: int, sqr: int) -> int:
@@ -574,6 +626,38 @@ def cofactor_inputs(torch, fp, curve, h2c, P, m: int, seed: int):
     return q0, q1
 
 
+def psi_inputs(torch, fp, curve, h2c, P, n: int, seed: int):
+    """K20's operands on the card as the verify hands them over, n >= 4
+    signatures and their [|z|] multiples (K11): `curve_inputs`' G2 points
+    (rows 0 and 1 at infinity), every fifth row from row 5 on a point of E2
+    outside G2 (the isogeny's image of an SSWU point, before the cofactor
+    clearing), and the last row's multiple that of row 2, another point.
+    Returns (sig, zsig, the verdicts the psi criterion must give). Also
+    tests/test_torch_gpu.py's."""
+    sig = curve.Proj(*(c.clone() for c in curve_inputs(torch, fp, curve, "g2", n, seed)))
+    off = list(range(5, n, 5))
+    q = h2c.iso3_map(*h2c.sswu(sswu_inputs(fp, P, len(off) + 4, seed, DEVICE)[4:]))
+    for c, v in zip(sig, q):
+        c[off] = v
+    zsig = curve.Proj(*(c.clone() for c in curve.scalar_mul_bits(curve.FP2, sig, curve._ABS_X_BITS)))
+    for c in zsig:
+        c[n - 1] = c[2]
+    return sig, zsig, [i not in off and i != n - 1 for i in range(n)]
+
+
+def miller_input_points(torch, fp, curve, S: int, seed: int):
+    """K21's operands on the card: r_pk (S G1 points, K10's output), H (S G2
+    points, K17's) and sig_acc (one G2 point, K16's), from `curve_inputs`
+    (Z != 1): for S > 1 the first S rows, rows 0 and 1 at infinity in both
+    groups; for S = 1 a finite G1 point and a G2 point at infinity. Also
+    tests/test_torch_gpu.py's."""
+    g1 = curve_inputs(torch, fp, curve, "g1", S + 4, seed)
+    g2 = curve_inputs(torch, fp, curve, "g2", S + 4, seed + 1)
+    rows = (list(range(S)), list(range(S))) if S > 1 else ([2], [1])
+    r_pk, h = (curve.Proj(*(c[r].contiguous() for c in p)) for p, r in zip((g1, g2), rows))
+    return r_pk, h, curve.unstack(g2, S + 3)
+
+
 def make_sets(api, n_sets: int, keys_per_set: int):
     """bench.py's shapes: 8 distinct single-key sets tiled to n_sets, or one
     aggregate set of keys_per_set signers repeated n_sets times. The
@@ -762,9 +846,10 @@ def check_tower_kernels(torch, fp, tower, P, dev) -> None:
           against="plain,K1/K2", k7_elements=",".join(map(str, K7_COUNTS)), k8_elements=",".join(map(str, K8_COUNTS)))
 
 
-def chain_cases(torch, fp, curve, tower, pairing, h2c, P):
-    """name -> (shape, kernel call, plain version, the composition it
-    replaced) for K9-K18 at the verify path's shapes (128 x 128 verify):
+def chain_cases(torch, fp, curve, tower, pairing, api, h2c, P):
+    """(cases, K20's verdicts; see `glue_cases`): name -> (shape, kernel
+    call, plain version, the composition it replaced) for K9-K21 at the
+    verify path's shapes (128 x 128 verify):
     K10 on S points at 64 bits, K11 on the 2 S stacked signatures at 64
     bits and on the cofactor clearing's 2 x S points at 128 broadcast bits
     (the chains K17 now runs: K11's launch of them before K17), K9 on one
@@ -772,7 +857,8 @@ def chain_cases(torch, fp, curve, tower, pairing, h2c, P):
     K13 on the 2 S stacked u's, K14 on SSWU's 2 S points and the kernel
     point, K15 on S columns of K keys, K16 on one column of S points, K17
     on the isogeny's 2-stacked images of S messages, K18 on the S + 1
-    Miller values."""
+    Miller values, K19 on one Fp12 value, K20 on S signatures and K21 on S
+    sets (`glue_cases`)."""
     S = N_SETS
     p1 = curve_inputs(torch, fp, curve, "g1", S, 21)
     b1 = scalar_bits(torch, S, 64, 22)
@@ -806,7 +892,10 @@ def chain_cases(torch, fp, curve, tower, pairing, h2c, P):
     cases[f"iso3_map_m{2 * S + 1}"] = ([2 * S + 1], lambda: h2c.iso3_map(xs, ys), lambda: h2c.iso3_map_plain(xs, ys),
                                        lambda: h2c.iso3_map_composed(xs, ys, tower.KERNEL_TOWER))
     cases.update(fold_cases(torch, fp, curve, tower, pairing, h2c, P, [(S, BLOCK_KEYS)], [S], S, [S + 1], 28))
-    return cases
+    fe = {"final_exponentiation_n1": fp12_inputs(fp, tower, P, 4, 30, DEVICE)[3:]}
+    glue, verdicts = glue_cases(torch, fp, curve, tower, pairing, api, h2c, P, fe, [S], [S], 31)
+    cases.update(glue)
+    return cases, verdicts
 
 
 def fold_cases(torch, fp, curve, tower, pairing, h2c, P, g1_shapes, g2_lengths, cofactor_m, counts, seed,
@@ -845,31 +934,62 @@ def fold_cases(torch, fp, curve, tower, pairing, h2c, P, g1_shapes, g2_lengths, 
     return cases
 
 
+def glue_cases(torch, fp, curve, tower, pairing, api, h2c, P, fe_inputs, psi_sizes, mi_sizes, seed):
+    """(cases, verdicts): name -> (shape, kernel call, plain version, the
+    composition it replaced) for K19 on each tensor of `fe_inputs` (name ->
+    Fp12 values), K20 on `psi_inputs` of each size in `psi_sizes` and K21
+    on `miller_input_points` of each S in `mi_sizes`; and K20's case name ->
+    the verdicts its inputs must give."""
+    cases, verdicts = {}, {}
+    for name, f in fe_inputs.items():
+        cases[name] = ([f.shape[0]], lambda f=f: pairing.final_exponentiation(f),
+                       lambda f=f: pairing.final_exponentiation_plain(f),
+                       lambda f=f: pairing.final_exponentiation_composed(f, tower.KERNEL_TOWER, pairing.pow_abs_x))
+    for n in psi_sizes:
+        sig, zsig, want = psi_inputs(torch, fp, curve, h2c, P, n, seed + n)
+        name = f"g2_psi_check_n{n}"
+        cases[name] = ([n], lambda sig=sig, zsig=zsig: curve.g2_psi_check(sig, zsig),
+                       lambda sig=sig, zsig=zsig: curve.g2_psi_check_plain(sig, zsig),
+                       lambda sig=sig, zsig=zsig: curve.g2_psi_check_composed(sig, zsig, curve.FP2))
+        verdicts[name] = want
+    for S in mi_sizes:
+        pts = miller_input_points(torch, fp, curve, S, seed + S)
+        cases[f"miller_inputs_s{S}"] = ([S], lambda pts=pts: api.miller_inputs(*pts),
+                                        lambda pts=pts: api.miller_inputs_plain(*pts),
+                                        lambda pts=pts: api.miller_inputs_composed(*pts, tower.KERNEL_TOWER))
+    return cases, verdicts
+
+
 def _stacked(out):
-    """A kernel's output as one int64 tensor of u32 words (a point's three
-    coordinates stacked)."""
+    """A kernel's output as one flat int64 tensor of u32 words (the
+    tensors of a tuple, a point's coordinates or K21's six outputs,
+    concatenated)."""
     import torch
 
-    t = torch.stack(list(out)) if isinstance(out, tuple) else out
-    return t.to(torch.int64) & 0xFFFFFFFF
+    parts = out if isinstance(out, tuple) else (out,)
+    return torch.cat([t.reshape(-1).to(torch.int64) & 0xFFFFFFFF for t in parts])
 
 
 def max_word_err(got, want) -> int:
     return int((_stacked(got) - _stacked(want)).abs().max())
 
 
-def check_chain_kernels(torch, cases) -> None:
-    """Each kernel of `cases` (`chain_cases`, `fold_cases`) bit-identical to
-    its plain version and to the composition it replaced, with the edge
-    rows of `curve_inputs`, `scalar_bits`, `cyclotomic_inputs`,
-    `miller_inputs`, `sswu_inputs`, `fold_inputs` and `cofactor_inputs`
-    (and the isogeny's kernel point)."""
+def check_chain_kernels(torch, cases, verdicts=None) -> None:
+    """Each kernel of `cases` (`chain_cases`, `fold_cases`, `glue_cases`)
+    bit-identical to its plain version and to the composition it replaced,
+    with the edge rows of `curve_inputs`, `scalar_bits`,
+    `cyclotomic_inputs`, `miller_inputs`, `sswu_inputs`, `fold_inputs`,
+    `cofactor_inputs`, `fp12_inputs`, `psi_inputs` and
+    `miller_input_points` (and the isogeny's kernel point); the cases of
+    `verdicts` (name -> bools) also give those verdicts."""
     for name, (_, run, plain, composed) in cases.items():
         got = run()
         for label, fn in (("plain version", plain), ("composition replaced", composed)):
             want = fn()
             if not torch.equal(_stacked(got), _stacked(want)):
                 raise AssertionError(f"{name}: kernel differs from its {label}")
+        if verdicts and name in verdicts and got.tolist() != verdicts[name]:
+            raise AssertionError(f"{name}: verdicts {got.tolist()}, expected {verdicts[name]}")
     phase("kernels", ok=True, compared=",".join(cases), against="plain,composition")
 
 
@@ -996,18 +1116,16 @@ def check_extras(torch, fp, curve, tower, P) -> None:
     phase("extras", ok=True, compared=",".join(cases), elements=n)
 
 
-def run_verify(torch, api, fp, sets, label: str, card: str, record_shapes: bool = False):
+def run_verify(torch, api, fp, sets, label: str, card: str):
     """One counted verify (launch counts reset just before, read just after),
     then VERIFY_REPS timed ones, then VERIFY_REPS of its host staging alone
     (`stage_sets`, warm caches: the part of a verify's wall time before
-    its first launch). Returns (verdict, launches, ms, shapes)."""
+    its first launch). Returns (verdict, launches, ms)."""
     torch.cuda.synchronize()
-    fp.SHAPES = {} if record_shapes else None
     fp.reset_launches()
     ok = api.verify_signature_sets(sets)
     torch.cuda.synchronize()
     launches = dict(fp.LAUNCHES)
-    shapes, fp.SHAPES = fp.SHAPES, None
     times = []
     for _ in range(VERIFY_REPS):
         t0 = time.perf_counter()
@@ -1026,14 +1144,15 @@ def run_verify(torch, api, fp, sets, label: str, card: str, record_shapes: bool 
         sets_per_s=f"{len(sets) / ms * 1e3:.2f}", launches=json.dumps(launches, separators=(",", ":")),
         card=f'"{card}"',
     )
-    return ok, launches, ms, shapes
+    return ok, launches, ms
 
 
 def run_mxu(torch, api, fp, default, bad, pk_keys: list[bytes], pk_want: list[bool], card: str):
     """The verify path with fp.USE_MXU_MUL set, restored afterwards
     whatever happens. For each valid batch of `default` (label -> (sets,
     launches) of the default run): one counted verify, which must launch
-    K6 exactly as often as the default run launched K1 and K1 never; then
+    K6 exactly as often as the default run launched K1, K1 never and every
+    other kernel as the default run did; then
     the two settings timed in turns (default, flag, flag, default, twice),
     so that both medians come from the same stretch of the host's time.
     Then the `bad` batches fail, admission still launches K5 once and
@@ -1049,13 +1168,10 @@ def run_mxu(torch, api, fp, default, bad, pk_keys: list[bytes], pk_want: list[bo
             torch.cuda.synchronize()
             launches = dict(fp.LAUNCHES)
             assert ok, f"mxu {label}: a valid batch did not verify"
-            missing = [k for k in MXU_KERNELS if launches[k] <= 0]
-            assert not missing, f"mxu {label}: kernels not launched: {missing}"
-            if launches["fp_mul"] != 0 or launches["fp_mul_mma"] != base["fp_mul"]:
-                raise AssertionError(f"mxu {label}: K6 should take K1's {base['fp_mul']} launches, got {launches}")
-            moved = {k: (base[k], launches[k]) for k in MXU_UNMOVED if launches[k] != base[k]}
-            if moved:
-                raise AssertionError(f"mxu {label}: K7-K11 launches (default, flag) differ: {moved}")
+            expected = {**base, "fp_mul": 0, "fp_mul_mma": base["fp_mul"]}
+            if launches != expected:
+                raise AssertionError(f"mxu {label}: expected the default launches with K6 in K1's place, {expected}, "
+                                     f"got {launches}")
             times = {False: [], True: []}
             for flag in (False, True, True, False) * 2:
                 fp.USE_MXU_MUL = flag
@@ -1078,21 +1194,6 @@ def run_mxu(torch, api, fp, default, bad, pk_keys: list[bytes], pk_want: list[bo
     finally:
         fp.USE_MXU_MUL = saved
     return launches
-
-
-def heaviest_shape(counter, name: str):
-    """The launch shape that carries the most elements over the main path's
-    launches (count x elements; for K4 the shape is (steps, lanes), for K7
-    and K8 (elements, op or mode))."""
-    def work(kv):
-        shape, count = kv
-        if name == "fp_batch_inv":
-            elems = shape[0] * shape[1]
-        else:
-            elems = shape[0] if isinstance(shape, tuple) else shape
-        return (count * elems, count)
-
-    return max(counter.items(), key=work)[0]
 
 
 def profile_verify(torch, api, sets, label: str, warm_ms: float) -> None:
@@ -1118,18 +1219,17 @@ def profile_verify(torch, api, sets, label: str, warm_ms: float) -> None:
         raise AssertionError(f"profile {label}: the trace holds {traced}, a verify launches {VERIFY_LAUNCHES}")
 
 
-def time_kernels(torch, fp, tower, P, dev, shapes, launches, peak_ops_per_s):
-    """Each kernel at the shape that carries most of its main-path work:
-    its device time per launch (profiler), its time per call from the host
-    (CUDA events, launch overhead included), the plain version's time, the
-    bound, and the largest word difference from the plain version. K6 runs
-    at K1's shape: the flag gives it the same launches. K7 and K8 run in
-    the op or mode of that shape, and the K1/K2 composition they replaced
-    is timed beside them (`composed_ms`, per call)."""
+def time_kernels(torch, fp, tower, P, dev, launches, peak_ops_per_s):
+    """The field and tower kernels at `OFF_PATH_SHAPES`: device time per
+    launch (profiler), time per call from the host (CUDA events, launch
+    overhead included), the plain version's time, the bound, and the
+    largest word difference from the plain version. K6 runs at K1's shape.
+    K7 and K8 run in the op or mode of their shape, and the K1/K2
+    composition they replaced is timed beside them (`composed_ms`, per
+    call)."""
     results = []
     inv_word_products = inversion_word_products(P)
-    for name in (*TIMED_KERNELS, "fp_mul_mma"):
-        shape = heaviest_shape(shapes["fp_mul" if name == "fp_mul_mma" else name], name)
+    for name, shape in OFF_PATH_SHAPES.items():
         composed = None
         if name == "fp_batch_inv":
             steps, lanes = shape
@@ -1208,7 +1308,7 @@ def time_kernels(torch, fp, tower, P, dev, shapes, launches, peak_ops_per_s):
 
 
 def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s):
-    """K9-K18 at the verify path's shapes (`chain_cases`): device ms per
+    """K9-K21 at the verify path's shapes (`chain_cases`): device ms per
     launch (profiler), ms per call (CUDA events), the plain version's and
     the composition's ms per call, and the bound. K11 runs at two shapes
     (the signatures' 64 bits; the cofactor clearing's 128, which K17 now
@@ -1236,6 +1336,10 @@ def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s):
         f"g2_tree_sum_{S}": ("g2_tree_sum", (S - 1) * G2_ADD_WP, (S + 1) * 3 * 96),
         f"clear_cofactor_m{S}": ("clear_cofactor", S * k17_word_products(), S * K17_BYTES + K17_CONST_BYTES),
         f"product_reduce_n{S + 1}": ("product_reduce", S * FP12_MUL_WP, (S + 2) * 576),
+        "final_exponentiation_n1": ("final_exponentiation", k19_word_products(P), K19_BYTES),
+        f"g2_psi_check_n{S}": ("g2_psi_check", S * 6 * FP2_MUL_WP, S * K20_BYTES + K20_CONST_BYTES),
+        f"miller_inputs_s{S}": ("miller_inputs", k21_word_products(P, S),
+                                S * K21_BYTES_PER_SET + (S + 1) * K21_BYTES_PER_LANE + K21_CONST_BYTES),
     }
     rows = {}
     for case, (name, ops, nbytes) in bounds.items():
@@ -1518,15 +1622,24 @@ def main() -> int:
           g1_tree_sum=f'"{ptxas_summary(log, "g1_tree_sum_kernel")}"',
           g2_tree_sum=f'"{ptxas_summary(log, "g2_tree_sum_kernel")}"',
           clear_cofactor=f'"{ptxas_summary(log, "clear_cofactor_kernel")}"',
-          product_reduce=f'"{ptxas_summary(log, "product_reduce_kernel")}"')
+          product_reduce=f'"{ptxas_summary(log, "product_reduce_kernel")}"',
+          final_exponentiation=f'"{ptxas_summary(log, "final_exponentiation_kernel")}"',
+          g2_psi_check=f'"{ptxas_summary(log, "g2_psi_check_kernel")}"',
+          miller_inputs=f'"{ptxas_summary(log, "miller_inputs_kernel")}"')
 
     check_kernels(torch, fp, P, dev)
     check_tower_kernels(torch, fp, tower, P, dev)
-    chains = chain_cases(torch, fp, curve, tower, pairing, h2c, P)
-    check_chain_kernels(torch, chains)
+    chains, verdicts = chain_cases(torch, fp, curve, tower, pairing, api, h2c, P)
+    check_chain_kernels(torch, chains, verdicts)
     edges = fold_cases(torch, fp, curve, tower, pairing, h2c, P, [(2, n) for n in FOLD_LENGTHS], FOLD_LENGTHS,
                        COFACTOR_EDGE, REDUCE_COUNTS, 29, nosum=True)
     check_chain_kernels(torch, edges)
+    fe_edges = fp12_inputs(fp, tower, P, FINAL_EXP_EDGE, 32, DEVICE)  # p - 1 in every word slot, zero, one
+    glue, verdicts = glue_cases(torch, fp, curve, tower, pairing, api, h2c, P,
+                                {f"final_exponentiation_n{FINAL_EXP_EDGE}": fe_edges,
+                                 "final_exponentiation_zero": fe_edges[1:2]},
+                                [PSI_EDGE], [MILLER_INPUTS_EDGE], 33)
+    check_chain_kernels(torch, glue, verdicts)
 
     t0 = time.perf_counter()
     gossip = make_sets(api, N_SETS, 1)
@@ -1542,8 +1655,8 @@ def main() -> int:
     check_g1_kernel(torch, api, fp, curve, valid, invalid)
 
     gossip_shape, block_shape = f"{N_SETS}x1", f"{N_SETS}x{BLOCK_KEYS}"
-    ok_g, launches_g, gossip_ms, _ = run_verify(torch, api, fp, gossip, gossip_shape, name_power)
-    ok_b, launches_b, block_ms, shapes = run_verify(torch, api, fp, block, block_shape, name_power, record_shapes=True)
+    ok_g, launches_g, gossip_ms = run_verify(torch, api, fp, gossip, gossip_shape, name_power)
+    ok_b, launches_b, block_ms = run_verify(torch, api, fp, block, block_shape, name_power)
     assert ok_g and ok_b, "a valid batch did not verify"
     for launches in (launches_g, launches_b):
         missing = [k for k in VERIFY_KERNELS if launches[k] <= 0]
@@ -1576,8 +1689,8 @@ def main() -> int:
 
     profile_verify(torch, api, gossip, gossip_shape, gossip_ms)
     profile_verify(torch, api, block, block_shape, block_ms)
-    results = time_kernels(torch, fp, tower, P, dev, shapes,
-                           {**launches_b, "fp_mul_mma": mxu_launches["fp_mul_mma"]}, peak_ops)
+    results = time_kernels(torch, fp, tower, P, dev, {**launches_b, "fp_mul_mma": mxu_launches["fp_mul_mma"]},
+                           peak_ops)
     results += time_chain_kernels(torch, fp, P, chains, launches_b, peak_ops)
     results.append(time_g1_kernel(torch, api, fp, curve, pk_keys[PK_SIZES[0]], pk_launches[PK_SIZES[0]], peak_ops))
     check_extras(torch, fp, curve, tower, P)

@@ -2,10 +2,11 @@
 admission on a CUDA device.
 
 The verification workload runs as one plain PyTorch function per batch over
-the hand-written kernels (the field's K1-K4, the tower's K7 and K8, the
-|z|-power chain K9, the scalar multiplications K10 and K11, the Miller
-loop K12, hash-to-G2's K13, K14 and K17, the tree sums K15 and K16 and
-the Miller values' product K18):
+the hand-written kernels (the scalar multiplications K10 and K11, the
+Miller loop K12, hash-to-G2's K13, K14 and K17, the tree sums K15 and K16,
+the Miller values' product K18, the final exponentiation K19, the G2
+subgroup check's comparison K20 and the batch-affine Miller inputs K21),
+one launch each:
 
     host:   expand_message_xmd (SHA-256), point decompression (no subgroup
             check: deferred to the device), RLC scalar sampling, packing
@@ -59,11 +60,11 @@ from ....common.tracing import span
 from .. import batch_verifier
 from ..ref import api as _ref
 from ..ref.curves import Point, g1_infinity, g2_infinity
-from . import fp, h2c, pairing
-from .curve import FP, FP2, Proj, eq_points, from_affine, g1_in_subgroup_kernel, is_infinity, psi
-from .curve import neg as p_neg, scalar_mul_bits, stack2, tree_sum, unstack
+from . import fp, h2c, pairing, tower
+from .curve import FP, FP2, Proj, from_affine, g1_in_subgroup_kernel, g2_psi_check, is_infinity, scalar_mul_bits
+from .curve import stack2, tree_sum, unstack
 from .pack import G1_GEN_NEG_Y_L, G1_GEN_X_L, pack_g1_batch, pack_g2_batch, precompute_limbs
-from .tower import fp2_mul, fp12_is_one
+from .tower import fp12_is_one
 
 DecodeError = _ref.DecodeError
 PublicKey = _ref.PublicKey
@@ -223,6 +224,79 @@ def _next_pow2(n: int, floor: int = 4) -> int:
 
 
 _ABS_X_BITS64 = pairing._ABS_X_BITS_MSB[-64:]
+# the last Miller pair's G1 point, (-g1): K21's constant operand
+_NEG_G1_GEN = np.stack([G1_GEN_X_L, G1_GEN_NEG_Y_L])
+
+
+def miller_inputs_composed(r_pk: Proj, H: Proj, sig_acc: Proj, T: tower.TowerOps):
+    """The S + 1 Miller pairs of a verify, batch-affine, over the operations
+    T: (r_i aggpk_i, H_i) for the S sets and (-g1, sig_acc) last. Every
+    denominator is one Fp value (a G1 z, or a G2 z's norm z0^2 + z1^2), all
+    inverted by one batch inversion; infinity lanes carry z = 0 -> 0 ->
+    zeroed affine coordinates. Returns (px, py, p_in, qx, qy, q_in). The
+    composition K21 replaced (T = tower.KERNEL_TOWER: K1, K2, K4 and K7) or
+    K21's plain version (tower.PLAIN_TOWER)."""
+    F = T.fp
+    dev = r_pk.z.device
+    S = r_pk.z.shape[0]
+    g2_z = torch.cat([H.z, sig_acc.z[None]])  # (S + 1, 2, W)
+    z01 = torch.stack([g2_z[..., 0, :], g2_z[..., 1, :]])
+    zsq = F.mul(z01, z01)
+    dens = torch.cat([r_pk.z, F.add(zsq[0], zsq[1])])
+    inv_all = T.batch_inv(dens)  # (2S + 1, W)
+    g1_aff = F.mul(torch.stack([r_pk.x, r_pk.y]), inv_all[:S])
+    nm = F.mul(z01, inv_all[S:])
+    zinv2 = torch.stack([nm[0], F.neg(nm[1])], dim=-2)  # conj(z) / norm
+    g2_aff = T.fp2_mul(
+        torch.stack([torch.cat([H.x, sig_acc.x[None]]), torch.cat([H.y, sig_acc.y[None]])]),
+        zinv2,
+    )
+    gen = fp.const(_NEG_G1_GEN, dev)
+    px = torch.cat([g1_aff[0], gen[:1]])
+    py = torch.cat([g1_aff[1], gen[1:]])
+    p_in = torch.cat([fp.is_zero(r_pk.z), torch.zeros(1, dtype=torch.bool, device=dev)])
+    return px, py, p_in, g2_aff[0], g2_aff[1], tower.fp2_is_zero(g2_z)
+
+
+def miller_inputs_plain(r_pk: Proj, H: Proj, sig_acc: Proj):
+    """K21's plain version: PyTorch operations only, on any device."""
+    return miller_inputs_composed(r_pk, H, sig_acc, tower.PLAIN_TOWER)
+
+
+def miller_inputs(r_pk: Proj, H: Proj, sig_acc: Proj):
+    """`miller_inputs_composed`'s six tensors for r_pk (S,) in G1, H (S,)
+    and sig_acc (one point) in G2: one launch of K21
+    (csrc/verify_kernels.cu), one block, for CUDA tensors, each coordinate
+    of r_pk and H read in place by its element stride; the plain version
+    for CPU tensors."""
+    cpu = fp._is_cpu(*r_pk, *H, *sig_acc)
+    S = r_pk.z.shape[0]
+    g1, g2 = torch.Size((S, fp.WORDS)), torch.Size((S, 2, fp.WORDS))
+    for c in r_pk:
+        tower._check_trailing(c, tuple(g1), "G1 (S, W)")
+    for c in H:
+        tower._check_trailing(c, tuple(g2), "G2 (S, 2, W)")
+    for c in sig_acc:
+        tower._check_trailing(c, (2, fp.WORDS), "Fp2")
+    if cpu:
+        return miller_inputs_plain(r_pk, H, sig_acc)
+    from . import kernels
+
+    dev = r_pk.z.device
+    ops = [tower._operand(c, g1, 1, fp.WORDS) for c in r_pk] + [tower._operand(c, g2, 2, 2 * fp.WORDS) for c in H]
+    ptrs = [x for t, st in ops for x in (t.data_ptr(), st)]
+    acc = [c.contiguous() for c in sig_acc]
+    n = 2 * S + 1
+    scratch = torch.empty((2 * n - 1) * fp.WORDS, dtype=torch.int32, device=dev)
+    pxy = torch.empty((2, S + 1, fp.WORDS), dtype=torch.int32, device=dev)
+    qxy = torch.empty((2, S + 1, 2, fp.WORDS), dtype=torch.int32, device=dev)
+    p_in = torch.empty(S + 1, dtype=torch.bool, device=dev)
+    q_in = torch.empty(S + 1, dtype=torch.bool, device=dev)
+    kernels.launch("lh_miller_inputs", dev, *ptrs, *(c.data_ptr() for c in acc),
+                   fp.const(_NEG_G1_GEN, dev).data_ptr(), scratch.data_ptr(), pxy.data_ptr(), p_in.data_ptr(),
+                   qxy.data_ptr(), q_in.data_ptr(), S)
+    fp._count("miller_inputs")
+    return pxy[0], pxy[1], p_in, qxy[0], qxy[1], q_in
 
 
 def verify_pipeline_local(pk_x, pk_y, pk_inf, sig_x, sig_y, sig_inf, u, r_bits):
@@ -233,7 +307,6 @@ def verify_pipeline_local(pk_x, pk_y, pk_inf, sig_x, sig_y, sig_inf, u, r_bits):
     pair being (-g1, sum_i r_i sig_i), and the AND of the subgroup and
     aggregate-infinity checks."""
     dev = pk_x.device
-    S, K = pk_inf.shape
 
     # 1. Hash messages to G2 (the host already ran SHA-256).
     H = h2c.hash_to_g2_device(u)
@@ -247,39 +320,17 @@ def verify_pipeline_local(pk_x, pk_y, pk_inf, sig_x, sig_y, sig_inf, u, r_bits):
     r_pk = scalar_mul_bits(FP, agg, r_bits)
 
     # 4. Subgroup checks (psi(sig) == -[|z|] sig) and r_i * sig_i, one
-    #    2-stacked multiplication.
+    #    2-stacked multiplication, then the psi comparison (K20).
     sigs = from_affine(FP2, sig_x, sig_y, sig_inf)
     absx = fp.const(_ABS_X_BITS64, dev).expand(r_bits.shape)
     both = scalar_mul_bits(FP2, stack2(sigs, sigs), torch.stack([absx, r_bits.to(absx.dtype)]))
-    zsig, rsig = unstack(both, 0), unstack(both, 1)
-    sub_ok = eq_points(FP2, psi(sigs), p_neg(FP2, zsig)) | is_infinity(FP2, sigs)
+    sub_ok = g2_psi_check(sigs, unstack(both, 0))
 
     # 5. sig_acc = sum_i r_i sig_i.
-    sig_acc = tree_sum(FP2, rsig, axis=0)
+    sig_acc = tree_sum(FP2, unstack(both, 1), axis=0)
 
-    # 6. S + 1 Miller pairs, batch-affine: every denominator is one Fp value
-    #    (a G1 z, or a G2 z's norm z0^2 + z1^2), all inverted by one K4
-    #    launch. Infinity lanes carry z = 0 -> 0 -> zeroed affine coordinates.
-    g2_z = torch.cat([H.z, sig_acc.z[None]])  # (S + 1, 2, W)
-    z0, z1 = g2_z[..., 0, :], g2_z[..., 1, :]
-    zsq = fp.sqr(torch.stack([z0, z1]))
-    dens = torch.cat([r_pk.z, fp.add(zsq[0], zsq[1])])
-    inv_all = fp.batch_inv(dens)  # (2S + 1, W)
-    g1_aff = fp.mul(torch.stack([r_pk.x, r_pk.y]), inv_all[:S])
-    pk_ainf = is_infinity(FP, r_pk)
-    nm = fp.mul(torch.stack([z0, z1]), inv_all[S:])
-    zinv2 = torch.stack([nm[0], fp.neg(nm[1])], dim=-2)  # conj(z) / norm
-    g2_aff = fp2_mul(
-        torch.stack([torch.cat([H.x, sig_acc.x[None]]), torch.cat([H.y, sig_acc.y[None]])]),
-        zinv2,
-    )
-    px = torch.cat([g1_aff[0], fp.const(G1_GEN_X_L, dev)[None]])
-    py = torch.cat([g1_aff[1], fp.const(G1_GEN_NEG_Y_L, dev)[None]])
-    p_in = torch.cat([pk_ainf, torch.zeros(1, dtype=torch.bool, device=dev)])
-    qx, qy = g2_aff[0], g2_aff[1]
-    q_in = is_infinity(FP2, Proj(qx, qy, g2_z))
-
-    f = pairing.miller_loop(px, py, p_in, qx, qy, q_in)
+    # 6. S + 1 Miller pairs, batch-affine (K21), the last (-g1, sig_acc).
+    f = pairing.miller_loop(*miller_inputs(r_pk, H, sig_acc))
     partial = pairing.product_reduce(f)
     ok = sub_ok.all() & ~agg_inf.any()
     return partial, ok

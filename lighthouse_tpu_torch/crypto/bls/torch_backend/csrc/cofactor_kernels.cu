@@ -52,24 +52,6 @@ namespace {
 constexpr int kCofactorThreads = 32;  // a thread pair per element
 constexpr int kPairs = kCofactorThreads / 2;
 
-// r = psi(p) = (conj(x) CX, conj(y) CY, conj(z)), with psi_c = [CX, CY]
-// (curve._PSI_C, Fp2 each). r may alias p.
-__device__ __noinline__ void g2_psi(G2Proj& r, const G2Proj& p, const uint32_t* psi_c) {
-  fp2_t c, k;
-  fp_copy(c[0], p.x[0]);
-  fp_neg(c[1], p.x[1]);
-  fp_load(k[0], psi_c);
-  fp_load(k[1], psi_c + FP_WORDS);
-  fp2_mul(r.x, c, k);
-  fp_copy(c[0], p.y[0]);
-  fp_neg(c[1], p.y[1]);
-  fp_load(k[0], psi_c + 2 * FP_WORDS);
-  fp_load(k[1], psi_c + 3 * FP_WORDS);
-  fp2_mul(r.y, c, k);
-  fp_copy(r.z[0], p.z[0]);
-  fp_neg(r.z[1], p.z[1]);
-}
-
 __global__ void __launch_bounds__(kCofactorThreads) clear_cofactor_kernel(
     const uint32_t* __restrict__ px, long long spx, const uint32_t* __restrict__ py, long long spy,
     const uint32_t* __restrict__ pz, long long spz, const uint32_t* __restrict__ qx, long long sqx,

@@ -1,7 +1,8 @@
 // The group laws of G1 and G2 as one-copy routines, and the windowed
 // scalar multiplication of one thread, as __device__ building blocks for
-// K10 / K11 (curve_kernels.cu), the tree sums K15 / K16 (fold_kernels.cu)
-// and the cofactor clearing K17 (cofactor_kernels.cu). Each .cu compiles
+// K10 / K11 (curve_kernels.cu), the tree sums K15 / K16 (fold_kernels.cu),
+// the cofactor clearing K17 (cofactor_kernels.cu) and the psi comparison
+// K20 (verify_kernels.cu, which loads its points with `load_point`). Each .cu compiles
 // on its own, so each keeps its own copy of what it uses.
 //
 // `scalar_mul_point` is the plain version's algorithm step for step

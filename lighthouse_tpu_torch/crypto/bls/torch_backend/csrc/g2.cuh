@@ -1,8 +1,10 @@
 // Fp2 = Fp[u]/(u^2 + 1) in one thread or split over two, and G2
 // (y^2 = x^3 + 4(1 + u) over Fp2) in homogeneous projective coordinates
 // (X : Y : Z), infinity = (0 : 1 : 0), as __device__ building blocks over
-// fp384.cuh for K9 (final_exp_kernels.cu), K11 (curve_kernels.cu), K12
-// (pairing_kernels.cu) and K13 / K14 (h2c_kernels.cu).
+// fp384.cuh for K9 and K19 (final_exp_kernels.cu,
+// final_exponentiation_kernels.cu), K11 (curve_kernels.cu), K12
+// (pairing_kernels.cu), K13 / K14 (h2c_kernels.cu), K17
+// (cofactor_kernels.cu) and K20 / K21 (verify_kernels.cu).
 //
 // An Fp2 element is uint32_t[2][12]: [c0, c1], canonical Montgomery words.
 // A product forms each output component as one double-width sum and
@@ -30,6 +32,16 @@ typedef uint32_t fp2_t[2][FP_WORDS];
 __device__ __forceinline__ void fp2_copy(fp2_t r, const fp2_t a) {
   fp_copy(r[0], a[0]);
   fp_copy(r[1], a[1]);
+}
+
+__device__ __forceinline__ void fp2_load(fp2_t r, const uint32_t* src) {
+  fp_load(r[0], src);
+  fp_load(r[1], src + FP_WORDS);
+}
+
+__device__ __forceinline__ void fp2_store(uint32_t* dst, const fp2_t a) {
+  fp_store(dst, a[0]);
+  fp_store(dst + FP_WORDS, a[1]);
 }
 
 __device__ __forceinline__ void fp2_add(fp2_t r, const fp2_t a, const fp2_t b) {
@@ -219,4 +231,24 @@ __device__ __forceinline__ void g2_dbl(G2Proj& r, const G2Proj& p) {
   fp2_copy(r.x, x3);
   fp2_copy(r.y, y3);
   fp2_copy(r.z, z3);
+}
+
+// r = psi(p) = (conj(x) CX, conj(y) CY, conj(z)), the untwist-Frobenius-
+// twist endomorphism (curve.py `psi`), with psi_c = [CX, CY]
+// (curve._PSI_C, Fp2 each): two products. r may alias p. For K17
+// (cofactor_kernels.cu) and K20 (verify_kernels.cu).
+static __device__ __noinline__ void g2_psi(G2Proj& r, const G2Proj& p, const uint32_t* psi_c) {
+  fp2_t c, k;
+  fp_copy(c[0], p.x[0]);
+  fp_neg(c[1], p.x[1]);
+  fp_load(k[0], psi_c);
+  fp_load(k[1], psi_c + FP_WORDS);
+  fp2_mul(r.x, c, k);
+  fp_copy(c[0], p.y[0]);
+  fp_neg(c[1], p.y[1]);
+  fp_load(k[0], psi_c + 2 * FP_WORDS);
+  fp_load(k[1], psi_c + 3 * FP_WORDS);
+  fp2_mul(r.y, c, k);
+  fp_copy(r.z[0], p.z[0]);
+  fp_neg(r.z[1], p.z[1]);
 }

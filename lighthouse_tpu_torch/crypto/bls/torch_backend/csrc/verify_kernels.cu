@@ -1,0 +1,254 @@
+// The glue of the verify pipeline around the chain kernels, one launch per
+// call each, with plain C launchers (extern "C", bound from Python with
+// ctypes). Each launcher runs on the caller's stream, allocates nothing
+// (the caller passes the scratch), does not synchronise, and returns
+// cudaGetLastError(). Point operands come as three coordinate pointers,
+// each with its element stride in words (0: one point broadcast).
+//
+// K20 g2_psi_check_kernel
+//   Replaces: lighthouse_tpu/crypto/bls/jax_backend/curve.py:389
+//   `g2_in_subgroup` (registered curve.g2_in_subgroup) as the verify
+//   inlines it, jax_backend/api.py:293: curve.py:375 `psi`, :347
+//   `eq_points`, `neg` and `is_infinity`; the port's `curve.g2_psi_check`,
+//   once per verify on the S signatures and their [|z|] multiples (K11's
+//   first half, read in place).
+//   Computes, per element: eq_points(psi(sig), -zsig) | is_infinity(sig),
+//   by the plain version's steps (`curve.g2_psi_check_plain`): psi is
+//   g2.cuh `g2_psi`, (conj(x) CX, conj(y) CY, conj(z)) with CX, CY from
+//   `curve._PSI_C`; the comparison is the cross-multiplied one, X1 Z2 ==
+//   X2 Z1 and Y1 Z2 == Y2 Z1 word for word (every value canonical), where
+//   canonical infinities (Z = 0) equal each other and nothing else. One
+//   byte out, 0 or 1 (a torch.bool).
+//   Design: a thread per element, one-warp blocks, so the verify path's
+//   128 elements spread over 4 SMs. Work per element: six Fp2 products
+//   (two in psi, four in the comparison) of 744 word products, 4,464,
+//   against 577 bytes (two points in, a byte out) and the constant's 192
+//   once. Operations bound; at 128 elements bound by one thread's six
+//   dependent products.
+//   Bound (reduction): every Fp2 component a lazy sum of N = 2 products,
+//   one conditional subtraction (fp384.cuh: N <= 9).
+//
+// K21 miller_inputs_kernel
+//   Replaces: jax_backend/api.py:307-327, the batch-affine Miller inputs
+//   of `verify_pipeline_local` (api.py:240): the G2 z's norms, `fp.batch_inv`
+//   (fp.py:466, at api.py:311) over the S G1 z's and the S + 1 norms, the
+//   products to affine coordinates, the generator pair and the infinity
+//   flags; the port's `api.miller_inputs`, once per verify.
+//   Computes, for S points r_i aggpk_i in G1 (K10's output) and S + 1 in
+//   G2 (the hashes H_i, K17's output, then sig_acc, K16's), by the plain
+//   version's steps (`api.miller_inputs_plain`): the n = 2S + 1
+//   denominators d (a G1 z; a G2 z's norm z0^2 + z1^2, zero exactly at
+//   infinity since -1 is no square mod p); their inverses, zero where
+//   d = 0; px, py = x / z, y / z of G1 lane i and, as lane S, G1's
+//   generator (x, -y), never at infinity; qx, qy = x conj(z) / d, y conj(z)
+//   / d of G2 lane j; p_in, q_in the lanes whose z is zero. An inverse and
+//   an affine coordinate are unique, so any order of Montgomery's trick
+//   gives the plain version's words; infinity lanes get zeroed coordinates
+//   as there.
+//   Design: one block. The inverses come from a product tree over the n
+//   denominators (zeros read as one) in device-memory scratch of 2n - 1
+//   values: node i has children 2i + 1, 2i + 2, the leaves are nodes n - 1
+//   to 2n - 2; the products go up level by level (a thread per node), one
+//   thread inverts the root (fp384.cuh `fp_inv`), and the inverses come
+//   down level by level (inv(left) = inv(node) right, inv(right) =
+//   inv(node) left). That is ceil(log2 n) levels each way where K4, the
+//   kernel it replaces on this path, walked a serial chain of 3(n - 1)
+//   products; the root's Fermat chain is the longest part either way.
+//   Work, in the word products the function needs: the S + 1 norms (two
+//   squares and one reduction, 312 each), 3(n - 1) Fp products of 300, one
+//   inversion on the plain version's schedule (120,354), two Fp products
+//   a G1 lane, two Fp products and two Fp2 products (744) a G2 lane:
+//   737,154 at S = 128, against 432 S + 290 (S + 1) + 384 bytes (points in,
+//   coordinates and flags out, sig_acc and the generator). Operations
+//   bound; at the verify path's n = 257 bound by the root's chain of
+//   about 610 dependent products.
+//   Bound (reduction): the norm a lazy sum of N = 2 squares (fp384.cuh:
+//   N <= 9); the Fp products K1's CIOS; the Fp2 products N = 2.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "curve.cuh"
+
+namespace {
+
+constexpr int kPsiThreads = 32;      // a thread per element, one warp a block
+constexpr int kInputsThreads = 256;  // K21's one block
+
+__global__ void __launch_bounds__(kPsiThreads) g2_psi_check_kernel(
+    const uint32_t* __restrict__ sx, long long ssx, const uint32_t* __restrict__ sy, long long ssy,
+    const uint32_t* __restrict__ sz, long long ssz, const uint32_t* __restrict__ zx, long long szx,
+    const uint32_t* __restrict__ zy, long long szy, const uint32_t* __restrict__ zz, long long szz,
+    const uint32_t* __restrict__ psi_c, uint8_t* __restrict__ out, long long n) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  G2Proj p, q;
+  load_point<G2>(p, sx + e * ssx, sy + e * ssy, sz + e * ssz);
+  load_point<G2>(q, zx + e * szx, zy + e * szy, zz + e * szz);
+  const bool sig_inf = fp2_is_zero(p.z);
+  g2_psi(p, p, psi_c);
+  fp2_neg(q.y, q.y);
+  fp2_t m0, m1;
+  fp2_mul(m0, p.x, q.z);
+  fp2_mul(m1, q.x, p.z);
+  const bool x_eq = fp2_eq(m0, m1);
+  fp2_mul(m0, p.y, q.z);
+  fp2_mul(m1, q.y, p.z);
+  const bool y_eq = fp2_eq(m0, m1);
+  const bool p_inf = fp2_is_zero(p.z), q_inf = fp2_is_zero(q.z);
+  out[e] = ((p_inf && q_inf) || (!p_inf && !q_inf && x_eq && y_eq) || sig_inf) ? 1 : 0;
+}
+
+// Coordinate of G2 lane j: the hashes H_j (j < S, stride sh), then sig_acc.
+__device__ __forceinline__ const uint32_t* g2_lane(const uint32_t* h, long long sh, const uint32_t* acc, long long j,
+                                                   long long S) {
+  return j < S ? h + j * sh : acc;
+}
+
+__global__ void __launch_bounds__(kInputsThreads) miller_inputs_kernel(
+    const uint32_t* __restrict__ rx, long long srx, const uint32_t* __restrict__ ry, long long sry,
+    const uint32_t* __restrict__ rz, long long srz, const uint32_t* __restrict__ hx, long long shx,
+    const uint32_t* __restrict__ hy, long long shy, const uint32_t* __restrict__ hz, long long shz,
+    const uint32_t* __restrict__ ax, const uint32_t* __restrict__ ay, const uint32_t* __restrict__ az,
+    const uint32_t* __restrict__ gens, uint32_t* __restrict__ tree, uint32_t* __restrict__ pxy,
+    uint8_t* __restrict__ p_in, uint32_t* __restrict__ qxy, uint8_t* __restrict__ q_in, long long S) {
+  const long long n = 2 * S + 1;
+  const int t = threadIdx.x;
+  uint32_t a[FP_WORDS], b[FP_WORDS], r[FP_WORDS];
+
+  // the leaves: the denominators, a zero read as one
+#pragma unroll 1
+  for (long long j = t; j < n; j += blockDim.x) {
+    if (j < S) {
+      fp_load(r, rz + j * srz);
+    } else {
+      fp2_t z;
+      uint32_t acc[FP_WIDE];
+      fp2_load(z, g2_lane(hz, shz, az, j - S, S));
+      fp_mul_wide(acc, z[0], z[0]);
+      fp_mac_wide(acc, z[1], z[1]);
+      fp_redc_wide<1>(r, acc);
+    }
+    if (fp_is_zero(r)) fp_set_one(r);
+    fp_store(tree + (n - 1 + j) * FP_WORDS, r);
+  }
+  __syncthreads();
+
+  // up: node i = node(2i + 1) node(2i + 2), the deepest internal level first
+  const int top = n > 1 ? 63 - __clzll(n - 1) : -1;  // depth of node n - 2
+#pragma unroll 1
+  for (int d = top; d >= 0; --d) {
+    const long long lo = (1ll << d) - 1, hi = (2ll << d) - 2 < n - 2 ? (2ll << d) - 2 : n - 2;
+#pragma unroll 1
+    for (long long i = lo + t; i <= hi; i += blockDim.x) {
+      fp_load(a, tree + (2 * i + 1) * FP_WORDS);
+      fp_load(b, tree + (2 * i + 2) * FP_WORDS);
+      fp_mul(r, a, b);
+      fp_store(tree + i * FP_WORDS, r);
+    }
+    __syncthreads();
+  }
+
+  // the root's inverse
+  if (t == 0) {
+    fp_load(a, tree);
+    fp_inv(r, a);
+    fp_store(tree, r);
+  }
+  __syncthreads();
+
+  // down: each node holds its inverse; its children get theirs
+#pragma unroll 1
+  for (int d = 0; d <= top; ++d) {
+    const long long lo = (1ll << d) - 1, hi = (2ll << d) - 2 < n - 2 ? (2ll << d) - 2 : n - 2;
+#pragma unroll 1
+    for (long long i = lo + t; i <= hi; i += blockDim.x) {
+      uint32_t inv[FP_WORDS];
+      fp_load(inv, tree + i * FP_WORDS);
+      fp_load(a, tree + (2 * i + 1) * FP_WORDS);
+      fp_load(b, tree + (2 * i + 2) * FP_WORDS);
+      fp_mul(r, inv, b);
+      fp_store(tree + (2 * i + 1) * FP_WORDS, r);
+      fp_mul(r, inv, a);
+      fp_store(tree + (2 * i + 2) * FP_WORDS, r);
+    }
+    __syncthreads();
+  }
+
+  // G1 lanes: (x, y) / z; infinity: zeros
+  const long long lanes = S + 1;
+#pragma unroll 1
+  for (long long j = t; j < S; j += blockDim.x) {
+    uint32_t inv[FP_WORDS];
+    fp_load(a, rz + j * srz);
+    const bool inf = fp_is_zero(a);
+    fp_load(inv, tree + (n - 1 + j) * FP_WORDS);
+    fp_select(inv, inf, a, inv);  // a is zero here
+    fp_load(a, rx + j * srx);
+    fp_mul(r, a, inv);
+    fp_store(pxy + j * FP_WORDS, r);
+    fp_load(a, ry + j * sry);
+    fp_mul(r, a, inv);
+    fp_store(pxy + (lanes + j) * FP_WORDS, r);
+    p_in[j] = inf ? 1 : 0;
+  }
+  if (t == 0) {  // lane S: G1's generator (x, -y)
+    fp_load(a, gens);
+    fp_store(pxy + S * FP_WORDS, a);
+    fp_load(a, gens + FP_WORDS);
+    fp_store(pxy + (lanes + S) * FP_WORDS, a);
+    p_in[S] = 0;
+  }
+
+  // G2 lanes: (x, y) conj(z) / norm; infinity: zeros
+#pragma unroll 1
+  for (long long j = t; j < lanes; j += blockDim.x) {
+    fp2_t z, zi, x;
+    uint32_t inv[FP_WORDS];
+    fp2_load(z, g2_lane(hz, shz, az, j, S));
+    const bool inf = fp2_is_zero(z);
+    fp_load(inv, tree + (n - 1 + S + j) * FP_WORDS);
+    fp_select(inv, inf, z[0], inv);  // z[0] is zero here
+    fp_mul(zi[0], z[0], inv);
+    fp_mul(r, z[1], inv);
+    fp_neg(zi[1], r);
+    fp2_load(x, g2_lane(hx, shx, ax, j, S));
+    fp2_mul(x, x, zi);
+    fp2_store(qxy + j * 2 * FP_WORDS, x);
+    fp2_load(x, g2_lane(hy, shy, ay, j, S));
+    fp2_mul(x, x, zi);
+    fp2_store(qxy + (lanes + j) * 2 * FP_WORDS, x);
+    q_in[j] = inf ? 1 : 0;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int lh_g2_psi_check(const void* sx, long long ssx, const void* sy, long long ssy, const void* sz, long long ssz,
+                    const void* zx, long long szx, const void* zy, long long szy, const void* zz, long long szz,
+                    const void* psi_c, void* out, long long n, void* stream) {
+  if (n > 0) {
+    g2_psi_check_kernel<<<(unsigned)((n + kPsiThreads - 1) / kPsiThreads), kPsiThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)sx, ssx, (const uint32_t*)sy, ssy, (const uint32_t*)sz, ssz, (const uint32_t*)zx, szx,
+        (const uint32_t*)zy, szy, (const uint32_t*)zz, szz, (const uint32_t*)psi_c, (uint8_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+int lh_miller_inputs(const void* rx, long long srx, const void* ry, long long sry, const void* rz, long long srz,
+                     const void* hx, long long shx, const void* hy, long long shy, const void* hz, long long shz,
+                     const void* ax, const void* ay, const void* az, const void* gens, void* scratch, void* pxy,
+                     void* p_in, void* qxy, void* q_in, long long S, void* stream) {
+  if (S >= 0) {
+    miller_inputs_kernel<<<1, kInputsThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)rx, srx, (const uint32_t*)ry, sry, (const uint32_t*)rz, srz, (const uint32_t*)hx, shx,
+        (const uint32_t*)hy, shy, (const uint32_t*)hz, shz, (const uint32_t*)ax, (const uint32_t*)ay,
+        (const uint32_t*)az, (const uint32_t*)gens, (uint32_t*)scratch, (uint32_t*)pxy, (uint8_t*)p_in,
+        (uint32_t*)qxy, (uint8_t*)q_in, S);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -16,7 +16,9 @@ keys, the r_i sig_i) are one launch of K15 (G1) or K16 (G2)
 (csrc/fold_kernels.cu), on the plain version's halving tree.
 
 G2 subgroup membership is Scott's psi criterion: P in G2 iff
-psi(P) == [z]P (z < 0), a 64-bit multiplication instead of a 255-bit one.
+psi(P) == [z]P (z < 0), a 64-bit multiplication instead of a 255-bit one;
+the comparison with the multiple, psi(P) == -[|z|]P or P at infinity, is
+one launch of K20 (`g2_psi_check`, csrc/verify_kernels.cu).
 G1 membership is the phi criterion: P in G1 iff phi(P) == -[z^2]P, with
 phi(x, y) = (beta x, y); as one kernel (K5, csrc/g1_kernels.cu) it is the
 pubkey-admission check. The Montgomery ladder and the full-order checks
@@ -342,7 +344,7 @@ def _scalar_mul_kernel(F: FieldOps, p: Proj, bits) -> Proj:
     name = f"{F.group}_scalar_mul"
     kernels.launch(f"lh_{name}", dev, *ptrs, b.data_ptr(), inner, hi * size, lo * size, size, nbits,
                    out.data_ptr(), n)
-    fp._count(name, (n, nbits))
+    fp._count(name)
     return Proj(out[0], out[1], out[2])
 
 
@@ -402,7 +404,7 @@ def _tree_sum_kernel(F: FieldOps, pts: Proj, axis: int) -> Proj:
     ptrs = [x for c in ops for x in (c.data_ptr(), c.stride(0), c.stride(1))]
     name = f"{F.group}_tree_sum"
     kernels.launch(f"lh_{name}", dev, *ptrs, scratch.data_ptr(), out.data_ptr(), L, C)
-    fp._count(name, (C, L))
+    fp._count(name)
     return Proj(out[0], out[1], out[2])
 
 
@@ -437,10 +439,46 @@ def psi(p: Proj, F: FieldOps = FP2) -> Proj:
     return Proj(xy[0], xy[1], c[2])
 
 
+def g2_psi_check_composed(sig: Proj, zsig: Proj, F: FieldOps):
+    """psi(sig) == -zsig as projective points, or sig is infinity, for zsig
+    = [|z|] sig, over the field operations F: the composition K20 replaced
+    (F = FP2) or K20's plain version (FP2_PLAIN)."""
+    return eq_points(F, psi(sig, F), neg(F, zsig)) | is_infinity(F, sig)
+
+
+def g2_psi_check_plain(sig: Proj, zsig: Proj):
+    """K20's plain version: PyTorch operations only, on any device."""
+    return g2_psi_check_composed(sig, zsig, FP2_PLAIN)
+
+
+def g2_psi_check(sig: Proj, zsig: Proj):
+    """The psi criterion's comparison, a bool per element: one launch of
+    K20 (csrc/verify_kernels.cu), a thread per element, for CUDA tensors
+    (each coordinate read in place: element stride 24 words, or 0 for one
+    point broadcast); the plain version for CPU tensors."""
+    coords = (*sig, *zsig)
+    cpu = fp._is_cpu(*coords)
+    for c in coords:
+        tower._check_trailing(c, (2, fp.WORDS), "Fp2")
+    if cpu:
+        return g2_psi_check_plain(sig, zsig)
+    from . import kernels
+
+    dev = sig.z.device
+    lead = tower._broadcast(*(c.shape[:-2] for c in coords))
+    shape = torch.Size((*lead, 2, fp.WORDS))
+    ops = [tower._operand(c, shape, 2, 2 * fp.WORDS) for c in coords]
+    ptrs = [x for t, st in ops for x in (t.data_ptr(), st)]
+    out = torch.empty(lead, dtype=torch.bool, device=dev)
+    n = lead.numel()
+    kernels.launch("lh_g2_psi_check", dev, *ptrs, fp.const(_PSI_C, dev).data_ptr(), out.data_ptr(), n)
+    fp._count("g2_psi_check")
+    return out
+
+
 def g2_in_subgroup(p: Proj):
-    """psi(P) == -[|z|]P, or P is infinity."""
-    rhs = neg(FP2, scalar_mul_bits(FP2, p, _ABS_X_BITS))
-    return eq_points(FP2, psi(p), rhs) | is_infinity(FP2, p)
+    """psi(P) == -[|z|]P, or P is infinity: K11, then K20."""
+    return g2_psi_check(p, scalar_mul_bits(FP2, p, _ABS_X_BITS))
 
 
 # -- phi endomorphism & G1 subgroup check ---------------------------------------
@@ -521,5 +559,5 @@ def g1_in_subgroup_kernel(x: torch.Tensor, y: torch.Tensor, inf: torch.Tensor) -
     out = torch.empty(n, dtype=torch.bool, device=x.device)
     kernels.launch("lh_g1_subgroup_check", x.device, x.data_ptr(), y.data_ptr(), inf.data_ptr(),
                    beta.data_ptr(), out.data_ptr(), n)
-    fp._count("g1_subgroup_check", n)
+    fp._count("g1_subgroup_check")
     return out

@@ -29,13 +29,16 @@ chain K9 (`pairing.pow_abs_x`, csrc/final_exp_kernels.cu), for the Miller
 loop K12 (`pairing.miller_loop`, csrc/pairing_kernels.cu), for
 hash-to-G2's SSWU map K13 and 3-isogeny K14 (`h2c.sswu`, `h2c.iso3_map`,
 csrc/h2c_kernels.cu), for the tree sums K15 and K16 and the Fp12 product
-K18 (`curve.tree_sum`, `pairing.product_reduce`, csrc/fold_kernels.cu)
-and for the cofactor clearing K17 (`h2c.clear_cofactor`,
-csrc/cofactor_kernels.cu).
+K18 (`curve.tree_sum`, `pairing.product_reduce`, csrc/fold_kernels.cu),
+for the cofactor clearing K17 (`h2c.clear_cofactor`,
+csrc/cofactor_kernels.cu), for the final exponentiation K19
+(`pairing.final_exponentiation`, csrc/final_exponentiation_kernels.cu) and
+for the verify's G2 subgroup check K20 and batch-affine Miller inputs K21
+(`curve.g2_psi_check`, `api.miller_inputs`, csrc/verify_kernels.cu).
 
 K6 is the JAX package's opt-in matrix-unit product (`mul_mxu`, enabled by
 LIGHTHOUSE_TPU_MXU_FP_MUL=1) on the tensor cores. K3, K4, K5 and K7 to
-K18 keep their in-register CIOS products whatever the flag says: each is
+K21 keep their in-register CIOS products whatever the flag says: each is
 one thread's chain of products, and an MMA needs a whole warp. The results
 are the same either way, since both products are canonical.
 
@@ -47,7 +50,6 @@ mask with 0xFFFFFFFF before any shift or comparison; equality tests
 from __future__ import annotations
 
 import os
-from collections import Counter
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -201,18 +203,14 @@ USE_MXU_MUL = os.environ.get("LIGHTHOUSE_TPU_MXU_FP_MUL", "") == "1"
 
 # -- launch accounting ---------------------------------------------------------
 
-#: every kernel of the library: K1-K4 and K6 here, K5, K10, K11, K15 and
-#: K16 in curve.py, K7 and K8 in tower.py, K9, K12 and K18 in pairing.py,
-#: K13, K14 and K17 in h2c.py
+#: every kernel of the library: K1-K4 and K6 here, K5, K10, K11, K15, K16
+#: and K20 in curve.py, K7 and K8 in tower.py, K9, K12, K18 and K19 in
+#: pairing.py, K13, K14 and K17 in h2c.py, K21 in api.py
 KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv", "g1_subgroup_check", "fp_mul_mma", "fp2_mul",
            "fp12_mul", "cyclotomic_pow_x", "g1_scalar_mul", "g2_scalar_mul", "miller_loop", "sswu", "iso3_map",
-           "g1_tree_sum", "g2_tree_sum", "clear_cofactor", "product_reduce")
+           "g1_tree_sum", "g2_tree_sum", "clear_cofactor", "product_reduce", "final_exponentiation",
+           "g2_psi_check", "miller_inputs")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
-#: When a dict, each launch also records its element count (or (steps, lanes)
-#: for K4, (elements, op or mode) for K7 and K8, (elements, bits) for K10 and
-#: K11, (columns, column length) for K15 and K16) under the kernel's name:
-#: the shapes the main path gives a kernel.
-SHAPES: dict[str, Counter] | None = None
 
 
 def reset_launches() -> None:
@@ -220,10 +218,8 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _count(name: str, shape) -> None:
+def _count(name: str) -> None:
     LAUNCHES[name] += 1
-    if SHAPES is not None:
-        SHAPES.setdefault(name, Counter())[shape] += 1
 
 
 def _is_cpu(*ts: torch.Tensor) -> bool:
@@ -486,7 +482,7 @@ def _product(a: torch.Tensor, b: torch.Tensor, plain, launcher: str, name: str) 
     out = torch.empty_like(a)
     n = a.numel() // WORDS
     kernels.launch(launcher, a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
-    _count(name, n)
+    _count(name)
     return out
 
 
@@ -516,7 +512,7 @@ def _addsub(a: torch.Tensor, b: torch.Tensor | None, op: int) -> torch.Tensor:
     out = torch.empty_like(a)
     n = a.numel() // WORDS
     kernels.launch("lh_fp_addsub", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), n, op)
-    _count("fp_addsub", n)
+    _count("fp_addsub")
     return out
 
 
@@ -538,7 +534,7 @@ def pow_fixed(a: torch.Tensor, e: int) -> torch.Tensor:
     out = torch.empty_like(a)
     n = a.numel() // WORDS
     kernels.launch("lh_fp_pow", a.device, a.data_ptr(), ew.data_ptr(), e.bit_length(), out.data_ptr(), n)
-    _count("fp_pow", n)
+    _count("fp_pow")
     return out
 
 
@@ -554,7 +550,7 @@ def batch_inv(a: torch.Tensor) -> torch.Tensor:
     steps = a.shape[0]
     lanes = a[0].numel() // WORDS if steps else 0
     kernels.launch("lh_fp_batch_inv", a.device, a.data_ptr(), out.data_ptr(), steps, lanes)
-    _count("fp_batch_inv", (steps, lanes))
+    _count("fp_batch_inv")
     return out
 
 

@@ -121,7 +121,7 @@ def sswu(u):
     a, sa = tower._operand(u, u.shape, 2, 2 * fp.WORDS)
     kernels.launch("lh_sswu", u.device, a.data_ptr(), sa, fp.const(_H2C_CONSTS, u.device).data_ptr(),
                    out.data_ptr(), n)
-    fp._count("sswu", n)
+    fp._count("sswu")
     return out[0], out[1]
 
 
@@ -170,7 +170,7 @@ def iso3_map(x, y) -> Proj:
     (a, sa), (b, sb) = (tower._operand(t, shape, 2, 2 * fp.WORDS) for t in (x, y))
     kernels.launch("lh_iso3_map", x.device, a.data_ptr(), sa, b.data_ptr(), sb,
                    fp.const(_H2C_CONSTS, x.device).data_ptr(), out.data_ptr(), n)
-    fp._count("iso3_map", n)
+    fp._count("iso3_map")
     return Proj(out[0], out[1], out[2])
 
 
@@ -236,7 +236,7 @@ def clear_cofactor(p: Proj, q: Proj | None = None) -> Proj:
     n = shape.numel() // (2 * fp.WORDS)
     kernels.launch("lh_clear_cofactor", dev, *ptrs, int(q is not None), fp.const(_PSI_C, dev).data_ptr(),
                    fp.const(_CC_BITS_U8, dev).data_ptr(), _CC_WIDTH, out.data_ptr(), n)
-    fp._count("clear_cofactor", n)
+    fp._count("clear_cofactor")
     return Proj(out[0], out[1], out[2])
 
 

@@ -26,9 +26,10 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = (
-    "fp384.cuh", "g1.cuh", "g2.cuh", "tower.cuh", "curve.cuh",
+    "fp384.cuh", "g1.cuh", "g2.cuh", "tower.cuh", "curve.cuh", "final_exp.cuh",
     "fp_kernels.cu", "g1_kernels.cu", "fp_mma.cu", "tower_kernels.cu", "curve_kernels.cu", "final_exp_kernels.cu",
     "pairing_kernels.cu", "h2c_kernels.cu", "fold_kernels.cu", "cofactor_kernels.cu",
+    "final_exponentiation_kernels.cu", "verify_kernels.cu",
 )
 UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "torch_kernels"
@@ -61,6 +62,10 @@ _SIGNATURES = {
     "lh_clear_cofactor": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, ctypes.c_int, _P, _P, ctypes.c_int,
                           _P, _LL, _P],
     "lh_product_reduce": [_P, _LL, _P, _P, _LL, _P],
+    "lh_final_exponentiation": [_P, _LL, _P, _P, _LL, _P],
+    "lh_g2_psi_check": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _P, _LL, _P],
+    "lh_miller_inputs": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _LL, _P],
 }
 
 _lock = threading.Lock()

@@ -16,12 +16,16 @@ composition over a `TowerOps`, which is K12's plain version over the
 plain operations.
 
 The final exponentiation is the ref oracle's decomposition (3x the hard
-part), so GT values are bit-identical to ref/pairing.py. Its five
-|z|-power chains (`pow_abs_x`) are one launch each of K9
-(csrc/final_exp_kernels.cu): 63 compressed (Karabina) squarings, the six
-checkpoints decompressed with one shared inversion, and their product.
-The product of the Miller values (`product_reduce`) is one launch of K18
-(csrc/fold_kernels.cu).
+part), so GT values are bit-identical to ref/pairing.py. On the card it
+is one launch of K19 (csrc/final_exponentiation_kernels.cu), with its five
+|z|-power chains, the Frobenius maps and `tower.fp12_inv` inside;
+`final_exponentiation_composed` keeps it as a composition over a
+`TowerOps` and a |z|-power function, which is K19's plain version over
+the plain operations. A |z|-power chain alone (`pow_abs_x`) is one launch
+of K9 (csrc/final_exp_kernels.cu): 63 compressed (Karabina) squarings,
+the six checkpoints decompressed with one shared inversion, and their
+product. The product of the Miller values (`product_reduce`) is one
+launch of K18 (csrc/fold_kernels.cu).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from ..ref.pairing import _H
 from . import fp, tower
 from .curve import Proj
 from .pack import G1_GEN_X_L, G1_GEN_Y_L, G2_GEN_X_L, G2_GEN_Y_L, pack_fp2_el
-from .tower import fp2_mul, fp2_mul_by_nonresidue, fp2_select, fp12_conj, fp12_inv, fp12_mul, fp12_one, fp12_select
+from .tower import fp2_mul_by_nonresidue, fp2_select, fp12_conj, fp12_one, fp12_select
 
 _ABS_X = abs(X_PARAM)
 # MSB-first bits of |z| below the leading bit (T starts at Q).
@@ -59,6 +63,10 @@ def _frob_constants():
 
 
 _FROB_GAMMAS = _frob_constants()  # (6, 2, W)
+# K19's constant operand, 24 Fp rows: the gammas by flat coefficient and
+# component, then the phi and phi^2 scalars of `tower.fp12_inv` by flat
+# coefficient
+_FE_CONSTS = np.concatenate([_FROB_GAMMAS.reshape(12, fp.WORDS), tower._PHI_SCALARS.reshape(12, fp.WORDS)])
 
 
 # -- Miller loop ---------------------------------------------------------------
@@ -186,21 +194,22 @@ def miller_loop(px, py, p_inf, qx, qy, q_inf):
     ptrs = [x for t, st in ops for x in (t.data_ptr(), st)]
     gens = fp.const(_ML_GENERATORS, dev)
     kernels.launch("lh_miller_loop", dev, *ptrs, pi.data_ptr(), qi.data_ptr(), gens.data_ptr(), out.data_ptr(), n)
-    fp._count("miller_loop", n)
+    fp._count("miller_loop")
     return out
 
 
 # -- Frobenius -----------------------------------------------------------------
 
 
-def frobenius(f):
-    """f^p in the flat basis: conjugate every coefficient, scale by gammas."""
-    cf = tower.fp2_conj(tower._to_flat(f))
-    return tower._from_flat(fp2_mul(cf, fp.const(_FROB_GAMMAS, f.device)))
+def frobenius(f, T: tower.TowerOps = tower.KERNEL_TOWER):
+    """f^p in the flat basis: conjugate every coefficient, scale by gammas,
+    over the operations T (K2 and K7 by default, the standalone form)."""
+    cf = tower.fp2_conj(tower._to_flat(f), T.fp)
+    return tower._from_flat(T.fp2_mul(cf, fp.const(_FROB_GAMMAS, f.device)))
 
 
-def frobenius2(f):
-    return frobenius(frobenius(f))
+def frobenius2(f, T: tower.TowerOps = tower.KERNEL_TOWER):
+    return frobenius(frobenius(f, T), T)
 
 
 # -- final exponentiation ------------------------------------------------------
@@ -239,23 +248,51 @@ def pow_abs_x(g):
     n = out.numel() // _FP12_WORDS
     a, sa = tower._operand(g, g.shape, 4, _FP12_WORDS)
     kernels.launch("lh_cyclotomic_pow_x", g.device, a.data_ptr(), sa, out.data_ptr(), n)
-    fp._count("cyclotomic_pow_x", n)
+    fp._count("cyclotomic_pow_x")
     return out
 
 
-def _pow_x_minus_1(g):
-    """g^(z-1) = conj(g^|z| * g) for cyclotomic g (z < 0)."""
-    return fp12_conj(fp12_mul(pow_abs_x(g), g))
+def final_exponentiation_composed(f, T: tower.TowerOps, pow_x):
+    """f^((p^12 - 1)/r * 3), the oracle's decomposition, over the
+    operations T and the |z|-power function pow_x: the composition K19
+    replaced (T = tower.KERNEL_TOWER, pow_x = pow_abs_x, K9) or K19's plain
+    version (tower.PLAIN_TOWER, pow_abs_x_plain)."""
+    F = T.fp
+
+    def pow_x_minus_1(g):  # g^(z-1) = conj(g^|z| * g) for cyclotomic g (z < 0)
+        return fp12_conj(T.fp12_mul(pow_x(g), g), F)
+
+    f = T.fp12_mul(fp12_conj(f, F), tower.fp12_inv(f, T))
+    f = T.fp12_mul(frobenius2(f, T), f)
+    a = pow_x_minus_1(pow_x_minus_1(f))
+    b = T.fp12_mul(fp12_conj(pow_x(a), F), frobenius(a, T))  # a^z * a^p
+    c = T.fp12_mul(T.fp12_mul(pow_x(pow_x(b)), frobenius2(b, T)), fp12_conj(b, F))
+    return T.fp12_mul(c, T.fp12_mul(f, T.fp12_mul(f, f)))
+
+
+def final_exponentiation_plain(f):
+    """K19's plain version: PyTorch operations only, on any device."""
+    return final_exponentiation_composed(f, tower.PLAIN_TOWER, pow_abs_x_plain)
 
 
 def final_exponentiation(f):
-    """f^((p^12 - 1)/r * 3), the oracle's decomposition."""
-    f = fp12_mul(fp12_conj(f), fp12_inv(f))
-    f = fp12_mul(frobenius2(f), f)
-    a = _pow_x_minus_1(_pow_x_minus_1(f))
-    b = fp12_mul(fp12_conj(pow_abs_x(a)), frobenius(a))  # a^z * a^p
-    c = fp12_mul(fp12_mul(pow_abs_x(pow_abs_x(b)), frobenius2(b)), fp12_conj(b))
-    return fp12_mul(c, fp12_mul(f, fp12_mul(f, f)))
+    """f^((p^12 - 1)/r * 3) for tower Fp12 f (..., 2, 3, 2, W), any leading
+    batch shape: one launch of K19 (csrc/final_exponentiation_kernels.cu),
+    a block per element, for a CUDA tensor; the plain version for a CPU
+    tensor."""
+    cpu = fp._is_cpu(f)
+    tower._check_trailing(f, (2, 3, 2, fp.WORDS), "Fp12")
+    if cpu:
+        return final_exponentiation_plain(f)
+    from . import kernels
+
+    out = torch.empty(f.shape, dtype=torch.int32, device=f.device)
+    n = out.numel() // _FP12_WORDS
+    a, sa = tower._operand(f, f.shape, 4, _FP12_WORDS)
+    consts = fp.const(_FE_CONSTS, f.device)
+    kernels.launch("lh_final_exponentiation", f.device, a.data_ptr(), sa, consts.data_ptr(), out.data_ptr(), n)
+    fp._count("final_exponentiation")
+    return out
 
 
 # -- products ------------------------------------------------------------------
@@ -296,5 +333,5 @@ def product_reduce(fs):
     scratch = torch.empty(2 * ((n + 1) // 2) * _FP12_WORDS, dtype=torch.int32, device=fs.device)
     out = torch.empty(fs.shape[1:], dtype=torch.int32, device=fs.device)
     kernels.launch("lh_product_reduce", fs.device, a.data_ptr(), sa, scratch.data_ptr(), out.data_ptr(), n)
-    fp._count("product_reduce", n)
+    fp._count("product_reduce")
     return out

@@ -27,9 +27,10 @@ Their plain versions (`*_plain`), taken for CPU tensors, are the
 compositions over Fp operations that the port ran before them. Every
 other function stacks independent Fp products into one K1 launch and
 independent additions into one K2 launch. Karabina's compressed squaring
-and decompression take a `TowerOps` (the kernels, or their plain
-versions): the |z|-power chain over them is K9's composition and its
-plain version (`pairing.pow_abs_x`).
+and decompression and `fp12_inv` take a `TowerOps` (the kernels, or their
+plain versions): the |z|-power chain over them is K9's composition and its
+plain version (`pairing.pow_abs_x`), and `fp12_inv` runs inside K19's
+(`pairing.final_exponentiation`).
 """
 
 from __future__ import annotations
@@ -78,8 +79,8 @@ def fp2_neg(a):
     return fp.neg(a)
 
 
-def fp2_conj(a):
-    return fp2(a[..., 0, :], fp.neg(a[..., 1, :]))
+def fp2_conj(a, F=fp.KERNEL_OPS):
+    return fp2(a[..., 0, :], F.neg(a[..., 1, :]))
 
 
 def fp2_mul(a, b):
@@ -340,7 +341,9 @@ class TowerOps(NamedTuple):
     """Fp operations, the batch inversion and the Fp2 / Fp12 products that a
     composed tower function (Karabina's chain, `pairing.pow_abs_x_composed`,
     the Miller loop `pairing.miller_loop_composed`, hash-to-G2's
-    `h2c.sswu_composed` and `h2c.iso3_map_composed`) is written over."""
+    `h2c.sswu_composed` and `h2c.iso3_map_composed`, `fp12_inv`,
+    `pairing.final_exponentiation_composed`, the verify's
+    `api.miller_inputs_composed`) is written over."""
 
     fp: fp.FpOps
     batch_inv: Callable
@@ -351,10 +354,11 @@ class TowerOps(NamedTuple):
     fp12_mul_sparse035: Callable
 
 
-#: K1-K4, K7 and K8: the composition that K9, K12, K13 and K14 replaced
+#: K1-K4, K7 and K8: the composition that K9, K12, K13, K14, K19 and K21
+#: replaced
 KERNEL_TOWER = TowerOps(fp.KERNEL_OPS, fp.batch_inv, fp2_mul, fp2_sqr, fp12_mul, fp12_sqr, fp12_mul_sparse035)
 #: their plain versions, PyTorch operations only, on any device: the plain
-#: versions of K9, K12, K13 and K14 run over them
+#: versions of K9, K12, K13, K14, K19 and K21 run over them
 PLAIN_TOWER = TowerOps(
     fp.PLAIN_OPS,
     fp.batch_inv_plain,
@@ -455,36 +459,37 @@ def _omega_constants():
 
 
 _OMEGA, _OMEGA2 = _omega_constants()
-# Fp scalars per flat index for the Galois map phi: v -> omega v, and phi^2,
-# in the tower layout (flat k = 2v + w at tower (w, v)).
-_PHI_TABLES = (
-    np.stack(
-        [
-            np.stack([fp.ONE_MONT, fp.ONE_MONT, fp.to_mont_host(_OMEGA), fp.to_mont_host(_OMEGA),
-                      fp.to_mont_host(_OMEGA2), fp.to_mont_host(_OMEGA2)]),
-            np.stack([fp.ONE_MONT, fp.ONE_MONT, fp.to_mont_host(_OMEGA2), fp.to_mont_host(_OMEGA2),
-                      fp.to_mont_host(_OMEGA), fp.to_mont_host(_OMEGA)]),
-        ]
-    )
-    .reshape(2, 3, 2, 1, fp.WORDS)
-    .transpose(0, 2, 1, 3, 4)
-    .copy()
-)  # (2, w, v, 1, W)
+# Fp scalars by flat index k = 2v + w for the Galois map phi: v -> omega v,
+# and phi^2: (2, 6, W), K19's constant operand (`pairing._FE_CONSTS`).
+_PHI_SCALARS = np.stack(
+    [
+        np.stack([fp.ONE_MONT, fp.ONE_MONT, fp.to_mont_host(_OMEGA), fp.to_mont_host(_OMEGA),
+                  fp.to_mont_host(_OMEGA2), fp.to_mont_host(_OMEGA2)]),
+        np.stack([fp.ONE_MONT, fp.ONE_MONT, fp.to_mont_host(_OMEGA2), fp.to_mont_host(_OMEGA2),
+                  fp.to_mont_host(_OMEGA), fp.to_mont_host(_OMEGA)]),
+    ]
+)
+# the same in the tower layout, (2, w, v, 1, W)
+_PHI_TABLES = _PHI_SCALARS.reshape(2, 3, 2, 1, fp.WORDS).transpose(0, 2, 1, 3, 4).copy()
 
 
-def fp12_inv(a):
+def fp12_inv(a, T=KERNEL_TOWER):
     """Inverse by the Galois norm chain: N = a conj(a) lies in Fp6,
-    M = N phi(N) phi^2(N) in Fp2, a^-1 = conj(a) phi(N) phi^2(N) M^-1.
-    Four Fp12 products (K8), all in the tower layout."""
-    c = fp12_conj(a)
-    n = fp12_mul(a, c)
+    M = N phi(N) phi^2(N) in Fp2, a^-1 = conj(a) phi(N) phi^2(N) M^-1; zero
+    maps to zero (M = 0, inv0). Four Fp12 products, all in the tower
+    layout, over the operations T: K8, K1-K3 and K7 by default (the
+    standalone form), their plain versions inside K19's plain version
+    (`pairing.final_exponentiation_plain`)."""
+    F = T.fp
+    c = fp12_conj(a, F)
+    n = T.fp12_mul(a, c)
     batch = n.shape[:-4]
     tables = fp.const(_PHI_TABLES, a.device).reshape(2, *([1] * len(batch)), 2, 3, 1, fp.WORDS)
-    phi = fp.mul(n.unsqueeze(0), tables)  # [phi(N), phi^2(N)]
-    g = fp12_mul(phi[0], phi[1])
-    m = fp12_mul(n, g)  # Fp2, at w^0 only
-    minv = fp2_inv(m[..., 0, 0, :, :])
-    return fp2_mul(fp12_mul(c, g), minv[..., None, None, :, :])
+    phi = F.mul(n.unsqueeze(0), tables)  # [phi(N), phi^2(N)]
+    g = T.fp12_mul(phi[0], phi[1])
+    m = T.fp12_mul(n, g)  # Fp2, at w^0 only
+    minv = fp2_inv(m[..., 0, 0, :, :], F)
+    return T.fp2_mul(T.fp12_mul(c, g), minv[..., None, None, :, :])
 
 
 def fp12_eq(a, b):
@@ -548,7 +553,7 @@ def fp2_product(a, b, op):
     a, sa = _operand(a, shape, 2, _FP2_WORDS)
     b, sb = (a, sa) if op == FP2_SQR else _operand(b, shape, 2, _FP2_WORDS)
     kernels.launch("lh_fp2_mul", a.device, a.data_ptr(), sa, b.data_ptr(), sb, out.data_ptr(), n, op)
-    fp._count("fp2_mul", (n, op))
+    fp._count("fp2_mul")
     return out
 
 
@@ -578,5 +583,5 @@ def fp12_product(a, bs, mode):
         b = [_operand(bs[0], shape, 4, _FP12_WORDS) if mode == FP12_FULL else (a, sa)] * 3
     ptrs = [x for t, st in b for x in (t.data_ptr(), st)]
     kernels.launch("lh_fp12_mul", a.device, a.data_ptr(), sa, *ptrs, out.data_ptr(), n, mode)
-    fp._count("fp12_mul", (n, mode))
+    fp._count("fp12_mul")
     return out

@@ -539,15 +539,23 @@ def test_invalid_batches_return_false_without_a_gpu(monkeypatch):
         tapi.verify_signature_sets([good])
 
 
-def test_final_exponentiation_runs_five_chains(monkeypatch):
-    """All five |z|-power chains of the final exponentiation go through
-    `pow_abs_x` (K9 on the card), and the result is the oracle's."""
+def test_final_exponentiation_runs_five_chains():
+    """All five |z|-power chains of the final exponentiation go through the
+    |z|-power function it is given: `pow_abs_x` (K9 on the card) in the
+    composition K19 replaced, `pow_abs_x_plain` in K19's plain version; the
+    result is the oracle's, and the wrapper's (K19's plain version here)."""
     calls = []
-    pow_x = tpair.pow_abs_x
-    monkeypatch.setattr(tpair, "pow_abs_x", lambda g: calls.append(g.shape) or pow_x(g))
+
+    def counted(pow_x):
+        return lambda g: calls.append(g.shape) or pow_x(g)
+
     f = _fp12([int.from_bytes(rng.bytes(48), "little") % P for _ in range(12)])
-    got = tpair.final_exponentiation(to_port(jpack.pack_fp12_el(f)))
+    x = to_port(jpack.pack_fp12_el(f))
+    got = tpair.final_exponentiation_composed(x, tt.KERNEL_TOWER, counted(tpair.pow_abs_x))
     assert len(calls) == 5
+    plain = tpair.final_exponentiation_composed(x, tt.PLAIN_TOWER, counted(tpair.pow_abs_x_plain))
+    assert len(calls) == 10
     from lighthouse_tpu.crypto.bls.ref.pairing import final_exponentiation
 
     assert jpack.unpack_fp12_el(tfp.to_jax_limbs(got)) == final_exponentiation(f)
+    assert torch.equal(plain, got) and torch.equal(tpair.final_exponentiation(x), got)

@@ -1,10 +1,12 @@
 """lighthouse_tpu_torch on the card: the hand-written kernels against their
 plain versions (the tower products K7 and K8 also against the K1/K2
 composition they replaced, the chains K9-K14 against the K1-K4/K7/K8
-composition, the tree sums K15 and K16, the cofactor clearing K17 and the
-Fp12 product K18 against the composition each replaced), launch counting, launches on a card other than the current
-one (and from a fresh thread), and a small verify, also with every Fp
-product on the tensor cores (K6). Every test needs a
+composition, the tree sums K15 and K16, the cofactor clearing K17, the
+Fp12 product K18, the final exponentiation K19, the psi comparison K20
+and the Miller inputs K21 against the composition each replaced), launch
+counting, launches on a card other than the current one (and from a fresh
+thread), and a small verify, also with every direct Fp product on the
+tensor cores (K6). Every test needs a
 CUDA GPU and skips without one. The file imports neither jax nor the JAX
 package, so it runs on a machine that has only PyTorch for CUDA and nvcc:
 
@@ -67,7 +69,7 @@ def test_wrappers_launch_and_count_on_card(cuda_device):
         "fp_mul": 1, "fp_addsub": 1, "fp_pow": 1, "fp_batch_inv": 1, "g1_subgroup_check": 0, "fp_mul_mma": 0,
         "fp2_mul": 0, "fp12_mul": 0, "cyclotomic_pow_x": 0, "g1_scalar_mul": 0, "g2_scalar_mul": 0,
         "miller_loop": 0, "sswu": 0, "iso3_map": 0, "g1_tree_sum": 0, "g2_tree_sum": 0, "clear_cofactor": 0,
-        "product_reduce": 0,
+        "product_reduce": 0, "final_exponentiation": 0, "g2_psi_check": 0, "miller_inputs": 0,
     }
     assert torch.equal(fp.add(a[::2], a[1::2]), fp.addsub_plain(a[::2], a[1::2], 0))
 
@@ -87,16 +89,19 @@ def test_verify_on_card(cuda_device):
     assert api.verify_signature_sets(bad) is False
 
 
-#: launches of one verify, whatever its shape: the final exponentiation's
-#: five |z|-power chains (K9), r_i aggpk_i (K10), the signatures' 2-stacked
-#: multiplication (K11), the Miller pairs' batch inversion (K4), the Miller
-#: loop (K12), SSWU (K13), the isogeny (K14), fp12_inv's Fp2 inversion
-#: (K3), the two tree sums (K15, K16), the cofactor clearing with the sum
-#: of the SSWU points (K17) and the product of the Miller values (K18)
+#: launches of one verify, whatever its shape, for every kernel: r_i aggpk_i
+#: (K10), the signatures' 2-stacked multiplication (K11) and their psi
+#: comparison (K20), the Miller loop (K12), SSWU (K13), the isogeny (K14),
+#: the two tree sums (K15, K16), the cofactor clearing with the sum of the
+#: SSWU points (K17), the Miller pairs' affine inputs (K21), the product of
+#: the Miller values (K18) and the final exponentiation (K19), once each;
+#: K1-K9 never (they run only inside those)
 VERIFY_LAUNCHES = chip_smoke.VERIFY_LAUNCHES
-assert VERIFY_LAUNCHES == {"cyclotomic_pow_x": 5, "g1_scalar_mul": 1, "g2_scalar_mul": 1, "fp_batch_inv": 1,
-                           "miller_loop": 1, "sswu": 1, "iso3_map": 1, "fp_pow": 1, "g1_tree_sum": 1,
-                           "g2_tree_sum": 1, "clear_cofactor": 1, "product_reduce": 1}
+assert VERIFY_LAUNCHES == {"fp_mul": 0, "fp_addsub": 0, "fp_pow": 0, "fp_batch_inv": 0, "g1_subgroup_check": 0,
+                           "fp_mul_mma": 0, "fp2_mul": 0, "fp12_mul": 0, "cyclotomic_pow_x": 0,
+                           "g1_scalar_mul": 1, "g2_scalar_mul": 1, "miller_loop": 1, "sswu": 1, "iso3_map": 1,
+                           "g1_tree_sum": 1, "g2_tree_sum": 1, "clear_cofactor": 1, "product_reduce": 1,
+                           "final_exponentiation": 1, "g2_psi_check": 1, "miller_inputs": 1}
 
 
 def test_verify_launches_the_chain_kernels(cuda_device):
@@ -108,7 +113,7 @@ def test_verify_launches_the_chain_kernels(cuda_device):
     fp.reset_launches()
     assert api.verify_signature_sets(sets) is True
     torch.cuda.synchronize()
-    assert {k: fp.LAUNCHES[k] for k in VERIFY_LAUNCHES} == VERIFY_LAUNCHES
+    assert fp.LAUNCHES == VERIFY_LAUNCHES
     assert api.verify_signature_sets(bad) is False
 
 
@@ -250,6 +255,43 @@ def test_fold_and_cofactor_kernels_match_plain_on_card(fold_edge_cases, kernel):
             assert torch.equal(chip_smoke._stacked(got[name]), chip_smoke._stacked(want)), name
 
 
+@pytest.fixture(scope="module")
+def glue_edge_cases():
+    """chip_smoke's [kernels] cases of K19-K21 (`glue_cases`): the final
+    exponentiation of one value, of p - 1 in every word slot, zero and one,
+    and of zero alone; the psi comparison of 19 and 128 signatures (G2
+    points, points of E2 outside G2, infinity, a multiple of another point)
+    with their verdicts; the Miller inputs of 1 and 128 sets with infinity
+    lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: torch.cuda.is_available() is False")
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import h2c, pairing
+
+    f = chip_smoke.fp12_inputs(fp, tower, P, 4, 45, "cuda")
+    fe = {"final_exponentiation_n1": f[3:], "final_exponentiation_n3": f[:3], "final_exponentiation_zero": f[1:2]}
+    return chip_smoke.glue_cases(torch, fp, curve, tower, pairing, api, h2c, P, fe,
+                                 [chip_smoke.PSI_EDGE, chip_smoke.N_SETS],
+                                 [chip_smoke.MILLER_INPUTS_EDGE, chip_smoke.N_SETS], 46)
+
+
+@pytest.mark.parametrize("kernel", ["final_exponentiation", "g2_psi_check", "miller_inputs"])
+def test_final_exp_and_glue_kernels_match_plain_on_card(glue_edge_cases, kernel):
+    """K19-K21 against their plain versions and the composition each
+    replaced, bit for bit: one launch per call and no other kernel; K20's
+    verdicts those its inputs must give."""
+    cases, verdicts = glue_edge_cases
+    cases = {name: case for name, case in cases.items() if name.startswith(kernel)}
+    fp.reset_launches()
+    got = {name: run() for name, (_, run, _, _) in cases.items()}
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fp.LAUNCHES.items() if v} == {kernel: len(cases)}
+    for name, (_, _, plain, composed) in cases.items():
+        for want in (plain(), composed()):
+            assert torch.equal(chip_smoke._stacked(got[name]), chip_smoke._stacked(want)), name
+        if name in verdicts:
+            assert got[name].tolist() == verdicts[name]
+
+
 @pytest.mark.parametrize("n", [1, 31, 33, 4104])
 def test_mul_mma_matches_plain_and_k1_on_card(cuda_device, n):
     """K6 against its plain version and K1, bit for bit, at whole tiles of
@@ -265,11 +307,18 @@ def test_mul_mma_matches_plain_and_k1_on_card(cuda_device, n):
 
 
 def test_mxu_flag_routes_verify_through_k6(cuda_device, monkeypatch):
+    """With the flag, a direct Fp product (`fp.mul`) launches K6 and never
+    K1; a verify, which has no direct product left since K19-K21, launches
+    neither and keeps its verdicts."""
     monkeypatch.setattr(fp, "USE_MXU_MUL", True)
+    a = _elements(47, 8, cuda_device)
+    fp.reset_launches()
+    assert torch.equal(fp.mul(a, a), fp.mul_plain(a, a))
+    assert (fp.LAUNCHES["fp_mul"], fp.LAUNCHES["fp_mul_mma"]) == (0, 1)
     sets, bad = _small_batches()
     fp.reset_launches()
     assert api.verify_signature_sets(sets) is True
-    assert fp.LAUNCHES["fp_mul"] == 0 and fp.LAUNCHES["fp_mul_mma"] > 0
+    assert fp.LAUNCHES["fp_mul"] == 0 and fp.LAUNCHES["fp_mul_mma"] == 0
     assert api.verify_signature_sets(bad) is False
 
 
@@ -327,8 +376,10 @@ def test_fp12_kernel_matches_plain_on_card(cuda_device, n):
 
 
 def test_mxu_flag_verify_still_launches_k7_k8(cuda_device, monkeypatch):
-    """With every Fp product on K6, the tower products stay on K7 and K8
-    (as the JAX package's flag reaches only direct Fp products)."""
+    """With every direct Fp product on K6, the kernels with products of
+    their own (K7 to K21) keep them, as the JAX package's flag reaches only
+    direct Fp products: a verify launches exactly what it launches without
+    the flag, VERIFY_LAUNCHES."""
     sets, _ = _small_batches()
     counts = {}
     for flag in (False, True):
@@ -336,9 +387,7 @@ def test_mxu_flag_verify_still_launches_k7_k8(cuda_device, monkeypatch):
         fp.reset_launches()
         assert api.verify_signature_sets(sets) is True
         counts[flag] = dict(fp.LAUNCHES)
-    assert counts[True]["fp_mul"] == 0 and counts[True]["fp_mul_mma"] == counts[False]["fp_mul"] > 0
-    for k in ("fp2_mul", "fp12_mul"):
-        assert counts[True][k] == counts[False][k] > 0
+    assert counts[True] == counts[False] == VERIFY_LAUNCHES
 
 
 def _non_g1_points(n):

@@ -114,10 +114,10 @@ def test_tensor_core_kernel_is_registered():
 def test_tower_kernels_are_registered():
     """K7 and K8: their source is hashed into the build key and compiled
     as a unit, both launchers are bound, and fp.KERNELS counts all
-    eighteen kernels."""
+    twenty-one kernels."""
     assert "tower_kernels.cu" in tkernels.SOURCES and "tower_kernels.cu" in tkernels.UNITS
     assert "lh_fp2_mul" in tkernels._SIGNATURES and "lh_fp12_mul" in tkernels._SIGNATURES
-    assert len(tfp.KERNELS) == 18 and set(tfp.LAUNCHES) == set(tfp.KERNELS)
+    assert len(tfp.KERNELS) == 21 and set(tfp.LAUNCHES) == set(tfp.KERNELS)
     assert {"fp2_mul", "fp12_mul"} <= set(tfp.KERNELS)
 
 
@@ -149,6 +149,18 @@ def test_fold_and_cofactor_kernels_are_registered():
     assert "curve.cuh" in tkernels.SOURCES
     assert {"fold_kernels.cu", "cofactor_kernels.cu"} <= set(tkernels.UNITS)
     arity = {"g1_tree_sum": 14, "g2_tree_sum": 14, "clear_cofactor": 19, "product_reduce": 6}
+    for name, n in arity.items():
+        assert len(tkernels._SIGNATURES[f"lh_{name}"]) == n and name in tfp.KERNELS
+
+
+def test_final_exp_and_verify_glue_kernels_are_registered():
+    """K19-K21: their sources and the header K19 shares with K9 are hashed
+    into the build key, the .cu files compiled as units, the three
+    launchers bound (one argument type per launcher parameter, the stream
+    last) and counted."""
+    assert "final_exp.cuh" in tkernels.SOURCES
+    assert {"final_exponentiation_kernels.cu", "verify_kernels.cu"} <= set(tkernels.UNITS)
+    arity = {"final_exponentiation": 6, "g2_psi_check": 16, "miller_inputs": 23}
     for name, n in arity.items():
         assert len(tkernels._SIGNATURES[f"lh_{name}"]) == n and name in tfp.KERNELS
 
