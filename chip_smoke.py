@@ -7,7 +7,7 @@ Phases, one line each, any failure exits non-zero:
 
   1. device   require a CUDA device; print its name and power limit
   2. build    compile the hand-written kernels (csrc/) with nvcc, one
-              process per source; K5's to K21's registers and spills
+              process per source; K5's to K33's registers and spills
               from ptxas
   3. kernels  K1-K4 and K6 bit-identical to their plain PyTorch versions
               on the card: edge inputs 0, 1, p-1, p-2 and 4096 seeded
@@ -41,7 +41,22 @@ Phases, one line each, any failure exits non-zero:
               slot, zero and one, and zero alone), the psi comparison K20
               (S = 128 and 19: G2 points, points of E2 outside G2,
               infinity, and a multiple of another point) and the Miller
-              inputs K21 (S = 128 and 1, infinity lanes), likewise. After
+              inputs K21 (S = 128 and 1, infinity lanes), likewise. The
+              standalone kernels off the verify path, K22 and K23
+              (to_affine, G1 and G2: Z = 0, Z = one, p - 1 in every word
+              slot), K24 (fp6_mul, with a broadcast operand and an all
+              p - 1 element) and K25 (fp2_inv, zero: inv0), at counts
+              that are and are not whole blocks, likewise. The
+              standalone launches of routines that run inside the verify
+              path's kernels, K26 and K27 (curve.add, G1 and G2: Z = 0,
+              Z = one, p - 1 words, P == Q, P == -Q, a broadcast point),
+              K28 and K29 (Karabina's squaring and decompression: the
+              compressed identity, p - 1 words, decompression's g2 = 0
+              branch and a zero denominator), K30 and K31 (fp12_inv,
+              frobenius: p - 1, zero, one), K32 (the Fp2 square-root
+              candidate: 0, one, u, -1) and K33 (mont_reduce: T = 0,
+              2 p 2^384 - 1, p^2 - 1, p 2^384), likewise (K33 against its
+              plain version only: it replaced no composition). After
               set-up, K5 bit-identical to its plain version (on CPU
               tensors) on 64 points: interop keys, the order-3 point
               (0, 2), points of E(Fp) outside G1 and infinity rows
@@ -72,7 +87,7 @@ Phases, one line each, any failure exits non-zero:
   5. profile  device busy time, idle share and top kernels of one verify,
               at both shapes by default and at 128 x 128 with the flag; the
               trace holds every kernel as often as a verify launches it
-              (K10-K21 once, the rest never)
+              (K10-K21 once, the rest, K22-K33 included, never)
      timing   each kernel against its plain version and its bound: K1-K4,
               K6, K7 and K8, which a verify no longer launches, at the
               shapes that carried most of their main-path work before
@@ -80,9 +95,23 @@ Phases, one line each, any failure exits non-zero:
               K8 also against the K1/K2 composition they replaced);
               K9-K21 at the verify path's shapes against their plain
               versions, the composition they replaced and their bounds, K9
-              with its Fermat chain's share
-     extras   to_affine (G1, G2), fp6_mul and fp6_inv on the card
-              bit-identical to the same functions on CPU tensors
+              with its Fermat chain's share; K22-K25 at `AFFINE_SHAPES`
+              (off the path: G1 128, G2 256, Fp6 128, Fp2 256) and
+              K26-K33 at `STANDALONE_SHAPES` likewise, with the launches
+              of one verify as `verify` counted them (0)
+     registry every entry of the port's kernel registry
+              (torch_backend/registry.py: the JAX registry's 38 names,
+              SSWU, the three launch entry points) called once on the card
+              at its example shape, the counts set to 0 just before the
+              walk: every entry a "kernel" entry (a hand-written kernel
+              of its own) or a "path" entry, with declared launches; each
+              entry's launches as declared, a "kernel" entry's output
+              bit-identical to its plain version on CPU tensors (the big
+              composites of `HELD_IN_KERNELS` are held in `kernels` and
+              not run again), and every kernel, K1-K33, launched in the
+              walk
+     extras   fp6_inv (over K7 and K25; no registry entry) on the card
+              bit-identical to the same function on CPU tensors
   6. parity   one S=4, K=2 batch: the card's Miller partial and GT value
               bit-identical to the same functions on the CPU
   7. sharded  `parallel.sharded.sharded_verify_signature_sets` in spawned
@@ -172,6 +201,8 @@ FOLD_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/fold_kernels.c
 COFACTOR_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/cofactor_kernels.cu"
 FINAL_EXPONENTIATION_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/final_exponentiation_kernels.cu"
 VERIFY_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/verify_kernels.cu"
+AFFINE_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/affine_kernels.cu"
+STANDALONE_SOURCE = "lighthouse_tpu_torch/crypto/bls/torch_backend/csrc/standalone_kernels.cu"
 REPLACES = {
     "fp_mul": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:310",
     "fp_addsub": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:294",
@@ -194,13 +225,29 @@ REPLACES = {
     "final_exponentiation": "lighthouse_tpu/crypto/bls/jax_backend/pairing.py:263",
     "g2_psi_check": "lighthouse_tpu/crypto/bls/jax_backend/curve.py:389",
     "miller_inputs": "lighthouse_tpu/crypto/bls/jax_backend/api.py:307",
+    "g1_to_affine": "lighthouse_tpu/crypto/bls/jax_backend/curve.py:120",
+    "g2_to_affine": "lighthouse_tpu/crypto/bls/jax_backend/curve.py:120",
+    "fp6_mul": "lighthouse_tpu/crypto/bls/jax_backend/tower.py:155",
+    "fp2_inv": "lighthouse_tpu/crypto/bls/jax_backend/tower.py:100",
+    "g1_add": "lighthouse_tpu/crypto/bls/jax_backend/curve.py:138",
+    "g2_add": "lighthouse_tpu/crypto/bls/jax_backend/curve.py:138",
+    "karabina_sqr": "lighthouse_tpu/crypto/bls/jax_backend/tower.py:401",
+    "karabina_decompress": "lighthouse_tpu/crypto/bls/jax_backend/tower.py:481",
+    "fp12_inv": "lighthouse_tpu/crypto/bls/jax_backend/tower.py:546",
+    "frobenius": "lighthouse_tpu/crypto/bls/jax_backend/pairing.py:210",
+    "fp2_sqrt_candidate": "lighthouse_tpu/crypto/bls/jax_backend/h2c.py:102",
+    "fp_redc": "lighthouse_tpu/crypto/bls/jax_backend/fp.py:261",
 }
 SOURCES = {"fp_mul_mma": MMA_SOURCE, "fp2_mul": TOWER_SOURCE, "fp12_mul": TOWER_SOURCE,
            "cyclotomic_pow_x": FINAL_EXP_SOURCE, "g1_scalar_mul": CURVE_SOURCE, "g2_scalar_mul": CURVE_SOURCE,
            "miller_loop": PAIRING_SOURCE, "sswu": H2C_SOURCE, "iso3_map": H2C_SOURCE, "g1_tree_sum": FOLD_SOURCE,
            "g2_tree_sum": FOLD_SOURCE, "clear_cofactor": COFACTOR_SOURCE, "product_reduce": FOLD_SOURCE,
            "final_exponentiation": FINAL_EXPONENTIATION_SOURCE, "g2_psi_check": VERIFY_SOURCE,
-           "miller_inputs": VERIFY_SOURCE}
+           "miller_inputs": VERIFY_SOURCE, "g1_to_affine": AFFINE_SOURCE, "g2_to_affine": AFFINE_SOURCE,
+           "fp6_mul": AFFINE_SOURCE, "fp2_inv": AFFINE_SOURCE, "g1_add": STANDALONE_SOURCE,
+           "g2_add": STANDALONE_SOURCE, "karabina_sqr": STANDALONE_SOURCE, "karabina_decompress": STANDALONE_SOURCE,
+           "fp12_inv": FINAL_EXPONENTIATION_SOURCE, "frobenius": FINAL_EXPONENTIATION_SOURCE,
+           "fp2_sqrt_candidate": H2C_SOURCE, "fp_redc": STANDALONE_SOURCE}
 # launches of one verify, whatever its shape, for every kernel: hash-to-G2's
 # SSWU (K13), isogeny (K14) and sum with the cofactor clearing (K17); the sums
 # of each set's keys (K15) and of the r_i sig_i (K16); r_i aggpk_i (K10); the
@@ -208,12 +255,15 @@ SOURCES = {"fp_mul_mma": MMA_SOURCE, "fp2_mul": TOWER_SOURCE, "fp12_mul": TOWER_
 # the Miller pairs' affine inputs (K21), the Miller loop (K12), the product
 # of the Miller values (K18) and the final exponentiation (K19). The field
 # and tower kernels K1-K4, K7 and K8 and the |z|-power chain K9 run only
-# inside those; K5 is admission's, K6 the flag's.
+# inside those; K5 is admission's, K6 the flag's; K22-K33 are standalone
+# functions off the path (the registry's, `[registry]`).
 VERIFY_LAUNCHES = {"fp_mul": 0, "fp_addsub": 0, "fp_pow": 0, "fp_batch_inv": 0, "g1_subgroup_check": 0,
                    "fp_mul_mma": 0, "fp2_mul": 0, "fp12_mul": 0, "cyclotomic_pow_x": 0, "g1_scalar_mul": 1,
                    "g2_scalar_mul": 1, "miller_loop": 1, "sswu": 1, "iso3_map": 1, "g1_tree_sum": 1,
                    "g2_tree_sum": 1, "clear_cofactor": 1, "product_reduce": 1, "final_exponentiation": 1,
-                   "g2_psi_check": 1, "miller_inputs": 1}
+                   "g2_psi_check": 1, "miller_inputs": 1, "g1_to_affine": 0, "g2_to_affine": 0, "fp6_mul": 0,
+                   "fp2_inv": 0, "g1_add": 0, "g2_add": 0, "karabina_sqr": 0, "karabina_decompress": 0,
+                   "fp12_inv": 0, "frobenius": 0, "fp2_sqrt_candidate": 0, "fp_redc": 0}
 VERIFY_KERNELS = tuple(k for k, n in VERIFY_LAUNCHES.items() if n)
 # a sharded rank also multiplies the gathered partials (K18)
 SHARDED_LAUNCHES = {**VERIFY_LAUNCHES, "product_reduce": 2}
@@ -234,6 +284,31 @@ COFACTOR_EDGE = 19
 FINAL_EXP_EDGE = 3
 PSI_EDGE = 19
 MILLER_INPUTS_EDGE = 1
+# K22, K23 and K25 run a thread per element in one-warp blocks, K24 sixteen
+# elements a block: whole blocks and counts that are none
+AFFINE_COUNTS = (1, 33, 256)
+FP6_COUNTS = (1, 17, 128, 131)
+# K22-K25's [timing] shapes, off the verify path: G1 and G2 at the verify's
+# batch sizes (S = 128 keys' aggregates, 2 S signatures and hashes), the Fp6
+# product at 128, the Fp2 inversion at 256
+AFFINE_SHAPES = {"g1_to_affine": 128, "g2_to_affine": 256, "fp6_mul": 128, "fp2_inv": 256}
+# K26-K33, the standalone launches of routines that run inside the verify
+# path's kernels: counts that are and are not whole blocks (a thread per
+# element, 32 a block, K33 128; K30 and K31 a warp per element; K32 a
+# thread pair, 16 a block)
+STANDALONE_COUNTS = {"g1_add": (1, 33, 256), "g2_add": (1, 33, 256), "karabina_sqr": (1, 33, 128),
+                     "karabina_decompress": (1, 6, 33), "fp12_inv": (1, 3, 33), "frobenius": (1, 3, 33),
+                     "fp2_sqrt_candidate": (1, 17, 256), "fp_redc": (1, 129, 4096)}
+# their [timing] shapes, off the verify path: the counts at which the bodies
+# run inside the verify's kernels at S = 128 (K15's 128 G1 pairs, K17's 128
+# G2 sums, K9's 128 squarings' worth of elements and six decompressions,
+# K19's one element, K13's 256 candidates), and 4096 reductions
+STANDALONE_SHAPES = {"g1_add": 128, "g2_add": 128, "karabina_sqr": 128, "karabina_decompress": 6,
+                     "fp12_inv": 1, "frobenius": 1, "fp2_sqrt_candidate": 256, "fp_redc": 4096}
+# registry entries whose plain versions `[kernels]` already holds at the
+# verify path's shapes (minutes each on the plain version): `[registry]`
+# holds their launches only
+HELD_IN_KERNELS = ("pairing.miller_loop", "pairing.final_exponentiation")
 K6_TAILS = (1, 31, 33)
 # K7 runs 64 elements a block, K8 16 (groups of six threads): whole blocks
 # and counts that are none
@@ -293,6 +368,19 @@ K17_BYTES, K17_CONST_BYTES = 3 * 3 * 96, 2 * 96 + 2 * 128
 K19_BYTES = 2 * 576 + 24 * 48
 K20_BYTES, K20_CONST_BYTES = 6 * 96 + 1, 2 * 96
 K21_BYTES_PER_SET, K21_BYTES_PER_LANE, K21_CONST_BYTES = 3 * 48 + 3 * 96, 2 * 48 + 2 * 96 + 2, 3 * 96 + 2 * 48
+# K22-K25, bytes of one element: a point in, x, y and the flag out; a, b in
+# and c out; a in and its inverse out. K24's word products: six Karatsuba Fp2
+# products of 3 x 144 and a reduction per output component.
+K22_BYTES, K23_BYTES, K24_BYTES, K25_BYTES = 3 * 48 + 2 * 48 + 1, 3 * 96 + 2 * 96 + 1, 3 * 288, 2 * 96
+K24_WORD_PRODUCTS = 6 * 3 * 144 + 6 * REDC_WORD_PRODUCTS
+# K26-K33, bytes of one element (inputs read once, the output written once)
+# and the constants read once per launch: two points in and one out; a
+# compressed element in and out; compressed in, Fp12 out; Fp12 in and out
+# and 12 Fp rows of constants (the phi scalars, the gammas); Fp2 in and out;
+# T in (24 words) and the residue out
+STANDALONE_BYTES = {"g1_add": 9 * 48, "g2_add": 9 * 96, "karabina_sqr": 2 * 384, "karabina_decompress": 384 + 576,
+                    "fp12_inv": 2 * 576, "frobenius": 2 * 576, "fp2_sqrt_candidate": 2 * 96, "fp_redc": 96 + 48}
+STANDALONE_CONST_BYTES = {"fp12_inv": 12 * 48, "frobenius": 12 * 48}
 
 
 def pow_word_products(e: int, mul: int, sqr: int) -> int:
@@ -344,9 +432,48 @@ def k19_word_products(P: int) -> int:
     the power p - 2, two Fp products); the product by its result, six Fp2
     products."""
     k9 = K9_WORD_PRODUCTS_BUT_POWER + inversion_word_products(P)
-    fp2_inv = 2 * 78 + REDC_WORD_PRODUCTS + inversion_word_products(P) + 2 * WORD_PRODUCTS_PER_MUL
-    return (5 * k9 + 14 * FP12_MUL_WP + 5 * 6 * FP2_MUL_WP + 8 * WORD_PRODUCTS_PER_MUL + fp2_inv
+    return (5 * k9 + 14 * FP12_MUL_WP + 5 * 6 * FP2_MUL_WP + 8 * WORD_PRODUCTS_PER_MUL + fp2_inv_word_products(P)
             + 6 * FP2_MUL_WP)
+
+
+def fp2_inv_word_products(P: int) -> int:
+    """An Fp2 inversion (K25, and inside K23): the norm's two Fp squares
+    summed and reduced once, the power p - 2, two Fp products."""
+    return 2 * 78 + REDC_WORD_PRODUCTS + inversion_word_products(P) + 2 * WORD_PRODUCTS_PER_MUL
+
+
+def affine_word_products(P: int) -> dict:
+    """Word products one element of K22-K25 needs: to_affine is an
+    inversion and two products (Fp for G1, Fp2 for G2)."""
+    return {"g1_to_affine": inversion_word_products(P) + 2 * WORD_PRODUCTS_PER_MUL,
+            "g2_to_affine": fp2_inv_word_products(P) + 2 * FP2_MUL_WP,
+            "fp6_mul": K24_WORD_PRODUCTS, "fp2_inv": fp2_inv_word_products(P)}
+
+
+def standalone_word_products(P: int) -> dict:
+    """Word products one element of K26-K33 needs (K29 where g2 != 0; see
+    `decompress_word_products`): an addition is 12 field products (the
+    products by 3b are additions); Karabina's squaring four Fp2 squares
+    and two products; the Fp12 inversion fp12_inv's four Fp12 products,
+    eight Fp products, the Fp2 inversion and six Fp2 products; the
+    Frobenius map six Fp2 products; the square-root candidate its two
+    powers on the plain version's schedule and three Fp2 products; the
+    reduction 156."""
+    sqrt = (pow_word_products((P - 3) // 4, FP2_MUL_WP, FP2_SQR_WP)
+            + pow_word_products((P - 1) // 2, FP2_MUL_WP, FP2_SQR_WP) + 3 * FP2_MUL_WP)
+    return {"g1_add": G1_ADD_WP, "g2_add": G2_ADD_WP, "karabina_sqr": 4 * FP2_SQR_WP + 2 * FP2_MUL_WP,
+            "karabina_decompress": decompress_word_products(P, True),
+            "fp12_inv": 4 * FP12_MUL_WP + 8 * WORD_PRODUCTS_PER_MUL + fp2_inv_word_products(P) + 6 * FP2_MUL_WP,
+            "frobenius": 6 * FP2_MUL_WP, "fp2_sqrt_candidate": sqrt, "fp_redc": REDC_WORD_PRODUCTS}
+
+
+def decompress_word_products(P: int, g2_nonzero: bool) -> int:
+    """One decompression (K29), by its branch: where g2 != 0 three Fp2
+    squares and three products, where g2 = 0 one square and four products;
+    the norm's two Fp squares summed and reduced once, the Fermat
+    inversion, two Fp products."""
+    fp2 = 3 * FP2_SQR_WP + 3 * FP2_MUL_WP if g2_nonzero else FP2_SQR_WP + 4 * FP2_MUL_WP
+    return fp2 + 2 * 78 + REDC_WORD_PRODUCTS + inversion_word_products(P) + 2 * WORD_PRODUCTS_PER_MUL
 
 
 def k21_word_products(P: int, S: int) -> int:
@@ -656,6 +783,160 @@ def miller_input_points(torch, fp, curve, S: int, seed: int):
     rows = (list(range(S)), list(range(S))) if S > 1 else ([2], [1])
     r_pk, h = (curve.Proj(*(c[r].contiguous() for c in p)) for p, r in zip((g1, g2), rows))
     return r_pk, h, curve.unstack(g2, S + 3)
+
+
+def affine_inputs(torch, fp, curve, tower, group: str, n: int, seed: int):
+    """n projective points of G1 or G2 on the card for K22 and K23, from
+    `curve_inputs` (Z != 1; rows 0 and 1 at infinity, Z = 0), row 2 with
+    Z = one and row 3 with p - 1 in every word slot of X, Y and Z (the map
+    to affine coordinates is a field function of any X, Y, Z)."""
+    from lighthouse_tpu_torch.crypto.bls.constants import P
+
+    pts = curve.Proj(*(c[:n].clone() for c in curve_inputs(torch, fp, curve, group, max(n, 4), seed)))
+    if n > 3:
+        pts.z[2] = (fp.one if group == "g1" else tower.fp2_one)((), DEVICE)
+        for c in pts:
+            c[3] = torch.from_numpy(fp.int_to_words(P - 1)).to(DEVICE)
+    return pts
+
+
+def affine_cases(torch, fp, curve, tower, P, shapes: dict, seed: int):
+    """name -> (shape, kernel call, plain version, the composition it
+    replaced) for K22-K25 at the counts of `shapes` (kernel -> counts): K22
+    and K23 on `affine_inputs`, against `to_affine_plain` over the plain
+    fields and over the kernel fields (K3 and K1; the Fp2 inversion as the
+    K1-K3 composition and K7); K24 on `fp2_inputs` in threes (a zero
+    coefficient, one, p - 1 in every word slot, u; one element all p - 1)
+    against `fp6_mul_composed` over the plain and the kernel tower (K7,
+    K2), with an operand broadcast over the batch too; K25 on `fp2_inputs`
+    (zero: inv0) against `fp2_inv_composed` over the plain and the kernel
+    field operations (K1, K2, K3)."""
+    cases = {}
+    fp2_composed = curve.FP2._replace(inv=lambda a: tower.fp2_inv_composed(a, fp.KERNEL_OPS))
+    fields = {"g1_to_affine": ("g1", curve.FP, curve.FP_PLAIN, curve.FP),
+              "g2_to_affine": ("g2", curve.FP2, curve.FP2_PLAIN, fp2_composed)}
+    for name, (group, F, F_plain, F_comp) in fields.items():
+        counts = shapes.get(name, ())
+        if counts:
+            pts = affine_inputs(torch, fp, curve, tower, group, max(counts), seed)
+        for n in counts:
+            p = curve.Proj(*(c[:n] for c in pts))
+            cases[f"{name}_n{n}"] = ([n], lambda F=F, p=p: curve.to_affine(F, p),
+                                     lambda F=F_plain, p=p: curve.to_affine_plain(F, p),
+                                     lambda F=F_comp, p=p: curve.to_affine_plain(F, p))
+    for n in shapes.get("fp2_inv", ()):
+        a = fp2_inputs(fp, P, n, seed + 1, DEVICE)
+        cases[f"fp2_inv_n{n}"] = ([n], lambda a=a: tower.fp2_inv(a), lambda a=a: tower.fp2_inv_plain(a),
+                                  lambda a=a: tower.fp2_inv_composed(a, fp.KERNEL_OPS))
+    counts = shapes.get("fp6_mul", ())
+    if counts:
+        x6 = fp2_inputs(fp, P, 3 * max(counts) + 3, seed + 2, DEVICE).reshape(-1, 3, 2, fp.WORDS).clone()
+        x6[1] = torch.from_numpy(fp.int_to_words(P - 1)).to(DEVICE)
+    for n in counts:
+        a, b = x6[:n], x6.roll(1, dims=0)[:n]
+        for label, bb in (("", b), ("broadcast_", x6[0])):
+            cases[f"fp6_mul_{label}n{n}"] = ([n], lambda a=a, b=bb: tower.fp6_mul(a, b),
+                                             lambda a=a, b=bb: tower.fp6_mul_plain(a, b),
+                                             lambda a=a, b=bb: tower.fp6_mul_composed(a, b, tower.KERNEL_TOWER))
+    return cases
+
+
+def standalone_cases(torch, fp, curve, tower, pairing, h2c, P, shapes: dict, seed: int):
+    """(cases, work) for K26-K33 at the counts of `shapes` (kernel ->
+    counts). cases: name -> (shape, kernel call, plain version, the
+    composition it replaced, or None for K33, which replaced the plain
+    reduction only). work: name -> (word products, bytes) of the case's
+    inputs (K29's by each element's branch). Inputs: K26 and K27 on
+    `affine_inputs` (Z = 0, Z = one, p - 1 in every word slot) added to
+    the rows rolled by one, with a P == Q row, a P == -Q row and a point
+    broadcast over the batch; K28 and K29 on `fp2_inputs` in fours (zero,
+    one, p - 1, u), K29 with the all-zero identity, a g2 = 0 row (the
+    other branch) and a g2 = g3 = 0 row (a zero denominator: inv0); K30
+    and K31 on `fp12_inputs` (p - 1, zero, one); K32 on `sswu_inputs` (0,
+    one, u, -1, whose alpha is -1); K33 on T = 0, 2 p 2^384 - 1, p^2 - 1,
+    p 2^384 and seeded random T below 2 p 2^384."""
+    cases, work = {}, {}
+    ops = standalone_word_products(P)
+
+    def add(name, n, run, plain, composed, wp=None, extra_bytes=0):
+        cases[name] = ([n], run, plain, composed)
+        kernel = name.rsplit("_n", 1)[0].replace("_broadcast", "")
+        work[name] = (n * ops[kernel] if wp is None else wp,
+                      n * STANDALONE_BYTES[kernel] + STANDALONE_CONST_BYTES.get(kernel, 0) + extra_bytes)
+
+    for name, group, F, F_plain in (("g1_add", "g1", curve.FP, curve.FP_PLAIN),
+                                    ("g2_add", "g2", curve.FP2, curve.FP2_PLAIN)):
+        counts = shapes.get(name, ())
+        if not counts:
+            continue
+        p = affine_inputs(torch, fp, curve, tower, group, max(max(counts), 6), seed)
+        q = curve.Proj(*(c.roll(1, dims=0) for c in p))
+        for c_p, c_q in zip(p, q):
+            c_q[4] = c_p[4]  # P == Q
+        q.y[5] = F_plain.neg(p.y[5])  # P == -Q
+        q.x[5], q.z[5] = p.x[5], p.z[5]
+        for n in counts:
+            pn, qn = curve.Proj(*(c[:n] for c in p)), curve.Proj(*(c[:n] for c in q))
+            add(f"{name}_n{n}", n, lambda F=F, a=pn, b=qn: curve.add(F, a, b),
+                lambda F=F_plain, a=pn, b=qn: curve.add_composed(F, a, b),
+                lambda F=F, a=pn, b=qn: curve.add_composed(F, a, b))
+        n = max(counts)
+        pn, one = curve.Proj(*(c[:n] for c in p)), curve.Proj(*(c[3] for c in q))  # Z = one
+        add(f"{name}_broadcast_n{n}", n, lambda F=F, a=pn, b=one: curve.add(F, a, b),
+            lambda F=F_plain, a=pn, b=one: curve.add_composed(F, a, b),
+            lambda F=F, a=pn, b=one: curve.add_composed(F, a, b))
+    compressed = {}
+    for name in ("karabina_sqr", "karabina_decompress"):
+        counts = shapes.get(name, ())
+        if counts:
+            c = fp2_inputs(fp, P, 4 * max(max(counts), 4) + 4, seed + 1, DEVICE)[4:]
+            c = c.reshape(-1, 4, 2, fp.WORDS)[: max(counts)].clone()
+            c[0] = 0  # the compressed identity
+            if name == "karabina_decompress" and c.shape[0] > 2:
+                c[1, 0] = 0  # g2 = 0: the other branch
+                c[2, 0:2] = 0  # g2 = g3 = 0: a zero denominator (inv0)
+            if c.shape[0] > 3:
+                c[3] = torch.from_numpy(fp.int_to_words(P - 1)).to(DEVICE)
+            compressed[name] = c
+    for n in shapes.get("karabina_sqr", ()):
+        c = compressed["karabina_sqr"][:n]
+        add(f"karabina_sqr_n{n}", n, lambda c=c: tower.karabina_sqr(c), lambda c=c: tower.karabina_sqr_plain(c),
+            lambda c=c: tower.karabina_sqr_composed(c, tower.KERNEL_TOWER))
+    for n in shapes.get("karabina_decompress", ()):
+        c = compressed["karabina_decompress"][:n]
+        nz = int((c[:, 0] != 0).flatten(1).any(dim=1).sum())
+        add(f"karabina_decompress_n{n}", n, lambda c=c: tower.karabina_decompress(c),
+            lambda c=c: tower.karabina_decompress_plain(c),
+            lambda c=c: tower.karabina_decompress_composed(c, tower.KERNEL_TOWER),
+            wp=nz * decompress_word_products(P, True) + (n - nz) * decompress_word_products(P, False))
+    for name, run, plain, composed in (
+            ("fp12_inv", tower.fp12_inv, tower.fp12_inv_plain,
+             lambda a: tower.fp12_inv_composed(a, tower.KERNEL_TOWER)),
+            ("frobenius", pairing.frobenius, pairing.frobenius_plain,
+             lambda a: pairing.frobenius_composed(a, tower.KERNEL_TOWER))):
+        counts = shapes.get(name, ())
+        if counts:
+            f = fp12_inputs(fp, tower, P, max(counts), seed + 2, DEVICE)
+        for n in counts:
+            add(f"{name}_n{n}", n, lambda f=f[:n], g=run: g(f), lambda f=f[:n], g=plain: g(f),
+                lambda f=f[:n], g=composed: g(f))
+    counts = shapes.get("fp2_sqrt_candidate", ())
+    if counts:
+        x = sswu_inputs(fp, P, max(counts), seed + 3, DEVICE)
+    for n in counts:
+        add(f"fp2_sqrt_candidate_n{n}", n, lambda x=x[:n]: h2c.fp2_sqrt_candidate(x),
+            lambda x=x[:n]: h2c.fp2_sqrt_candidate_plain(x),
+            lambda x=x[:n]: h2c.fp2_sqrt_candidate_composed(x, tower.KERNEL_TOWER))
+    counts = shapes.get("fp_redc", ())
+    if counts:
+        rng = random.Random(seed + 4)
+        top = 2 * P << 384
+        vals = [0, top - 1, P * P - 1, P << 384] + [rng.randrange(top) for _ in range(max(counts))]
+        buf = b"".join(v.to_bytes(96, "little") for v in vals[: max(counts)])
+        t = torch.frombuffer(bytearray(buf), dtype=torch.int32).reshape(-1, 24).to(DEVICE)
+    for n in counts:
+        add(f"fp_redc_n{n}", n, lambda t=t[:n]: fp.mont_reduce(t), lambda t=t[:n]: fp.mont_reduce_plain(t), None)
+    return cases, work
 
 
 def make_sets(api, n_sets: int, keys_per_set: int):
@@ -980,11 +1261,14 @@ def check_chain_kernels(torch, cases, verdicts=None) -> None:
     with the edge rows of `curve_inputs`, `scalar_bits`,
     `cyclotomic_inputs`, `miller_inputs`, `sswu_inputs`, `fold_inputs`,
     `cofactor_inputs`, `fp12_inputs`, `psi_inputs` and
-    `miller_input_points` (and the isogeny's kernel point); the cases of
-    `verdicts` (name -> bools) also give those verdicts."""
+    `miller_input_points` (and the isogeny's kernel point), and of
+    `affine_cases` and `standalone_cases`; the cases of `verdicts` (name ->
+    bools) also give those verdicts."""
     for name, (_, run, plain, composed) in cases.items():
         got = run()
         for label, fn in (("plain version", plain), ("composition replaced", composed)):
+            if fn is None:  # K33 replaced no composition
+                continue
             want = fn()
             if not torch.equal(_stacked(got), _stacked(want)):
                 raise AssertionError(f"{name}: kernel differs from its {label}")
@@ -1089,31 +1373,20 @@ def time_g1_kernel(torch, api, fp, curve, keys: list[bytes], launches, peak_ops_
     }
 
 
-def check_extras(torch, fp, curve, tower, P) -> None:
-    """to_affine (G1, G2), fp6_mul and fp6_inv on the card bit-identical to
-    the same functions on CPU tensors, on 8 random elements each, zero Z and
-    a zero Fp6 element among them (infinity, inv0)."""
+def check_extras(torch, fp, tower, P) -> None:
+    """fp6_inv, which no registry entry holds (the JAX registry has no
+    fp6_inv), over K7 and K25 on 8 elements with a zero one (inv0): on the
+    card bit-identical to the same function on CPU tensors, and
+    fp6_inv(a) a == 1 but for the zero element."""
     n = 8
-    r = field_inputs(fp, P, 12 * n, 6, "cpu")[8:].reshape(n, 2, 3, 2, fp.WORDS)
-    a6, b6 = r[:, 0], r[:, 1]
+    a6 = field_inputs(fp, P, 6 * n, 6, "cpu")[8:].reshape(n, 3, 2, fp.WORDS).clone()
     a6[1] = 0  # inv0: zero maps to zero
-    b6[0, 2] = 0  # Z = 0: infinity in both groups
-    g1 = curve.Proj(*(b6[:, c, 0] for c in range(3)))
-    g2 = curve.Proj(*(b6[:, c] for c in range(3)))
-    cases = {
-        "to_affine_g1": lambda d: curve.to_affine(curve.FP, curve.Proj(*(c.to(d) for c in g1))),
-        "to_affine_g2": lambda d: curve.to_affine(curve.FP2, curve.Proj(*(c.to(d) for c in g2))),
-        "fp6_mul": lambda d: (tower.fp6_mul(a6.to(d), b6.to(d)),),
-        "fp6_inv": lambda d: (tower.fp6_inv(a6.to(d)),),
-    }
-    for name, fn in cases.items():
-        card, cpu = fn(DEVICE), fn("cpu")
-        if not all(torch.equal(c.cpu(), h) for c, h in zip(card, cpu)):
-            raise AssertionError(f"{name}: the card differs from the CPU")
     inv = tower.fp6_inv(a6.to(DEVICE))
+    if not torch.equal(inv.cpu(), tower.fp6_inv(a6)):
+        raise AssertionError("tower.fp6_inv: the card differs from the CPU")
     ones = tower.fp6_mul(a6.to(DEVICE), inv).cpu() == tower.fp6_one((n,), "cpu")
     assert ones.flatten(1).all(dim=1).tolist() == [i != 1 for i in range(n)], "fp6_inv(a) a != 1"
-    phase("extras", ok=True, compared=",".join(cases), elements=n)
+    phase("extras", ok=True, compared="tower.fp6_inv", fp6_inv_elements=n)
 
 
 def run_verify(torch, api, fp, sets, label: str, card: str):
@@ -1376,6 +1649,119 @@ def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s):
     return list(rows.values())
 
 
+def offpath_timed(torch, fp, curve, tower, pairing, h2c, P):
+    """K22-K33 at their `[timing]` shapes, off the verify path:
+    [(kernel, (shape, run, plain, composed), word products, bytes)]."""
+    ops = affine_word_products(P)
+    nbytes = {"g1_to_affine": K22_BYTES, "g2_to_affine": K23_BYTES, "fp6_mul": K24_BYTES, "fp2_inv": K25_BYTES}
+    timed = []
+    for name, n in AFFINE_SHAPES.items():
+        case = affine_cases(torch, fp, curve, tower, P, {name: (n,)}, 51)[f"{name}_n{n}"]
+        timed.append((name, case, n * ops[name], n * nbytes[name]))
+    for name, n in STANDALONE_SHAPES.items():
+        cases, work = standalone_cases(torch, fp, curve, tower, pairing, h2c, P, {name: (n,)}, 52)
+        timed.append((name, cases[f"{name}_n{n}"], *work[f"{name}_n{n}"]))
+    return timed
+
+
+def time_offpath_kernels(torch, fp, timed, launches_verify, peak_ops_per_s):
+    """K22-K33 (`offpath_timed`): device ms per launch (profiler), ms per
+    call (CUDA events), the plain version's and the composition's ms per
+    call (None for K33, which replaced none), the bound, and the launches
+    of one verify as the `[verify]` run counted them (0). The rows'
+    `launches` are set from the `[registry]` walk."""
+    rows = []
+    for name, (shape, run, plain, composed), ops, nbytes in timed:
+        saved = dict(fp.LAUNCHES)  # comparison launches are not main-path launches
+        err = max_word_err(run(), plain())
+        if composed is not None and not torch.equal(_stacked(run()), _stacked(composed())):
+            raise AssertionError(f"{name}: kernel differs from the composition replaced at {shape}")
+        call_ms = cuda_ms(run, 20)
+        ms = kernel_device_ms(run, 20, f"{name}_kernel")
+        plain_ms = cuda_ms(plain, 1)
+        composed_ms = cuda_ms(composed, 3) if composed is not None else None
+        fp.LAUNCHES.update(saved)
+        t_ops, t_bytes = ops / peak_ops_per_s * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
+        row = {
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name], "launches": None,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None, "shape": shape,
+            "ms_per_call": call_ms, "composed_ms": composed_ms, "launches_per_verify": launches_verify[name],
+            "launches_path": "registry",
+        }
+        phase("timing", kernel=name, shape=shape, ms=f"{ms:.5f}", ms_per_call=f"{call_ms:.5f}",
+              plain_ms=f"{plain_ms:.3f}", composed_ms="none" if composed_ms is None else f"{composed_ms:.3f}",
+              bound_ms=f"{row['bound_ms']:.6f}", word_products=ops, launches_per_verify=launches_verify[name],
+              max_abs_err=err)
+        if err != 0:
+            raise AssertionError(f"{name}: kernel differs from its plain version at {shape}")
+        rows.append(row)
+    return rows
+
+
+def _one_rank_group(dist):
+    """A gloo process group of one rank on this host, for the registry's
+    sharded entry."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    dist.init_process_group("gloo", init_method=addr, world_size=1, rank=0)
+
+
+def run_registry(torch, fp, registry, dev) -> dict:
+    """[registry]: every entry of the port's kernel registry
+    (torch_backend/registry.py: the JAX registry's 38 names, SSWU and the
+    three launch entry points) called once on the card at its example
+    shape. Every entry must be a "kernel" entry (a hand-written kernel of
+    its own) or a "path" entry, and declare its launches. The launch
+    counts are set to 0 just before the walk and read just after it; each
+    entry's own launches must equal its declared counts, and the output of
+    a "kernel" entry must be bit-identical to its plain version on CPU
+    tensors (but the big composites of `HELD_IN_KERNELS`, which
+    `[kernels]` holds). The sharded entry runs in a one-rank gloo group
+    made for it. Returns the walk's launches."""
+    import torch.distributed as dist
+
+    mismatches, held = [], 0
+    for e in registry.entries():
+        if e.kind not in ("kernel", "path") or not e.launches or (e.plain is None) != (e.kind == "path"):
+            mismatches.append(f"{e.name}: kind {e.kind}, launches {e.launches}, plain {e.plain}")
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    fp.reset_launches()
+    for i, e in enumerate(registry.entries()):
+        cpu_args = e.example(100 + i)
+        args = registry.to_device(cpu_args, dev)
+        before = dict(fp.LAUNCHES)
+        if e.needs_group:
+            _one_rank_group(dist)
+            try:
+                out = e.fn(*args)
+            finally:
+                dist.destroy_process_group()
+        else:
+            out = e.fn(*args)
+        torch.cuda.synchronize()
+        got = {k: fp.LAUNCHES[k] - before[k] for k in fp.KERNELS if fp.LAUNCHES[k] != before[k]}
+        if got != e.launches:
+            mismatches.append(f"{e.name}: launched {got}, declared {e.launches}")
+        if e.kind == "kernel" and e.name not in HELD_IN_KERNELS:
+            held += 1
+            if not torch.equal(_stacked(out).cpu(), _stacked(e.plain(*cpu_args))):
+                mismatches.append(f"{e.name}: differs from its plain version")
+    launches = dict(fp.LAUNCHES)
+    kinds = {k: sum(e.kind == k for e in registry.entries()) for k in registry.KINDS}
+    phase("registry", ok=not mismatches, entries=len(registry.entries()),
+          kinds=json.dumps(kinds, separators=(",", ":")), held_to_plain=held, mismatches=json.dumps(mismatches), seconds=f"{time.perf_counter() - t0:.1f}",
+          launches=json.dumps(launches, separators=(",", ":")))
+    if mismatches:
+        raise AssertionError(f"registry: {len(mismatches)} entries differ: {mismatches}")
+    missing = [k for k in fp.KERNELS if launches[k] <= 0]
+    assert not missing, f"kernels not launched by the registry walk: {missing}"
+    return launches
+
+
 def check_parity(torch, api, fp, pairing) -> None:
     """S=4, K=2: card and CPU give bit-identical partials and GT values."""
     keys = [api.interop_keypair(i) for i in range(8)]
@@ -1592,7 +1978,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from lighthouse_tpu_torch.crypto.bls.constants import P
-    from lighthouse_tpu_torch.crypto.bls.torch_backend import api, curve, fp, h2c, kernels, pairing, tower
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import api, curve, fp, h2c, kernels, pairing, registry, tower
 
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -1625,7 +2011,12 @@ def main() -> int:
           product_reduce=f'"{ptxas_summary(log, "product_reduce_kernel")}"',
           final_exponentiation=f'"{ptxas_summary(log, "final_exponentiation_kernel")}"',
           g2_psi_check=f'"{ptxas_summary(log, "g2_psi_check_kernel")}"',
-          miller_inputs=f'"{ptxas_summary(log, "miller_inputs_kernel")}"')
+          miller_inputs=f'"{ptxas_summary(log, "miller_inputs_kernel")}"',
+          g1_to_affine=f'"{ptxas_summary(log, "g1_to_affine_kernel")}"',
+          g2_to_affine=f'"{ptxas_summary(log, "g2_to_affine_kernel")}"',
+          fp6_mul=f'"{ptxas_summary(log, "fp6_mul_kernel")}"',
+          fp2_inv=f'"{ptxas_summary(log, "fp2_inv_kernel")}"',
+          **{k: f'"{ptxas_summary(log, f"{k}_kernel")}"' for k in STANDALONE_SHAPES})
 
     check_kernels(torch, fp, P, dev)
     check_tower_kernels(torch, fp, tower, P, dev)
@@ -1640,6 +2031,10 @@ def main() -> int:
                                  "final_exponentiation_zero": fe_edges[1:2]},
                                 [PSI_EDGE], [MILLER_INPUTS_EDGE], 33)
     check_chain_kernels(torch, glue, verdicts)
+    check_chain_kernels(torch, affine_cases(torch, fp, curve, tower, P, {
+        "g1_to_affine": AFFINE_COUNTS, "g2_to_affine": AFFINE_COUNTS, "fp2_inv": AFFINE_COUNTS,
+        "fp6_mul": FP6_COUNTS}, 34))
+    check_chain_kernels(torch, standalone_cases(torch, fp, curve, tower, pairing, h2c, P, STANDALONE_COUNTS, 35)[0])
 
     t0 = time.perf_counter()
     gossip = make_sets(api, N_SETS, 1)
@@ -1693,7 +2088,13 @@ def main() -> int:
                            peak_ops)
     results += time_chain_kernels(torch, fp, P, chains, launches_b, peak_ops)
     results.append(time_g1_kernel(torch, api, fp, curve, pk_keys[PK_SIZES[0]], pk_launches[PK_SIZES[0]], peak_ops))
-    check_extras(torch, fp, curve, tower, P)
+    offpath_rows = time_offpath_kernels(torch, fp, offpath_timed(torch, fp, curve, tower, pairing, h2c, P),
+                                        launches_b, peak_ops)
+    registry_launches = run_registry(torch, fp, registry, dev)
+    for row in offpath_rows:
+        row["launches"] = registry_launches[row["name"]]
+    results += offpath_rows
+    check_extras(torch, fp, tower, P)
     check_parity(torch, api, fp, pairing)
     run_sharded(torch, api, fp, pairing, name_power)
     run_coalescer(torch, api, fp, name_power)

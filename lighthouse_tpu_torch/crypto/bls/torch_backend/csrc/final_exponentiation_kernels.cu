@@ -1,7 +1,8 @@
-// The whole final exponentiation, one launch per call, with a plain C
-// launcher (extern "C", bound from Python with ctypes). The launcher runs
-// on the caller's stream, allocates nothing, does not synchronise, and
-// returns cudaGetLastError().
+// The whole final exponentiation, one launch per call, and standalone
+// launches of two of its block routines, with plain C launchers (extern
+// "C", bound from Python with ctypes). Each launcher runs on the caller's
+// stream, allocates nothing, does not synchronise, and returns
+// cudaGetLastError().
 //
 // K19 final_exponentiation_kernel
 //   Replaces: lighthouse_tpu/crypto/bls/jax_backend/pairing.py:263
@@ -51,6 +52,27 @@
 //   other on one warp.
 //   Bound (reduction): K9's and K8's (fp384.cuh: N = 2, one subtraction;
 //   N = 12, two); the Frobenius and M^-1 products K7's N = 2.
+//
+// K30 fp12_inv_kernel / K31 frobenius_kernel
+//   Replace: jax_backend/tower.py:546 `fp12_inv` (registered
+//   tower.fp12_inv) and jax_backend/pairing.py:210 `frobenius` (registered
+//   pairing.frobenius) called on their own; the port's `tower.fp12_inv`
+//   and `pairing.frobenius`.
+//   Computes: K19's `fp12_inv_block` and `frobenius_block` on one element,
+//   the routines that run inside K19, so the standalone launches and K19
+//   cannot drift apart (zero maps to zero in the inversion, inv0).
+//   Operands: a with its element stride in words (0: broadcast); K30 the
+//   phi and phi^2 scalars (`tower._PHI_SCALARS`, K19's constants from row
+//   12), K31 the gammas (`pairing._FE_CONSTS`, its first 12 rows); out,
+//   contiguous.
+//   Design: one block (one warp) per element, as K19; the inversion's
+//   scratch (five Fp12 slots and M^-1, 2.9 KB) in shared memory.
+//   Work per element, in the word products the function needs: K30 four
+//   Fp12 products, eight Fp products, the Fp2 inversion (121,266) and six
+//   Fp2 products, 197,826, against 1,728 bytes (a in, out, the phi
+//   scalars); one warp's chain of dependent products sets its time, the
+//   Fermat chain most of it. K31 six Fp2 products, 4,464, against 1,728
+//   bytes (a in, out, the gammas).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -196,6 +218,24 @@ __global__ void __launch_bounds__(kFinalExpThreads) final_exponentiation_kernel(
   fp12_mul_block(v[2], v[3], out + e * kFp12Words);
 }
 
+__global__ void __launch_bounds__(kFinalExpThreads) fp12_inv_kernel(const uint32_t* __restrict__ a, long long sa,
+                                                                    const uint32_t* __restrict__ phi,
+                                                                    uint32_t* __restrict__ out, long long n) {
+  __shared__ uint32_t s[5][kFp12Words];
+  __shared__ uint32_t minv[2 * FP_WORDS];
+  const long long e = blockIdx.x;
+  if (e >= n) return;
+  fp12_inv_block(a + e * sa, out + e * kFp12Words, s, minv, phi);
+}
+
+__global__ void __launch_bounds__(kFinalExpThreads) frobenius_kernel(const uint32_t* __restrict__ a, long long sa,
+                                                                     const uint32_t* __restrict__ consts,
+                                                                     uint32_t* __restrict__ out, long long n) {
+  const long long e = blockIdx.x;
+  if (e >= n) return;
+  frobenius_block(a + e * sa, out + e * kFp12Words, consts);
+}
+
 }  // namespace
 
 extern "C" {
@@ -204,6 +244,22 @@ int lh_final_exponentiation(const void* f, long long sf, const void* consts, voi
   if (n > 0) {
     final_exponentiation_kernel<<<(unsigned)n, kFinalExpThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)f, sf, (const uint32_t*)consts, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+int lh_fp12_inv(const void* a, long long sa, const void* phi, void* out, long long n, void* stream) {
+  if (n > 0) {
+    fp12_inv_kernel<<<(unsigned)n, kFinalExpThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)a, sa, (const uint32_t*)phi, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+int lh_frobenius(const void* a, long long sa, const void* consts, void* out, long long n, void* stream) {
+  if (n > 0) {
+    frobenius_kernel<<<(unsigned)n, kFinalExpThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)a, sa, (const uint32_t*)consts, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
 }

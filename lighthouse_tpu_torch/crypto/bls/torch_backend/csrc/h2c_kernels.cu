@@ -69,6 +69,26 @@
 //   480 bytes moved (x, y in; X, Y, Z out). Operations bound; at 256
 //   elements bound by one thread's Fermat chain.
 //   Bound (reduction): N <= 2 per component, one conditional subtraction.
+//
+// K32 fp2_sqrt_candidate_kernel
+//   Replaces: jax_backend/h2c.py:102 `fp2_sqrt_candidate` (registered
+//   h2c.fp2_sqrt_candidate) called on its own; the port's
+//   `h2c.fp2_sqrt_candidate`.
+//   Computes: K13's `sqrt_candidate` routine, the one that runs inside
+//   K13 for both of SSWU's candidates (a1 = x^((p-3)/4), x0 = a1 x,
+//   alpha = a1 x0, (alpha + 1)^((p-1)/2) x0, or u x0 where alpha = -1), so
+//   the standalone launch and K13 cannot drift apart.
+//   Design: a thread pair per element, sixteen elements a warp-sized
+//   block, thread c forming component c of every square and product of
+//   the two power chains (`fp2_sqr_part`, `fp2_mul_part`, the other
+//   component from its partner by `__shfl_xor_sync`); lanes past the end
+//   take the last element, since every lane takes part in the shuffles,
+//   and store nothing.
+//   Work per element: the two powers on the plain version's 4-bit window
+//   schedule and three Fp2 products, 608,640 word products, against 192
+//   bytes. Operations bound; a pair's chain of about 1,820 dependent
+//   products sets the time at any batch up to a few thousand.
+//   Bound (reduction): N <= 2 per component, one conditional subtraction.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -267,6 +287,20 @@ __global__ void __launch_bounds__(kIsoThreads) iso3_map_kernel(const uint32_t* _
   fp2_store(out + (2 * n + e) * kFp2Words, d);
 }
 
+__global__ void __launch_bounds__(kSswuThreads) fp2_sqrt_candidate_kernel(const uint32_t* __restrict__ x_in,
+                                                                          long long sx, uint32_t* __restrict__ out,
+                                                                          long long n) {
+  const int lane = threadIdx.x;
+  const int c = lane & 1;
+  const long long e0 = (long long)blockIdx.x * (kSswuThreads / 2) + (lane >> 1);
+  const bool live = e0 < n;
+  const long long e = live ? e0 : n - 1;  // every lane takes part in the shuffles
+  fp2_t x, r;
+  fp2_load(x, x_in + e * sx);
+  sqrt_candidate(r, x, c);
+  if (live) fp_store(out + e * kFp2Words + c * FP_WORDS, r[c]);
+}
+
 }  // namespace
 
 extern "C" {
@@ -286,6 +320,15 @@ int lh_iso3_map(const void* x, long long sx, const void* y, long long sy, const 
     const unsigned blocks = (unsigned)((n + kIsoThreads - 1) / kIsoThreads);
     iso3_map_kernel<<<blocks, kIsoThreads, 0, (cudaStream_t)stream>>>((const uint32_t*)x, sx, (const uint32_t*)y, sy,
                                                                       (const uint32_t*)cst, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+int lh_fp2_sqrt_candidate(const void* x, long long sx, void* out, long long n, void* stream) {
+  if (n > 0) {
+    const unsigned blocks = (unsigned)((n + kSswuThreads / 2 - 1) / (kSswuThreads / 2));
+    fp2_sqrt_candidate_kernel<<<blocks, kSswuThreads, 0, (cudaStream_t)stream>>>((const uint32_t*)x, sx,
+                                                                                 (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
 }

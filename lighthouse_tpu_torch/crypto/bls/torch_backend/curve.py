@@ -13,7 +13,12 @@ built by 2-stacked complete additions: one launch of K10 (G1) or K11 (G2)
 where `lax.scan` becomes a Python loop and the table gather becomes
 `torch.gather`. The verify's sums of many points (`tree_sum`: a set's
 keys, the r_i sig_i) are one launch of K15 (G1) or K16 (G2)
-(csrc/fold_kernels.cu), on the plain version's halving tree.
+(csrc/fold_kernels.cu), on the plain version's halving tree. The map
+to affine coordinates (`to_affine`, off the verify path) is one launch of
+K22 (G1) or K23 (G2) (csrc/affine_kernels.cu), and the complete addition
+called on its own (`add`) one launch of K26 (G1) or K27 (G2)
+(csrc/standalone_kernels.cu); the compositions inside this module and
+h2c.py call `add_composed`.
 
 G2 subgroup membership is Scott's psi criterion: P in G2 iff
 psi(P) == [z]P (z < 0), a 64-bit multiplication instead of a 255-bit one;
@@ -55,8 +60,9 @@ class FieldOps(NamedTuple):
     zero: Callable
     b3: np.ndarray  # 3 * b, Montgomery-packed
     elem_dims: int  # trailing dims of one coordinate: 1 (Fp) or 2 (Fp2)
-    # "g1" / "g2": the group's kernels, scalar multiplication (K10, K11) and
-    # tree sum (K15, K16); None: plain ops
+    # "g1" / "g2": the group's kernels, scalar multiplication (K10, K11),
+    # tree sum (K15, K16), to_affine (K22, K23) and add (K26, K27); None:
+    # plain ops
     group: str | None = None
 
 
@@ -94,7 +100,7 @@ FP2 = FieldOps(
 
 # The plain versions of K1-K3 and K7 as fields: the group law over them is
 # PyTorch operations only, on any device (the plain versions of K5, K10,
-# K11, K15, K16 and K17, also on the card).
+# K11, K15, K16, K17, K22 and K23, also on the card).
 FP_PLAIN = FP._replace(**fp.PLAIN_OPS._asdict(), group=None)
 FP2_PLAIN = FP2._replace(
     add=fp.PLAIN_OPS.add,
@@ -122,12 +128,47 @@ def from_affine(F: FieldOps, x, y, inf) -> Proj:
     return Proj(F.select(inf, zero, x), F.select(inf, one, y), F.select(inf, zero, one))
 
 
-def to_affine(F: FieldOps, p: Proj):
+def to_affine_plain(F: FieldOps, p: Proj):
     """(x, y, inf); infinity decodes to zeroed coordinates (inv0). One
-    field inversion (K3 underneath) and one stacked product."""
+    field inversion and one stacked product over the field operations F:
+    the plain version of K22 and K23 over FP_PLAIN and FP2_PLAIN, the
+    composition over FP (K3, K1) and FP2 (K25, K7)."""
     zinv = F.inv(p.z)
     m = F.mul(torch.stack([p.x, p.y]), zinv)
     return m[0], m[1], F.is_zero(p.z)
+
+
+def to_affine(F: FieldOps, p: Proj):
+    """(x, y, inf) by `to_affine_plain`'s formulas, bit-identical to it: one
+    launch of K22 (F = FP, G1) or K23 (F = FP2, G2) for CUDA tensors, the
+    plain version for CPU tensors and for the plain fields."""
+    if F.group is None:
+        return to_affine_plain(F, p)
+    if fp._is_cpu(*p):
+        return to_affine_plain(_PLAIN_FIELD[F.elem_dims], p)
+    return _to_affine_kernel(F, p)
+
+
+def _to_affine_kernel(F: FieldOps, p: Proj):
+    """One launch of K22 or K23 (csrc/affine_kernels.cu), a thread per
+    point; each coordinate read in place (element stride 12 or 24 words,
+    0 for one point broadcast)."""
+    from . import kernels
+
+    dev = p.z.device
+    elem = (2, fp.WORDS) if F.elem_dims == 2 else (fp.WORDS,)
+    for c in p:
+        tower._check_trailing(c, elem, "coordinate")
+    lead = tower._broadcast(*(c.shape[: -F.elem_dims] for c in p))
+    shape = torch.Size((*lead, *elem))
+    ops = [tower._operand(c, shape, F.elem_dims, fp.WORDS * F.elem_dims) for c in p]
+    ptrs = [x for t, st in ops for x in (t.data_ptr(), st)]
+    xy = torch.empty((2, *shape), dtype=torch.int32, device=dev)
+    inf = torch.empty(lead, dtype=torch.bool, device=dev)
+    name = f"{F.group}_to_affine"
+    kernels.launch(f"lh_{name}", dev, *ptrs, xy[0].data_ptr(), xy[1].data_ptr(), inf.data_ptr(), lead.numel())
+    fp._count(name)
+    return xy[0], xy[1], inf
 
 
 def is_infinity(F: FieldOps, p: Proj):
@@ -143,9 +184,38 @@ def neg(F: FieldOps, p: Proj) -> Proj:
 
 
 def add(F: FieldOps, p: Proj, q: Proj) -> Proj:
+    """Complete addition by `add_composed`'s formulas, bit-identical to it:
+    one launch of K26 (F = FP, G1) or K27 (F = FP2, G2) for CUDA tensors,
+    each coordinate read in place (broadcast ones with stride 0); the plain
+    version for CPU tensors, and the composition over any plain field."""
+    if F.group is None:
+        return add_composed(F, p, q)
+    if fp._is_cpu(*p, *q):
+        return add_composed(_PLAIN_FIELD[F.elem_dims], p, q)
+    from . import kernels
+
+    dev = p.z.device
+    elem = (2, fp.WORDS) if F.elem_dims == 2 else (fp.WORDS,)
+    for c in (*p, *q):
+        tower._check_trailing(c, elem, "coordinate")
+    lead = tower._broadcast(*(c.shape[: -F.elem_dims] for c in (*p, *q)))
+    shape = torch.Size((*lead, *elem))
+    ops = [tower._operand(c, shape, F.elem_dims, fp.WORDS * F.elem_dims) for c in (*p, *q)]
+    out = torch.empty((3, *shape), dtype=torch.int32, device=dev)
+    name = f"{F.group}_add"
+    kernels.launch(f"lh_{name}", dev, *(x for t, st in ops for x in (t.data_ptr(), st)), out.data_ptr(),
+                   lead.numel())
+    fp._count(name)
+    return Proj(out[0], out[1], out[2])
+
+
+def add_composed(F: FieldOps, p: Proj, q: Proj) -> Proj:
     """Complete addition, RCB 2016 Algorithm 7 (a = 0, b3 = 3b): valid for
     every pair, including P == Q, P == -Q and infinity. The 14 products
-    ride three stacked multiplications."""
+    ride three stacked multiplications over the field operations F: the
+    plain version of K26 and K27 (FP_PLAIN, FP2_PLAIN), the composition
+    they replaced (FP, FP2: K1 / K7 and K2), and the group law of the
+    other plain versions and compositions here and in h2c.py."""
     x1, y1, z1, x2, y2, z2 = torch.broadcast_tensors(*p, *q)
     b3 = fp.const(F.b3, x1.device)
     s = F.add(torch.stack([x1, y1, x1, y2, z2, z2]), torch.stack([y1, z1, z1, x2, y2, x2]))
@@ -216,7 +286,7 @@ def scalar_mul_bits_ladder(F: FieldOps, p: Proj, bits) -> Proj:
     for j in range(bits.shape[-1]):
         take = (bits[..., j] != 0).expand(shape)
         rsel = _sel(F, take, r1, r0)
-        u = add(F, stack2(r0, rsel), stack2(r1, rsel))
+        u = add_composed(F, stack2(r0, rsel), stack2(r1, rsel))
         u_add, u_dbl = unstack(u, 0), unstack(u, 1)
         r0, r1 = _sel(F, take, u_add, u_dbl), _sel(F, take, u_dbl, u_add)
     return r0
@@ -262,14 +332,14 @@ def scalar_mul_bits_plain(F: FieldOps, p: Proj, bits) -> Proj:
     inf = infinity(F, shape, dev)
     rows = [inf, Proj(*(c.expand_as(i) for c, i in zip(p, inf)))] + [inf] * 15
     for k in range(8):
-        u = add(F, stack2(rows[k], rows[k + 1]), stack2(rows[k + 1], rows[k + 1]))
+        u = add_composed(F, stack2(rows[k], rows[k + 1]), stack2(rows[k + 1], rows[k + 1]))
         rows[2 * k + 1], rows[2 * k + 2] = unstack(u, 0), unstack(u, 1)
     acc = inf
     if public:
         for d in digits.tolist():
             for _ in range(_WINDOW):
                 acc = dbl_fast(F, acc)
-            acc = add(F, acc, rows[d])
+            acc = add_composed(F, acc, rows[d])
         return acc
     tab = Proj(*(torch.stack([r[c] for r in rows]) for c in range(3)))
     digits = digits.to(dev)
@@ -277,7 +347,7 @@ def scalar_mul_bits_plain(F: FieldOps, p: Proj, bits) -> Proj:
         for _ in range(_WINDOW):
             acc = dbl_fast(F, acc)
         t = Proj(*(_table_gather(c, digits[..., j], shape, F.elem_dims) for c in tab))
-        acc = add(F, acc, t)
+        acc = add_composed(F, acc, t)
     return acc
 
 
@@ -362,7 +432,7 @@ def tree_sum_plain(F: FieldOps, pts: Proj, axis: int) -> Proj:
     while pts.x.shape[0] > 1:
         n = pts.x.shape[0]
         half = n // 2
-        summed = add(F, Proj(*(c[:half] for c in pts)), Proj(*(c[half : 2 * half] for c in pts)))
+        summed = add_composed(F, Proj(*(c[:half] for c in pts)), Proj(*(c[half : 2 * half] for c in pts)))
         if n % 2:
             summed = Proj(*(torch.cat([s, c[2 * half :]]) for s, c in zip(summed, pts)))
         pts = summed

@@ -34,11 +34,19 @@ for the cofactor clearing K17 (`h2c.clear_cofactor`,
 csrc/cofactor_kernels.cu), for the final exponentiation K19
 (`pairing.final_exponentiation`, csrc/final_exponentiation_kernels.cu) and
 for the verify's G2 subgroup check K20 and batch-affine Miller inputs K21
-(`curve.g2_psi_check`, `api.miller_inputs`, csrc/verify_kernels.cu).
+(`curve.g2_psi_check`, `api.miller_inputs`, csrc/verify_kernels.cu), and
+for the standalone functions off the verify path K22-K25 (`curve.to_affine`
+G1 and G2, `tower.fp6_mul`, `tower.fp2_inv`, csrc/affine_kernels.cu) and
+K26-K33, the standalone launches of routines that run inside the verify
+path's kernels (`curve.add` G1 and G2, `tower.karabina_sqr` and
+`karabina_decompress`, `mont_reduce` here, csrc/standalone_kernels.cu;
+`tower.fp12_inv` and `pairing.frobenius`,
+csrc/final_exponentiation_kernels.cu; `h2c.fp2_sqrt_candidate`,
+csrc/h2c_kernels.cu).
 
 K6 is the JAX package's opt-in matrix-unit product (`mul_mxu`, enabled by
 LIGHTHOUSE_TPU_MXU_FP_MUL=1) on the tensor cores. K3, K4, K5 and K7 to
-K21 keep their in-register CIOS products whatever the flag says: each is
+K33 keep their in-register CIOS products whatever the flag says: each is
 one thread's chain of products, and an MMA needs a whole warp. The results
 are the same either way, since both products are canonical.
 
@@ -203,13 +211,16 @@ USE_MXU_MUL = os.environ.get("LIGHTHOUSE_TPU_MXU_FP_MUL", "") == "1"
 
 # -- launch accounting ---------------------------------------------------------
 
-#: every kernel of the library: K1-K4 and K6 here, K5, K10, K11, K15, K16
-#: and K20 in curve.py, K7 and K8 in tower.py, K9, K12, K18 and K19 in
-#: pairing.py, K13, K14 and K17 in h2c.py, K21 in api.py
+#: every kernel of the library: K1-K4, K6 and K33 here, K5, K10, K11, K15,
+#: K16, K20, K22, K23, K26 and K27 in curve.py, K7, K8, K24, K25, K28-K30 in
+#: tower.py, K9, K12, K18, K19 and K31 in pairing.py, K13, K14, K17 and K32
+#: in h2c.py, K21 in api.py
 KERNELS = ("fp_mul", "fp_addsub", "fp_pow", "fp_batch_inv", "g1_subgroup_check", "fp_mul_mma", "fp2_mul",
            "fp12_mul", "cyclotomic_pow_x", "g1_scalar_mul", "g2_scalar_mul", "miller_loop", "sswu", "iso3_map",
            "g1_tree_sum", "g2_tree_sum", "clear_cofactor", "product_reduce", "final_exponentiation",
-           "g2_psi_check", "miller_inputs")
+           "g2_psi_check", "miller_inputs", "g1_to_affine", "g2_to_affine", "fp6_mul", "fp2_inv", "g1_add",
+           "g2_add", "karabina_sqr", "karabina_decompress", "fp12_inv", "frobenius", "fp2_sqrt_candidate",
+           "fp_redc")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -321,24 +332,57 @@ _P16 = _digits16_host(P)
 _NP16 = _digits16_host(N_PRIME)
 
 
-def _redc16(t: torch.Tensor) -> torch.Tensor:
+def _redc16(t: torch.Tensor, subs: int = 1) -> torch.Tensor:
     """Montgomery reduction shared by the plain products: T * 2^-384 mod p,
     canonical words, for T < p^2 given as 47 or 48 sixteen-bit digit
-    columns, each < 2^37 (the JAX package's `redc`, fp.py:261)."""
+    columns, each < 2^37 (the JAX package's `redc`, fp.py:261). With
+    `subs` = 3 it takes T < 2 p 2^384 (`mont_reduce_plain`)."""
     p16, np16 = const(_P16, t.device), const(_NP16, t.device)
     n = 2 * WORDS
     # m = -T p^-1 mod 2^384, only up to a multiple of 2^384: digits are
     # left just above 16 bits (< 2^16 + 2^10) and the carry out of the top
     # is dropped. The low columns of T need no carrying first, since the
     # columns above them only add multiples of 2^384. Then
-    # (T + m p) / 2^384 < p^2 / 2^384 + 1.02 p < 2p.
+    # (T + m p) / 2^384 < p^2 / 2^384 + 1.02 p < 2p (T < 2 p 2^384: < 3.02 p,
+    # three subtractions).
     m = _passes(_conv(t[..., :n], np16.expand_as(t[..., :n]), n), 16, 3)
     mp = _conv(m, p16.expand_as(m), 2 * n - 1)
     u = torch.nn.functional.pad(t, (0, 2 * n - t.shape[-1])) + torch.nn.functional.pad(mp, (0, 1))
     u = _passes(u, 16, 3)  # carries now <= 1; T + m p < 2^768 fits the 48 digits
     hi = _add_digits(u, 16)[..., n : 2 * n]  # (T + m p) / 2^384, exact
-    d, borrow = _sub_digits(hi, p16, 16)
-    return _words16(torch.where(borrow[..., None], hi, d))
+    for _ in range(subs):
+        d, borrow = _sub_digits(hi, p16, 16)
+        hi = torch.where(borrow[..., None], hi, d)
+    return _words16(hi)
+
+
+WIDE = 2 * WORDS  # a double-width value: 24 words
+
+
+@torch.inference_mode()
+def mont_reduce_plain(t: torch.Tensor) -> torch.Tensor:
+    """K33's plain version: T * 2^-384 mod p, canonical words (..., 12), for
+    T < 2 p 2^384 given as (..., 24) int32 words (the JAX package's
+    `redc(cols, mult=2)`, fp.py:261, on the port's double-width words)."""
+    return _redc16(_digits16(t), subs=3)
+
+
+def mont_reduce(t: torch.Tensor) -> torch.Tensor:
+    """T * 2^-384 mod p for T < 2 p 2^384 in (..., 24) words: one launch of
+    K33 (csrc/standalone_kernels.cu, fp384.cuh's `fp_redc_wide`, the
+    reduction inside K1 and every kernel's lazy sums) for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    if t.shape[-1:] != (WIDE,):
+        raise TypeError(f"mont_reduce operand must be int32 (..., {WIDE}), got {t.dtype} {tuple(t.shape)}")
+    if _is_cpu(t.unflatten(-1, (2, WORDS))):
+        return mont_reduce_plain(t)
+    from . import kernels
+
+    t = t.contiguous()
+    out = torch.empty((*t.shape[:-1], WORDS), dtype=torch.int32, device=t.device)
+    kernels.launch("lh_fp_redc", t.device, t.data_ptr(), WIDE, out.data_ptr(), out.numel() // WORDS)
+    _count("fp_redc")
+    return out
 
 
 @torch.inference_mode()

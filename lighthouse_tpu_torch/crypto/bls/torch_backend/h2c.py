@@ -4,7 +4,8 @@ HOST  : expand_message_xmd (SHA-256) and the reduction to two Fp2 field
         elements per message, packed to the wire limbs `stage_sets` emits,
         behind a process-wide LRU keyed by (message, dst).
 DEVICE: simplified SWU onto E' with its Fp2 square roots (one launch of
-        K13), the 3-isogeny to E2 (one launch of K14), and the sum of
+        K13; the square-root candidate called on its own, one launch of
+        K32), the 3-isogeny to E2 (one launch of K14), and the sum of
         the two points with the psi-method cofactor clearing (one
         launch of K17). `sswu_composed`, `iso3_map_composed` and
         `clear_cofactor_composed` keep K13, K14 and K17 as compositions
@@ -28,7 +29,7 @@ from ..constants import DST, P, X as X_PARAM
 from ..ref import hash_to_curve as ref_h2c
 from ..ref.fields import Fp as RefFp, Fp2 as RefFp2
 from . import fp, tower
-from .curve import _PSI_C, FP2, FP2_PLAIN, FieldOps, Proj, add as proj_add, dbl, neg as proj_neg, psi
+from .curve import _PSI_C, FP2, FP2_PLAIN, FieldOps, Proj, add_composed as proj_add, dbl, neg as proj_neg, psi
 from .curve import scalar_mul_bits, stack2, unstack
 from .pack import pack_fp2_el, to_mont_wire_bulk
 from .tower import fp2, fp2_eq, fp2_inv, fp2_is_zero, fp2_one, fp2_select, fp2_sgn0
@@ -61,10 +62,38 @@ def _one_like(x):
     return fp2_one(x.shape[:-2], x.device)
 
 
-def fp2_sqrt_candidate(x, T: tower.TowerOps):
+def fp2_sqrt_candidate(x, T: tower.TowerOps = tower.KERNEL_TOWER):
+    """The Fp2 square-root candidate of x (..., 2, W) by
+    `fp2_sqrt_candidate_composed`'s steps: over the kernel tower (the
+    default) one launch of K32 (csrc/h2c_kernels.cu, K13's routine, a
+    thread pair per element) for a CUDA tensor and the plain version for
+    a CPU tensor; over any other T the composition over T."""
+    if T is not tower.KERNEL_TOWER:
+        return fp2_sqrt_candidate_composed(x, T)
+    if fp._is_cpu(x):
+        return fp2_sqrt_candidate_plain(x)
+    from . import kernels
+
+    tower._check_trailing(x, (2, fp.WORDS), "Fp2")
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    a, sa = tower._operand(x, x.shape, 2, 2 * fp.WORDS)
+    kernels.launch("lh_fp2_sqrt_candidate", x.device, a.data_ptr(), sa, out.data_ptr(),
+                   out.numel() // (2 * fp.WORDS))
+    fp._count("fp2_sqrt_candidate")
+    return out
+
+
+def fp2_sqrt_candidate_plain(x):
+    """K32's plain version: PyTorch operations only, on any device."""
+    return fp2_sqrt_candidate_composed(x, tower.PLAIN_TOWER)
+
+
+def fp2_sqrt_candidate_composed(x, T: tower.TowerOps):
     """Branch-free Fp2 square-root candidate (Adj-Rodriguez-Henriquez for
-    p = 3 mod 4, as ref/fields.py), over the operations T; on the card it
-    runs inside K13 (`sswu`). Callers check cand^2 == x."""
+    p = 3 mod 4, as ref/fields.py), over the operations T: K32's plain
+    version and the plain version's inside K13's (tower.PLAIN_TOWER), the
+    composition K32 replaced (tower.KERNEL_TOWER: K7, K2). Callers check
+    cand^2 == x."""
     F = T.fp
     a1 = fp.pow_windowed(x, _SQRT_E1, T.fp2_mul, T.fp2_sqr, _one_like(x))  # x^((p-3)/4)
     x0 = T.fp2_mul(a1, x)
@@ -92,7 +121,7 @@ def sswu_composed(u, T: tower.TowerOps):
     x2 = T.fp2_mul(zu2, x1)
     xs = torch.stack([x1, x2])
     gx = F.add(F.add(T.fp2_mul(T.fp2_sqr(xs), xs), T.fp2_mul(A, xs)), B)
-    cand = fp2_sqrt_candidate(gx, T)  # both candidates in one stacked chain
+    cand = fp2_sqrt_candidate_composed(gx, T)  # both candidates in one stacked chain
     y1, y2 = cand[0], cand[1]
     is_sq = fp2_eq(T.fp2_sqr(y1), gx[0])
     x = fp2_select(is_sq, x1, x2)

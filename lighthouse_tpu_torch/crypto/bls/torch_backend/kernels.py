@@ -29,7 +29,7 @@ SOURCES = (
     "fp384.cuh", "g1.cuh", "g2.cuh", "tower.cuh", "curve.cuh", "final_exp.cuh",
     "fp_kernels.cu", "g1_kernels.cu", "fp_mma.cu", "tower_kernels.cu", "curve_kernels.cu", "final_exp_kernels.cu",
     "pairing_kernels.cu", "h2c_kernels.cu", "fold_kernels.cu", "cofactor_kernels.cu",
-    "final_exponentiation_kernels.cu", "verify_kernels.cu",
+    "final_exponentiation_kernels.cu", "verify_kernels.cu", "affine_kernels.cu", "standalone_kernels.cu",
 )
 UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "torch_kernels"
@@ -66,6 +66,18 @@ _SIGNATURES = {
     "lh_g2_psi_check": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _P, _LL, _P],
     "lh_miller_inputs": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _LL, _P],
+    "lh_g1_to_affine": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _LL, _P],
+    "lh_g2_to_affine": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _LL, _P],
+    "lh_fp6_mul": [_P, _LL, _P, _LL, _P, _LL, _P],
+    "lh_fp2_inv": [_P, _LL, _P, _LL, _P],
+    "lh_g1_add": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P],
+    "lh_g2_add": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P],
+    "lh_karabina_sqr": [_P, _LL, _P, _LL, _P],
+    "lh_karabina_decompress": [_P, _LL, _P, _LL, _P],
+    "lh_fp12_inv": [_P, _LL, _P, _P, _LL, _P],
+    "lh_frobenius": [_P, _LL, _P, _P, _LL, _P],
+    "lh_fp2_sqrt_candidate": [_P, _LL, _P, _LL, _P],
+    "lh_fp_redc": [_P, _LL, _P, _LL, _P],
 }
 
 _lock = threading.Lock()

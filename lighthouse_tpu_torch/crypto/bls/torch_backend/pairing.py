@@ -201,15 +201,43 @@ def miller_loop(px, py, p_inf, qx, qy, q_inf):
 # -- Frobenius -----------------------------------------------------------------
 
 
-def frobenius(f, T: tower.TowerOps = tower.KERNEL_TOWER):
+def frobenius_composed(f, T: tower.TowerOps):
     """f^p in the flat basis: conjugate every coefficient, scale by gammas,
-    over the operations T (K2 and K7 by default, the standalone form)."""
+    over the operations T: K31's plain version and the plain version's
+    inside K19's (tower.PLAIN_TOWER), the composition K31 replaced
+    (tower.KERNEL_TOWER: K2 and K7)."""
     cf = tower.fp2_conj(tower._to_flat(f), T.fp)
     return tower._from_flat(T.fp2_mul(cf, fp.const(_FROB_GAMMAS, f.device)))
 
 
+def frobenius_plain(f):
+    """K31's plain version: PyTorch operations only, on any device."""
+    return frobenius_composed(f, tower.PLAIN_TOWER)
+
+
+def frobenius(f, T: tower.TowerOps = tower.KERNEL_TOWER):
+    """f^p for tower Fp12 f (..., 2, 3, 2, W) by `frobenius_composed`'s
+    formulas: over the kernel tower (the default) one launch of K31
+    (csrc/final_exponentiation_kernels.cu, K19's block routine, a warp per
+    element) for a CUDA tensor and the plain version for a CPU tensor;
+    over any other T the composition over T."""
+    if T is not tower.KERNEL_TOWER:
+        return frobenius_composed(f, T)
+    if fp._is_cpu(f):
+        return frobenius_plain(f)
+    from . import kernels
+
+    tower._check_trailing(f, (2, 3, 2, fp.WORDS), "Fp12")
+    out = torch.empty(f.shape, dtype=torch.int32, device=f.device)
+    a, sa = tower._operand(f, f.shape, 4, _FP12_WORDS)
+    kernels.launch("lh_frobenius", f.device, a.data_ptr(), sa, fp.const(_FE_CONSTS, f.device).data_ptr(),
+                   out.data_ptr(), out.numel() // _FP12_WORDS)
+    fp._count("frobenius")
+    return out
+
+
 def frobenius2(f, T: tower.TowerOps = tower.KERNEL_TOWER):
-    return frobenius(frobenius(f, T), T)
+    return frobenius_composed(frobenius_composed(f, T), T)
 
 
 # -- final exponentiation ------------------------------------------------------
@@ -223,10 +251,10 @@ def pow_abs_x_composed(g, T: tower.TowerOps):
     c = tower.karabina_compress(g)
     powers = []
     for _ in range(63):
-        c = tower.karabina_sqr(c, T)
+        c = tower.karabina_sqr_composed(c, T)
         powers.append(c)  # powers[i] = compressed g^(2^(i+1))
     cps = torch.stack([powers[k - 1] for k in _ABS_X_SET_BITS])
-    return product_reduce_composed(tower.karabina_decompress(cps, T), T)
+    return product_reduce_composed(tower.karabina_decompress_composed(cps, T), T)
 
 
 def pow_abs_x_plain(g):
@@ -262,10 +290,10 @@ def final_exponentiation_composed(f, T: tower.TowerOps, pow_x):
     def pow_x_minus_1(g):  # g^(z-1) = conj(g^|z| * g) for cyclotomic g (z < 0)
         return fp12_conj(T.fp12_mul(pow_x(g), g), F)
 
-    f = T.fp12_mul(fp12_conj(f, F), tower.fp12_inv(f, T))
+    f = T.fp12_mul(fp12_conj(f, F), tower.fp12_inv_composed(f, T))
     f = T.fp12_mul(frobenius2(f, T), f)
     a = pow_x_minus_1(pow_x_minus_1(f))
-    b = T.fp12_mul(fp12_conj(pow_x(a), F), frobenius(a, T))  # a^z * a^p
+    b = T.fp12_mul(fp12_conj(pow_x(a), F), frobenius_composed(a, T))  # a^z * a^p
     c = T.fp12_mul(T.fp12_mul(pow_x(pow_x(b)), frobenius2(b, T)), fp12_conj(b, F))
     return T.fp12_mul(c, T.fp12_mul(f, T.fp12_mul(f, f)))
 

@@ -23,14 +23,32 @@ lazy reduction does (poly + one redc per tower operation):
     K8 fp12_mul  fp12_mul, fp12_sqr, fp12_mul_sparse035 (and fp12_inv's
                  products), reading and writing the tower layout
 
+Fp6 products and standalone Fp2 inversions, off the verify path, are one
+launch each of csrc/affine_kernels.cu:
+
+    K24 fp6_mul  fp6_mul, fp6_sqr (schoolbook, six threads per element)
+    K25 fp2_inv  fp2_inv over the kernel field operations (g2.cuh's
+                 routine, which K13, K14 and K19 run inside)
+
+and Karabina's squaring and decompression and the Fp12 inversion, called
+on their own over the kernel tower (the default), one launch each:
+
+    K28 karabina_sqr         csrc/standalone_kernels.cu, a thread each
+    K29 karabina_decompress  csrc/standalone_kernels.cu, a thread each
+    K30 fp12_inv             csrc/final_exponentiation_kernels.cu, K19's
+                             block routine, a warp each
+
+The compositions that K9 and K19 replaced, and their plain versions, call
+`*_composed`.
+
 Their plain versions (`*_plain`), taken for CPU tensors, are the
 compositions over Fp operations that the port ran before them. Every
 other function stacks independent Fp products into one K1 launch and
 independent additions into one K2 launch. Karabina's compressed squaring
-and decompression and `fp12_inv` take a `TowerOps` (the kernels, or their
-plain versions): the |z|-power chain over them is K9's composition and its
-plain version (`pairing.pow_abs_x`), and `fp12_inv` runs inside K19's
-(`pairing.final_exponentiation`).
+and decompression and the Fp12 inversion are written over a `TowerOps`
+(`*_composed`: the kernels, or their plain versions): the |z|-power chain
+over them is K9's composition and its plain version (`pairing.pow_abs_x`),
+and `fp12_inv_composed` runs inside K19's (`pairing.final_exponentiation`).
 """
 
 from __future__ import annotations
@@ -46,6 +64,7 @@ from . import fp
 FP2_MUL, FP2_SQR = 0, 1  # K7's op
 FP12_FULL, FP12_SQUARE, FP12_SPARSE = 0, 1, 2  # K8's mode
 _FP2_WORDS = 2 * fp.WORDS
+_FP6_WORDS = 3 * _FP2_WORDS
 _FP12_WORDS = 6 * _FP2_WORDS
 
 
@@ -123,12 +142,40 @@ def fp2_mul_by_nonresidue(a, F=fp.KERNEL_OPS):
     return fp2(F.sub(a0, a1), F.add(a0, a1))
 
 
-def fp2_inv(a, F=fp.KERNEL_OPS):
-    """1/(a0 + a1 u) = (a0 - a1 u)/(a0^2 + a1^2); 0 -> 0 (inv0, from F.inv)."""
+def fp2_inv_composed(a, F):
+    """1/(a0 + a1 u) = (a0 - a1 u)/(a0^2 + a1^2); 0 -> 0 (inv0, from F.inv),
+    over the Fp operations F: K25's plain version (fp.PLAIN_OPS), the
+    composition it replaced (fp.KERNEL_OPS: K1, K2, K3, K1, K2)."""
     sq = F.mul(a, a)
     d = F.inv(F.add(sq[..., 0, :], sq[..., 1, :]))
     t = F.mul(a, d[..., None, :])
     return fp2(t[..., 0, :], F.neg(t[..., 1, :]))
+
+
+def fp2_inv_plain(a):
+    """K25's plain version: PyTorch operations only, on any device."""
+    return fp2_inv_composed(a, fp.PLAIN_OPS)
+
+
+def fp2_inv(a, F=fp.KERNEL_OPS):
+    """1/a in Fp2, 0 -> 0 (inv0). Over the kernel field operations (the
+    default): one launch of K25 (csrc/affine_kernels.cu, g2.cuh's routine
+    that K13, K14 and K19 run inside) for a CUDA tensor, the plain version
+    for a CPU tensor. Over any other F (the plain versions of K13, K14 and
+    K19, `curve.FP2_PLAIN.inv`) the composition over F."""
+    if F is not fp.KERNEL_OPS:
+        return fp2_inv_composed(a, F)
+    cpu = fp._is_cpu(a)
+    _check_trailing(a, (2, fp.WORDS), "Fp2")
+    if cpu:
+        return fp2_inv_plain(a)
+    from . import kernels
+
+    out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    x, sa = _operand(a, a.shape, 2, _FP2_WORDS)
+    kernels.launch("lh_fp2_inv", a.device, x.data_ptr(), sa, out.data_ptr(), out.numel() // _FP2_WORDS)
+    fp._count("fp2_inv")
+    return out
 
 
 def fp2_is_zero(a):
@@ -172,19 +219,49 @@ def _c(a, i):
     return a[..., i, :, :]
 
 
-def fp6_mul(a, b):
-    """Karatsuba over Fp2, as the JAX package: the six Fp2 products
-    a_i b_i and (a_i + a_j)(b_i + b_j) ride one stacked fp2_mul."""
+def fp6_mul_composed(a, b, T):
+    """Karatsuba over Fp2, as the JAX package, over the operations T: the
+    six Fp2 products a_i b_i and (a_i + a_j)(b_i + b_j) ride one stacked
+    T.fp2_mul. K24's plain version (PLAIN_TOWER), the composition it
+    replaced (KERNEL_TOWER: one K7 launch, six of K2)."""
+    F = T.fp
     a, b = torch.broadcast_tensors(a, b)
     a0, a1, a2 = _c(a, 0), _c(a, 1), _c(a, 2)
     b0, b1, b2 = _c(b, 0), _c(b, 1), _c(b, 2)
-    s = fp.add(torch.stack([a1, a0, a0, b1, b0, b0], dim=-3), torch.stack([a2, a1, a2, b2, b1, b2], dim=-3))
-    t = fp2_mul(torch.cat([a, s[..., :3, :, :]], dim=-3), torch.cat([b, s[..., 3:, :, :]], dim=-3))
+    s = F.add(torch.stack([a1, a0, a0, b1, b0, b0], dim=-3), torch.stack([a2, a1, a2, b2, b1, b2], dim=-3))
+    t = T.fp2_mul(torch.cat([a, s[..., :3, :, :]], dim=-3), torch.cat([b, s[..., 3:, :, :]], dim=-3))
     t0, t1, t2 = _c(t, 0), _c(t, 1), _c(t, 2)
     # (a1 + a2)(b1 + b2) - t1 - t2, (a0 + a1)(b0 + b1) - t0 - t1, (a0 + a2)(b0 + b2) - t0 - t2
-    d = fp.sub(fp.sub(t[..., 3:, :, :], torch.stack([t1, t0, t0], dim=-3)), torch.stack([t2, t1, t2], dim=-3))
-    xi = fp2_mul_by_nonresidue(torch.stack([_c(d, 0), t2], dim=-3))
-    return fp.add(torch.stack([_c(xi, 0), _c(d, 1), _c(d, 2)], dim=-3), torch.stack([t0, _c(xi, 1), t1], dim=-3))
+    d = F.sub(F.sub(t[..., 3:, :, :], torch.stack([t1, t0, t0], dim=-3)), torch.stack([t2, t1, t2], dim=-3))
+    xi = fp2_mul_by_nonresidue(torch.stack([_c(d, 0), t2], dim=-3), F)
+    return F.add(torch.stack([_c(xi, 0), _c(d, 1), _c(d, 2)], dim=-3), torch.stack([t0, _c(xi, 1), t1], dim=-3))
+
+
+def fp6_mul_plain(a, b):
+    """K24's plain version: PyTorch operations only, on any device."""
+    return fp6_mul_composed(a, b, PLAIN_TOWER)
+
+
+def fp6_mul(a, b):
+    """a * b in Fp6 (..., 3, 2, W), broadcasting: one launch of K24
+    (csrc/affine_kernels.cu) for CUDA tensors, each operand read in place
+    (element stride 72 words, or 0 for one element broadcast); the plain
+    version for CPU tensors."""
+    cpu = fp._is_cpu(a, b)
+    for t in (a, b):
+        _check_trailing(t, (3, 2, fp.WORDS), "Fp6")
+    if cpu:
+        return fp6_mul_plain(a, b)
+    from . import kernels
+
+    shape = _broadcast(a.shape, b.shape)
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    x, sa = _operand(a, shape, 3, _FP6_WORDS)
+    y, sb = _operand(b, shape, 3, _FP6_WORDS)
+    kernels.launch("lh_fp6_mul", a.device, x.data_ptr(), sa, y.data_ptr(), sb, out.data_ptr(),
+                   out.numel() // _FP6_WORDS)
+    fp._count("fp6_mul")
+    return out
 
 
 def fp6_sqr(a):
@@ -341,7 +418,7 @@ class TowerOps(NamedTuple):
     """Fp operations, the batch inversion and the Fp2 / Fp12 products that a
     composed tower function (Karabina's chain, `pairing.pow_abs_x_composed`,
     the Miller loop `pairing.miller_loop_composed`, hash-to-G2's
-    `h2c.sswu_composed` and `h2c.iso3_map_composed`, `fp12_inv`,
+    `h2c.sswu_composed` and `h2c.iso3_map_composed`, `fp12_inv_composed`,
     `pairing.final_exponentiation_composed`, the verify's
     `api.miller_inputs_composed`) is written over."""
 
@@ -395,8 +472,40 @@ def karabina_compress(a):
     return _to_flat(a)[..., fp.const(KARABINA_FLAT_IDX, a.device), :, :]
 
 
+def _compressed_launch(name, c, out_shape):
+    """One launch of K28 or K29 on compressed c (..., 4, 2, W), read in
+    place (element stride 96 words, or 0 for one element broadcast)."""
+    from . import kernels
+
+    _check_trailing(c, (4, 2, fp.WORDS), "compressed Fp12")
+    out = torch.empty(out_shape, dtype=torch.int32, device=c.device)
+    x, sc = _operand(c, c.shape, 3, 4 * _FP2_WORDS)
+    kernels.launch(f"lh_{name}", c.device, x.data_ptr(), sc, out.data_ptr(), c[..., 0, 0, 0].numel())
+    fp._count(name)
+    return out
+
+
 def karabina_sqr(c, T=KERNEL_TOWER):
-    """One compressed cyclotomic squaring."""
+    """One compressed cyclotomic squaring by `karabina_sqr_composed`'s
+    formulas: over the kernel tower (the default) one launch of K28 for a
+    CUDA tensor and the plain version for a CPU tensor; over any other T
+    the composition over T."""
+    if T is not KERNEL_TOWER:
+        return karabina_sqr_composed(c, T)
+    if fp._is_cpu(c):
+        return karabina_sqr_plain(c)
+    return _compressed_launch("karabina_sqr", c, c.shape)
+
+
+def karabina_sqr_plain(c):
+    """K28's plain version: PyTorch operations only, on any device."""
+    return karabina_sqr_composed(c, PLAIN_TOWER)
+
+
+def karabina_sqr_composed(c, T):
+    """One compressed cyclotomic squaring over the operations T: K28's
+    plain version (PLAIN_TOWER), the composition it replaced and that K9
+    replaced (KERNEL_TOWER: K7, K2, K1)."""
     F = T.fp
     g2, g3, g4, g5 = (c[..., i, :, :] for i in range(4))
     sq = T.fp2_mul(
@@ -416,9 +525,28 @@ def karabina_sqr(c, T=KERNEL_TOWER):
 
 
 def karabina_decompress(c, T=KERNEL_TOWER):
+    """Compressed (..., 4, 2, W) -> tower Fp12 by
+    `karabina_decompress_composed`'s formulas: over the kernel tower (the
+    default) one launch of K29 for a CUDA tensor, an inversion per
+    element, and the plain version for a CPU tensor; over any other T the
+    composition over T."""
+    if T is not KERNEL_TOWER:
+        return karabina_decompress_composed(c, T)
+    if fp._is_cpu(c):
+        return karabina_decompress_plain(c)
+    return _compressed_launch("karabina_decompress", c, (*c.shape[:-3], 2, 3, 2, fp.WORDS))
+
+
+def karabina_decompress_plain(c):
+    """K29's plain version: PyTorch operations only, on any device."""
+    return karabina_decompress_composed(c, PLAIN_TOWER)
+
+
+def karabina_decompress_composed(c, T):
     """Compressed (..., 4, 2, W) -> tower Fp12, sharing ONE Fp inversion
-    (T.batch_inv, K4) across every lane. The all-zero compressed identity
-    decompresses to one through inv0."""
+    (T.batch_inv, K4) across every lane, over the operations T: K29's
+    plain version (PLAIN_TOWER), the composition it replaced (KERNEL_TOWER).
+    The all-zero compressed identity decompresses to one through inv0."""
     F = T.fp
     dev = c.device
     g2, g3, g4, g5 = (c[..., i, :, :] for i in range(4))
@@ -474,12 +602,38 @@ _PHI_TABLES = _PHI_SCALARS.reshape(2, 3, 2, 1, fp.WORDS).transpose(0, 2, 1, 3, 4
 
 
 def fp12_inv(a, T=KERNEL_TOWER):
+    """a^-1 in Fp12 (..., 2, 3, 2, W) by `fp12_inv_composed`'s chain, zero
+    to zero: over the kernel tower (the default) one launch of K30
+    (csrc/final_exponentiation_kernels.cu, K19's block routine, a warp per
+    element) for a CUDA tensor and the plain version for a CPU tensor;
+    over any other T the composition over T."""
+    if T is not KERNEL_TOWER:
+        return fp12_inv_composed(a, T)
+    if fp._is_cpu(a):
+        return fp12_inv_plain(a)
+    from . import kernels
+
+    _check_trailing(a, (2, 3, 2, fp.WORDS), "Fp12")
+    out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    x, sa = _operand(a, a.shape, 4, _FP12_WORDS)
+    kernels.launch("lh_fp12_inv", a.device, x.data_ptr(), sa, fp.const(_PHI_SCALARS, a.device).data_ptr(),
+                   out.data_ptr(), out.numel() // _FP12_WORDS)
+    fp._count("fp12_inv")
+    return out
+
+
+def fp12_inv_plain(a):
+    """K30's plain version: PyTorch operations only, on any device."""
+    return fp12_inv_composed(a, PLAIN_TOWER)
+
+
+def fp12_inv_composed(a, T):
     """Inverse by the Galois norm chain: N = a conj(a) lies in Fp6,
     M = N phi(N) phi^2(N) in Fp2, a^-1 = conj(a) phi(N) phi^2(N) M^-1; zero
     maps to zero (M = 0, inv0). Four Fp12 products, all in the tower
-    layout, over the operations T: K8, K1-K3 and K7 by default (the
-    standalone form), their plain versions inside K19's plain version
-    (`pairing.final_exponentiation_plain`)."""
+    layout, over the operations T: K30's plain version and the plain
+    version's inside K19's (PLAIN_TOWER), the composition K30 replaced
+    (KERNEL_TOWER: K8, K1-K3 and K25, K7)."""
     F = T.fp
     c = fp12_conj(a, F)
     n = T.fp12_mul(a, c)

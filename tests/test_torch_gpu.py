@@ -2,8 +2,10 @@
 plain versions (the tower products K7 and K8 also against the K1/K2
 composition they replaced, the chains K9-K14 against the K1-K4/K7/K8
 composition, the tree sums K15 and K16, the cofactor clearing K17, the
-Fp12 product K18, the final exponentiation K19, the psi comparison K20
-and the Miller inputs K21 against the composition each replaced), launch
+Fp12 product K18, the final exponentiation K19, the psi comparison K20,
+the Miller inputs K21 and the standalone K22-K32 against the composition
+each replaced, K33 against its plain version; the port's kernel registry
+walked on the card), launch
 counting, launches on a card other than the current one (and from a fresh
 thread), and a small verify, also with every direct Fp product on the
 tensor cores (K6). Every test needs a
@@ -24,7 +26,7 @@ from lighthouse_tpu_torch.crypto.bls.constants import P, R
 from lighthouse_tpu_torch.crypto.bls.ref import api as ref
 from lighthouse_tpu_torch.crypto.bls.ref.curves import Point, _B1, g1_generator, g1_infinity
 from lighthouse_tpu_torch.crypto.bls.ref.fields import Fp
-from lighthouse_tpu_torch.crypto.bls.torch_backend import api, curve, fp, tower
+from lighthouse_tpu_torch.crypto.bls.torch_backend import api, curve, fp, h2c, pairing, tower
 from lighthouse_tpu_torch.crypto.bls.torch_backend.pack import pack_g1_batch
 
 pytestmark = pytest.mark.gpu
@@ -70,6 +72,9 @@ def test_wrappers_launch_and_count_on_card(cuda_device):
         "fp2_mul": 0, "fp12_mul": 0, "cyclotomic_pow_x": 0, "g1_scalar_mul": 0, "g2_scalar_mul": 0,
         "miller_loop": 0, "sswu": 0, "iso3_map": 0, "g1_tree_sum": 0, "g2_tree_sum": 0, "clear_cofactor": 0,
         "product_reduce": 0, "final_exponentiation": 0, "g2_psi_check": 0, "miller_inputs": 0,
+        "g1_to_affine": 0, "g2_to_affine": 0, "fp6_mul": 0, "fp2_inv": 0, "g1_add": 0, "g2_add": 0,
+        "karabina_sqr": 0, "karabina_decompress": 0, "fp12_inv": 0, "frobenius": 0, "fp2_sqrt_candidate": 0,
+        "fp_redc": 0,
     }
     assert torch.equal(fp.add(a[::2], a[1::2]), fp.addsub_plain(a[::2], a[1::2], 0))
 
@@ -95,13 +100,16 @@ def test_verify_on_card(cuda_device):
 #: the two tree sums (K15, K16), the cofactor clearing with the sum of the
 #: SSWU points (K17), the Miller pairs' affine inputs (K21), the product of
 #: the Miller values (K18) and the final exponentiation (K19), once each;
-#: K1-K9 never (they run only inside those)
+#: K1-K9 never (they run only inside those), nor K22-K33 (off the path)
 VERIFY_LAUNCHES = chip_smoke.VERIFY_LAUNCHES
 assert VERIFY_LAUNCHES == {"fp_mul": 0, "fp_addsub": 0, "fp_pow": 0, "fp_batch_inv": 0, "g1_subgroup_check": 0,
                            "fp_mul_mma": 0, "fp2_mul": 0, "fp12_mul": 0, "cyclotomic_pow_x": 0,
                            "g1_scalar_mul": 1, "g2_scalar_mul": 1, "miller_loop": 1, "sswu": 1, "iso3_map": 1,
                            "g1_tree_sum": 1, "g2_tree_sum": 1, "clear_cofactor": 1, "product_reduce": 1,
-                           "final_exponentiation": 1, "g2_psi_check": 1, "miller_inputs": 1}
+                           "final_exponentiation": 1, "g2_psi_check": 1, "miller_inputs": 1, "g1_to_affine": 0,
+                           "g2_to_affine": 0, "fp6_mul": 0, "fp2_inv": 0, "g1_add": 0, "g2_add": 0,
+                           "karabina_sqr": 0, "karabina_decompress": 0, "fp12_inv": 0, "frobenius": 0,
+                           "fp2_sqrt_candidate": 0, "fp_redc": 0}
 
 
 def test_verify_launches_the_chain_kernels(cuda_device):
@@ -290,6 +298,74 @@ def test_final_exp_and_glue_kernels_match_plain_on_card(glue_edge_cases, kernel)
             assert torch.equal(chip_smoke._stacked(got[name]), chip_smoke._stacked(want)), name
         if name in verdicts:
             assert got[name].tolist() == verdicts[name]
+
+
+@pytest.fixture(scope="module")
+def affine_edge_cases():
+    """chip_smoke's [kernels] cases of K22-K25 (`affine_cases`): to_affine
+    in G1 and G2 with Z = 0, Z = one and p - 1 in every word slot, the Fp2
+    inversion with zero (inv0), the Fp6 product with an all p - 1 element
+    and a broadcast operand, at counts that are and are not whole blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: torch.cuda.is_available() is False")
+    return chip_smoke.affine_cases(torch, fp, curve, tower, P, {
+        "g1_to_affine": chip_smoke.AFFINE_COUNTS, "g2_to_affine": chip_smoke.AFFINE_COUNTS,
+        "fp2_inv": chip_smoke.AFFINE_COUNTS, "fp6_mul": chip_smoke.FP6_COUNTS}, 48)
+
+
+@pytest.mark.parametrize("kernel", ["g1_to_affine", "g2_to_affine", "fp6_mul", "fp2_inv"])
+def test_affine_and_fp6_kernels_match_plain_on_card(affine_edge_cases, kernel):
+    """K22-K25 against their plain versions and the composition each
+    replaced, bit for bit: one launch per call and no other kernel."""
+    cases = {name: case for name, case in affine_edge_cases.items() if name.startswith(kernel)}
+    fp.reset_launches()
+    got = {name: run() for name, (_, run, _, _) in cases.items()}
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fp.LAUNCHES.items() if v} == {kernel: len(cases)}
+    for name, (_, _, plain, composed) in cases.items():
+        for want in (plain(), composed()):
+            assert torch.equal(chip_smoke._stacked(got[name]), chip_smoke._stacked(want)), name
+
+
+@pytest.fixture(scope="module")
+def standalone_edge_cases():
+    """chip_smoke's [kernels] cases of K26-K33 (`standalone_cases`): the
+    additions with infinity, Z = one, p - 1 words, P == Q, P == -Q and a
+    broadcast point; Karabina's squaring and decompression with the
+    identity, the g2 = 0 branch and a zero denominator; fp12_inv and
+    frobenius with p - 1, zero and one; the square-root candidate with 0,
+    one, u and -1; the reduction at 0, 2 p 2^384 - 1, p^2 - 1 and p 2^384,
+    at counts that are and are not whole blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: torch.cuda.is_available() is False")
+    return chip_smoke.standalone_cases(torch, fp, curve, tower, pairing, h2c, P, chip_smoke.STANDALONE_COUNTS,
+                                       49)[0]
+
+
+@pytest.mark.parametrize("kernel", sorted(chip_smoke.STANDALONE_COUNTS))
+def test_standalone_kernels_match_plain_on_card(standalone_edge_cases, kernel):
+    """K26-K33 against their plain versions and (but K33) the composition
+    each replaced, bit for bit: one launch per call and no other kernel."""
+    cases = {name: case for name, case in standalone_edge_cases.items()
+             if name.rsplit("_n", 1)[0].replace("_broadcast", "") == kernel}
+    fp.reset_launches()
+    got = {name: run() for name, (_, run, _, _) in cases.items()}
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fp.LAUNCHES.items() if v} == {kernel: len(cases)}
+    for name, (_, _, plain, composed) in cases.items():
+        for want in (plain, composed):
+            if want is not None:
+                assert torch.equal(chip_smoke._stacked(got[name]), chip_smoke._stacked(want())), name
+
+
+def test_registry_walk_on_card(cuda_device):
+    """chip_smoke's [registry]: every entry of the port's registry once on
+    the card, launches as declared, "kernel" entries bit-identical to their
+    plain versions, every kernel launched."""
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import registry
+
+    launches = chip_smoke.run_registry(torch, fp, registry, cuda_device)
+    assert all(launches[k] > 0 for k in fp.KERNELS)
 
 
 @pytest.mark.parametrize("n", [1, 31, 33, 4104])

@@ -145,9 +145,10 @@ def test_tower_product_is_one_launch(recorded_launches, name):
 
 
 def test_fp12_inv_runs_its_products_on_k8(recorded_launches):
-    """fp12_inv's four Fp12 products are K8 launches (its Fp2 inversion
-    stays on K1-K3)."""
-    tower.fp12_inv(_fp12s(2))
+    """fp12_inv's composition over the kernel tower (the one K30 replaced,
+    which K19's composition runs) makes its four Fp12 products as K8
+    launches."""
+    tower.fp12_inv_composed(_fp12s(2), tower.KERNEL_TOWER)
     assert [n for n, _, _ in recorded_launches].count("lh_fp12_mul") == 4
 
 

@@ -114,10 +114,10 @@ def test_tensor_core_kernel_is_registered():
 def test_tower_kernels_are_registered():
     """K7 and K8: their source is hashed into the build key and compiled
     as a unit, both launchers are bound, and fp.KERNELS counts all
-    twenty-one kernels."""
+    thirty-three kernels."""
     assert "tower_kernels.cu" in tkernels.SOURCES and "tower_kernels.cu" in tkernels.UNITS
     assert "lh_fp2_mul" in tkernels._SIGNATURES and "lh_fp12_mul" in tkernels._SIGNATURES
-    assert len(tfp.KERNELS) == 21 and set(tfp.LAUNCHES) == set(tfp.KERNELS)
+    assert len(tfp.KERNELS) == 33 and set(tfp.LAUNCHES) == set(tfp.KERNELS)
     assert {"fp2_mul", "fp12_mul"} <= set(tfp.KERNELS)
 
 
@@ -163,6 +163,32 @@ def test_final_exp_and_verify_glue_kernels_are_registered():
     arity = {"final_exponentiation": 6, "g2_psi_check": 16, "miller_inputs": 23}
     for name, n in arity.items():
         assert len(tkernels._SIGNATURES[f"lh_{name}"]) == n and name in tfp.KERNELS
+
+
+def test_affine_and_fp6_kernels_are_registered():
+    """K22-K25: their source is hashed into the build key and compiled as a
+    unit, the four launchers bound (one argument type per launcher
+    parameter, the stream last) and counted, and every kernel of
+    fp.KERNELS has a bound launcher."""
+    assert "affine_kernels.cu" in tkernels.SOURCES and "affine_kernels.cu" in tkernels.UNITS
+    arity = {"g1_to_affine": 11, "g2_to_affine": 11, "fp6_mul": 7, "fp2_inv": 5}
+    for name, n in arity.items():
+        assert len(tkernels._SIGNATURES[f"lh_{name}"]) == n and name in tfp.KERNELS
+    assert {f"lh_{k}" for k in tfp.KERNELS} <= set(tkernels._SIGNATURES)
+
+
+def test_standalone_kernels_are_registered():
+    """K26-K33: the new source is hashed into the build key and compiled as
+    a unit (K30, K31 and K32 live in K19's and K13's sources beside the
+    routines they launch), the eight launchers bound (one argument type
+    per launcher parameter, the stream last) and counted, and every bound
+    launcher is a kernel of fp.KERNELS."""
+    assert "standalone_kernels.cu" in tkernels.SOURCES and "standalone_kernels.cu" in tkernels.UNITS
+    arity = {"g1_add": 15, "g2_add": 15, "karabina_sqr": 5, "karabina_decompress": 5, "fp12_inv": 6,
+             "frobenius": 6, "fp2_sqrt_candidate": 5, "fp_redc": 5}
+    for name, n in arity.items():
+        assert len(tkernels._SIGNATURES[f"lh_{name}"]) == n and name in tfp.KERNELS
+    assert set(tkernels._SIGNATURES) == {f"lh_{k}" for k in tfp.KERNELS}
 
 
 @pytest.mark.parametrize("flag", ["unset", "", "0", "true", "1"])
