@@ -94,8 +94,8 @@ Phases, one line each, any failure exits non-zero:
               (`OFF_PATH_SHAPES`; K6 at K1's, so the two compare; K7 and
               K8 also against the K1/K2 composition they replaced);
               K9-K21 at the verify path's shapes against their plain
-              versions, the composition they replaced and their bounds, K9
-              with its Fermat chain's share; K22-K25 at `AFFINE_SHAPES`
+              versions, the composition they replaced and their bounds;
+              K22-K25 at `AFFINE_SHAPES`
               (off the path: G1 128, G2 256, Fp6 128, Fp2 256) and
               K26-K33 at `STANDALONE_SHAPES` likewise, with the launches
               of one verify as `verify` counted them (0)
@@ -146,6 +146,7 @@ import json
 import os
 import queue
 import random
+import re
 import socket
 import statistics
 import subprocess
@@ -334,7 +335,7 @@ K8_BYTES = {0: 3 * 576, 1: 2 * 576, 2: 2 * 576 + 3 * 96}
 # 63 compressed squarings (4 Fp2 squares, 2 products), six decompressions
 # (2 squares, 3 products, a norm of two Fp squares summed and reduced once,
 # 2 Fp products, 1 product, 1 square), the shared inversion (15 Fp products
-# and the power p - 2, `inversion_word_products`), five Fp12 products.
+# and the binary GCD, `inversion_word_products`), five Fp12 products.
 FP2_MUL_WP, FP2_SQR_WP, FP12_MUL_WP = 744, 600, 36 * 3 * 144 + 12 * 156
 K9_WORD_PRODUCTS_BUT_POWER = (63 * (4 * FP2_SQR_WP + 2 * FP2_MUL_WP)
                               + 6 * (3 * FP2_SQR_WP + 4 * FP2_MUL_WP + 2 * 78 + 156 + 2 * WORD_PRODUCTS_PER_MUL)
@@ -395,21 +396,30 @@ def pow_word_products(e: int, mul: int, sqr: int) -> int:
     return (1 + 4 * (len(digits) - 1)) * sqr + (13 + sum(1 for d in digits[:-1] if d)) * mul
 
 
-def inversion_word_products(P: int) -> int:
-    """An Fp inversion, the power p - 2 (K3's function on the verify path)."""
-    return pow_word_products(P - 2, WORD_PRODUCTS_PER_MUL, WORD_PRODUCTS_PER_SQR)
+# fp384.cuh's fp_inv: 26 batches of 30 divsteps on two-word approximations
+# (selects and additions, no word product).
+FP_INV_BATCHES = 26
+
+
+def inversion_word_products() -> int:
+    """An Fp inversion in a kernel, fp384.cuh's binary GCD: a batch is two
+    12-word combinations a f + b g (24 word products each) and two u f + v g
+    with their Montgomery word step (24, 12 for m p, 1 for m); then the
+    closing Montgomery product. K3 is a general power and is counted on
+    `pow_word_products`' schedule instead."""
+    return FP_INV_BATCHES * (2 * 24 + 2 * (24 + 12 + 1)) + WORD_PRODUCTS_PER_MUL
 
 
 def h2c_word_products(P: int) -> tuple[int, int]:
     """(K13, K14) word products one element needs. The Fp2 inversion: the
-    norm's two Fp squares summed and reduced once, the power p - 2, two Fp
+    norm's two Fp squares summed and reduced once, the Fp inversion, two Fp
     products. K13: u^2, (Z u^2)^2, the inversion, x1, x2, gx1 and gx2 (a
     square and a product each), two square-root candidates (the powers
     (p - 3) / 4 and (p - 1) / 2, three products), y1^2, and sgn0 of u and y
     (four reductions out of Montgomery form); the products by Z = -(2 + u)
     and A = 240 u are additions. K14: the inversion, d^2, six products,
     four Fp products (1/9, -1/27)."""
-    inv = 2 * 78 + REDC_WORD_PRODUCTS + inversion_word_products(P) + 2 * WORD_PRODUCTS_PER_MUL
+    inv = 2 * 78 + REDC_WORD_PRODUCTS + inversion_word_products() + 2 * WORD_PRODUCTS_PER_MUL
     sqrt = (pow_word_products((P - 3) // 4, FP2_MUL_WP, FP2_SQR_WP)
             + pow_word_products((P - 1) // 2, FP2_MUL_WP, FP2_SQR_WP) + 3 * FP2_MUL_WP)
     sswu = (2 * FP2_SQR_WP + inv + 2 * FP2_MUL_WP + 2 * (FP2_SQR_WP + FP2_MUL_WP) + 2 * sqrt
@@ -424,30 +434,30 @@ def k17_word_products() -> int:
             + 2 * scalar_mul_word_products(128, FP2_MUL_WP, FP2_SQR_WP))
 
 
-def k19_word_products(P: int) -> int:
+def k19_word_products() -> int:
     """Word products one element of K19 needs: five K9 chains; fourteen
     Fp12 products (ten, and fp12_inv's four); five Frobenius maps of six
     Fp2 products; phi(N) and phi^2(N), eight Fp products (N lies in Fp6);
     the Fp2 inversion (its norm's two Fp squares summed and reduced once,
-    the power p - 2, two Fp products); the product by its result, six Fp2
+    the Fp inversion, two Fp products); the product by its result, six Fp2
     products."""
-    k9 = K9_WORD_PRODUCTS_BUT_POWER + inversion_word_products(P)
-    return (5 * k9 + 14 * FP12_MUL_WP + 5 * 6 * FP2_MUL_WP + 8 * WORD_PRODUCTS_PER_MUL + fp2_inv_word_products(P)
+    k9 = K9_WORD_PRODUCTS_BUT_POWER + inversion_word_products()
+    return (5 * k9 + 14 * FP12_MUL_WP + 5 * 6 * FP2_MUL_WP + 8 * WORD_PRODUCTS_PER_MUL + fp2_inv_word_products()
             + 6 * FP2_MUL_WP)
 
 
-def fp2_inv_word_products(P: int) -> int:
+def fp2_inv_word_products() -> int:
     """An Fp2 inversion (K25, and inside K23): the norm's two Fp squares
-    summed and reduced once, the power p - 2, two Fp products."""
-    return 2 * 78 + REDC_WORD_PRODUCTS + inversion_word_products(P) + 2 * WORD_PRODUCTS_PER_MUL
+    summed and reduced once, the Fp inversion, two Fp products."""
+    return 2 * 78 + REDC_WORD_PRODUCTS + inversion_word_products() + 2 * WORD_PRODUCTS_PER_MUL
 
 
-def affine_word_products(P: int) -> dict:
+def affine_word_products() -> dict:
     """Word products one element of K22-K25 needs: to_affine is an
     inversion and two products (Fp for G1, Fp2 for G2)."""
-    return {"g1_to_affine": inversion_word_products(P) + 2 * WORD_PRODUCTS_PER_MUL,
-            "g2_to_affine": fp2_inv_word_products(P) + 2 * FP2_MUL_WP,
-            "fp6_mul": K24_WORD_PRODUCTS, "fp2_inv": fp2_inv_word_products(P)}
+    return {"g1_to_affine": inversion_word_products() + 2 * WORD_PRODUCTS_PER_MUL,
+            "g2_to_affine": fp2_inv_word_products() + 2 * FP2_MUL_WP,
+            "fp6_mul": K24_WORD_PRODUCTS, "fp2_inv": fp2_inv_word_products()}
 
 
 def standalone_word_products(P: int) -> dict:
@@ -462,28 +472,28 @@ def standalone_word_products(P: int) -> dict:
     sqrt = (pow_word_products((P - 3) // 4, FP2_MUL_WP, FP2_SQR_WP)
             + pow_word_products((P - 1) // 2, FP2_MUL_WP, FP2_SQR_WP) + 3 * FP2_MUL_WP)
     return {"g1_add": G1_ADD_WP, "g2_add": G2_ADD_WP, "karabina_sqr": 4 * FP2_SQR_WP + 2 * FP2_MUL_WP,
-            "karabina_decompress": decompress_word_products(P, True),
-            "fp12_inv": 4 * FP12_MUL_WP + 8 * WORD_PRODUCTS_PER_MUL + fp2_inv_word_products(P) + 6 * FP2_MUL_WP,
+            "karabina_decompress": decompress_word_products(True),
+            "fp12_inv": 4 * FP12_MUL_WP + 8 * WORD_PRODUCTS_PER_MUL + fp2_inv_word_products() + 6 * FP2_MUL_WP,
             "frobenius": 6 * FP2_MUL_WP, "fp2_sqrt_candidate": sqrt, "fp_redc": REDC_WORD_PRODUCTS}
 
 
-def decompress_word_products(P: int, g2_nonzero: bool) -> int:
+def decompress_word_products(g2_nonzero: bool) -> int:
     """One decompression (K29), by its branch: where g2 != 0 three Fp2
     squares and three products, where g2 = 0 one square and four products;
-    the norm's two Fp squares summed and reduced once, the Fermat
-    inversion, two Fp products."""
+    the norm's two Fp squares summed and reduced once, the Fp inversion,
+    two Fp products."""
     fp2 = 3 * FP2_SQR_WP + 3 * FP2_MUL_WP if g2_nonzero else FP2_SQR_WP + 4 * FP2_MUL_WP
-    return fp2 + 2 * 78 + REDC_WORD_PRODUCTS + inversion_word_products(P) + 2 * WORD_PRODUCTS_PER_MUL
+    return fp2 + 2 * 78 + REDC_WORD_PRODUCTS + inversion_word_products() + 2 * WORD_PRODUCTS_PER_MUL
 
 
-def k21_word_products(P: int, S: int) -> int:
+def k21_word_products(S: int) -> int:
     """Word products K21 needs for S sets: the S + 1 G2 norms (two Fp
     squares summed and reduced once), Montgomery's trick over n = 2S + 1
     values (3(n - 1) Fp products and one inversion), two Fp products a G1
     lane, two Fp products and two Fp2 products a G2 lane."""
     n = 2 * S + 1
     return ((S + 1) * (2 * 78 + REDC_WORD_PRODUCTS) + 3 * (n - 1) * WORD_PRODUCTS_PER_MUL
-            + inversion_word_products(P) + 2 * S * WORD_PRODUCTS_PER_MUL
+            + inversion_word_products() + 2 * S * WORD_PRODUCTS_PER_MUL
             + (S + 1) * (2 * WORD_PRODUCTS_PER_MUL + 2 * FP2_MUL_WP))
 
 
@@ -908,7 +918,7 @@ def standalone_cases(torch, fp, curve, tower, pairing, h2c, P, shapes: dict, see
         add(f"karabina_decompress_n{n}", n, lambda c=c: tower.karabina_decompress(c),
             lambda c=c: tower.karabina_decompress_plain(c),
             lambda c=c: tower.karabina_decompress_composed(c, tower.KERNEL_TOWER),
-            wp=nz * decompress_word_products(P, True) + (n - nz) * decompress_word_products(P, False))
+            wp=nz * decompress_word_products(True) + (n - nz) * decompress_word_products(False))
     for name, run, plain, composed in (
             ("fp12_inv", tower.fp12_inv, tower.fp12_inv_plain,
              lambda a: tower.fp12_inv_composed(a, tower.KERNEL_TOWER)),
@@ -1026,13 +1036,36 @@ def oracle_pk_verdict(kb: bytes) -> bool:
         return False
 
 
-def ptxas_summary(log: str, kernel: str) -> str:
-    """ptxas's register and spill lines for `kernel` from the build log."""
+def ptxas_summary(log: str, kernel: str, nlines: int = 2) -> str:
+    """ptxas's stack and spill line and (for a kernel, nlines = 2) its
+    registers and shared memory line for function `kernel` (or
+    `kernel`_kernel) from the build log. The name must be the function's
+    own in the mangled name, a length before it and "E" after it: every
+    function of final_exponentiation_kernels.cu carries that file's name."""
     lines = log.splitlines()
+    own = re.compile(rf"\d{re.escape(kernel)}(_kernel)?E")
     for i, line in enumerate(lines):
-        if "Function properties for" in line and kernel in line:
-            return "; ".join(l.split(":", 1)[-1].strip() for l in lines[i + 1 : i + 3])
+        if "Function properties for" in line and own.search(line):
+            return "; ".join(l.split(":", 1)[-1].strip() for l in lines[i + 1 : i + 1 + nlines])
     return "not found"
+
+
+# [timing] lines that carry ptxas's registers, shared memory and spills:
+# K17 (the lane-group law), K19 and K22 (callers of fp384.cuh's binary-GCD
+# inversion; K22's line also gives the inversion's own stack and spills).
+PTXAS_TIMED = {"clear_cofactor": "clear_cofactor_kernel", "final_exponentiation": "final_exponentiation_kernel",
+               "g1_to_affine": "g1_to_affine_kernel"}
+
+
+def ptxas_fields(log: str, name: str) -> dict:
+    """The `[timing]` fields of ptxas's report in build log `log` for
+    kernel `name` (none for a kernel outside PTXAS_TIMED)."""
+    if name not in PTXAS_TIMED:
+        return {}
+    fields = {"ptxas": ptxas_summary(log, PTXAS_TIMED[name])}
+    if name == "g1_to_affine":
+        fields["ptxas_fp_inv"] = ptxas_summary(log, "fp_inv", 1)
+    return fields
 
 
 def ptxas_spills(log: str) -> dict[str, int]:
@@ -1266,6 +1299,10 @@ def check_chain_kernels(torch, cases, verdicts=None) -> None:
     bools) also give those verdicts."""
     for name, (_, run, plain, composed) in cases.items():
         got = run()
+        try:  # a fault in the kernel surfaces here, under its case's name
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            raise AssertionError(f"{name}: the kernel faulted: {exc}") from exc
         for label, fn in (("plain version", plain), ("composition replaced", composed)):
             if fn is None:  # K33 replaced no composition
                 continue
@@ -1499,9 +1536,11 @@ def time_kernels(torch, fp, tower, P, dev, launches, peak_ops_per_s):
     largest word difference from the plain version. K6 runs at K1's shape.
     K7 and K8 run in the op or mode of their shape, and the K1/K2
     composition they replaced is timed beside them (`composed_ms`, per
-    call)."""
+    call). K4's inversion is the kernels' binary GCD; K3 is a general
+    power, counted as the power p - 2 on the plain version's schedule."""
     results = []
-    inv_word_products = inversion_word_products(P)
+    inv_word_products = inversion_word_products()
+    pow_inv_word_products = pow_word_products(P - 2, WORD_PRODUCTS_PER_MUL, WORD_PRODUCTS_PER_SQR)
     for name, shape in OFF_PATH_SHAPES.items():
         composed = None
         if name == "fp_batch_inv":
@@ -1550,7 +1589,7 @@ def time_kernels(torch, fp, tower, P, dev, launches, peak_ops_per_s):
                 ops_s, nbytes = n * 2 * fp.WORDS / peak_ops_per_s, 3 * 48 * n
             else:
                 run, plain = (lambda: fp.inv(a)), (lambda: fp.pow_plain(a, fp.INV_EXP))
-                ops_s, nbytes = n * inv_word_products / peak_ops_per_s, 2 * 48 * n + 48
+                ops_s, nbytes = n * pow_inv_word_products / peak_ops_per_s, 2 * 48 * n + 48
         saved = dict(fp.LAUNCHES)  # comparison launches are not main-path launches
         got, want = run(), plain()
         err = int(((got.to(torch.int64) & 0xFFFFFFFF) - (want.to(torch.int64) & 0xFFFFFFFF)).abs().max())
@@ -1580,16 +1619,13 @@ def time_kernels(torch, fp, tower, P, dev, launches, peak_ops_per_s):
     return results
 
 
-def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s):
+def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s, log):
     """K9-K21 at the verify path's shapes (`chain_cases`): device ms per
     launch (profiler), ms per call (CUDA events), the plain version's and
     the composition's ms per call, and the bound. K11 runs at two shapes
     (the signatures' 64 bits; the cofactor clearing's 128, which K17 now
-    runs): its JSON entry is the first, with the second beside it. K9's
-    inversion is not timed inside K9: K3 runs alone on one element (the
-    Fermat chain of p - 2 that K9's one thread also walks), and that time
-    is set against K9's device time (`k3_same_chain_ms`,
-    `k3_same_chain_over_k9`)."""
+    runs): its JSON entry is the first, with the second beside it. K17's
+    and K19's rows carry ptxas's report (`ptxas_fields`)."""
     S = N_SETS
     bounds = {  # case -> (kernel, word products, bytes: points in and out, bits read once)
         "g1_scalar_mul_n128_b64": ("g1_scalar_mul",
@@ -1599,7 +1635,7 @@ def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s):
                                    2 * S * (576 + 64 * 4)),
         "g2_scalar_mul_2x128_b128": ("g2_scalar_mul", 2 * S * scalar_mul_word_products(128, FP2_MUL_WP, FP2_SQR_WP),
                                      2 * S * 576 + 2 * 128 * 8),
-        "cyclotomic_pow_x_n1": ("cyclotomic_pow_x", K9_WORD_PRODUCTS_BUT_POWER + inversion_word_products(P), K9_BYTES),
+        "cyclotomic_pow_x_n1": ("cyclotomic_pow_x", K9_WORD_PRODUCTS_BUT_POWER + inversion_word_products(), K9_BYTES),
         f"miller_loop_n{S + 1}": ("miller_loop", (S + 1) * K12_WORD_PRODUCTS, (S + 1) * K12_BYTES + 6 * 48),
         f"sswu_m{2 * S}": ("sswu", 2 * S * h2c_word_products(P)[0], 2 * S * K13_BYTES + H2C_CONST_BYTES),
         f"iso3_map_m{2 * S + 1}": ("iso3_map", (2 * S + 1) * h2c_word_products(P)[1],
@@ -1609,9 +1645,9 @@ def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s):
         f"g2_tree_sum_{S}": ("g2_tree_sum", (S - 1) * G2_ADD_WP, (S + 1) * 3 * 96),
         f"clear_cofactor_m{S}": ("clear_cofactor", S * k17_word_products(), S * K17_BYTES + K17_CONST_BYTES),
         f"product_reduce_n{S + 1}": ("product_reduce", S * FP12_MUL_WP, (S + 2) * 576),
-        "final_exponentiation_n1": ("final_exponentiation", k19_word_products(P), K19_BYTES),
+        "final_exponentiation_n1": ("final_exponentiation", k19_word_products(), K19_BYTES),
         f"g2_psi_check_n{S}": ("g2_psi_check", S * 6 * FP2_MUL_WP, S * K20_BYTES + K20_CONST_BYTES),
-        f"miller_inputs_s{S}": ("miller_inputs", k21_word_products(P, S),
+        f"miller_inputs_s{S}": ("miller_inputs", k21_word_products(S),
                                 S * K21_BYTES_PER_SET + (S + 1) * K21_BYTES_PER_LANE + K21_CONST_BYTES),
     }
     rows = {}
@@ -1622,23 +1658,19 @@ def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s):
         call_ms = cuda_ms(run, 5)
         ms = kernel_device_ms(run, 5, f"{name}_kernel")
         plain_ms, composed_ms = cuda_ms(plain, 1), cuda_ms(composed, 2)
-        extra = {}
-        if name == "cyclotomic_pow_x":
-            one = field_inputs(fp, P, 1, 9, DEVICE)[8:9]
-            k3_ms = kernel_device_ms(lambda: fp.inv(one), 5, "fp_pow_kernel")
-            extra = {"k3_same_chain_ms": k3_ms, "k3_same_chain_over_k9": k3_ms / ms}
         fp.LAUNCHES.update(saved)
         t_ops, t_bytes = ops / peak_ops_per_s * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
         row = {
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "shape": shape, "ms_per_call": call_ms, "composed_ms": composed_ms, **extra,
+            "library_ms": None, "shape": shape, "ms_per_call": call_ms, "composed_ms": composed_ms,
+            **ptxas_fields(log, name),
         }
         phase("timing", kernel=name, shape=shape, ms=f"{ms:.5f}", ms_per_call=f"{call_ms:.5f}",
               plain_ms=f"{plain_ms:.3f}", composed_ms=f"{composed_ms:.3f}", bound_ms=f"{row['bound_ms']:.6f}",
               word_products=ops, launches=launches[name], max_abs_err=err,
-              **{k: f"{v:.5f}" for k, v in extra.items()})
+              **{k: f'"{v}"' for k, v in ptxas_fields(log, name).items()})
         if err != 0:
             raise AssertionError(f"{case}: kernel differs from its plain version")
         if name in rows:
@@ -1652,7 +1684,7 @@ def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s):
 def offpath_timed(torch, fp, curve, tower, pairing, h2c, P):
     """K22-K33 at their `[timing]` shapes, off the verify path:
     [(kernel, (shape, run, plain, composed), word products, bytes)]."""
-    ops = affine_word_products(P)
+    ops = affine_word_products()
     nbytes = {"g1_to_affine": K22_BYTES, "g2_to_affine": K23_BYTES, "fp6_mul": K24_BYTES, "fp2_inv": K25_BYTES}
     timed = []
     for name, n in AFFINE_SHAPES.items():
@@ -1664,12 +1696,13 @@ def offpath_timed(torch, fp, curve, tower, pairing, h2c, P):
     return timed
 
 
-def time_offpath_kernels(torch, fp, timed, launches_verify, peak_ops_per_s):
+def time_offpath_kernels(torch, fp, timed, launches_verify, peak_ops_per_s, log):
     """K22-K33 (`offpath_timed`): device ms per launch (profiler), ms per
     call (CUDA events), the plain version's and the composition's ms per
     call (None for K33, which replaced none), the bound, and the launches
     of one verify as the `[verify]` run counted them (0). The rows'
-    `launches` are set from the `[registry]` walk."""
+    `launches` are set from the `[registry]` walk; K22's carries ptxas's
+    report (`ptxas_fields`)."""
     rows = []
     for name, (shape, run, plain, composed), ops, nbytes in timed:
         saved = dict(fp.LAUNCHES)  # comparison launches are not main-path launches
@@ -1687,12 +1720,12 @@ def time_offpath_kernels(torch, fp, timed, launches_verify, peak_ops_per_s):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None, "shape": shape,
             "ms_per_call": call_ms, "composed_ms": composed_ms, "launches_per_verify": launches_verify[name],
-            "launches_path": "registry",
+            "launches_path": "registry", **ptxas_fields(log, name),
         }
         phase("timing", kernel=name, shape=shape, ms=f"{ms:.5f}", ms_per_call=f"{call_ms:.5f}",
               plain_ms=f"{plain_ms:.3f}", composed_ms="none" if composed_ms is None else f"{composed_ms:.3f}",
               bound_ms=f"{row['bound_ms']:.6f}", word_products=ops, launches_per_verify=launches_verify[name],
-              max_abs_err=err)
+              max_abs_err=err, **{k: f'"{v}"' for k, v in ptxas_fields(log, name).items()})
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version at {shape}")
         rows.append(row)
@@ -2086,10 +2119,10 @@ def main() -> int:
     profile_verify(torch, api, block, block_shape, block_ms)
     results = time_kernels(torch, fp, tower, P, dev, {**launches_b, "fp_mul_mma": mxu_launches["fp_mul_mma"]},
                            peak_ops)
-    results += time_chain_kernels(torch, fp, P, chains, launches_b, peak_ops)
+    results += time_chain_kernels(torch, fp, P, chains, launches_b, peak_ops, log)
     results.append(time_g1_kernel(torch, api, fp, curve, pk_keys[PK_SIZES[0]], pk_launches[PK_SIZES[0]], peak_ops))
     offpath_rows = time_offpath_kernels(torch, fp, offpath_timed(torch, fp, curve, tower, pairing, h2c, P),
-                                        launches_b, peak_ops)
+                                        launches_b, peak_ops, log)
     registry_launches = run_registry(torch, fp, registry, dev)
     for row in offpath_rows:
         row["launches"] = registry_launches[row["name"]]

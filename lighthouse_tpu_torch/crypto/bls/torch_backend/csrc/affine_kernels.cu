@@ -15,10 +15,10 @@
 //   (X / Z, Y / Z, Z == 0), infinity decoding to zeroed coordinates (inv0:
 //   the inverse of 0 is 0). The port's `curve.to_affine(FP / FP2, p)`.
 //   Design: a thread per point, one-warp blocks so a few hundred points
-//   spread over as many SMs. G1: fp384.cuh `fp_inv` on Z (the Fermat chain
-//   of p - 2, 380 squarings and 228 products), two `fp_mul`. G2: g2.cuh
-//   `fp2_inv` (the norm Z0^2 + Z1^2 as one lazy sum of N = 2 squares
-//   reduced once, its Fermat inverse, two Fp products), two `fp2_mul`. The
+//   spread over as many SMs. G1: fp384.cuh `fp_inv` on Z (the binary
+//   GCD), two `fp_mul`. G2: g2.cuh `fp2_inv` (the norm Z0^2 + Z1^2 as one
+//   lazy sum of N = 2 squares reduced once, its inverse, two Fp products),
+//   two `fp2_mul`. The
 //   norm is zero only for Z = 0 (-1 is no square mod p), and then both
 //   output words are zero, as inv0 gives. Every value is canonical, so the
 //   words are those of the plain version's K3/K1 (G1) or fp2_inv/K7 (G2).
@@ -27,7 +27,7 @@
 //   G2 122,754 (the norm 312, the inversion, two Fp products, two Fp2
 //   products of 744), against 241 or 481 bytes (a point in, x, y and the
 //   flag out). Operations bound; at a few hundred points bound by one
-//   thread's chain of about 610 dependent products, as K3 at n = 1.
+//   thread's inversion and its products.
 //
 // K24 fp6_mul_kernel
 //   Replaces: jax_backend/tower.py:155 `fp6_mul` (registered tower.fp6_mul,
@@ -66,8 +66,8 @@
 //   standalone launch and those kernels cannot drift apart.
 //   Work per element: 121,266 word products the function needs (the norm
 //   312, the inversion, two Fp products), against 192 bytes. Operations
-//   bound; one thread's Fermat chain sets the time at any batch up to a
-//   few thousand.
+//   bound; one thread's inversion sets the time at any batch up to a few
+//   thousand.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,12 +84,6 @@ constexpr int kFp6PerBlock = 16;
 constexpr int kFp6Threads = kFp6Group * kFp6PerBlock;  // three warps
 constexpr int kFp6Words = 3 * kFp2Words;
 
-// The Fermat chain as one copy: fp_inv inlines two unrolled CIOS products,
-// which ptxas compiles once here rather than at every call site.
-static __device__ __noinline__ void fp_inv_chain(uint32_t r[FP_WORDS], const uint32_t a[FP_WORDS]) {
-  fp_inv(r, a);
-}
-
 __global__ void __launch_bounds__(kAffineThreads) g1_to_affine_kernel(
     const uint32_t* __restrict__ x, long long sx, const uint32_t* __restrict__ y, long long sy,
     const uint32_t* __restrict__ z, long long sz, uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
@@ -99,7 +93,7 @@ __global__ void __launch_bounds__(kAffineThreads) g1_to_affine_kernel(
   uint32_t a[FP_WORDS], zi[FP_WORDS];
   fp_load(a, z + e * sz);
   inf[e] = fp_is_zero(a) ? 1 : 0;
-  fp_inv_chain(zi, a);
+  fp_inv(zi, a);
   fp_load(a, x + e * sx);
   fp_mul(a, a, zi);
   fp_store(ox + e * FP_WORDS, a);

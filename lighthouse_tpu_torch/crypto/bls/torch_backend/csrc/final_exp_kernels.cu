@@ -29,10 +29,9 @@
 //   K7, each a double-width sum of N = 2 products reduced once; then
 //   eight threads form the four new coordinates' components by additions.
 //   Six threads decompress the six checkpoints side by side; one thread
-//   runs the shared inversion (a Fermat chain, fp384.cuh `fp_inv`, of 610
-//   dependent products: a one-thread chain as long as the rest of the
-//   kernel's; chip_smoke.py's [timing] line sets K3 alone on the same
-//   chain against this kernel's time); the product of
+//   runs the shared inversion (fp384.cuh `fp_inv`, the binary GCD of 26
+//   batches; chip_smoke.py's [timing] line sets K3 alone on the Fermat
+//   chain of p - 2 beside this kernel's time); the product of
 //   six is K8's six-thread routine (tower.cuh `fp12_mul_thread`), three
 //   groups side by side for the tree's first level. Any leading batch
 //   shape: a block per element.

@@ -37,7 +37,7 @@
 //   twelve threads, one Fp component each; a Frobenius map twelve threads,
 //   thread 2k + c forming component c of conj(f_k) gamma_k (g2.cuh
 //   `fp2_mul_part`); phi(N) and phi^2(N) 24 threads, one Fp product each;
-//   the Fp2 inversion one thread (its Fermat chain, fp384.cuh `fp_inv`).
+//   the Fp2 inversion one thread (fp384.cuh `fp_inv`, the binary GCD).
 //   The routines stay `__noinline__`: one copy of each, as K9's and K17's.
 //   Work per element, in the word products the function needs (an Fp12
 //   product 17,424, an Fp2 product 744, an Fp product 300): five K9
@@ -48,8 +48,8 @@
 //   products); the product by M^-1, six Fp2 products: 2,849,616, against
 //   2,304 bytes (f in, the result out, the constants). Operations bound;
 //   one element (the verify path) is bound by the chains: the five |z|
-//   chains' 315 squarings, six inversions and the rest one after the
-//   other on one warp.
+//   chains' 315 squarings, six inversions (fp384.cuh's binary GCD, one
+//   thread each) and the rest one after the other on one warp.
 //   Bound (reduction): K9's and K8's (fp384.cuh: N = 2, one subtraction;
 //   N = 12, two); the Frobenius and M^-1 products K7's N = 2.
 //
@@ -70,8 +70,7 @@
 //   Work per element, in the word products the function needs: K30 four
 //   Fp12 products, eight Fp products, the Fp2 inversion (121,266) and six
 //   Fp2 products, 197,826, against 1,728 bytes (a in, out, the phi
-//   scalars); one warp's chain of dependent products sets its time, the
-//   Fermat chain most of it. K31 six Fp2 products, 4,464, against 1,728
+//   scalars); one warp's chain of dependent steps sets its time. K31 six Fp2 products, 4,464, against 1,728
 //   bytes (a in, out, the gammas).
 
 #include <cuda_runtime.h>

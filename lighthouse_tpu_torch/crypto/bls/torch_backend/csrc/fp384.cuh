@@ -28,11 +28,13 @@ static __constant__ uint32_t FP_P[FP_WORDS] = {
 static __constant__ uint32_t FP_ONE[FP_WORDS] = {
     0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau, 0x5f489857u,
     0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
-// p - 2, the Fermat inversion exponent, and its bit length.
-static __constant__ uint32_t FP_P_MINUS_2[FP_WORDS] = {
-    0xffffaaa9u, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
-    0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
-#define FP_P_MINUS_2_BITS 381
+// The inversion's batches (fp_inv below): 26 of 30 divsteps, 780 >= 2 x 381 - 1.
+#define FP_INV_STEPS 30
+#define FP_INV_BATCHES 26
+// 2^(1152 + 32 x 26 - 780) = 2^1204 mod p, fp_inv's closing factor.
+static __constant__ uint32_t FP_INV_C[FP_WORDS] = {
+    0x8c5d1a2eu, 0x42957fa8u, 0x24cc85b1u, 0xa6507a62u, 0x39990a58u, 0xd8ca1b85u,
+    0xac2f63fcu, 0xe65a054fu, 0xe1f35417u, 0x4ca0897au, 0xa0365c54u, 0x032748cbu};
 
 __device__ __forceinline__ void fp_load(uint32_t r[FP_WORDS], const uint32_t* src) {
 #pragma unroll
@@ -175,11 +177,6 @@ __device__ __forceinline__ void fp_pow(uint32_t r[FP_WORDS], const uint32_t a[FP
   fp_copy(r, acc);
 }
 
-// r = a^(p-2) = a^-1 (0 -> 0), with the exponent read from constant memory.
-__device__ __forceinline__ void fp_inv(uint32_t r[FP_WORDS], const uint32_t a[FP_WORDS]) {
-  fp_pow(r, a, FP_P_MINUS_2, FP_P_MINUS_2_BITS);
-}
-
 // -- lazy reduction: double-width sums of products, one reduction ---------------
 //
 // The counterpart of the JAX package's poly + redc contract (its
@@ -270,4 +267,169 @@ __device__ __forceinline__ void fp_select(uint32_t r[FP_WORDS], bool c, const ui
                                           const uint32_t y[FP_WORDS]) {
 #pragma unroll
   for (int i = 0; i < FP_WORDS; ++i) r[i] = c ? x[i] : y[i];
+}
+
+// -- inversion: a constant-iteration binary GCD ----------------------------------
+//
+// fp_inv(r, a) = a^-1 in Montgomery form (a = x R gives x^-1 R), 0 -> 0:
+// Pornin's optimized binary GCD (IACR ePrint 2020/972, Algorithm 2). The
+// inverse is one integer, so it returns the plain version's words (fp.py
+// `inv`, the Fermat power over Montgomery products).
+//
+// a = x, b = p, u = 1, v = 0; after i batches (t = 30 i divsteps)
+// a 2^t = u 2^(32 i) x and b 2^t = v 2^(32 i) x (mod p). A batch runs FP_INV_STEPS = 30 divsteps on 62-bit
+// approximations of a and b (their low 30 bits, and their top 32 bits from
+// bit n - 32, n = max(len a, len b, 62): exact once both fit in 62 bits),
+// collecting them as a signed matrix [f0 g0; f1 g1] with |f0| + |g0| and
+// |f1| + |g1| at most 2^30 (int32); then a, b = (a f0 + b g0) / 2^30,
+// (a f1 + b g1) / 2^30 (exact; a negative one is negated with its row) and
+// u, v = (u f0 + v g0) 2^-32, (u f1 + v g1) 2^-32 mod p (one Montgomery
+// word step, a negative factor taken as the negated operand, so the sum
+// is below 2^30 p and the step leaves it below 1.25 p). 2 x 381 - 1 = 761
+// divsteps take len a + len b from 762 to 1 (a = 0, b = 1), with these
+// approximations too (Pornin's bound); 26 batches give 780. Then
+// v = x^-1 2^(780 - 32 x 26),
+// and one Montgomery product by FP_INV_C = 2^1204 mod p gives
+// v 2^1204 2^-384 = x^-1 2^768 = (x R^-1)^-1 R: the Montgomery inverse.
+//
+// The batch count is fixed and every divstep is selects, not branches: the
+// threads of a warp stay together (K13 and K14 run one inversion a thread)
+// and the time does not depend on a. An approximation is two words (64-bit
+// operations are pairs of 32-bit instructions on this card). A batch is 30
+// divsteps of a few selects each and four 12-word linear combinations by
+// one word, where a Fermat chain is 608 dependent 12-word products. One
+// copy per .cu (`__noinline__`). A Python replay, word for word, is
+// tests/test_torch_inversion.py.
+
+// Bits of a | b (0 for both zero).
+__device__ __forceinline__ int fp_inv_bit_length(const uint32_t a[FP_WORDS], const uint32_t b[FP_WORDS]) {
+  int n = 0;
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) {
+    const uint32_t w = a[i] | b[i];
+    n = w ? 32 * i + 32 - __clz(w) : n;
+  }
+  return n;
+}
+
+// x's 32 bits from bit s up (s < 352), read without indexing the array.
+__device__ __forceinline__ uint32_t fp_inv_window(const uint32_t x[FP_WORDS], int s) {
+  const int w = s >> 5;
+  uint32_t lo = 0, hi = 0;
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) {
+    lo = i == w ? x[i] : lo;
+    hi = i == w + 1 ? x[i] : hi;
+  }
+  return __funnelshift_r(lo, hi, s & 31);
+}
+
+// r = (a f + b g) / 2^30, exact, as its magnitude; returns whether it was
+// negative. |f| + |g| <= 2^30, so a word's sum stays below 2^62 in size.
+__device__ __forceinline__ bool fp_inv_combine(uint32_t r[FP_WORDS], const uint32_t a[FP_WORDS],
+                                               const uint32_t b[FP_WORDS], int32_t f, int32_t g) {
+  uint32_t t[FP_WORDS];
+  int64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) {
+    c += (int64_t)a[i] * f + (int64_t)b[i] * g;
+    t[i] = (uint32_t)c;
+    c >>= 32;  // arithmetic: the signed carry
+  }
+  // |a f + b g| < 2^411, so the quotient fits 384 bits with c's sign.
+#pragma unroll
+  for (int i = 0; i < FP_WORDS - 1; ++i) r[i] = __funnelshift_r(t[i], t[i + 1], FP_INV_STEPS);
+  r[FP_WORDS - 1] = __funnelshift_r(t[FP_WORDS - 1], (uint32_t)c, FP_INV_STEPS);
+  const bool neg = c < 0;
+  uint32_t borrow = 0;  // r = -r where negative: 0 - r
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) {
+    const uint64_t s = (uint64_t)0 - r[i] - borrow;
+    r[i] = neg ? (uint32_t)s : r[i];
+    borrow = (uint32_t)(s >> 32) & 1u;
+  }
+  return neg;
+}
+
+// r = (u f + v g) 2^-32 mod p, canonical. A negative factor takes the
+// negated operand: u f = (p - u) |f|. The sum is below 2^30 p, so after
+// the word step (add m p, m = t_0 (-p^-1) mod 2^32, drop the low word) it
+// is below 1.25 p: one conditional subtraction.
+__device__ __forceinline__ void fp_inv_update(uint32_t r[FP_WORDS], const uint32_t u[FP_WORDS],
+                                              const uint32_t v[FP_WORDS], int32_t f, int32_t g) {
+  uint32_t x[FP_WORDS], y[FP_WORDS], t[FP_WORDS + 1];
+  fp_neg(x, u);
+  fp_select(x, f < 0, x, u);
+  fp_neg(y, v);
+  fp_select(y, g < 0, y, v);
+  const uint32_t fa = (uint32_t)(f < 0 ? -f : f), ga = (uint32_t)(g < 0 ? -g : g);
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) {
+    c += (uint64_t)x[i] * fa + (uint64_t)y[i] * ga;
+    t[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  t[FP_WORDS] = (uint32_t)c;
+  const uint32_t m = t[0] * FP_PINV;
+  c = ((uint64_t)m * FP_P[0] + t[0]) >> 32;
+#pragma unroll
+  for (int i = 1; i < FP_WORDS; ++i) {
+    c += (uint64_t)m * FP_P[i] + t[i];
+    t[i - 1] = (uint32_t)c;
+    c >>= 32;
+  }
+  t[FP_WORDS - 1] = (uint32_t)(c + t[FP_WORDS]);
+  fp_reduce_once(r, t, 0);
+}
+
+// r = a^-1 (0 -> 0); see above. r may alias a.
+static __device__ __noinline__ void fp_inv(uint32_t r[FP_WORDS], const uint32_t a[FP_WORDS]) {
+  const uint32_t kLow = (1u << FP_INV_STEPS) - 1;
+  uint32_t x[FP_WORDS], y[FP_WORDS], u[FP_WORDS], v[FP_WORDS], na[FP_WORDS], nb[FP_WORDS];
+  const bool zero = fp_is_zero(a);
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) {
+    x[i] = a[i];
+    y[i] = FP_P[i];
+    u[i] = i == 0 ? 1u : 0u;
+    v[i] = 0;
+  }
+#pragma unroll 1
+  for (int batch = 0; batch < FP_INV_BATCHES; ++batch) {
+    const int n = max(fp_inv_bit_length(x, y), 2 * FP_INV_STEPS + 2);
+    uint64_t ah = ((uint64_t)fp_inv_window(x, n - 32) << FP_INV_STEPS) | (x[0] & kLow);
+    uint64_t bh = ((uint64_t)fp_inv_window(y, n - 32) << FP_INV_STEPS) | (y[0] & kLow);
+    int32_t f0 = 1, g0 = 0, f1 = 0, g1 = 1;
+#pragma unroll
+    for (int j = 0; j < FP_INV_STEPS; ++j) {
+      // a odd: swap when a < b, then a -= b; then a /= 2 (b's row doubles)
+      const bool odd = (ah & 1) != 0;
+      const bool swap = odd && ah < bh;
+      const uint64_t a1 = swap ? bh : ah, b1 = swap ? ah : bh;
+      const int32_t f0s = swap ? f1 : f0, g0s = swap ? g1 : g0;
+      const int32_t f1s = swap ? f0 : f1, g1s = swap ? g0 : g1;
+      ah = (odd ? a1 - b1 : a1) >> 1;
+      bh = b1;
+      f0 = odd ? f0s - f1s : f0s;
+      g0 = odd ? g0s - g1s : g0s;
+      f1 = 2 * f1s;
+      g1 = 2 * g1s;
+    }
+    const bool neg_a = fp_inv_combine(na, x, y, f0, g0);
+    const bool neg_b = fp_inv_combine(nb, x, y, f1, g1);
+    f0 = neg_a ? -f0 : f0;
+    g0 = neg_a ? -g0 : g0;
+    f1 = neg_b ? -f1 : f1;
+    g1 = neg_b ? -g1 : g1;
+    fp_inv_update(x, u, v, f0, g0);  // x, y hold u', v' for a moment
+    fp_inv_update(y, u, v, f1, g1);
+    fp_copy(u, x);
+    fp_copy(v, y);
+    fp_copy(x, na);
+    fp_copy(y, nb);
+  }
+  fp_mul(v, v, FP_INV_C);
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) r[i] = zero ? 0u : v[i];
 }

@@ -38,14 +38,15 @@
 // K4 fp_batch_inv_kernel
 //   Replaces: fp.py:466 `batch_inv` (two lax.scans of N steps and one
 //   Fermat chain).
-//   Bound: operations: 3(N-1) products plus one ~610-product inversion
-//   per lane, against 2 * 48 * N bytes per lane; with few lanes (the
-//   verify path has one lane of N = 2S + 1) it is bound by the latency
-//   of one thread's dependent product chain.
+//   Bound: operations: 3(N-1) products plus one inversion (counted on the
+//   plain version's Fermat schedule, 120,354 word products) per lane,
+//   against 2 * 48 * N bytes per lane; with few lanes it is bound by the
+//   latency of one thread's dependent product chain.
 //   Design: one thread per trailing lane walks the leading axis: a
-//   forward prefix-product loop written into the output, one in-register
-//   Fermat inversion, a backward loop that overwrites the prefixes with
-//   the inverses. Zero lanes are masked to one and back to zero.
+//   forward prefix-product loop written into the output, one inversion
+//   (fp384.cuh `fp_inv`, the binary GCD), a backward loop that overwrites
+//   the prefixes with the inverses. Zero lanes are masked to one and back
+//   to zero.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -121,8 +121,8 @@ __device__ __forceinline__ bool fp2_eq(const fp2_t a, const fp2_t b) {
 
 // r = 1 / a = (a0 - a1 u) / (a0^2 + a1^2), 0 -> 0 (inv0, as the port's
 // tower.fp2_inv): the norm as one lazy sum of N = 2 squares reduced once,
-// its Fermat inverse (fp384.cuh `fp_inv`, a chain of 380 squarings and 228
-// products), two products. r may alias a.
+// its inverse (fp384.cuh `fp_inv`, the fixed-count binary GCD), two
+// products. r may alias a.
 static __device__ __noinline__ void fp2_inv(fp2_t r, const fp2_t a) {
   uint32_t t[FP_WIDE], n[FP_WORDS];
   fp_mul_wide(t, a[0], a[0]);

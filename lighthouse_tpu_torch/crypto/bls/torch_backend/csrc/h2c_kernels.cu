@@ -28,7 +28,7 @@
 //   Design: four threads per element, eight elements a warp-sized block:
 //   thread (j, c) takes candidate j and component c. The four run the
 //   prologue up to gx_j side by side in one instruction stream (the
-//   inversion's Fermat chain, 608 dependent Fp products, in every thread).
+//   inversion, fp384.cuh's fixed-count binary GCD, in every thread).
 //   Each candidate's two power chains (e = p >> 2 and p >> 1, read from p's
 //   bits, MSB first, square and multiply) split every Fp2 square and
 //   product over the thread pair, thread c forming component c as one
@@ -67,7 +67,8 @@
 //   T/d^2, 2U/d^3 and the product by y, six products, 4,464; the two
 //   scalings by 1/9 and -1/27, four Fp products, 1,200: 127,530, against
 //   480 bytes moved (x, y in; X, Y, Z out). Operations bound; at 256
-//   elements bound by one thread's Fermat chain.
+//   elements bound by one thread's inversion (fp384.cuh's binary GCD) and
+//   its eleven products.
 //   Bound (reduction): N <= 2 per component, one conditional subtraction.
 //
 // K32 fp2_sqrt_candidate_kernel

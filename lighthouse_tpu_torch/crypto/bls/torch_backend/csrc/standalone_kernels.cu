@@ -51,19 +51,19 @@
 //   where g2 = 0; g0 = xi (2 g1^2 + g2 g5 - 3 g3 g4) + 1; the tower Fp12
 //   from flat coefficients (g0, g2, g4, g1, g3, g5). The denominator's
 //   inverse is (d0 - d1 u) / (d0^2 + d1^2) with a zero norm mapping to zero
-//   (inv0): each element's own Fermat inversion, where the plain version
+//   (inv0): each element's own inversion, where the plain version
 //   shares one batch inversion whose zero lanes map to zero. Every value is
 //   canonical, so the words are the plain version's.
-//   Design: a thread per element, 32 a block; the Fermat chain (fp384.cuh
-//   `fp_inv`, 380 squarings and 228 products) as one `__noinline__` copy.
+//   Design: a thread per element, 32 a block; the inversion fp384.cuh
+//   `fp_inv`, the binary GCD (one `__noinline__` copy).
 //   Work per element, in the word products its branch needs: where
 //   g2 != 0 three Fp2 squares (g5^2, g4^2, g1^2) and three products (g1,
 //   g2 g5, g3 g4), where g2 = 0 one square and four products (2 g4 g5
 //   too); the norm (two Fp squares summed and reduced once, 312), the
 //   inversion on the plain version's 4-bit window schedule (120,354) and
 //   two Fp products: 125,298 or 124,842, against 960 bytes. Operations
-//   bound; one thread's Fermat chain sets the time at any batch up to a
-//   few thousand.
+//   bound; one thread's chain sets the time at any batch up to a few
+//   thousand.
 //
 // K33 fp_redc_kernel
 //   Replaces: jax_backend/fp.py:261 `redc` (registered fp.mont_reduce); the
@@ -95,10 +95,6 @@ constexpr int kThreads = 32;       // a thread per element, one warp a block
 constexpr int kRedcThreads = 128;  // K33: a short function, fuller blocks
 constexpr int kCompressedWords = 4 * kFp2Words;
 
-// The Fermat chain as one copy (see affine_kernels.cu).
-static __device__ __noinline__ void fp_inv_chain(uint32_t r[FP_WORDS], const uint32_t a[FP_WORDS]) {
-  fp_inv(r, a);
-}
 
 template <typename G>
 __device__ __forceinline__ void add_points(const uint32_t* const* in, const long long* st, uint32_t* out,
@@ -219,7 +215,7 @@ __global__ void __launch_bounds__(kThreads) karabina_decompress_kernel(const uin
   fp_mul_wide(wide, den[0], den[0]);
   fp_mac_wide(wide, den[1], den[1]);
   fp_redc_wide<1>(norm, wide);
-  fp_inv_chain(norm, norm);
+  fp_inv(norm, norm);
   fp_mul(t[0], den[0], norm);
   fp_mul(t[1], den[1], norm);
   fp_neg(t[1], t[1]);

@@ -53,7 +53,7 @@
 //   down level by level (inv(left) = inv(node) right, inv(right) =
 //   inv(node) left). That is ceil(log2 n) levels each way where K4, the
 //   kernel it replaces on this path, walked a serial chain of 3(n - 1)
-//   products; the root's Fermat chain is the longest part either way.
+//   products; the root's inversion (the binary GCD) is one thread's.
 //   Work, in the word products the function needs: the S + 1 norms (two
 //   squares and one reduction, 312 each), 3(n - 1) Fp products of 300, one
 //   inversion on the plain version's schedule (120,354), two Fp products

@@ -246,8 +246,8 @@ def clear_cofactor_plain(p: Proj, q: Proj | None = None) -> Proj:
 def clear_cofactor(p: Proj, q: Proj | None = None) -> Proj:
     """The cofactor clearing of p + q (or of p when q is None), G2
     projective coordinates (..., 2, W): one launch of K17
-    (csrc/cofactor_kernels.cu), a thread pair per element, for CUDA
-    tensors; the plain version for CPU tensors."""
+    (csrc/cofactor_kernels.cu), a warp per element, for CUDA tensors; the
+    plain version for CPU tensors."""
     pts = (*p, *q) if q is not None else tuple(p)
     cpu = fp._is_cpu(*pts)
     for t in pts:
@@ -259,7 +259,10 @@ def clear_cofactor(p: Proj, q: Proj | None = None) -> Proj:
     dev = p.z.device
     shape = tower._broadcast(*(t.shape for t in pts))
     ops = [tower._operand(t, shape, 2, 2 * fp.WORDS) for t in pts]
-    ops += ops if q is None else []  # q's slots: unread when there is no sum
+    # without a sum, q's slots alias p's buffers: the kernel loads all six
+    # coordinates into shared memory, so that load stays in bounds, and the
+    # chain overwrites q's words before it reads them
+    ops += ops if q is None else []
     ptrs = [x for t, st in ops for x in (t.data_ptr(), st)]
     out = torch.empty((3, *shape), dtype=torch.int32, device=dev)
     n = shape.numel() // (2 * fp.WORDS)

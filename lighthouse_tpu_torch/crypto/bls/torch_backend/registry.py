@@ -233,7 +233,7 @@ def _add_example(group):
 _reg("curve.add.g1", "jax_backend/curve.py:138", _add_fn(FP), _add_fn(FP_PLAIN), _add_example("g1"),
      {"g1_add": 1}, "inside K15 (and the group law of K5, K10); standalone K26", "kernel")
 _reg("curve.add.g2", "jax_backend/curve.py:138", _add_fn(FP2), _add_fn(FP2_PLAIN), _add_example("g2"),
-     {"g2_add": 1}, "inside K16 and K17 (and the group law of K11); standalone K27", "kernel")
+     {"g2_add": 1}, "inside K16 and K11, and on lane groups in K17; standalone K27", "kernel")
 
 
 def _smul_fn(F):

@@ -44,6 +44,7 @@ from lighthouse_tpu_torch.crypto.bls.torch_backend import h2c as th2c
 from lighthouse_tpu_torch.crypto.bls.torch_backend import kernels as tkernels
 from lighthouse_tpu_torch.crypto.bls.torch_backend import pairing as tpair
 from lighthouse_tpu_torch.crypto.bls.torch_backend import tower as tt
+from test_torch_inversion import fp_inv_model
 from test_torch_tower_kernels import k7_thread, k8_thread, redc_wide
 from torch_parity import assert_same, to_port
 
@@ -340,8 +341,9 @@ def test_scalar_mul_thread_matches_plain(group, width):
 
 
 def _mont_inv(a):
-    """fp384.cuh `fp_inv` on a Montgomery value: (a R^-1)^(p - 2) R; 0 -> 0."""
-    return pow(a * R_INV % P, P - 2, P) * R_MONT % P
+    """fp384.cuh `fp_inv` on a Montgomery value, (a R^-1)^-1 R, 0 -> 0: its
+    binary GCD replayed word for word (test_torch_inversion)."""
+    return fp_inv_model(a)
 
 
 def _tower_flat(x):

@@ -314,7 +314,8 @@ def _frob(a):
 
 
 def _fp2_inv(m):
-    """g2.cuh `fp2_inv`, one thread: the norm one lazy sum of two squares."""
+    """g2.cuh `fp2_inv`, one thread: the norm one lazy sum of two squares,
+    its inverse fp384.cuh's binary GCD (test_torch_inversion's replay)."""
     n = redc_wide(m[0] * m[0] + m[1] * m[1], 2, 1)
     inv = _mont_inv(n)
     return _mmul(m[0], inv), _neg(_mmul(m[1], inv))

@@ -26,6 +26,9 @@ on the CPU.
    their products over the tower operations, never K18.
 """
 
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,7 +53,7 @@ from lighthouse_tpu_torch.crypto.bls.torch_backend import kernels as tkernels
 from lighthouse_tpu_torch.crypto.bls.torch_backend import pairing as tpair
 from lighthouse_tpu_torch.crypto.bls.torch_backend import tower as tt
 from test_torch_curve_final_exp_kernels import _G1, _G2, _add, _dbl, _fp2_mul, scalar_mul_thread
-from test_torch_tower_kernels import k8_thread
+from test_torch_tower_kernels import k7_thread, k8_thread
 from torch_parity import assert_same, to_port
 
 rng = np.random.default_rng(0x8F0)
@@ -308,19 +311,148 @@ def _psi_ints(p):
     return _fp2_mul(conj[0], cx), _fp2_mul(conj[1], cy), conj[2]
 
 
+def _lane_table():
+    """curve.cuh `kG2Lane`, read from the source: per step (outputs, then
+    per output k the fields xa/E, xb/F, ya/G, yb/H, 3b, negate, m)."""
+    src = (pathlib.Path(tfp.__file__).parent / "csrc" / "curve.cuh").read_text()
+    zero = int(re.search(r"constexpr int kLz = (\d+);", src).group(1))
+    body = re.search(r"kG2Lane\[kG2LaneSteps\]\[8\] = \{(.*?)\n\};", src, re.S).group(1)
+    body = "\n".join(line for line in body.splitlines() if not line.strip().startswith("//"))
+    steps = []
+    for row in re.findall(r"\{([^{}]*)\}", body):
+        cols = []
+        for m in re.finditer(r"lane_pack\(([^)]*)\)|(\d+)", row):
+            if m.group(1) is not None:
+                cols.append(tuple(zero if a.strip() == "kLz" else int(a) for a in m.group(1).split(",")))
+            else:
+                cols.append(int(m.group(2)))
+        outs, *fields = cols
+        fields = [f if isinstance(f, tuple) else (f,) * 6 for f in fields]
+        steps.append((outs, [tuple(f[k] for f in fields) for k in range(outs)]))
+    assert len(steps) == 8
+    return zero, steps
+
+
+LANE_ZERO, LANE_STEPS = _lane_table()
+_BANK_A, _BANK_B, _OPERANDS = set(range(6, 12)), set(range(12, 18)), set(range(6))
+
+
+def _point(v=None):
+    """A point as three mutable [c0, c1] coordinates (shared memory)."""
+    return [list(c) for c in v] if v is not None else [[0, 0] for _ in range(3)]
+
+
+_INF = ((0, 0), (R_MONT, 0), (0, 0))
+
+
+def lane_step(st, r, p, q, s):
+    """curve.cuh `g2_lane_step` on the twelve lanes of a group: lane 2k + c
+    forms component c of output k from the step's table row. Every lane
+    reads before any lane writes (__syncwarp), which the kernel gets from
+    its banks: a step reads only slots it does not write, as asserted."""
+    outs, rows = LANE_STEPS[st]
+    kind = st % 4
+    reads = {0: _OPERANDS, 1: _BANK_A, 2: _BANK_B, 3: _BANK_A}[kind] | {LANE_ZERO}
+
+    def slot(i):
+        return p[i] if i < 3 else q[i - 3] if i < 6 else s[i - 6]
+
+    out = {}
+    for k, (a, b, x, y, b3, neg, m) in enumerate(rows):
+        assert ({a, y} if kind == 3 else {a, b, x, y}) <= reads, (st, k)
+        for c in (0, 1):
+            if kind in (0, 2):  # lane_product: (xa + xb)(ya + yb), sums on level 1 only
+                u, w = slot(a), slot(x)
+                if kind == 0:
+                    u = [(u[i] + slot(b)[i]) % P for i in (0, 1)]
+                    w = [(w[i] + slot(y)[i]) % P for i in (0, 1)]
+                v = k7_thread(u, w, c, tt.FP2_MUL)
+            else:  # lane_lin: H +- m y
+                h = slot(y)[c]
+                if kind == 1:
+                    e = [(slot(a)[i] - slot(b)[i] - slot(x)[i]) % P for i in (0, 1)]
+                    t = (e[0] - e[1]) % P if c == 0 else (e[0] + e[1]) % P  # xi
+                    yv = 12 * t % P if b3 else e[c]
+                    assert m in (1, 3, 8)
+                else:
+                    yv = slot(a)[c]
+                    assert m in (1, 2) and not b3
+                v = (h - m * yv) % P if neg else (h + m * yv) % P
+            out[k, c] = v
+    for (k, c), v in out.items():
+        (r[k] if kind == 3 else s[(6 if kind == 1 else 0) + k])[c] = v
+
+
+def lanes_add(r, p, q, s):
+    """curve.cuh `g2_lanes_add`: r = p + q, four steps. r may alias p or q."""
+    for st in range(4):
+        lane_step(st, r, p, q, s)
+
+
+def lanes_dbl(r, p, s):
+    """curve.cuh `g2_lanes_dbl`: r = 2 p, four steps."""
+    for st in range(4, 8):
+        lane_step(st, r, p, p, s)
+
+
+def psi_lanes(r, p):
+    """curve.cuh `g2_psi_lanes`: lanes 0-3 component c of conj(x conj(CX))
+    and conj(y conj(CY)), lanes 4, 5 conj(z)."""
+    cx, cy = (tuple(tfp.words_to_int(w) for w in c) for c in tc._PSI_C)
+    cc = [(k[0], (-k[1]) % P) for k in (cx, cy)]
+    out = {}
+    for k in range(3):
+        for c in (0, 1):
+            v = k7_thread(p[k], cc[k], c, tt.FP2_MUL) if k < 2 else p[k][c]
+            out[k, c] = (-v) % P if c == 1 else v
+    for (k, c), v in out.items():
+        r[k][c] = v
+
+
+def scalar_mul_lanes(tab, acc, s, bits):
+    """curve.cuh `g2_scalar_mul_lanes`: tab[1] holds the base; row 2k + 2
+    before row 2k + 1 in each table step; 4-bit digits MSB first."""
+    tab[0][:] = _point(_INF)
+    acc[:] = _point(_INF)
+    for k in range(8):
+        if 2 * k + 2 < 16:
+            lanes_add(tab[2 * k + 2], tab[k + 1], tab[k + 1], s)
+        lanes_add(tab[2 * k + 1], tab[k], tab[k + 1], s)
+    padded = [0] * ((-len(bits)) % 4) + list(bits)
+    for j in range(len(padded) // 4):
+        for _ in range(4):
+            lanes_dbl(acc, acc, s)
+        lanes_add(acc, acc, tab[int("".join(map(str, padded[4 * j : 4 * j + 4])), 2)], s)
+
+
 def cofactor_pair(p, q):
-    """K17's thread pair on one element (csrc/cofactor_kernels.cu)."""
-    if q is not None:
-        p = _add(_G2, p, q)  # both lanes
-    t3 = _psi_ints(_psi_ints(_dbl(_G2, p)))  # lane 0, while lane 1 forms psi(p)
-    t1 = scalar_mul_thread(_G2, p, th2c._CC_BITS[0].tolist())
-    t2 = scalar_mul_thread(_G2, _psi_ints(p), th2c._CC_BITS[1].tolist())
-    t2 = (t2[0], tuple((-v) % P for v in t2[1]), t2[2])  # lane 1, handed to lane 0
-    return _add(_G2, _add(_G2, t1, t2), t3)
+    """K17's warp on one element (csrc/cofactor_kernels.cu): both lane
+    groups form p = q0 + q1; group 0 forms 2p, then t3 = psi(psi(2p)),
+    group 1 psi(p) beside the first psi; group g runs chain g from its bit
+    row; group 1 negates its Y; group 0 forms (t1 + t2) + t3."""
+    tab = [[_point() for _ in range(16)] for _ in range(2)]
+    acc = [_point(q) if q is not None else _point() for _ in range(2)]
+    scratch = [[[0, 0] for _ in range(12)] + [[0, 0]] for _ in range(2)]
+    t3 = _point()
+    for g in (0, 1):
+        tab[g][1] = _point(p)
+        if q is not None:
+            lanes_add(tab[g][1], tab[g][1], acc[g], scratch[g])
+    lanes_dbl(t3, tab[0][1], scratch[0])
+    psi_lanes(t3, t3)
+    psi_lanes(tab[1][1], tab[1][1])
+    psi_lanes(t3, t3)
+    for g in (0, 1):
+        scalar_mul_lanes(tab[g], acc[g], scratch[g], th2c._CC_BITS[g].tolist())
+    acc[1][1] = [(-v) % P for v in acc[1][1]]
+    lanes_add(acc[0], acc[0], acc[1], scratch[0])
+    lanes_add(acc[0], acc[0], t3, scratch[0])
+    assert scratch[0][-1] == scratch[1][-1] == [0, 0]  # the zero slot
+    return tuple(tuple(c) for c in acc[0])
 
 
 def test_cofactor_pair_matches_plain(cofactor_out):
-    """K17's thread pair on every lane (u = 0's point, q1 = q0, -q0 and
+    """K17's warp on every lane (u = 0's point, q1 = q0, -q0 and
     infinity), without the sum, and on all-(p - 1) coordinates, word for
     word against `clear_cofactor_plain`."""
     for i in range(4):
@@ -331,6 +463,44 @@ def test_cofactor_pair_matches_plain(cofactor_out):
         want = th2c.clear_cofactor_plain(edge, q)
         p = tuple(_ints(c, 0, 2) for c in edge)
         assert cofactor_pair(p, p if q is not None else None) == tuple(_ints(c, 0, 2) for c in want)
+
+
+def _lane_pairs():
+    """(name, p, q): the lane-group law's edge operands from Q0, Q1."""
+    pt = {name: tuple(_ints(c, i, 2) for c in src) for name, src, i in
+          (("p", Q0, 0), ("q", Q1, 0), ("p2", Q0, 2), ("minus_p2", Q1, 2), ("inf", Q1, 3), ("p3", Q0, 3))}
+    return {"random": (pt["p"], pt["q"]), "p_eq_q": (pt["p"], pt["p"]), "p_eq_minus_q": (pt["p2"], pt["minus_p2"]),
+            "infinity_q": (pt["p3"], pt["inf"]), "infinity_p": (pt["inf"], pt["p3"]), "both_infinity": (_INF, _INF),
+            "p_minus_1": (((P - 1, P - 1),) * 3, pt["q"])}
+
+
+LANE_PAIRS = _lane_pairs()
+
+
+def _proj(pt):
+    return tc.Proj(*(torch.from_numpy(tfp.ints_to_words(list(c))).reshape(1, 2, tfp.WORDS) for c in pt))
+
+
+@pytest.mark.parametrize("case", sorted(LANE_PAIRS))
+def test_lane_group_add_and_dbl_match_plain(case):
+    """The lane-group addition and doubling alone (four steps each) on
+    infinity, P == Q, P == -Q, random and all-(p - 1) operands, word for
+    word against the plain `curve.add_composed` / `curve.dbl` over
+    FP2_PLAIN and g2.cuh's one-thread law."""
+    p, q = LANE_PAIRS[case]
+    s = [[0, 0] for _ in range(13)]
+    r_add, r_dbl = _point(), _point()
+    lanes_add(r_add, _point(p), _point(q), s)
+    lanes_dbl(r_dbl, _point(p), s)
+    want_add = tc.add_composed(tc.FP2_PLAIN, _proj(p), _proj(q))
+    want_dbl = tc.dbl(tc.FP2_PLAIN, _proj(p))
+    assert tuple(map(tuple, r_add)) == tuple(_ints(c, 0, 2) for c in want_add) == _add(_G2, p, q)
+    assert tuple(map(tuple, r_dbl)) == tuple(_ints(c, 0, 2) for c in want_dbl) == _dbl(_G2, p)
+    # in place, as the chains call them: r = p + q with r the storage of p, then r = 2 r
+    a = _point(p)
+    lanes_add(a, a, _point(q), s)
+    lanes_dbl(a, a, s)
+    assert tuple(map(tuple, a)) == _dbl(_G2, _add(_G2, p, q))
 
 
 def _flat(x, i):

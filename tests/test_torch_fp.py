@@ -136,9 +136,10 @@ def test_kernel_header_constants_match_p():
 
     assert table("FP_P") == P
     assert table("FP_ONE") == tfp.R_MONT
-    assert table("FP_P_MINUS_2") == tfp.INV_EXP
     assert int(re.search(r"#define FP_PINV (0x[0-9a-f]+)u", src).group(1), 16) == tfp.P_INV32
-    assert int(re.search(r"#define FP_P_MINUS_2_BITS (\d+)", src).group(1)) == tfp.INV_EXP.bit_length()
+    # fp_inv's closing factor 2^(1152 + 32 batches - steps x batches)
+    steps, batches = (int(re.search(rf"#define FP_INV_{k} (\d+)", src).group(1)) for k in ("STEPS", "BATCHES"))
+    assert table("FP_INV_C") == pow(2, 3 * 384 + 32 * batches - steps * batches, P)
 
 
 def test_wrappers_reject_bad_operands():

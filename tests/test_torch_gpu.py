@@ -4,8 +4,9 @@ composition they replaced, the chains K9-K14 against the K1-K4/K7/K8
 composition, the tree sums K15 and K16, the cofactor clearing K17, the
 Fp12 product K18, the final exponentiation K19, the psi comparison K20,
 the Miller inputs K21 and the standalone K22-K32 against the composition
-each replaced, K33 against its plain version; the port's kernel registry
-walked on the card), launch
+each replaced, K33 against its plain version; K17 and K19 also at 1, 16,
+17, 128 and 129 elements; the port's kernel registry walked on the
+card), launch
 counting, launches on a card other than the current one (and from a fresh
 thread), and a small verify, also with every direct Fp product on the
 tensor cores (K6). Every test needs a
@@ -261,6 +262,25 @@ def test_fold_and_cofactor_kernels_match_plain_on_card(fold_edge_cases, kernel):
     for name, (_, _, plain, composed) in cases.items():
         for want in (plain(), composed()):
             assert torch.equal(chip_smoke._stacked(got[name]), chip_smoke._stacked(want)), name
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 128, 129])
+def test_cofactor_and_final_exp_kernels_match_plain_at_counts(cuda_device, n):
+    """K17 (a warp per element, two lane groups) and K19 (a warp per
+    element, the binary-GCD inversion) at 1, 16, 17, 128 and 129 elements
+    against their plain versions, bit for bit: one launch each."""
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import h2c, pairing
+
+    q0, q1 = (curve.Proj(*(c[:n] for c in q))
+              for q in chip_smoke.cofactor_inputs(torch, fp, curve, h2c, P, max(n, 4), 47 + n))
+    f = chip_smoke.fp12_inputs(fp, tower, P, n, 48 + n, "cuda")
+    fp.reset_launches()
+    got = h2c.clear_cofactor(q0, q1), pairing.final_exponentiation(f)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fp.LAUNCHES.items() if v} == {"clear_cofactor": 1, "final_exponentiation": 1}
+    want = h2c.clear_cofactor_plain(q0, q1), pairing.final_exponentiation_plain(f)
+    for g, w in zip(got, want):
+        assert torch.equal(chip_smoke._stacked(g), chip_smoke._stacked(w))
 
 
 @pytest.fixture(scope="module")
