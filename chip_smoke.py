@@ -22,10 +22,12 @@ Phases, one line each, any failure exits non-zero:
               chains K9 (|z|-power, n = 1 and 4, with one and a lane
               whose checkpoints take decompression's g2 = 0 branch), K10
               (G1, 128 points at 64 bits) and K11 (G2, 256 points at 64
-              bits and clear_cofactor's 2 x 128 at 128 broadcast bits),
-              with infinity rows, P + (-P), a P, -P pair and all-zero and
-              all-one scalars, and K12 (the Miller loop, 129 pairs with P,
-              Q and both at infinity: the generator-substitution lanes),
+              bits and clear_cofactor's 2 x 128 at 128 broadcast bits;
+              then 1, 2, 3, 255, 256 and 257 points, odd counts leaving a
+              lane group off), with infinity rows, P + (-P), a P, -P pair
+              and all-zero and all-one scalars, and K12 (the Miller loop,
+              129 pairs, then 1, 2, 129 and 130, with P, Q and both at
+              infinity: the generator-substitution lanes),
               K13 (SSWU, 256 u's with 0, one, u and -1 among them) and K14
               (the isogeny, SSWU's 256 points and the kernel point X0),
               bit-identical to their plain versions and to the K1-K4/K7/K8
@@ -279,6 +281,11 @@ OFF_PATH_SHAPES = {"fp_mul": 258, "fp_addsub": 384, "fp_pow": 1, "fp_batch_inv":
 FOLD_LENGTHS = (1, 2, 3, 5, 128, 512)
 REDUCE_COUNTS = (1, 2, 3, 129)
 COFACTOR_EDGE = 19
+# K11's edge counts (two elements a warp: an odd count leaves the last
+# block's second lane group off) and K12's edge pair counts (a block of two
+# warps a pair), around the verify path's 256 elements and 129 pairs
+SCALAR_MUL_COUNTS = (1, 2, 3, 255, 256, 257)
+MILLER_COUNTS = (1, 2, 129, 130)
 # K19's, K20's and K21's edge shapes: n = 3 Fp12 values (p - 1 in every word
 # slot, zero, one); K20 at 19 elements, no multiple of its 32 a block; K21 at
 # one set
@@ -689,9 +696,9 @@ def cyclotomic_inputs(torch, fp, tower, pairing, P, n: int, seed: int):
 
 def miller_inputs(torch, fp, n: int, seed: int, device=DEVICE):
     """n Miller pairs on the card, as the verify path hands them to K12:
-    8 seeded random G1 and G2 points, affine, tiled; lanes 1, 2 and 3 with
-    P, Q and both at infinity (the generator-substitution lanes). Also
-    tests/test_torch_gpu.py's."""
+    8 seeded random G1 and G2 points, affine, tiled; lanes 1, 2 and 3 (those
+    below n) with P, Q and both at infinity (the generator-substitution
+    lanes). Also tests/test_torch_gpu.py's."""
     from lighthouse_tpu_torch.crypto.bls.constants import R
     from lighthouse_tpu_torch.crypto.bls.ref.curves import g1_generator, g1_infinity, g2_generator, g2_infinity
     from lighthouse_tpu_torch.crypto.bls.torch_backend.pack import pack_g1_batch, pack_g2_batch
@@ -701,7 +708,11 @@ def miller_inputs(torch, fp, n: int, seed: int, device=DEVICE):
     g2 = [g2_generator().mul(rng.randrange(1, R)) for _ in range(8)]
     ps = [g1[i % 8] for i in range(n)]
     qs = [g2[(i // 8) % 8] for i in range(n)]
-    ps[1], qs[2], ps[3], qs[3] = g1_infinity(), g2_infinity(), g1_infinity(), g2_infinity()
+    for i in range(1, min(n, 4)):  # lane 1 P, lane 2 Q, lane 3 both at infinity
+        if i != 2:
+            ps[i] = g1_infinity()
+        if i != 1:
+            qs[i] = g2_infinity()
     px, py, pi = pack_g1_batch(ps)
     qx, qy, qi = pack_g2_batch(qs)
     return (fp.from_jax_limbs(px, device), fp.from_jax_limbs(py, device), torch.from_numpy(pi).to(device),
@@ -1051,9 +1062,11 @@ def ptxas_summary(log: str, kernel: str, nlines: int = 2) -> str:
 
 
 # [timing] lines that carry ptxas's registers, shared memory and spills:
-# K17 (the lane-group law), K19 and K22 (callers of fp384.cuh's binary-GCD
-# inversion; K22's line also gives the inversion's own stack and spills).
-PTXAS_TIMED = {"clear_cofactor": "clear_cofactor_kernel", "final_exponentiation": "final_exponentiation_kernel",
+# K11 and K17 (the lane-group law), K12 (two warps), K19 and K22 (callers
+# of fp384.cuh's binary-GCD inversion; K22's line also gives the
+# inversion's own stack and spills).
+PTXAS_TIMED = {"g2_scalar_mul": "g2_scalar_mul_kernel", "miller_loop": "miller_loop_kernel",
+               "clear_cofactor": "clear_cofactor_kernel", "final_exponentiation": "final_exponentiation_kernel",
                "g1_to_affine": "g1_to_affine_kernel"}
 
 
@@ -1210,6 +1223,30 @@ def chain_cases(torch, fp, curve, tower, pairing, api, h2c, P):
     glue, verdicts = glue_cases(torch, fp, curve, tower, pairing, api, h2c, P, fe, [S], [S], 31)
     cases.update(glue)
     return cases, verdicts
+
+
+def lane_cases(torch, fp, curve, tower, pairing, smul_counts, miller_counts, seed):
+    """name -> (shape, kernel call, plain version, the composition it
+    replaced) for K11 on each count of `smul_counts` (`curve_inputs`'
+    points and `scalar_bits`' 64-bit rows, their edge rows where the count
+    reaches them; int64 bits at odd counts, int32 at even ones) and K12 on
+    each count of `miller_counts` (`miller_inputs`, infinity lanes where
+    the count reaches them)."""
+    smul = curve.scalar_mul_bits_plain
+    cases = {}
+    for n in smul_counts:
+        p = curve.Proj(*(c[:n] for c in curve_inputs(torch, fp, curve, "g2", max(n, 4), seed + n)))
+        b = scalar_bits(torch, max(n, 6), 64, seed + n + 1)[:n]
+        b = b.to(torch.int64) if n % 2 else b
+        cases[f"g2_scalar_mul_n{n}_b64"] = ([n, 64], lambda p=p, b=b: curve.scalar_mul_bits(curve.FP2, p, b),
+                                            lambda p=p, b=b: smul(curve.FP2_PLAIN, p, b),
+                                            lambda p=p, b=b: smul(curve.FP2, p, b))
+    for n in miller_counts:
+        mil = miller_inputs(torch, fp, n, seed + n + 2, DEVICE)
+        cases[f"miller_loop_n{n}"] = ([n], lambda mil=mil: pairing.miller_loop(*mil),
+                                      lambda mil=mil: pairing.miller_loop_plain(*mil),
+                                      lambda mil=mil: pairing.miller_loop_composed(*mil, tower.KERNEL_TOWER))
+    return cases
 
 
 def fold_cases(torch, fp, curve, tower, pairing, h2c, P, g1_shapes, g2_lengths, cofactor_m, counts, seed,
@@ -2058,6 +2095,7 @@ def main() -> int:
     edges = fold_cases(torch, fp, curve, tower, pairing, h2c, P, [(2, n) for n in FOLD_LENGTHS], FOLD_LENGTHS,
                        COFACTOR_EDGE, REDUCE_COUNTS, 29, nosum=True)
     check_chain_kernels(torch, edges)
+    check_chain_kernels(torch, lane_cases(torch, fp, curve, tower, pairing, SCALAR_MUL_COUNTS, MILLER_COUNTS, 36))
     fe_edges = fp12_inputs(fp, tower, P, FINAL_EXP_EDGE, 32, DEVICE)  # p - 1 in every word slot, zero, one
     glue, verdicts = glue_cases(torch, fp, curve, tower, pairing, api, h2c, P,
                                 {f"final_exponentiation_n{FINAL_EXP_EDGE}": fe_edges,

@@ -116,7 +116,7 @@ __global__ void __launch_bounds__(kCofactorThreads) clear_cofactor_kernel(
   g2_psi_lanes(&sh.t3, &sh.t3, sh.cc, l, on && g == 0);
 
   // the two chains
-  g2_scalar_mul_lanes(sh.tab[g], &sh.acc[g], s, bits + g * nbits, nbits, l, on);
+  g2_scalar_mul_lanes(sh.tab[g], &sh.acc[g], s, bits + g * nbits, nbits, 1, l, on);
 
   // t2 = -[|z - 1|] psi(p), in place; then (t1 + t2) + t3 on group 0
   if (g == 1 && l < 2) {

@@ -1,11 +1,12 @@
 // The group laws of G1 and G2 as one-copy routines, and the windowed
 // scalar multiplication of one thread, as __device__ building blocks for
-// K10 / K11 (curve_kernels.cu), the tree sums K15 / K16 (fold_kernels.cu)
-// and the psi comparison K20 (verify_kernels.cu, which loads its points
-// with `load_point`); and the same G2 law and multiplication spread over a
-// group of twelve lanes, for the cofactor clearing K17
-// (cofactor_kernels.cu; see "the lane-group G2 law" below). Each .cu
-// compiles on its own, so each keeps its own copy of what it uses.
+// K10 (curve_kernels.cu), the tree sums K15 / K16 (fold_kernels.cu) and
+// the psi comparison K20 (verify_kernels.cu, which loads its points with
+// `load_point`); and the same G2 law and multiplication spread over a
+// group of twelve lanes, for K11 (curve_kernels.cu) and the cofactor
+// clearing K17 (cofactor_kernels.cu; see "the lane-group G2 law" below).
+// Each .cu compiles on its own, so each keeps its own copy of what it
+// uses.
 //
 // `scalar_mul_point` is the plain version's algorithm step for step
 // (curve.py `scalar_mul_bits_plain`): a 16-row table built by the eight
@@ -332,13 +333,13 @@ __device__ __forceinline__ void lanes_set_infinity(G2Proj* dst, int l, bool on) 
   }
 }
 
-// acc = [k] tab[1] for the MSB-first bits of k at `row` (one byte a bit),
-// on a lane group: scalar_mul_point's table and digits step for step (each
-// table step forms row 2k + 2 before row 2k + 1, both from rows k and
-// k + 1, which neither overwrites). tab (16 rows), acc and s lie in shared
-// memory; tab[1] holds the base on entry.
+// acc = [k] tab[1] for the MSB-first bits of k at `row` (one byte read a
+// bit, `step` bytes apart), on a lane group: scalar_mul_point's table and
+// digits step for step (each table step forms row 2k + 2 before row
+// 2k + 1, both from rows k and k + 1, which neither overwrites). tab (16
+// rows), acc and s lie in shared memory; tab[1] holds the base on entry.
 __device__ __forceinline__ void g2_scalar_mul_lanes(G2Proj* tab, G2Proj* acc, fp2_t* s, const uint8_t* row,
-                                                    int nbits, int l, bool on) {
+                                                    int nbits, int step, int l, bool on) {
   lanes_set_infinity(&tab[0], l, on);
   lanes_set_infinity(acc, l, on);
   __syncwarp();
@@ -352,7 +353,7 @@ __device__ __forceinline__ void g2_scalar_mul_lanes(G2Proj* tab, G2Proj* acc, fp
   for (int j = 0; j < digits; ++j) {
 #pragma unroll 1
     for (int t = 0; t < kWindow; ++t) g2_lanes_dbl(acc, acc, s, l, on);
-    g2_lanes_add(acc, acc, &tab[window_digit(row, j, nbits, 1)], s, l, on);
+    g2_lanes_add(acc, acc, &tab[window_digit(row, j, nbits, step)], s, l, on);
   }
 }
 

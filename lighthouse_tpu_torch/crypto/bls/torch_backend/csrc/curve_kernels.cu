@@ -18,23 +18,33 @@
 //   header states the schedule (a 16-row table, four doublings (RCB
 //   Algorithm 9) and one complete addition (Algorithm 7) a 4-bit digit,
 //   127 bits making 32 digits). The formulas are g1.cuh's (K10) and
-//   g2.cuh's (K11).
+//   g2.cuh's (K11, on curve.cuh's lane-group law `g2_scalar_mul_lanes`,
+//   the same table, digits and formulas).
 //   Operands: X, Y, Z each with an element stride in words (the
 //   coordinate's size, or 0 for one point broadcast over the batch); the
 //   bits as int32 or int64 rows (one byte read per bit, the low byte of a
 //   little-endian 0/1 value), row e at byte (e / inner) * hi +
 //   (e % inner) * lo, so a row broadcast over some dims is read in place.
 //   Output: X, Y, Z, each n contiguous coordinates.
-//   Design: one thread per element, the table (16 points: 2.3 KB in G1,
-//   4.6 KB in G2) in local memory, one warp a block so that the verify
-//   path's 128 or 256 elements spread over 4 or 8 SMs. Every value is
-//   canonical, so the field arithmetic inside a formula may be arranged
-//   freely (G2's products by 3b are additions, its Fp2 products lazy
-//   sums); which formula runs follows the plain version. Two threads per
-//   element (K7's split) would halve the chain of a G2 element; one
-//   thread keeps the table and every formula in one place, and a verify's
-//   time is still set by the host (PERF.md), so the split waits for a
-//   measurement that asks for it.
+//   Design, K10: one thread per element, the table (16 points, 2.3 KB) in
+//   local memory, one warp a block so that the verify path's 128
+//   elements spread over 4 SMs. Every value is canonical, so the field
+//   arithmetic inside a formula may be arranged freely; which formula
+//   runs follows the plain version.
+//   Design, K11: one warp a block and two elements a warp, on curve.cuh's
+//   lane-group law (`g2_scalar_mul_lanes`, K17's routine): lanes 0-11
+//   (group 0) take element 2b, lanes 12-23 (group 1) element 2b + 1,
+//   lanes 24-31 idle. Each group's point goes into its table's row 1 and
+//   its bit row is read in place (`step` bytes a bit). An RCB level's Fp2
+//   products go to lane pairs, a lane per component, the additions
+//   between the levels a lane per Fp component, `__syncwarp` between
+//   steps. Both groups run over the same nbits, so the warp has one
+//   instruction stream; only the table row a digit picks differs. When n
+//   is odd the last block's group 1 is off but reaches every
+//   `__syncwarp`. Tables, accumulators and scratch lie in shared memory:
+//   per group 16 rows (4,608 bytes), the accumulator (288) and 13
+//   scratch slots with the zero slot (1,248), 12,288 bytes a block. The
+//   verify path's 256 elements take 128 blocks on 128 SMs, K17's shape.
 //   Work: 15 complete additions for the table, then per digit 4 doublings
 //   and 1 addition. In the field products the function needs: an addition
 //   12, a doubling 6 and 2 squares (the products by 3b are additions; K10
@@ -45,8 +55,12 @@
 //   kernel does every one as a product, 888 word products):
 //   639,264 word products at 64 bits, 1,144,608 at 128 (47 additions,
 //   128 doublings), against 576 bytes.
-//   Operations bound; the verify path's shapes leave most of the card idle
-//   and are bound by one thread's chain of dependent products.
+//   Operations bound. K10 at the verify path's shape leaves most of the
+//   card idle and is bound by one thread's chain of dependent products;
+//   K11 by one warp's chain of 95 group operations (64 bits) of four
+//   steps, a step one product component (or its additions) a lane, where
+//   one thread would form the 12 (8) full Fp2 products of an addition
+//   (doubling) in a row.
 //   Bound (reduction): G1 products are K1's CIOS (canonical in, canonical
 //   out); G2's lazy sums hold N = 2 products, T < 2 p^2, inside fp384.cuh's
 //   N <= 9 for one conditional subtraction.
@@ -58,7 +72,7 @@
 
 namespace {
 
-constexpr int kThreads = 32;  // one warp a block
+constexpr int kThreads = 32;  // one warp a block: K10 a thread an element, K11 two lane groups
 
 template <typename G>
 __device__ __forceinline__ void scalar_mul(const uint32_t* x, long long sx, const uint32_t* y, long long sy,
@@ -87,11 +101,38 @@ __global__ void __launch_bounds__(kThreads) g1_scalar_mul_kernel(
   scalar_mul<G1>(x, sx, y, sy, z, sz, bits, inner, hi, lo, step, nbits, out, n);
 }
 
+// K11's block: two lane groups, each with its table, accumulator and
+// scratch.
+struct G2MulShared {
+  G2Proj tab[2][kRows];      // each group's table; row 1 holds its point
+  G2Proj acc[2];             // each group's accumulator
+  fp2_t s[2][kLaneScratch];  // each group's scratch, the zero slot last
+};
+
 __global__ void __launch_bounds__(kThreads) g2_scalar_mul_kernel(
     const uint32_t* __restrict__ x, long long sx, const uint32_t* __restrict__ y, long long sy,
     const uint32_t* __restrict__ z, long long sz, const uint8_t* __restrict__ bits, long long inner, long long hi,
     long long lo, int step, int nbits, uint32_t* __restrict__ out, long long n) {
-  scalar_mul<G2>(x, sx, y, sy, z, sz, bits, inner, hi, lo, step, nbits, out, n);
+  __shared__ G2MulShared sh;
+  constexpr int W = G2::kWords;
+  const int t = threadIdx.x;
+  const int g = t < kLaneGroup ? 0 : 1, l = t - g * kLaneGroup;  // lanes 24-31: group 1, l >= 12
+  const long long e = 2 * (long long)blockIdx.x + g;
+  const bool on = t < 2 * kLaneGroup && e < n;
+  const long long re = on ? e : 2 * (long long)blockIdx.x;  // an off group reads group 0's row
+  const uint32_t* src[3] = {x + e * sx, y + e * sy, z + e * sz};
+  if (on) {  // the point into row 1, the zero slot
+    for (int i = l; i < 3 * W; i += kLaneGroup) coord<G2>(sh.tab[g][1], i / W)[i % W] = src[i / W][i % W];
+    for (int i = l; i < W; i += kLaneGroup) sh.s[g][kLaneScratch - 1][i / FP_WORDS][i % FP_WORDS] = 0u;
+  }
+  __syncwarp();
+  const uint8_t* row = bits + (re / inner) * hi + (re % inner) * lo;
+  g2_scalar_mul_lanes(sh.tab[g], &sh.acc[g], sh.s[g], row, nbits, step, l, on);
+  if (on) {
+    for (int i = l; i < 3 * W; i += kLaneGroup) {
+      out[((i / W) * n + e) * W + i % W] = coord<G2>(sh.acc[g], i / W)[i % W];
+    }
+  }
 }
 
 inline unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
@@ -115,7 +156,7 @@ int lh_g2_scalar_mul(const void* x, long long sx, const void* y, long long sy, c
                      const void* bits, long long inner, long long hi, long long lo, int step, int nbits, void* out,
                      long long n, void* stream) {
   if (n > 0) {
-    g2_scalar_mul_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+    g2_scalar_mul_kernel<<<(unsigned)((n + 1) / 2), kThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)x, sx, (const uint32_t*)y, sy, (const uint32_t*)z, sz, (const uint8_t*)bits, inner, hi,
         lo, step, nbits, (uint32_t*)out, n);
   }

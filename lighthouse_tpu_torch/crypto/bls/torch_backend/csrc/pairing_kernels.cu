@@ -25,20 +25,34 @@
 //              y3 = D (X H^2 - x3) - Y H^3, z3 = H Z
 //   Every value is canonical, so the arithmetic inside a formula is
 //   arranged freely (squares as products, 8C by additions).
-//   Design: one block (one warp) per pair, the state in shared memory:
-//   T, f (two buffers, ping-pong), the line, the step's intermediates.
-//   A step's independent Fp2 products go to two threads each, thread c
-//   forming component c as one lazy sum (g2.cuh `fp2_mul_part`), in the
-//   port's groups (doubling: X^2, Y^2, Z^2, 2YZ; then B^2, (X + B)^2,
-//   E^2, E X, E Z^2, z3 Z^2; then E (D - x3); chord: Z^2; qx Z^2, Z Z^2;
-//   qy Z^3; H^2, D^2, H Z; H^3, X H^2; then the four of y3 and A3), the
-//   additions of a group on the threads that need them, the Fp scalings
-//   by xp and yp on four threads, `__syncwarp` between groups. The Fp12
-//   square and the sparse product by the line are K8's six-thread routine
-//   (tower.cuh `fp12_mul_thread`, modes kSquare and kSparse). |z| is a
-//   compile-time constant. The T chain does not depend on f, so the next
-//   line could be formed while f is squared (by a second warp); that
-//   overlap is left to a later change.
+//   Design: one block per pair, two warps, the state in shared memory.
+//   Warp 1, the line warp, runs the T chain: the doubling step and its
+//   tangent line, and on a set bit of |z| the addition step and its chord
+//   line, in the plain version's formulas, groups and order (T is
+//   projective, and its representative fixes the lines' integers). A
+//   step's independent Fp2 products go to two lanes each, lane c forming
+//   component c as one lazy sum (g2.cuh `fp2_mul_part`), in the port's
+//   groups (doubling: X^2, Y^2, Z^2, 2YZ; then B^2, (X + B)^2, E^2, E X,
+//   E Z^2, z3 Z^2; then E (D - x3); chord: Z^2; qx Z^2, Z Z^2; qy Z^3;
+//   H^2, D^2, H Z; H^3, X H^2; then the four of y3 and A3), the additions
+//   of a group on the lanes that need them, the Fp scalings by xp and yp
+//   on four lanes, `__syncwarp` between groups. Warp 0, the f warp, runs
+//   f = f^2, f *= tangent and, on set bits, f *= chord, each Fp12 product
+//   on twelve lanes, lane 2k + c forming component c of coefficient e_k
+//   as one lazy sum (tower.cuh `fp12_mul_lane`, modes kSquare and
+//   kSparse), `__syncwarp` between products. f is an Fp12 element and its
+//   canonical words are unique, so how its products are split over lanes
+//   does not change a word. The warps meet on a two-slot ring of lines (a
+//   slot: an iteration's tangent line and its chord line, 6 Fp2): warp 1
+//   forms iteration 0's lines into slot 0 first; then in iteration i warp
+//   0 multiplies slot i & 1's lines into f while warp 1 forms iteration
+//   i + 1's into slot (i + 1) & 1, and one `__syncthreads` ends the
+//   iteration. A slot is written one iteration before it is read and read
+//   before it is written again. |z| is a compile-time constant, so both
+//   warps know which iterations hold a chord. Warp 0 conjugates f at the
+//   end and writes one in infinity lanes. Shared memory: f ping-pong
+//   (1,152 bytes), the ring (1,152), T, Q, P and the 26 step slots, 5,376
+//   bytes a block.
 //   Work per pair, in the word products the function needs (an Fp2
 //   product 744, an Fp2 square 600, an Fp product 300, an Fp12 square
 //   10,080 and a sparse Fp12 product 9,648, as K8 counts them; products by
@@ -47,7 +61,9 @@
 //   4 Fp products, 10,440; 63 x (10,080 + 8,520 + 9,648) + 5 x (10,440 +
 //   9,648) = 1,880,064, against 866 bytes moved (P, Q and the two flags
 //   in, f out). Operations bound; at the verify path's 129 pairs it is
-//   bound by one warp's chain of 68 steps.
+//   bound by the f warp's chain: per iteration a square of 12 wide
+//   products and a sparse product of 6 a lane (and a second sparse
+//   product on the five set bits), the line warp's steps beside them.
 //   Bound (reduction): every Fp2 component is a sum of N = 2 products
 //   below 2 p^2, one conditional subtraction (fp384.cuh: N <= 9); the Fp12
 //   products K8's N = 12 (6 sparse), two subtractions.
@@ -61,7 +77,7 @@
 
 namespace {
 
-constexpr int kMillerThreads = 32;  // one warp per pair
+constexpr int kMillerThreads = 64;  // warp 0: f; warp 1: the lines
 constexpr uint64_t kAbsZ = 0xd201000000010000ull;
 constexpr int kLoopBits = 63;  // the bits of |z| below the leading one
 
@@ -69,6 +85,15 @@ constexpr int kLoopBits = 63;  // the bits of |z| below the leading one
 enum Slot {
   kA, kB, kZZ, kZ3, kE, kXB, kC, kXB2, kF6, kEX, kEZZ, kM1, kX3, kDX, kZY,
   kH, kD, kHH, kDD, kHZ, kHHH, kV, kR0, kR1, kR2, kR3, kSlots
+};
+
+struct MillerShared {
+  uint32_t f[2][kFp12Words];  // f, ping-pong (warp 0)
+  fp2_t line[2][6];           // the ring: per slot A0, A3, A5 of the tangent, then of the chord
+  fp2_t t[3];                 // T = (X, Y, Z) (warp 1)
+  fp2_t q[2];                 // Q = (qx, qy)
+  uint32_t p[2][FP_WORDS];    // P = (xp, yp)
+  fp2_t s[kSlots];            // the steps' intermediates (warp 1)
 };
 
 // Component c of x y: one copy of the product for every call site.
@@ -83,12 +108,12 @@ __device__ __forceinline__ void mul_part_to(fp2_t dst, const fp2_t x, const fp2_
   fp_store(dst[c], r);
 }
 
-// Thread k of a six-thread group: K8's routine, one copy for both modes.
-__device__ __noinline__ void fp12_part(const uint32_t* a, const uint32_t* b, int k, int mode, uint32_t* out) {
-  fp12_mul_thread(a, b, k, mode, out);
+// Lane 2k + c of a twelve-lane group: one copy for both modes.
+__device__ __noinline__ void fp12_lane(const uint32_t* a, const uint32_t* b, int k, int c, int mode, uint32_t* out) {
+  fp12_mul_lane(a, b, k, c, mode, out);
 }
 
-// dst = a x for Fp2 a and Fp x, on thread j = 0, 1 (component j).
+// dst = a x for Fp2 a and Fp x, on lane j = 0, 1 (component j).
 __device__ __forceinline__ void scale_part(fp2_t dst, const fp2_t a, const uint32_t x[FP_WORDS], int j) {
   uint32_t r[FP_WORDS];
   fp_mul(r, a[j], x);
@@ -106,203 +131,223 @@ __device__ __forceinline__ void a0_part(fp2_t line0, const fp2_t zy, int c) {
   fp_store(line0[c], r);
 }
 
+// The doubling step on lane t of the line warp: T = 2T, its tangent line
+// (A0, A3, A5) into `line`. Every lane of the warp calls it.
+__device__ __forceinline__ void tangent_step(MillerShared& sh, fp2_t* line, int t) {
+  const int k = t >> 1, c = t & 1;
+  // A = X^2, B = Y^2, ZZ = Z^2, z3 = 2 Y Z
+  if (t < 8) {
+    const int xs = k == 3 ? 1 : k, ys = k == 3 ? 2 : k;
+    uint32_t r[FP_WORDS];
+    mul_part(r, sh.t[xs], sh.t[ys], c);
+    if (k == 3) fp_add(r, r, r);
+    fp_store(sh.s[k == 0 ? kA : k == 1 ? kB : k == 2 ? kZZ : kZ3][c], r);
+  }
+  __syncwarp();
+  // E = 3A, XB = X + B
+  if (t < 4) {
+    uint32_t r[FP_WORDS];
+    if (k == 0) {
+      fp_add(r, sh.s[kA][c], sh.s[kA][c]);
+      fp_add(r, r, sh.s[kA][c]);
+    } else {
+      fp_add(r, sh.t[0][c], sh.s[kB][c]);
+    }
+    fp_store(sh.s[k == 0 ? kE : kXB][c], r);
+  }
+  __syncwarp();
+  // C = B^2, XB2 = (X + B)^2, F6 = E^2, EX = E X, EZZ = E ZZ, M1 = z3 ZZ
+  if (t < 12) {
+    const fp2_t* x = k == 0 ? &sh.s[kB] : k == 1 ? &sh.s[kXB] : k == 5 ? &sh.s[kZ3] : &sh.s[kE];
+    const fp2_t* y = k == 0 ? &sh.s[kB] : k == 1 ? &sh.s[kXB] : k == 2 ? &sh.s[kE] : k == 3 ? &sh.t[0] : &sh.s[kZZ];
+    mul_part_to(sh.s[k == 0 ? kC : k == 1 ? kXB2 : k == 2 ? kF6 : k == 3 ? kEX : k == 4 ? kEZZ : kM1], *x, *y, c);
+  }
+  __syncwarp();
+  if (t < 2) {  // D = 2 (XB2 - (A + C)), x3 = F6 - 2D, DX = D - x3
+    uint32_t a[FP_WORDS], d[FP_WORDS], x3[FP_WORDS];
+    fp_add(a, sh.s[kA][c], sh.s[kC][c]);
+    fp_sub(d, sh.s[kXB2][c], a);
+    fp_add(d, d, d);
+    fp_add(a, d, d);
+    fp_sub(x3, sh.s[kF6][c], a);
+    fp_store(sh.s[kX3][c], x3);
+    fp_sub(d, d, x3);
+    fp_store(sh.s[kDX][c], d);
+  } else if (t < 4) {  // A3 = 2B - EX
+    uint32_t r[FP_WORDS];
+    fp_add(r, sh.s[kB][c], sh.s[kB][c]);
+    fp_sub(r, r, sh.s[kEX][c]);
+    fp_store(line[1][c], r);
+  } else if (t < 8) {  // A5 = EZZ xp, zy = M1 yp
+    const int j = t & 1;
+    if (t < 6) {
+      scale_part(line[2], sh.s[kEZZ], sh.p[0], j);
+    } else {
+      scale_part(sh.s[kZY], sh.s[kM1], sh.p[1], j);
+    }
+  }
+  __syncwarp();
+  if (t < 2) {  // T = (x3, E DX - 8C, z3)
+    uint32_t r[FP_WORDS], c8[FP_WORDS];
+    mul_part(r, sh.s[kE], sh.s[kDX], c);
+    fp_add(c8, sh.s[kC][c], sh.s[kC][c]);
+    fp_add(c8, c8, c8);
+    fp_add(c8, c8, c8);
+    fp_sub(r, r, c8);
+    fp_store(sh.t[1][c], r);
+    fp_store(sh.t[0][c], sh.s[kX3][c]);
+    fp_store(sh.t[2][c], sh.s[kZ3][c]);
+  } else if (t < 4) {
+    a0_part(line[0], sh.s[kZY], c);
+  }
+  __syncwarp();
+}
+
+// The mixed addition step on lane t of the line warp: T = T + Q, its
+// chord line (A0, A3, A5) into `line`. Every lane of the warp calls it.
+__device__ __forceinline__ void chord_step(MillerShared& sh, fp2_t* line, int t) {
+  const int k = t >> 1, c = t & 1;
+  // ZZ = Z^2
+  if (t < 2) mul_part_to(sh.s[kZZ], sh.t[2], sh.t[2], c);
+  __syncwarp();
+  // H = qx ZZ - X, M1 = Z ZZ
+  if (t < 4) {
+    uint32_t r[FP_WORDS];
+    mul_part(r, k == 0 ? sh.q[0] : sh.t[2], sh.s[kZZ], c);
+    if (k == 0) fp_sub(r, r, sh.t[0][c]);
+    fp_store(sh.s[k == 0 ? kH : kM1][c], r);
+  }
+  __syncwarp();
+  // D = qy M1 - Y
+  if (t < 2) {
+    uint32_t r[FP_WORDS];
+    mul_part(r, sh.q[1], sh.s[kM1], c);
+    fp_sub(r, r, sh.t[1][c]);
+    fp_store(sh.s[kD][c], r);
+  }
+  __syncwarp();
+  // HH = H^2, DD = D^2, hz = H Z
+  if (t < 6) {
+    const fp2_t* x = k == 1 ? &sh.s[kD] : &sh.s[kH];
+    const fp2_t* y = k == 0 ? &sh.s[kH] : k == 1 ? &sh.s[kD] : &sh.t[2];
+    mul_part_to(sh.s[k == 0 ? kHH : k == 1 ? kDD : kHZ], *x, *y, c);
+  }
+  __syncwarp();
+  // HHH = H HH, V = X HH; hy = hz yp, A5 = D xp
+  if (t < 4) {
+    mul_part_to(sh.s[k == 0 ? kHHH : kV], k == 0 ? sh.s[kH] : sh.t[0], sh.s[kHH], c);
+  } else if (t < 8) {
+    const int j = t & 1;
+    if (t < 6) {
+      scale_part(sh.s[kZY], sh.s[kHZ], sh.p[1], j);
+    } else {
+      scale_part(line[2], sh.s[kD], sh.p[0], j);
+    }
+  }
+  __syncwarp();
+  if (t < 2) {  // x3 = DD - HHH - 2V, DX = V - x3
+    uint32_t a[FP_WORDS], x3[FP_WORDS];
+    fp_sub(x3, sh.s[kDD][c], sh.s[kHHH][c]);
+    fp_add(a, sh.s[kV][c], sh.s[kV][c]);
+    fp_sub(x3, x3, a);
+    fp_store(sh.s[kX3][c], x3);
+    fp_sub(a, sh.s[kV][c], x3);
+    fp_store(sh.s[kDX][c], a);
+  } else if (t < 4) {
+    a0_part(line[0], sh.s[kZY], c);
+  }
+  __syncwarp();
+  // R0 = D DX, R1 = Y HHH, R2 = qy hz, R3 = D qx
+  if (t < 8) {
+    const fp2_t* x = k == 1 ? &sh.t[1] : k == 2 ? &sh.q[1] : &sh.s[kD];
+    const fp2_t* y = k == 0 ? &sh.s[kDX] : k == 1 ? &sh.s[kHHH] : k == 2 ? &sh.s[kHZ] : &sh.q[0];
+    mul_part_to(sh.s[kR0 + k], *x, *y, c);
+  }
+  __syncwarp();
+  if (t < 2) {  // T = (x3, R0 - R1, hz)
+    uint32_t r[FP_WORDS];
+    fp_sub(r, sh.s[kR0][c], sh.s[kR1][c]);
+    fp_store(sh.t[1][c], r);
+    fp_store(sh.t[0][c], sh.s[kX3][c]);
+    fp_store(sh.t[2][c], sh.s[kHZ][c]);
+  } else if (t < 4) {  // A3 = R2 - R3
+    uint32_t r[FP_WORDS];
+    fp_sub(r, sh.s[kR2][c], sh.s[kR3][c]);
+    fp_store(line[1][c], r);
+  }
+  __syncwarp();
+}
+
+// Whether iteration i (0 = the bit of |z| below the leading one) holds a chord.
+__device__ __forceinline__ bool chord_at(int i) { return (kAbsZ >> (kLoopBits - 1 - i)) & 1; }
+
 __global__ void __launch_bounds__(kMillerThreads) miller_loop_kernel(
     const uint32_t* __restrict__ px, long long spx, const uint32_t* __restrict__ py, long long spy,
     const uint32_t* __restrict__ qx, long long sqx, const uint32_t* __restrict__ qy, long long sqy,
     const bool* __restrict__ p_inf, const bool* __restrict__ q_inf, const uint32_t* __restrict__ gens,
     uint32_t* __restrict__ out, long long n) {
-  __shared__ uint32_t sh_f[2][kFp12Words];  // f, ping-pong
-  __shared__ fp2_t sh_t[3];                 // T = (X, Y, Z)
-  __shared__ fp2_t sh_q[2];                 // Q = (qx, qy)
-  __shared__ uint32_t sh_p[2][FP_WORDS];    // P = (xp, yp)
-  __shared__ fp2_t sh_line[3];              // A0, A3, A5: the sparse operand
-  __shared__ fp2_t sh_s[kSlots];
+  __shared__ MillerShared sh;
 
   const long long e = blockIdx.x;
   if (e >= n) return;
-  const int t = threadIdx.x;
-  const int k = t >> 1, c = t & 1;
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
   const bool inf = p_inf[e] || q_inf[e];
 
-  // P, Q (or the generators), T = (qx, qy, 1), f = 1
-  if (t < 6) {
-    const uint32_t* src = t == 0 ? px + e * spx : t == 1 ? py + e * spy
-                        : t < 4 ? qx + e * sqx + (t - 2) * FP_WORDS : qy + e * sqy + (t - 4) * FP_WORDS;
-    uint32_t v[FP_WORDS];
-    fp_load(v, inf ? gens + t * FP_WORDS : src);
-    if (t < 2) {
-      fp_store(sh_p[t], v);
-    } else {
-      fp_store(sh_q[(t - 2) >> 1][t & 1], v);
-      fp_store(sh_t[(t - 2) >> 1][t & 1], v);
-    }
-  } else if (t < 8) {
+  // P, Q (or the generators), T = (qx, qy, 1) on warp 1; f = 1 on warp 0
+  if (warp == 1) {
+    if (t < 6) {
+      const uint32_t* src = t == 0 ? px + e * spx : t == 1 ? py + e * spy
+                          : t < 4 ? qx + e * sqx + (t - 2) * FP_WORDS : qy + e * sqy + (t - 4) * FP_WORDS;
+      uint32_t v[FP_WORDS];
+      fp_load(v, inf ? gens + t * FP_WORDS : src);
+      if (t < 2) {
+        fp_store(sh.p[t], v);
+      } else {
+        fp_store(sh.q[(t - 2) >> 1][t & 1], v);
+        fp_store(sh.t[(t - 2) >> 1][t & 1], v);
+      }
+    } else if (t < 8) {
 #pragma unroll
-    for (int i = 0; i < FP_WORDS; ++i) sh_t[2][t - 6][i] = t == 6 ? FP_ONE[i] : 0u;
+      for (int i = 0; i < FP_WORDS; ++i) sh.t[2][t - 6][i] = t == 6 ? FP_ONE[i] : 0u;
+    }
+  } else {
+    for (int i = t; i < kFp12Words; i += 32) sh.f[0][i] = i < FP_WORDS ? FP_ONE[i] : 0u;
   }
-  for (int i = t; i < kFp12Words; i += kMillerThreads) {
-    sh_f[0][i] = i < FP_WORDS ? FP_ONE[i] : 0u;
-  }
-  __syncwarp();
+  __syncthreads();
 
+  // Iteration -1: warp 1 forms iteration 0's lines. Iteration i >= 0: warp
+  // 0 takes iteration i's lines (slot i & 1) into f, warp 1 forms
+  // iteration i + 1's (slot (i + 1) & 1).
+  const int k = t >> 1, c = t & 1;
   int cur = 0;
 #pragma unroll 1
-  for (int s = kLoopBits - 1; s >= 0; --s) {
-    // f = f^2
-    if (t < 6) fp12_part(sh_f[cur], sh_f[cur], t, kSquare, sh_f[cur ^ 1]);
-    cur ^= 1;
-    // doubling step: A = X^2, B = Y^2, ZZ = Z^2, z3 = 2 Y Z
-    if (t < 8) {
-      const int xs = k == 3 ? 1 : k, ys = k == 3 ? 2 : k;
-      uint32_t r[FP_WORDS];
-      mul_part(r, sh_t[xs], sh_t[ys], c);
-      if (k == 3) fp_add(r, r, r);
-      fp_store(sh_s[k == 0 ? kA : k == 1 ? kB : k == 2 ? kZZ : kZ3][c], r);
-    }
-    __syncwarp();
-    // E = 3A, XB = X + B
-    if (t < 4) {
-      uint32_t r[FP_WORDS];
-      if (k == 0) {
-        fp_add(r, sh_s[kA][c], sh_s[kA][c]);
-        fp_add(r, r, sh_s[kA][c]);
-      } else {
-        fp_add(r, sh_t[0][c], sh_s[kB][c]);
-      }
-      fp_store(sh_s[k == 0 ? kE : kXB][c], r);
-    }
-    __syncwarp();
-    // C = B^2, XB2 = (X + B)^2, F6 = E^2, EX = E X, EZZ = E ZZ, M1 = z3 ZZ
-    if (t < 12) {
-      const fp2_t* x = k == 0 ? &sh_s[kB] : k == 1 ? &sh_s[kXB] : k == 5 ? &sh_s[kZ3] : &sh_s[kE];
-      const fp2_t* y = k == 0 ? &sh_s[kB] : k == 1 ? &sh_s[kXB] : k == 2 ? &sh_s[kE]
-                     : k == 3 ? &sh_t[0] : &sh_s[kZZ];
-      mul_part_to(sh_s[k == 0 ? kC : k == 1 ? kXB2 : k == 2 ? kF6 : k == 3 ? kEX : k == 4 ? kEZZ : kM1], *x, *y, c);
-    }
-    __syncwarp();
-    if (t < 2) {  // D = 2 (XB2 - (A + C)), x3 = F6 - 2D, DX = D - x3
-      uint32_t a[FP_WORDS], d[FP_WORDS], x3[FP_WORDS];
-      fp_add(a, sh_s[kA][c], sh_s[kC][c]);
-      fp_sub(d, sh_s[kXB2][c], a);
-      fp_add(d, d, d);
-      fp_add(a, d, d);
-      fp_sub(x3, sh_s[kF6][c], a);
-      fp_store(sh_s[kX3][c], x3);
-      fp_sub(d, d, x3);
-      fp_store(sh_s[kDX][c], d);
-    } else if (t < 4) {  // A3 = 2B - EX
-      uint32_t r[FP_WORDS];
-      fp_add(r, sh_s[kB][c], sh_s[kB][c]);
-      fp_sub(r, r, sh_s[kEX][c]);
-      fp_store(sh_line[1][c], r);
-    } else if (t < 8) {  // A5 = EZZ xp, zy = M1 yp
-      const int j = t & 1;
-      if (t < 6) {
-        scale_part(sh_line[2], sh_s[kEZZ], sh_p[0], j);
-      } else {
-        scale_part(sh_s[kZY], sh_s[kM1], sh_p[1], j);
-      }
-    }
-    __syncwarp();
-    if (t < 2) {  // T = (x3, E DX - 8C, z3)
-      uint32_t r[FP_WORDS], c8[FP_WORDS];
-      mul_part(r, sh_s[kE], sh_s[kDX], c);
-      fp_add(c8, sh_s[kC][c], sh_s[kC][c]);
-      fp_add(c8, c8, c8);
-      fp_add(c8, c8, c8);
-      fp_sub(r, r, c8);
-      fp_store(sh_t[1][c], r);
-      fp_store(sh_t[0][c], sh_s[kX3][c]);
-      fp_store(sh_t[2][c], sh_s[kZ3][c]);
-    } else if (t < 4) {
-      a0_part(sh_line[0], sh_s[kZY], c);
-    }
-    __syncwarp();
-    // f *= line
-    if (t < 6) fp12_part(sh_f[cur], &sh_line[0][0][0], t, kSparse, sh_f[cur ^ 1]);
-    cur ^= 1;
-    __syncwarp();
-
-    if ((kAbsZ >> s) & 1) {
-      // addition step: ZZ = Z^2
-      if (t < 2) mul_part_to(sh_s[kZZ], sh_t[2], sh_t[2], c);
-      __syncwarp();
-      // H = qx ZZ - X, M1 = Z ZZ
-      if (t < 4) {
-        uint32_t r[FP_WORDS];
-        mul_part(r, k == 0 ? sh_q[0] : sh_t[2], sh_s[kZZ], c);
-        if (k == 0) fp_sub(r, r, sh_t[0][c]);
-        fp_store(sh_s[k == 0 ? kH : kM1][c], r);
-      }
-      __syncwarp();
-      // D = qy M1 - Y
-      if (t < 2) {
-        uint32_t r[FP_WORDS];
-        mul_part(r, sh_q[1], sh_s[kM1], c);
-        fp_sub(r, r, sh_t[1][c]);
-        fp_store(sh_s[kD][c], r);
-      }
-      __syncwarp();
-      // HH = H^2, DD = D^2, hz = H Z
-      if (t < 6) {
-        const fp2_t* x = k == 1 ? &sh_s[kD] : &sh_s[kH];
-        const fp2_t* y = k == 0 ? &sh_s[kH] : k == 1 ? &sh_s[kD] : &sh_t[2];
-        mul_part_to(sh_s[k == 0 ? kHH : k == 1 ? kDD : kHZ], *x, *y, c);
-      }
-      __syncwarp();
-      // HHH = H HH, V = X HH; hy = hz yp, A5 = D xp
-      if (t < 4) {
-        mul_part_to(sh_s[k == 0 ? kHHH : kV], k == 0 ? sh_s[kH] : sh_t[0], sh_s[kHH], c);
-      } else if (t < 8) {
-        const int j = t & 1;
-        if (t < 6) {
-          scale_part(sh_s[kZY], sh_s[kHZ], sh_p[1], j);
-        } else {
-          scale_part(sh_line[2], sh_s[kD], sh_p[0], j);
+  for (int i = -1; i < kLoopBits; ++i) {
+    if (warp == 0) {
+      if (i >= 0) {
+        const uint32_t* line = &sh.line[i & 1][0][0][0];
+        if (t < 12) fp12_lane(sh.f[cur], sh.f[cur], k, c, kSquare, sh.f[cur ^ 1]);
+        cur ^= 1;
+        __syncwarp();
+        if (t < 12) fp12_lane(sh.f[cur], line, k, c, kSparse, sh.f[cur ^ 1]);
+        cur ^= 1;
+        if (chord_at(i)) {
+          __syncwarp();
+          if (t < 12) fp12_lane(sh.f[cur], line + 3 * kFp2Words, k, c, kSparse, sh.f[cur ^ 1]);
+          cur ^= 1;
         }
       }
-      __syncwarp();
-      if (t < 2) {  // x3 = DD - HHH - 2V, DX = V - x3
-        uint32_t a[FP_WORDS], x3[FP_WORDS];
-        fp_sub(x3, sh_s[kDD][c], sh_s[kHHH][c]);
-        fp_add(a, sh_s[kV][c], sh_s[kV][c]);
-        fp_sub(x3, x3, a);
-        fp_store(sh_s[kX3][c], x3);
-        fp_sub(a, sh_s[kV][c], x3);
-        fp_store(sh_s[kDX][c], a);
-      } else if (t < 4) {
-        a0_part(sh_line[0], sh_s[kZY], c);
-      }
-      __syncwarp();
-      // R0 = D DX, R1 = Y HHH, R2 = qy hz, R3 = D qx
-      if (t < 8) {
-        const fp2_t* x = k == 1 ? &sh_t[1] : k == 2 ? &sh_q[1] : &sh_s[kD];
-        const fp2_t* y = k == 0 ? &sh_s[kDX] : k == 1 ? &sh_s[kHHH] : k == 2 ? &sh_s[kHZ] : &sh_q[0];
-        mul_part_to(sh_s[kR0 + k], *x, *y, c);
-      }
-      __syncwarp();
-      if (t < 2) {  // T = (x3, R0 - R1, hz)
-        uint32_t r[FP_WORDS];
-        fp_sub(r, sh_s[kR0][c], sh_s[kR1][c]);
-        fp_store(sh_t[1][c], r);
-        fp_store(sh_t[0][c], sh_s[kX3][c]);
-        fp_store(sh_t[2][c], sh_s[kHZ][c]);
-      } else if (t < 4) {  // A3 = R2 - R3
-        uint32_t r[FP_WORDS];
-        fp_sub(r, sh_s[kR2][c], sh_s[kR3][c]);
-        fp_store(sh_line[1][c], r);
-      }
-      __syncwarp();
-      if (t < 6) fp12_part(sh_f[cur], &sh_line[0][0][0], t, kSparse, sh_f[cur ^ 1]);
-      cur ^= 1;
-      __syncwarp();
+    } else if (i + 1 < kLoopBits) {
+      fp2_t* slot = sh.line[(i + 1) & 1];
+      tangent_step(sh, slot, t);
+      if (chord_at(i + 1)) chord_step(sh, slot + 3, t);
     }
+    __syncthreads();
   }
 
   // conjugate (negate the w^1 half), one in infinity lanes
-  if (t < 12) {
+  if (warp == 0 && t < 12) {
     uint32_t v[FP_WORDS];
-    fp_load(v, sh_f[cur] + t * FP_WORDS);
+    fp_load(v, sh.f[cur] + t * FP_WORDS);
     if (t >= 6) fp_neg(v, v);
 #pragma unroll
     for (int i = 0; i < FP_WORDS; ++i) {

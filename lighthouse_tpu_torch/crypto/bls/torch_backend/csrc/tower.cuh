@@ -1,11 +1,16 @@
-// Tower-layout Fp12 helpers shared by K8 (tower_kernels.cu) and K9
-// (final_exp_kernels.cu), as __device__ building blocks over fp384.cuh.
+// Tower-layout Fp12 helpers shared by K8 (tower_kernels.cu), K9
+// (final_exp_kernels.cu) and K12 (pairing_kernels.cu), as __device__
+// building blocks over fp384.cuh.
 //
 // Fp12 lies in tower order (w:2, v:3, c:2, 12) words; flat coefficient
 // k = 2v + w of Fp12 = Fp2[w]/(w^6 - xi) sits at offset (3w + v) x 24
 // words. `fp12_mul_thread` is one thread's share of a product formed by a
-// group of six threads, thread k forming e_k; its bound and work are
-// stated with K8 in tower_kernels.cu.
+// group of six threads, thread k forming e_k; `fp12_mul_lane` one lane's
+// share of the same product formed by twelve lanes, lane 2k + c forming
+// component c of e_k: the thread's loop over c, one pass of it a lane.
+// Each component is one lazy sum reduced once, so the two forms give the
+// same words; their bound and work are stated with K8 in
+// tower_kernels.cu.
 
 #pragma once
 
@@ -73,6 +78,39 @@ __device__ __forceinline__ void fp12_mul_thread(const uint32_t* a, const uint32_
     fp_redc_wide<2>(r, acc);
     fp_store(out + tower_offset(k) + c * FP_WORDS, r);
   }
+}
+
+// Lane 2k + c of a twelve-lane group: component c of flat coefficient e_k
+// of a * b, written to `out` (tower layout), with the operands and modes
+// of `fp12_mul_thread` and its sum for that c: 12 products (kFull,
+// kSquare) or 6 (kSparse) in one double-width sum, one reduction. `out`
+// must not overlap a or b.
+__device__ __forceinline__ void fp12_mul_lane(const uint32_t* a, const uint32_t* b, int k, int c, int mode,
+                                              uint32_t* out) {
+  const int terms = mode == kSparse ? 3 : 6;
+  uint32_t x0[FP_WORDS], x1[FP_WORDS], y0[FP_WORDS], y1[FP_WORDS], d[FP_WORDS], s[FP_WORDS], acc[FP_WIDE];
+#pragma unroll
+  for (int i = 0; i < FP_WIDE; ++i) acc[i] = 0;
+#pragma unroll 1
+  for (int q = 0; q < terms; ++q) {
+    const int j = mode == kSparse ? (q == 0 ? 0 : q == 1 ? 3 : 5) : q;
+    const int i = (k - j + 6) % 6;
+    const uint32_t* bj = b + (mode == kSparse ? q * kFp2Words : tower_offset(j));
+    const uint32_t* ai = a + tower_offset(i);
+    fp_load(x0, ai);
+    fp_load(x1, ai + FP_WORDS);
+    fp_load(y0, bj);
+    fp_load(y1, bj + FP_WORDS);
+    const bool wrap = j > k;  // w^6 = xi: a_i -> (a0 - a1, a0 + a1)
+    fp_sub(d, x0, x1);
+    fp_add(s, x0, x1);
+    fp_select(x0, wrap, d, x0);
+    fp_select(x1, wrap, s, x1);
+    fp2_component_mac(acc, c == 1, x0, x1, y0, y1);
+  }
+  uint32_t r[FP_WORDS];
+  fp_redc_wide<2>(r, acc);
+  fp_store(out + tower_offset(k) + c * FP_WORDS, r);
 }
 
 }  // namespace

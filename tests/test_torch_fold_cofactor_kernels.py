@@ -345,11 +345,14 @@ def _point(v=None):
 _INF = ((0, 0), (R_MONT, 0), (0, 0))
 
 
-def lane_step(st, r, p, q, s):
+def lane_step(st, r, p, q, s, on=True):
     """curve.cuh `g2_lane_step` on the twelve lanes of a group: lane 2k + c
     forms component c of output k from the step's table row. Every lane
     reads before any lane writes (__syncwarp), which the kernel gets from
-    its banks: a step reads only slots it does not write, as asserted."""
+    its banks: a step reads only slots it does not write, as asserted. A
+    group that is off (`on` false) reads and writes nothing."""
+    if not on:
+        return
     outs, rows = LANE_STEPS[st]
     kind = st % 4
     reads = {0: _OPERANDS, 1: _BANK_A, 2: _BANK_B, 3: _BANK_A}[kind] | {LANE_ZERO}
@@ -383,16 +386,16 @@ def lane_step(st, r, p, q, s):
         (r[k] if kind == 3 else s[(6 if kind == 1 else 0) + k])[c] = v
 
 
-def lanes_add(r, p, q, s):
+def lanes_add(r, p, q, s, on=True):
     """curve.cuh `g2_lanes_add`: r = p + q, four steps. r may alias p or q."""
     for st in range(4):
-        lane_step(st, r, p, q, s)
+        lane_step(st, r, p, q, s, on)
 
 
-def lanes_dbl(r, p, s):
+def lanes_dbl(r, p, s, on=True):
     """curve.cuh `g2_lanes_dbl`: r = 2 p, four steps."""
     for st in range(4, 8):
-        lane_step(st, r, p, p, s)
+        lane_step(st, r, p, p, s, on)
 
 
 def psi_lanes(r, p):
@@ -409,20 +412,43 @@ def psi_lanes(r, p):
         r[k][c] = v
 
 
-def scalar_mul_lanes(tab, acc, s, bits):
-    """curve.cuh `g2_scalar_mul_lanes`: tab[1] holds the base; row 2k + 2
+def window_digit(row, j, nbits, step):
+    """curve.cuh `window_digit`: digit j (0 = most significant) of the
+    MSB-first bits in the bytes `row`, one byte read a bit `step` bytes
+    apart, zero-padded at the MSB end to a multiple of four bits."""
+    pad = (4 - nbits % 4) % 4
+    d = 0
+    for t in range(4):
+        i = 4 * j + t - pad
+        d = 2 * d + (1 if i >= 0 and row[i * step] != 0 else 0)
+    return d
+
+
+def scalar_mul_lanes(groups, nbits, step):
+    """curve.cuh `g2_scalar_mul_lanes` on the lane groups of one warp:
+    every group runs the same sequence of group operations (one
+    instruction stream, each step ending in __syncwarp), and only the
+    table row that a digit picks differs. The groups share no state, so
+    each operation runs group by group here. Each group is (tab, acc, s,
+    row, on): tab[1] holds its base, `row` its bits (bytes, `step` apart);
+    an off group reads its row but takes no part in a step. Row 2k + 2
     before row 2k + 1 in each table step; 4-bit digits MSB first."""
-    tab[0][:] = _point(_INF)
-    acc[:] = _point(_INF)
+    for tab, acc, _, _, on in groups:
+        if on:
+            tab[0][:] = _point(_INF)
+            acc[:] = _point(_INF)
     for k in range(8):
-        if 2 * k + 2 < 16:
-            lanes_add(tab[2 * k + 2], tab[k + 1], tab[k + 1], s)
-        lanes_add(tab[2 * k + 1], tab[k], tab[k + 1], s)
-    padded = [0] * ((-len(bits)) % 4) + list(bits)
-    for j in range(len(padded) // 4):
+        for tab, _, s, _, on in groups:
+            if 2 * k + 2 < 16:
+                lanes_add(tab[2 * k + 2], tab[k + 1], tab[k + 1], s, on)
+        for tab, _, s, _, on in groups:
+            lanes_add(tab[2 * k + 1], tab[k], tab[k + 1], s, on)
+    for j in range((nbits + 3) // 4):
         for _ in range(4):
-            lanes_dbl(acc, acc, s)
-        lanes_add(acc, acc, tab[int("".join(map(str, padded[4 * j : 4 * j + 4])), 2)], s)
+            for _, acc, s, _, on in groups:
+                lanes_dbl(acc, acc, s, on)
+        for tab, acc, s, row, on in groups:
+            lanes_add(acc, acc, tab[window_digit(row, j, nbits, step)], s, on)
 
 
 def cofactor_pair(p, q):
@@ -442,8 +468,9 @@ def cofactor_pair(p, q):
     psi_lanes(t3, t3)
     psi_lanes(tab[1][1], tab[1][1])
     psi_lanes(t3, t3)
-    for g in (0, 1):
-        scalar_mul_lanes(tab[g], acc[g], scratch[g], th2c._CC_BITS[g].tolist())
+    rows = th2c._CC_BITS_U8.tobytes()  # K17's operand: the two rows, a byte a bit
+    width = th2c._CC_WIDTH
+    scalar_mul_lanes([(tab[g], acc[g], scratch[g], rows[g * width:], True) for g in (0, 1)], width, 1)
     acc[1][1] = [(-v) % P for v in acc[1][1]]
     lanes_add(acc[0], acc[0], acc[1], scratch[0])
     lanes_add(acc[0], acc[0], t3, scratch[0])

@@ -4,8 +4,9 @@ composition they replaced, the chains K9-K14 against the K1-K4/K7/K8
 composition, the tree sums K15 and K16, the cofactor clearing K17, the
 Fp12 product K18, the final exponentiation K19, the psi comparison K20,
 the Miller inputs K21 and the standalone K22-K32 against the composition
-each replaced, K33 against its plain version; K17 and K19 also at 1, 16,
-17, 128 and 129 elements; the port's kernel registry walked on the
+each replaced, K33 against its plain version; K11 also at 1, 2, 3, 255,
+256 and 257 elements, K12 at 1, 2, 129 and 130 pairs, K17 and K19 at 1,
+16, 17, 128 and 129 elements; the port's kernel registry walked on the
 card), launch
 counting, launches on a card other than the current one (and from a fresh
 thread), and a small verify, also with every direct Fp product on the
@@ -171,6 +172,22 @@ def test_scalar_mul_kernels_match_plain_on_card(cuda_device, group):
             assert all(torch.equal(g, w) for g, w in zip(out, want))
 
 
+@pytest.mark.parametrize("n", chip_smoke.SCALAR_MUL_COUNTS)
+def test_g2_scalar_mul_kernel_matches_plain_at_counts(cuda_device, n):
+    """K11 (two elements a warp) at 1, 2, 3, 255, 256 and 257 points, odd
+    counts leaving the last block's second lane group off, against its
+    plain version and the composition it replaced, bit for bit: one
+    launch (chip_smoke's `lane_cases`)."""
+    cases = chip_smoke.lane_cases(torch, fp, curve, tower, pairing, (n,), (), 60)
+    fp.reset_launches()
+    got = {name: run() for name, (_, run, _, _) in cases.items()}
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fp.LAUNCHES.items() if v} == {"g2_scalar_mul": 1}
+    for name, (_, _, plain, composed) in cases.items():
+        for want in (plain(), composed()):
+            assert torch.equal(chip_smoke._stacked(got[name]), chip_smoke._stacked(want)), name
+
+
 def test_pow_abs_x_kernel_matches_plain_on_card(cuda_device):
     """K9 against its plain version and the composition it replaced, bit
     for bit, one launch per call: cyclotomic elements, one, and a lane
@@ -191,13 +208,15 @@ def test_pow_abs_x_kernel_matches_plain_on_card(cuda_device):
     assert torch.equal(got, pairing.pow_abs_x_composed(g, tower.KERNEL_TOWER))
 
 
-def test_miller_loop_kernel_matches_plain_on_card(cuda_device):
-    """K12 at the verify path's 129 pairs, infinity lanes included, against
-    its plain version and the K1-K4/K7/K8 composition it replaced, bit for
-    bit, one launch."""
+@pytest.mark.parametrize("n", chip_smoke.MILLER_COUNTS)
+def test_miller_loop_kernel_matches_plain_on_card(cuda_device, n):
+    """K12 (a block of two warps a pair) at 1, 2, 129 (the verify path's)
+    and 130 pairs, infinity lanes included where the count reaches them,
+    against its plain version and the K1-K4/K7/K8 composition it replaced,
+    bit for bit, one launch."""
     from lighthouse_tpu_torch.crypto.bls.torch_backend import pairing
 
-    args = chip_smoke.miller_inputs(torch, fp, 129, 42, cuda_device)
+    args = chip_smoke.miller_inputs(torch, fp, n, 42, cuda_device)
     fp.reset_launches()
     got = pairing.miller_loop(*args)
     torch.cuda.synchronize()
@@ -205,7 +224,7 @@ def test_miller_loop_kernel_matches_plain_on_card(cuda_device):
     assert torch.equal(got, pairing.miller_loop_plain(*args))
     assert torch.equal(got, pairing.miller_loop_composed(*args, tower.KERNEL_TOWER))
     one = tower.fp12_one((), cuda_device)
-    assert all(torch.equal(got[i], one) for i in (1, 2, 3)) and not torch.equal(got[0], one)
+    assert all(torch.equal(got[i], one) for i in range(1, min(n, 4))) and not torch.equal(got[0], one)
 
 
 def test_sswu_and_iso3_kernels_match_plain_on_card(cuda_device):

@@ -12,7 +12,9 @@
    `miller_loop` on CPU tensors (its plain version) bit-identical to the
    composition over the kernels' wrappers, with infinity lanes.
 2. A model in Python integers of each kernel's threads: K12's block (the
-   step groups, K8's six-thread products), K13's four threads (the
+   line warp's step groups one iteration ahead of the f warp on a
+   two-slot ring of lines, the ring's read/write order asserted; the f
+   warp's products on twelve lanes), K13's four threads (the
    prologue, the power chains split over a thread pair, the exchange, the
    selects) and K14's thread, every double-width sum checked against
    fp384.cuh's bound (test_torch_tower_kernels.redc_wide), on real inputs
@@ -42,7 +44,7 @@ from lighthouse_tpu_torch.crypto.bls.torch_backend import kernels as tkernels
 from lighthouse_tpu_torch.crypto.bls.torch_backend import pairing as tpair
 from lighthouse_tpu_torch.crypto.bls.torch_backend import tower as tt
 from lighthouse_tpu_torch.crypto.bls.torch_backend.curve import Proj
-from test_torch_tower_kernels import k7_thread, k8_thread, redc_wide
+from test_torch_tower_kernels import fp12_lane, k7_thread, redc_wide
 from torch_parity import assert_same, to_port
 
 rng = np.random.default_rng(0x712)
@@ -232,23 +234,21 @@ def _xi_neg(z):
     return (n0 - n1) % P, (n0 + n1) % P
 
 
-def _fp12_product(a, b, positions):
-    """Six threads of K8's routine: flat Fp12 in, flat out."""
-    return [tuple(k8_thread(a, b, k, comp, positions) for comp in (0, 1)) for k in range(6)]
+def _f_lanes(f, a, b, mode):
+    """Warp 0's Fp12 product: f[a] holds the operand, the lanes write f[1 - a]
+    (ping-pong); lane 2k + c forms component c of e_k (tower.cuh
+    `fp12_mul_lane`). Returns the buffer now holding f."""
+    assert f[a] is not None
+    f[1 - a] = [tuple(fp12_lane(f[a], b, k, c, mode) for c in (0, 1)) for k in range(6)]
+    return 1 - a
 
 
-def miller_block(px, py, pinf, qx, qy, qinf):
-    """One block of K12 (csrc/pairing_kernels.cu), group by group: stored
-    ints in, flat Fp12 out."""
-    if pinf or qinf:
-        gens = tpair._ML_GENERATORS
-        px, py = (tfp.words_to_int(gens[i]) for i in (0, 1))
-        qx, qy = ((tfp.words_to_int(gens[i]), tfp.words_to_int(gens[i + 1])) for i in (2, 4))
+def line_warp(px, py, qx, qy):
+    """K12's warp 1 (`tangent_step`, `chord_step`): the T chain, yielding
+    per iteration (MSB first, the 63 bits of |z| below the leading one) its
+    tangent line (A0, A3, A5) and, on a set bit, its chord line, else None."""
     X, Y, Z = qx, qy, (R_MONT, 0)
-    zero = (0, 0)
-    f = [(R_MONT, 0)] + [zero] * 5
     for s in range(62, -1, -1):
-        f = _fp12_product(f, f, range(6))
         A, B, ZZ, YZ = _mul(X, X), _mul(Y, Y), _mul(Z, Z), _mul(Y, Z)
         z3 = _add(YZ, YZ)
         E, XB = _add(_add(A, A), A), _add(X, B)
@@ -263,7 +263,7 @@ def miller_block(px, py, pinf, qx, qy, qinf):
         c8 = _add(c8, c8)
         c8 = _add(c8, c8)
         X, Y, Z = x3, _sub(_mul(E, DX), c8), z3
-        f = _fp12_product(f, [_xi_neg(zy), zero, zero, a3, zero, a5], (0, 3, 5))
+        tangent, chord = [_xi_neg(zy), a3, a5], None
         if (ABS_Z >> s) & 1:
             ZZ = _mul(Z, Z)
             H, M1 = _sub(_mul(qx, ZZ), X), _mul(Z, ZZ)
@@ -275,9 +275,45 @@ def miller_block(px, py, pinf, qx, qy, qinf):
             DX = _sub(V, x3)
             R0, R1, R2, R3 = _mul(D, DX), _mul(Y, HHH), _mul(qy, HZ), _mul(D, qx)
             X, Y, Z = x3, _sub(R0, R1), HZ
-            f = _fp12_product(f, [_xi_neg(hy), zero, zero, _sub(R2, R3), zero, a5], (0, 3, 5))
-    f = [f[k] if k % 2 == 0 else _neg(f[k]) for k in range(6)]  # conjugate: the w^1 half (odd flat k)
-    return [(R_MONT, 0)] + [zero] * 5 if pinf or qinf else f
+            chord = [_xi_neg(hy), _sub(R2, R3), a5]
+        yield tangent, chord
+
+
+def miller_block(px, py, pinf, qx, qy, qinf):
+    """One block of K12 (csrc/pairing_kernels.cu): stored ints in, flat
+    Fp12 out. The loop's phases i = -1 .. 62 each end in __syncthreads; in
+    phase i warp 1 forms iteration i + 1's lines into ring slot
+    (i + 1) & 1 and warp 0 multiplies iteration i's, from slot i & 1, into
+    f: f = f^2, f *= tangent, and on a set bit f *= chord. Asserted: warp 0
+    reads a slot only in a phase after the one that wrote it for that
+    iteration, and warp 1 writes a slot only in a phase after the one that
+    read it."""
+    if pinf or qinf:
+        gens = tpair._ML_GENERATORS
+        px, py = (tfp.words_to_int(gens[i]) for i in (0, 1))
+        qx, qy = ((tfp.words_to_int(gens[i]), tfp.words_to_int(gens[i + 1])) for i in (2, 4))
+    lines = line_warp(px, py, qx, qy)
+    ring = [None, None]  # slot -> {"it", "lines", "written", "read"}
+    f, cur = [[(R_MONT, 0)] + [(0, 0)] * 5, None], 0
+    for i in range(-1, 63):
+        if i >= 0:  # warp 0
+            slot = ring[i & 1]
+            assert slot["it"] == i and slot["written"] < i and slot["read"] is None, (i, slot)
+            slot["read"] = i
+            tangent, chord = slot["lines"]
+            cur = _f_lanes(f, cur, f[cur], tt.FP12_SQUARE)
+            cur = _f_lanes(f, cur, tangent, tt.FP12_SPARSE)
+            assert (chord is not None) == bool((ABS_Z >> (62 - i)) & 1)
+            if chord is not None:
+                cur = _f_lanes(f, cur, chord, tt.FP12_SPARSE)
+        if i + 1 < 63:  # warp 1
+            old = ring[(i + 1) & 1]
+            assert old is None or (old["read"] is not None and old["read"] < i), (i, old)
+            ring[(i + 1) & 1] = {"it": i + 1, "lines": next(lines), "written": i, "read": None}
+    assert next(lines, None) is None and all(slot["read"] is not None for slot in ring)
+    g = f[cur]
+    g = [g[k] if k % 2 == 0 else _neg(g[k]) for k in range(6)]  # conjugate: the w^1 half (odd flat k)
+    return [(R_MONT, 0)] + [(0, 0)] * 5 if pinf or qinf else g
 
 
 def _tower_flat(x):

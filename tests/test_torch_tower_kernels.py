@@ -7,8 +7,9 @@
    batch dims (2, 3), a broadcast operand and an empty batch.
 2. An emulation in Python integers of each kernel thread, in the kernels'
    order of operations: K7's two threads per element, K8's thread k
-   forming flat coefficient e_k, and the word-serial reduction
-   (fp384.cuh `fp_redc_wide`). It checks the lazy-reduction bound of each
+   forming flat coefficient e_k (and tower.cuh's twelve-lane form, lane
+   2k + c forming component c, which K12 runs, equal to it for every
+   (k, c)), and the word-serial reduction (fp384.cuh `fp_redc_wide`). It checks the lazy-reduction bound of each
    double-width sum (T < N p^2, every step of the reduction inside 24
    words, fewer than SUBS + 1 multiples of p left) on all-(p - 1) inputs
    and on random ones, and the result against the plain versions.
@@ -155,6 +156,28 @@ def k8_thread(a, b, k: int, comp: int, positions) -> int:
     return redc_wide(t, n, subs=2)
 
 
+def fp12_lane(a, b, k: int, c: int, mode: int) -> int:
+    """csrc/tower.cuh `fp12_mul_lane`: lane 2k + c of a twelve-lane group,
+    component c of flat coefficient e_k, in the routine's order: per term
+    j (i = (k - j) mod 6) a_i, folded by xi where j > k (x0 - x1 and
+    x0 + x1 both formed, one selected), then `fp2_component_mac`: u = x1
+    (c = 1) or -x1, t += x0 (y1 or y0) + u (y0 or y1); one reduction of
+    the double-width sum, its bound asserted. `b` is flat (kFull), ignored
+    (kSquare: a), or the three Fp2 of the line (kSparse)."""
+    positions = (0, 3, 5) if mode == tt.FP12_SPARSE else range(6)
+    t = 0
+    for q, j in enumerate(positions):
+        x0, x1 = a[(k - j) % 6]
+        d, s = (x0 - x1) % P, (x0 + x1) % P
+        if j > k:
+            x0, x1 = d, s
+        y0, y1 = b[q] if mode == tt.FP12_SPARSE else (a if mode == tt.FP12_SQUARE else b)[j]
+        u = x1 if c else (P - x1) % P
+        t += x0 * (y1 if c else y0)
+        t += u * (y0 if c else y1)
+    return redc_wide(t, 2 * len(positions), subs=2)
+
+
 def _ints(words: torch.Tensor):
     return [tfp.words_to_int(w) for w in words.reshape(-1, tfp.WORDS)]
 
@@ -192,6 +215,23 @@ def test_k8_thread_formula_matches_plain(mode):
                 bs = () if mode == tt.FP12_SQUARE else (tt._from_flat(_fp2_words(b)),)
             want = tt._to_flat(tt.fp12_product_plain(aw, bs, mode))
             assert got == _ints(want)
+
+
+@pytest.mark.parametrize("mode", [tt.FP12_FULL, tt.FP12_SQUARE, tt.FP12_SPARSE], ids=["full", "square", "sparse"])
+def test_fp12_lane_matches_k8_thread(mode):
+    """`fp12_mul_lane` (K12's twelve lanes) forms, for every (k, c), the
+    words that `fp12_mul_thread` (K8's six threads, both components on one
+    thread) forms: one lazy sum per component either way. All-(p - 1),
+    random and edge elements, each against each."""
+    elements = [ALL_P_MINUS_1, [tuple(_rand_ints(2)) for _ in range(6)], EMU_FP2[:6]]
+    positions = (0, 3, 5) if mode == tt.FP12_SPARSE else range(6)
+    for a in elements:
+        for b in elements:
+            line = [b[j] for j in positions]
+            for k in range(6):
+                for c in (0, 1):
+                    got = fp12_lane(a, line if mode == tt.FP12_SPARSE else b, k, c, mode)
+                    assert got == k8_thread(a, a if mode == tt.FP12_SQUARE else b, k, c, positions), (k, c)
 
 
 def test_all_p_minus_1_sums_stay_under_the_bound():
