@@ -21,14 +21,16 @@ Phases, one line each, any failure exits non-zero:
               are no multiple of a block or a six-thread group. The
               chains K9 (|z|-power, n = 1 and 4, with one and a lane
               whose checkpoints take decompression's g2 = 0 branch), K10
-              (G1, 128 points at 64 bits) and K11 (G2, 256 points at 64
+              (G1, 128 points at 64 bits; then 1, 2, 3, 127, 128 and 129
+              points) and K11 (G2, 256 points at 64
               bits and clear_cofactor's 2 x 128 at 128 broadcast bits;
               then 1, 2, 3, 255, 256 and 257 points, odd counts leaving a
               lane group off), with infinity rows, P + (-P), a P, -P pair
               and all-zero and all-one scalars, and K12 (the Miller loop,
               129 pairs, then 1, 2, 129 and 130, with P, Q and both at
               infinity: the generator-substitution lanes),
-              K13 (SSWU, 256 u's with 0, one, u and -1 among them) and K14
+              K13 (SSWU, 256 u's with 0, one, u and -1 among them; then
+              1, 7, 8, 9, 255, 256 and 257 u's) and K14
               (the isogeny, SSWU's 256 points and the kernel point X0),
               bit-identical to their plain versions and to the K1-K4/K7/K8
               composition they replaced. The tree sums K15 (G1, 2 columns)
@@ -56,7 +58,8 @@ Phases, one line each, any failure exits non-zero:
               compressed identity, p - 1 words, decompression's g2 = 0
               branch and a zero denominator), K30 and K31 (fp12_inv,
               frobenius: p - 1, zero, one), K32 (the Fp2 square-root
-              candidate: 0, one, u, -1) and K33 (mont_reduce: T = 0,
+              candidate: 0, one, u, -1; K13's counts and 17) and K33
+              (mont_reduce: T = 0,
               2 p 2^384 - 1, p^2 - 1, p 2^384), likewise (K33 against its
               plain version only: it replaced no composition). After
               set-up, K5 bit-identical to its plain version (on CPU
@@ -286,6 +289,11 @@ COFACTOR_EDGE = 19
 # warps a pair), around the verify path's 256 elements and 129 pairs
 SCALAR_MUL_COUNTS = (1, 2, 3, 255, 256, 257)
 MILLER_COUNTS = (1, 2, 129, 130)
+# K10's edge counts (a lane group of six an element) around the verify
+# path's 128, and K13's and K32's (eight and sixteen elements a block)
+# around its 256
+G1_SCALAR_MUL_COUNTS = (1, 2, 3, 127, 128, 129)
+SQRT_COUNTS = (1, 7, 8, 9, 255, 256, 257)
 # K19's, K20's and K21's edge shapes: n = 3 Fp12 values (p - 1 in every word
 # slot, zero, one); K20 at 19 elements, no multiple of its 32 a block; K21 at
 # one set
@@ -306,7 +314,7 @@ AFFINE_SHAPES = {"g1_to_affine": 128, "g2_to_affine": 256, "fp6_mul": 128, "fp2_
 # thread pair, 16 a block)
 STANDALONE_COUNTS = {"g1_add": (1, 33, 256), "g2_add": (1, 33, 256), "karabina_sqr": (1, 33, 128),
                      "karabina_decompress": (1, 6, 33), "fp12_inv": (1, 3, 33), "frobenius": (1, 3, 33),
-                     "fp2_sqrt_candidate": (1, 17, 256), "fp_redc": (1, 129, 4096)}
+                     "fp2_sqrt_candidate": (*SQRT_COUNTS[:4], 17, *SQRT_COUNTS[4:]), "fp_redc": (1, 129, 4096)}
 # their [timing] shapes, off the verify path: the counts at which the bodies
 # run inside the verify's kernels at S = 128 (K15's 128 G1 pairs, K17's 128
 # G2 sums, K9's 128 squarings' worth of elements and six decompressions,
@@ -403,6 +411,33 @@ def pow_word_products(e: int, mul: int, sqr: int) -> int:
     return (1 + 4 * (len(digits) - 1)) * sqr + (13 + sum(1 for d in digits[:-1] if d)) * mul
 
 
+def sliding_window_word_products(e: int, mul: int, sqr: int, width: int = 5) -> int:
+    """A power by a public exponent on sliding windows of at most `width`
+    bits, MSB first, that start and end on a one bit: the odd powers up to
+    the largest window's (a square and a product each past x), a square
+    per bit below the leading window, a product per window below it."""
+    bits, windows, i = bin(e)[2:], [], 0
+    while i < len(bits):
+        if bits[i] == "0":
+            i += 1
+            continue
+        j = min(i + width, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        windows.append((i, int(bits[i:j], 2)))
+        i = j
+    table = max(d for _, d in windows) >> 1
+    squares = len(bits) - (windows[0][0] + len(bin(windows[0][1])) - 2)
+    return (1 + squares) * sqr + (table + len(windows) - 1) * mul
+
+
+def power_word_products(e: int, mul: int, sqr: int) -> int:
+    """A power by a public exponent, as cheaply as the function allows of
+    the two schedules counted here: the plain version's 4-bit windows or
+    5-bit sliding windows (K13's and K32's chains)."""
+    return min(pow_word_products(e, mul, sqr), sliding_window_word_products(e, mul, sqr))
+
+
 # fp384.cuh's fp_inv: 26 batches of 30 divsteps on two-word approximations
 # (selects and additions, no word product).
 FP_INV_BATCHES = 26
@@ -413,7 +448,7 @@ def inversion_word_products() -> int:
     12-word combinations a f + b g (24 word products each) and two u f + v g
     with their Montgomery word step (24, 12 for m p, 1 for m); then the
     closing Montgomery product. K3 is a general power and is counted on
-    `pow_word_products`' schedule instead."""
+    `power_word_products` instead."""
     return FP_INV_BATCHES * (2 * 24 + 2 * (24 + 12 + 1)) + WORD_PRODUCTS_PER_MUL
 
 
@@ -427,8 +462,8 @@ def h2c_word_products(P: int) -> tuple[int, int]:
     and A = 240 u are additions. K14: the inversion, d^2, six products,
     four Fp products (1/9, -1/27)."""
     inv = 2 * 78 + REDC_WORD_PRODUCTS + inversion_word_products() + 2 * WORD_PRODUCTS_PER_MUL
-    sqrt = (pow_word_products((P - 3) // 4, FP2_MUL_WP, FP2_SQR_WP)
-            + pow_word_products((P - 1) // 2, FP2_MUL_WP, FP2_SQR_WP) + 3 * FP2_MUL_WP)
+    sqrt = (power_word_products((P - 3) // 4, FP2_MUL_WP, FP2_SQR_WP)
+            + power_word_products((P - 1) // 2, FP2_MUL_WP, FP2_SQR_WP) + 3 * FP2_MUL_WP)
     sswu = (2 * FP2_SQR_WP + inv + 2 * FP2_MUL_WP + 2 * (FP2_SQR_WP + FP2_MUL_WP) + 2 * sqrt
             + FP2_SQR_WP + 4 * REDC_WORD_PRODUCTS)
     iso = inv + FP2_SQR_WP + 6 * FP2_MUL_WP + 4 * WORD_PRODUCTS_PER_MUL
@@ -476,8 +511,8 @@ def standalone_word_products(P: int) -> dict:
     Frobenius map six Fp2 products; the square-root candidate its two
     powers on the plain version's schedule and three Fp2 products; the
     reduction 156."""
-    sqrt = (pow_word_products((P - 3) // 4, FP2_MUL_WP, FP2_SQR_WP)
-            + pow_word_products((P - 1) // 2, FP2_MUL_WP, FP2_SQR_WP) + 3 * FP2_MUL_WP)
+    sqrt = (power_word_products((P - 3) // 4, FP2_MUL_WP, FP2_SQR_WP)
+            + power_word_products((P - 1) // 2, FP2_MUL_WP, FP2_SQR_WP) + 3 * FP2_MUL_WP)
     return {"g1_add": G1_ADD_WP, "g2_add": G2_ADD_WP, "karabina_sqr": 4 * FP2_SQR_WP + 2 * FP2_MUL_WP,
             "karabina_decompress": decompress_word_products(True),
             "fp12_inv": 4 * FP12_MUL_WP + 8 * WORD_PRODUCTS_PER_MUL + fp2_inv_word_products() + 6 * FP2_MUL_WP,
@@ -554,17 +589,27 @@ def cuda_ms(fn, reps: int) -> float:
 
 #: traces that came back with no device event and were taken again
 EMPTY_TRACES = 0
-TRACE_TRIES = 3
+#: traces that came back with another count of device events than the
+#: window issues (events lost), taken again
+PARTIAL_TRACES = 0
+# the card's profiler has returned three empty traces of one short window
+# in a row (K24's 20 launches of 7 us): ten tries before a phase fails
+TRACE_TRIES = 10
+# device operations (kernels, copies, fills) of one verify, at each
+# profiled shape and with the MXU flag
+VERIFY_DEVICE_OPS = 155
 
 
-def traced_device_events(window):
+def traced_device_events(window, device_calls: int | None = None):
     """Run window() under torch.profiler, tracing the device's activity
     only, and return (rows, wall ms of the traced window), a row being
     (self device microseconds, calls, name) of an event that spent time
     on the device. The profiler now and then returns a trace with no
-    device event at all; such a trace is counted in EMPTY_TRACES and taken
-    again, and after TRACE_TRIES empty traces this raises."""
-    global EMPTY_TRACES
+    device event at all, or one that lost some: a trace with no event, or
+    with another count of events than `device_calls` where that is given,
+    is counted in EMPTY_TRACES or PARTIAL_TRACES and taken again, and
+    after TRACE_TRIES such traces this raises."""
+    global EMPTY_TRACES, PARTIAL_TRACES
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -581,10 +626,14 @@ def traced_device_events(window):
                 dev_us = getattr(e, "self_cuda_time_total", 0)
             if dev_us > 0:
                 rows.append((dev_us, e.count, e.key))
-        if rows:
+        if not rows:
+            EMPTY_TRACES += 1
+        elif device_calls is not None and sum(r[1] for r in rows) != device_calls:
+            PARTIAL_TRACES += 1
+        else:
             return rows, wall_ms
-        EMPTY_TRACES += 1
-    raise RuntimeError(f"the profiler trace held no device events in {TRACE_TRIES} tries")
+    raise RuntimeError(f"the profiler trace held no device events, or not the {device_calls} expected, "
+                       f"in {TRACE_TRIES} tries")
 
 
 def kernel_device_ms(fn, reps: int, kernel: str) -> float:
@@ -1062,12 +1111,13 @@ def ptxas_summary(log: str, kernel: str, nlines: int = 2) -> str:
 
 
 # [timing] lines that carry ptxas's registers, shared memory and spills:
-# K11 and K17 (the lane-group law), K12 (two warps), K19 and K22 (callers
-# of fp384.cuh's binary-GCD inversion; K22's line also gives the
-# inversion's own stack and spills).
-PTXAS_TIMED = {"g2_scalar_mul": "g2_scalar_mul_kernel", "miller_loop": "miller_loop_kernel",
-               "clear_cofactor": "clear_cofactor_kernel", "final_exponentiation": "final_exponentiation_kernel",
-               "g1_to_affine": "g1_to_affine_kernel"}
+# K10, K11 and K17 (the lane-group law), K12 (two warps), K13 (the
+# windowed square-root chains), K19 and K22 (callers of fp384.cuh's
+# binary-GCD inversion; K22's line also gives the inversion's own stack
+# and spills).
+PTXAS_TIMED = {"g1_scalar_mul": "g1_scalar_mul_kernel", "g2_scalar_mul": "g2_scalar_mul_kernel",
+               "miller_loop": "miller_loop_kernel", "sswu": "sswu_kernel", "clear_cofactor": "clear_cofactor_kernel",
+               "final_exponentiation": "final_exponentiation_kernel", "g1_to_affine": "g1_to_affine_kernel"}
 
 
 def ptxas_fields(log: str, name: str) -> dict:
@@ -1225,27 +1275,42 @@ def chain_cases(torch, fp, curve, tower, pairing, api, h2c, P):
     return cases, verdicts
 
 
-def lane_cases(torch, fp, curve, tower, pairing, smul_counts, miller_counts, seed):
+def lane_cases(torch, fp, curve, tower, pairing, smul_counts, miller_counts, seed, g1_counts=()):
     """name -> (shape, kernel call, plain version, the composition it
-    replaced) for K11 on each count of `smul_counts` (`curve_inputs`'
-    points and `scalar_bits`' 64-bit rows, their edge rows where the count
-    reaches them; int64 bits at odd counts, int32 at even ones) and K12 on
-    each count of `miller_counts` (`miller_inputs`, infinity lanes where
-    the count reaches them)."""
+    replaced) for K11 on each count of `smul_counts` and K10 on each of
+    `g1_counts` (`curve_inputs`' points and `scalar_bits`' 64-bit rows,
+    their edge rows where the count reaches them; int64 bits at odd
+    counts, int32 at even ones) and K12 on each count of `miller_counts`
+    (`miller_inputs`, infinity lanes where the count reaches them)."""
     smul = curve.scalar_mul_bits_plain
     cases = {}
-    for n in smul_counts:
-        p = curve.Proj(*(c[:n] for c in curve_inputs(torch, fp, curve, "g2", max(n, 4), seed + n)))
-        b = scalar_bits(torch, max(n, 6), 64, seed + n + 1)[:n]
-        b = b.to(torch.int64) if n % 2 else b
-        cases[f"g2_scalar_mul_n{n}_b64"] = ([n, 64], lambda p=p, b=b: curve.scalar_mul_bits(curve.FP2, p, b),
-                                            lambda p=p, b=b: smul(curve.FP2_PLAIN, p, b),
-                                            lambda p=p, b=b: smul(curve.FP2, p, b))
+    for group, counts, F, plain in (("g2", smul_counts, curve.FP2, curve.FP2_PLAIN),
+                                    ("g1", g1_counts, curve.FP, curve.FP_PLAIN)):
+        for n in counts:
+            p = curve.Proj(*(c[:n] for c in curve_inputs(torch, fp, curve, group, max(n, 4), seed + n)))
+            b = scalar_bits(torch, max(n, 6), 64, seed + n + 1)[:n]
+            b = b.to(torch.int64) if n % 2 else b
+            cases[f"{group}_scalar_mul_n{n}_b64"] = ([n, 64], lambda F=F, p=p, b=b: curve.scalar_mul_bits(F, p, b),
+                                                     lambda plain=plain, p=p, b=b: smul(plain, p, b),
+                                                     lambda F=F, p=p, b=b: smul(F, p, b))
     for n in miller_counts:
         mil = miller_inputs(torch, fp, n, seed + n + 2, DEVICE)
         cases[f"miller_loop_n{n}"] = ([n], lambda mil=mil: pairing.miller_loop(*mil),
                                       lambda mil=mil: pairing.miller_loop_plain(*mil),
                                       lambda mil=mil: pairing.miller_loop_composed(*mil, tower.KERNEL_TOWER))
+    return cases
+
+
+def sswu_cases(torch, fp, tower, h2c, P, counts, seed):
+    """name -> (shape, kernel call, plain version, the composition it
+    replaced) for K13 on each count of `counts` (`sswu_inputs`: 0, one, u
+    and -1 where the count reaches them), partial and whole blocks of its
+    eight elements."""
+    cases = {}
+    for n in counts:
+        u = sswu_inputs(fp, P, max(n, 4), seed + n)[:n]
+        cases[f"sswu_m{n}"] = ([n], lambda u=u: h2c.sswu(u), lambda u=u: h2c.sswu_plain(u),
+                               lambda u=u: h2c.sswu_composed(u, tower.KERNEL_TOWER))
     return cases
 
 
@@ -1550,10 +1615,12 @@ def profile_verify(torch, api, sets, label: str, warm_ms: float) -> None:
     the most device time. The idle share is taken against `warm_ms`, the
     median wall time of the same verify run without the profiler, which
     inflates the wall time of the verify it traces. The trace must hold
-    each kernel of VERIFY_LAUNCHES as many times as the verify launches it."""
+    the verify's VERIFY_DEVICE_OPS device operations (a trace that lost
+    some is taken again), each kernel of VERIFY_LAUNCHES as many times as
+    the verify launches it."""
     api.verify_signature_sets(sets)
     torch.cuda.synchronize()
-    rows, profiled_wall_ms = traced_device_events(lambda: api.verify_signature_sets(sets))
+    rows, profiled_wall_ms = traced_device_events(lambda: api.verify_signature_sets(sets), VERIFY_DEVICE_OPS)
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     top = [{"kernel": k[:60], "ms": round(us / 1e3, 3), "calls": c} for us, c, k in rows[:8]]
@@ -1574,10 +1641,10 @@ def time_kernels(torch, fp, tower, P, dev, launches, peak_ops_per_s):
     K7 and K8 run in the op or mode of their shape, and the K1/K2
     composition they replaced is timed beside them (`composed_ms`, per
     call). K4's inversion is the kernels' binary GCD; K3 is a general
-    power, counted as the power p - 2 on the plain version's schedule."""
+    power, counted as the power p - 2 on `power_word_products`."""
     results = []
     inv_word_products = inversion_word_products()
-    pow_inv_word_products = pow_word_products(P - 2, WORD_PRODUCTS_PER_MUL, WORD_PRODUCTS_PER_SQR)
+    pow_inv_word_products = power_word_products(P - 2, WORD_PRODUCTS_PER_MUL, WORD_PRODUCTS_PER_SQR)
     for name, shape in OFF_PATH_SHAPES.items():
         composed = None
         if name == "fp_batch_inv":
@@ -2095,7 +2162,9 @@ def main() -> int:
     edges = fold_cases(torch, fp, curve, tower, pairing, h2c, P, [(2, n) for n in FOLD_LENGTHS], FOLD_LENGTHS,
                        COFACTOR_EDGE, REDUCE_COUNTS, 29, nosum=True)
     check_chain_kernels(torch, edges)
-    check_chain_kernels(torch, lane_cases(torch, fp, curve, tower, pairing, SCALAR_MUL_COUNTS, MILLER_COUNTS, 36))
+    check_chain_kernels(torch, lane_cases(torch, fp, curve, tower, pairing, SCALAR_MUL_COUNTS, MILLER_COUNTS, 36,
+                                          G1_SCALAR_MUL_COUNTS))
+    check_chain_kernels(torch, sswu_cases(torch, fp, tower, h2c, P, SQRT_COUNTS, 37))
     fe_edges = fp12_inputs(fp, tower, P, FINAL_EXP_EDGE, 32, DEVICE)  # p - 1 in every word slot, zero, one
     glue, verdicts = glue_cases(torch, fp, curve, tower, pairing, api, h2c, P,
                                 {f"final_exponentiation_n{FINAL_EXP_EDGE}": fe_edges,
@@ -2170,7 +2239,8 @@ def main() -> int:
     run_sharded(torch, api, fp, pairing, name_power)
     run_coalescer(torch, api, fp, name_power)
 
-    phase("done", seconds=f"{time.perf_counter() - t_start:.1f}", empty_traces_retaken=EMPTY_TRACES)
+    phase("done", seconds=f"{time.perf_counter() - t_start:.1f}", empty_traces_retaken=EMPTY_TRACES,
+          partial_traces_retaken=PARTIAL_TRACES)
     print(json.dumps({"kernels": results}))
     print(name_power)
     # the run drives cuda:0 only, whatever else the machine holds

@@ -13,7 +13,7 @@
 //   Computes, per element, by the plain version's steps
 //   (`h2c.clear_cofactor_plain`): p = q0 + q1 (or p alone when no q is
 //   given); psi(p); the two windowed multiplications [z^2 - z - 1] p and
-//   [|z - 1|] psi(p) on K11's algorithm (curve.cuh `scalar_mul_point`'s
+//   [|z - 1|] psi(p) on K11's algorithm (curve.cuh `scalar_mul_lanes`'
 //   table and digits; the two rows of 128 public bits of `h2c._CC_BITS`,
 //   a byte a bit, 32 digits); the second negated (z - 1 < 0);
 //   t3 = psi(psi(2 p)); then (t1 + t2) + t3. A projective coordinate is not unique, so every point
@@ -24,7 +24,7 @@
 //   Design: one warp per element, a block each, so the verify path's 128
 //   elements occupy 128 SMs. Lanes 0-11 (group 0) run [z^2 - z - 1] p
 //   from bit row 0, lanes 12-23 (group 1) [|z - 1|] psi(p) from bit row
-//   1, on curve.cuh's lane-group law (`g2_scalar_mul_lanes`): each Fp2
+//   1, on curve.cuh's lane-group law (`scalar_mul_lanes<2>`): each Fp2
 //   product of an RCB level on a lane pair, a lane per component, the
 //   additions between the levels a lane per Fp component, `__syncwarp`
 //   between steps. Both rows have 128 bits (32 digits), so the two groups
@@ -79,7 +79,7 @@ __global__ void __launch_bounds__(kCofactorThreads) clear_cofactor_kernel(
   const int t = threadIdx.x;
   const int g = t < kLaneGroup ? 0 : 1, l = t - g * kLaneGroup;  // lanes 24-31: group 1, l >= 12
   const bool on = t < 2 * kLaneGroup;
-  fp2_t* s = sh.s[g];
+  uint32_t* s = &sh.s[g][0][0][0];
 
   // q0 into both tables' row 1, q1 into both accumulators; the zero slots;
   // conj(CX), conj(CY)
@@ -110,13 +110,13 @@ __global__ void __launch_bounds__(kCofactorThreads) clear_cofactor_kernel(
   // p = q0 + q1 on both groups; t3 = psi(psi(2 p)) on group 0, psi(p) on
   // group 1 beside the first psi
   G2Proj* base = &sh.tab[g][1];
-  if (sum) g2_lanes_add(base, base, &sh.acc[g], s, l, on);
-  g2_lanes_dbl(&sh.t3, base, s, l, on && g == 0);
+  if (sum) lanes_add<2>((uint32_t*)base, (uint32_t*)base, (uint32_t*)&sh.acc[g], s, l, on);
+  lanes_dbl<2>((uint32_t*)&sh.t3, (uint32_t*)base, s, l, on && g == 0);
   g2_psi_lanes(g == 0 ? &sh.t3 : base, g == 0 ? &sh.t3 : base, sh.cc, l, on);
   g2_psi_lanes(&sh.t3, &sh.t3, sh.cc, l, on && g == 0);
 
   // the two chains
-  g2_scalar_mul_lanes(sh.tab[g], &sh.acc[g], s, bits + g * nbits, nbits, 1, l, on);
+  scalar_mul_lanes<2>((uint32_t*)sh.tab[g], (uint32_t*)&sh.acc[g], s, bits + g * nbits, nbits, 1, l, on);
 
   // t2 = -[|z - 1|] psi(p), in place; then (t1 + t2) + t3 on group 0
   if (g == 1 && l < 2) {
@@ -126,8 +126,8 @@ __global__ void __launch_bounds__(kCofactorThreads) clear_cofactor_kernel(
     fp_store(sh.acc[1].y[l], v);
   }
   __syncwarp();
-  g2_lanes_add(&sh.acc[0], &sh.acc[0], &sh.acc[1], s, l, on && g == 0);
-  g2_lanes_add(&sh.acc[0], &sh.acc[0], &sh.t3, s, l, on && g == 0);
+  lanes_add<2>((uint32_t*)&sh.acc[0], (uint32_t*)&sh.acc[0], (uint32_t*)&sh.acc[1], s, l, on && g == 0);
+  lanes_add<2>((uint32_t*)&sh.acc[0], (uint32_t*)&sh.acc[0], (uint32_t*)&sh.t3, s, l, on && g == 0);
   for (int i = t; i < 3 * 2 * FP_WORDS; i += kCofactorThreads) {
     const int c = i / (2 * FP_WORDS), w = i % (2 * FP_WORDS);
     out[(c * n + e) * G2::kWords + w] = coord<G2>(sh.acc[0], c)[w];

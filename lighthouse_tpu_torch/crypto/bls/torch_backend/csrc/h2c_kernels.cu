@@ -29,28 +29,38 @@
 //   thread (j, c) takes candidate j and component c. The four run the
 //   prologue up to gx_j side by side in one instruction stream (the
 //   inversion, fp384.cuh's fixed-count binary GCD, in every thread).
-//   Each candidate's two power chains (e = p >> 2 and p >> 1, read from p's
-//   bits, MSB first, square and multiply) split every Fp2 square and
-//   product over the thread pair, thread c forming component c as one
-//   lazy sum (g2.cuh `fp2_sqr_part`, `fp2_mul_part`) and taking the other
-//   component from its partner with `__shfl_xor_sync`; the two candidates
-//   run side by side. Then the candidates and gx1 are exchanged between
-//   the pairs, and the four threads select, fix the sign, and store a
-//   component of x or y each.
+//   Each candidate's two powers (e = p >> 2 and p >> 1) run on a windowed
+//   addition chain (`kSqrtChain`, sliding windows of at most 5 bits
+//   generated from p: a table of the odd powers x .. x^31 in shared
+//   memory, one square and 15 products, then 375 (376) squares and 66
+//   products, 457 (458) steps where binary square and multiply took 605
+//   (607)); every Fp2 square and product is split over the thread pair,
+//   thread c forming component c as one lazy sum (g2.cuh `fp2_sqr_part`,
+//   `fp2_mul_part`) and taking the other component from its partner with
+//   `__shfl_xor_sync`; the two candidates run side by side. A power is
+//   one integer whatever its chain, and every value is canonical, so the
+//   words are the plain version's (its 4-bit windows). Then the
+//   candidates and gx1 are exchanged between the pairs, and the four
+//   threads select, fix the sign, and store a component of x or y each.
+//   Shared memory: a pair's table of 16 Fp2 (1,536 bytes), 24,576 bytes
+//   a block. Splitting each component's product by rows over four lanes
+//   (128 blocks at m = 256) was bit-identical and slower on the card,
+//   2.11 ms against the pair's 1.88 (PERF.md).
 //   Work per element, in the word products the function needs (an Fp2
 //   product 744, an Fp2 square 600, an Fp product 300, an Fp square 234,
 //   a reduction alone 156; products by small constants, Z = -(2 + u) and
-//   A = 240 u among them, are additions; each power counted on the plain
-//   version's 4-bit windows, its table's square and 13 products
-//   included): u^2, (Z u^2)^2 1,200; the inversion (a norm of two
-//   squares summed and reduced once 312, the power p - 2, 381 squares
-//   and 104 products, 120,354, two products) 121,266; x1, x2 1,488; two
-//   gx 2,688; two candidates of 608,640 (the powers 377 squares and 104
-//   products, 377 and 103; three products) 1,217,280; y1^2 600; sgn0 of
-//   u and y, four reductions 624: 1,345,146, against 288 bytes moved
+//   A = 240 u among them, are additions; each power on the cheaper of the
+//   plain version's 4-bit windows and 5-bit sliding windows, here the
+//   sliding ones): u^2, (Z u^2)^2 1,200; the inversion (a norm of two
+//   squares summed and reduced once 312, fp384.cuh's binary GCD 3,472,
+//   two products) 4,384; x1, x2 1,488; two gx 2,688; two candidates of
+//   574,560 (x^(p >> 2) 376 squares and 81 products, x^(p >> 1) 377 and
+//   81, three products) 1,149,120; y1^2 600; sgn0 of u and y, four
+//   reductions 624: 1,160,104, against 288 bytes moved
 //   (u in, x and y out). Operations bound; at the verify path's 256
-//   elements bound by one thread pair's chain of about 1,820 dependent
-//   products (the kernel's chains are binary, square and multiply).
+//   elements bound by one thread pair's chain of dependent Fp2 steps,
+//   the two windowed powers' 915 (binary square and multiply took 1,212)
+//   after the prologue's inversion.
 //   Bound (reduction): every Fp2 component is a sum of N <= 2 products
 //   below 2 p^2, one conditional subtraction (fp384.cuh: N <= 9), the norm
 //   too.
@@ -63,9 +73,9 @@
 //   infinity (0, 1, 0) where d = 0 (x is the kernel point X0).
 //   Design: one thread per element, 32 a block; the Fp2 products are
 //   g2.cuh's `fp2_mul` (each component one lazy sum of N = 2).
-//   Work per element: the inversion 121,266; d^2 600; d^3, T/d, U/d^2,
+//   Work per element: the inversion 4,384; d^2 600; d^3, T/d, U/d^2,
 //   T/d^2, 2U/d^3 and the product by y, six products, 4,464; the two
-//   scalings by 1/9 and -1/27, four Fp products, 1,200: 127,530, against
+//   scalings by 1/9 and -1/27, four Fp products, 1,200: 10,648, against
 //   480 bytes moved (x, y in; X, Y, Z out). Operations bound; at 256
 //   elements bound by one thread's inversion (fp384.cuh's binary GCD) and
 //   its eleven products.
@@ -81,14 +91,15 @@
 //   the standalone launch and K13 cannot drift apart.
 //   Design: a thread pair per element, sixteen elements a warp-sized
 //   block, thread c forming component c of every square and product of
-//   the two power chains (`fp2_sqr_part`, `fp2_mul_part`, the other
-//   component from its partner by `__shfl_xor_sync`); lanes past the end
-//   take the last element, since every lane takes part in the shuffles,
-//   and store nothing.
-//   Work per element: the two powers on the plain version's 4-bit window
-//   schedule and three Fp2 products, 608,640 word products, against 192
-//   bytes. Operations bound; a pair's chain of about 1,820 dependent
-//   products sets the time at any batch up to a few thousand.
+//   the two windowed power chains (`fp2_sqr_part`, `fp2_mul_part`, the
+//   other component from its partner by `__shfl_xor_sync`; each pair's
+//   table of odd powers in shared memory, 24,576 bytes a block); lanes
+//   past the end take the last element, since every lane takes part in
+//   the shuffles, and store nothing.
+//   Work per element: the two powers (as K13 counts them) and three Fp2
+//   products, 574,560 word products, against 192 bytes. Operations bound; a pair's chain of about 920 dependent
+//   squares and products (two windowed powers) sets the time at any batch
+//   up to a few thousand.
 //   Bound (reduction): N <= 2 per component, one conditional subtraction.
 
 #include <cuda_runtime.h>
@@ -99,11 +110,11 @@
 
 namespace {
 
-constexpr int kSswuThreads = 32;  // eight elements of four threads
-constexpr int kSswuPerBlock = kSswuThreads / 4;
+constexpr int kSswuThreads = 32;  // one warp a block
+constexpr int kSswuPerBlock = kSswuThreads / 4;  // K13: two candidates an element, a thread pair each
+constexpr int kSqrtPerBlock = kSswuThreads / 2;  // K32: one candidate
 constexpr int kIsoThreads = 32;
 constexpr int kFp2Words = 2 * FP_WORDS;
-constexpr int kPBits = 381;  // bit length of p
 enum Const { kConstA, kConstB, kConstZ, kConstC1, kConstC2, kConstX0, kConstT, kConstU, kConstInv9, kConstInv27 };
 
 __device__ __forceinline__ void fp2_load(fp2_t r, const uint32_t* src) {
@@ -117,7 +128,7 @@ __device__ __forceinline__ void fp2_store(uint32_t* dst, const fp2_t a) {
 }
 
 // acc = {component c: r, component 1 - c: the partner's r}, the partner
-// being the lane with the other parity.
+// being the other thread of the pair.
 __device__ __forceinline__ void join_parts(fp2_t acc, const uint32_t r[FP_WORDS], int c) {
 #pragma unroll
   for (int i = 0; i < FP_WORDS; ++i) {
@@ -127,34 +138,86 @@ __device__ __forceinline__ void join_parts(fp2_t acc, const uint32_t r[FP_WORDS]
   }
 }
 
-// r = x^(p >> shift) (0 -> 0), in the thread pair whose threads take
-// component c each: MSB-first square and multiply over p's bits 379 ..
-// shift (bit 380, the leading one, starts the accumulator at x).
-__device__ __noinline__ void fp2_pow_p_shift(fp2_t r, const fp2_t x, int shift, int c) {
-  fp2_t acc;
+// The two powers of the square-root candidate, x^(p >> 2) = x^((p - 3) / 4)
+// and x^(p >> 1) = x^((p - 1) / 2), as sliding windows of at most 5 bits
+// over the exponent, MSB first, generated from p (and held to it:
+// tests/test_torch_miller_h2c_kernels.py folds each row back into its
+// exponent). Entry k: {squares, d}, the squares before the window's
+// product by x^d (d odd, table row d >> 1); entry 0 starts the chain at
+// x^d, and the last entry holds the trailing squares (d = 0: no product).
+// 67 windows each: 375 (376) squares and 66 products, after the table's
+// one square and 15 products; binary square and multiply took 378 (379)
+// and 227 (228).
+constexpr int kChainEntries = 68;
+constexpr int kChainRows = 16;  // x, x^3, ..., x^31
+static __constant__ uint8_t kSqrtChain[2][kChainEntries][2] = {
+    // x^(p >> 2)
+    {{0, 13}, {13, 17}, {7, 15}, {4, 5}, {6, 7}, {7, 23}, {5, 31}, {5, 25}, {3, 5}, {6, 13}, {6, 9}, {3, 3},
+     {8, 27}, {3, 5}, {6, 15}, {6, 27}, {3, 1}, {8, 13}, {7, 23}, {5, 11}, {6, 13}, {6, 29}, {4, 9}, {8, 29},
+     {4, 13}, {7, 23}, {9, 19}, {5, 25}, {2, 3}, {7, 5}, {7, 9}, {6, 23}, {5, 29}, {5, 19}, {5, 19}, {8, 13},
+     {7, 21}, {9, 15}, {5, 13}, {3, 3}, {8, 15}, {3, 3}, {7, 9}, {9, 15}, {6, 21}, {6, 31}, {5, 31}, {5, 31},
+     {4, 13}, {3, 3}, {8, 21}, {7, 31}, {5, 31}, {5, 31}, {4, 15}, {4, 7}, {7, 31}, {5, 29}, {5, 31}, {5, 31},
+     {5, 31}, {5, 31}, {5, 31}, {5, 31}, {4, 13}, {6, 21}, {4, 5}, {1, 0}},
+    // x^(p >> 1)
+    {{0, 13}, {13, 17}, {7, 15}, {4, 5}, {6, 7}, {7, 23}, {5, 31}, {5, 25}, {3, 5}, {6, 13}, {6, 9}, {3, 3},
+     {8, 27}, {3, 5}, {6, 15}, {6, 27}, {3, 1}, {8, 13}, {7, 23}, {5, 11}, {6, 13}, {6, 29}, {4, 9}, {8, 29},
+     {4, 13}, {7, 23}, {9, 19}, {5, 25}, {2, 3}, {7, 5}, {7, 9}, {6, 23}, {5, 29}, {5, 19}, {5, 19}, {8, 13},
+     {7, 21}, {9, 15}, {5, 13}, {3, 3}, {8, 15}, {3, 3}, {7, 9}, {9, 15}, {6, 21}, {6, 31}, {5, 31}, {5, 31},
+     {4, 13}, {3, 3}, {8, 21}, {7, 31}, {5, 31}, {5, 31}, {4, 15}, {4, 7}, {7, 31}, {5, 29}, {5, 31}, {5, 31},
+     {5, 31}, {5, 31}, {5, 31}, {5, 31}, {4, 13}, {6, 21}, {6, 21}, {0, 0}},
+};
+
+// r = x^(p >> 2) (which = 0) or x^(p >> 1) (which = 1), 0 -> 0, on a
+// thread pair (thread c forms component c of every square and product,
+// g2.cuh `fp2_sqr_part` / `fp2_mul_part`, joined by `__shfl_xor_sync`),
+// on kSqrtChain[which]: first the odd powers x, x^3, ..., x^31 into the
+// pair's table `tab` (shared memory; thread c writes component c of each
+// row), then the windows. Every thread of the warp runs the same chain.
+__device__ __noinline__ void fp2_pow_chain(fp2_t r, const fp2_t x, int which, fp2_t* tab, int c) {
+  fp2_t acc, x2;
   uint32_t part[FP_WORDS];
+  __syncwarp();  // the pair's reads of the table's last use are done
+  fp2_sqr_part(part, x, c);
+  join_parts(x2, part, c);
   fp2_copy(acc, x);
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) tab[0][c][i] = c ? x[1][i] : x[0][i];
 #pragma unroll 1
-  for (int i = kPBits - 2; i >= shift; --i) {
-    fp2_sqr_part(part, acc, c);
+  for (int k = 1; k < kChainRows; ++k) {
+    fp2_mul_part(part, acc, x2, c);
     join_parts(acc, part, c);
-    if ((FP_P[i >> 5] >> (i & 31)) & 1u) {
-      fp2_mul_part(part, acc, x, c);
+    fp_store(tab[k][c], part);
+  }
+  __syncwarp();
+  const uint8_t(*chain)[2] = kSqrtChain[which];
+  fp2_load(acc, (const uint32_t*)tab[chain[0][1] >> 1]);
+#pragma unroll 1
+  for (int k = 1; k < kChainEntries; ++k) {
+    const int squares = chain[k][0], d = chain[k][1];
+#pragma unroll 1
+    for (int i = 0; i < squares; ++i) {
+      fp2_sqr_part(part, acc, c);
+      join_parts(acc, part, c);
+    }
+    if (d != 0) {
+      fp2_load(x2, (const uint32_t*)tab[d >> 1]);
+      fp2_mul_part(part, acc, x2, c);
       join_parts(acc, part, c);
     }
   }
   fp2_copy(r, acc);
 }
 
-// The square-root candidate of x (h2c.fp2_sqrt_candidate), in the pair.
-__device__ __forceinline__ void sqrt_candidate(fp2_t r, const fp2_t x, int c) {
+// The square-root candidate of x (h2c.fp2_sqrt_candidate), on a thread
+// pair, with its table `tab`.
+__device__ __forceinline__ void sqrt_candidate(fp2_t r, const fp2_t x, fp2_t* tab, int c) {
   fp2_t a1, x0, alpha, b, m1;
-  fp2_pow_p_shift(a1, x, 2, c);  // x^((p-3)/4)
+  fp2_pow_chain(a1, x, 0, tab, c);  // x^((p-3)/4)
   fp2_mul(x0, a1, x);
   fp2_mul(alpha, a1, x0);
   fp_add(b[0], alpha[0], FP_ONE);
   fp_copy(b[1], alpha[1]);
-  fp2_pow_p_shift(b, b, 1, c);  // (alpha + 1)^((p-1)/2)
+  fp2_pow_chain(b, b, 1, tab, c);  // (alpha + 1)^((p-1)/2)
   fp2_mul(r, b, x0);
   fp_neg(m1[0], FP_ONE);
 #pragma unroll
@@ -163,6 +226,12 @@ __device__ __forceinline__ void sqrt_candidate(fp2_t r, const fp2_t x, int c) {
   fp_neg(b[0], x0[1]);  // u x0 = (-x0_1, x0_0)
   fp_select(r[0], is_m1, b[0], r[0]);
   fp_select(r[1], is_m1, x0[0], r[1]);
+}
+
+// Component c of a into dst (component c's words).
+__device__ __forceinline__ void store_part(uint32_t* dst, const fp2_t a, int c) {
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) dst[i] = c ? a[1][i] : a[0][i];
 }
 
 // RFC 9380 sgn0 of an Fp2 element: the parity of the standard values.
@@ -178,9 +247,10 @@ __device__ __forceinline__ bool fp2_sgn0(const fp2_t a) {
 __global__ void __launch_bounds__(kSswuThreads) sswu_kernel(const uint32_t* __restrict__ u_in, long long su,
                                                             const uint32_t* __restrict__ cst,
                                                             uint32_t* __restrict__ out, long long n) {
+  __shared__ fp2_t tabs[2 * kSswuPerBlock][kChainRows];
   const int lane = threadIdx.x;
-  const int j = (lane >> 1) & 1, c = lane & 1;
-  const long long e0 = (long long)blockIdx.x * kSswuPerBlock + (lane >> 2);
+  const int c = lane & 1, j = (lane >> 1) & 1;
+  const long long e0 = (long long)blockIdx.x * kSswuPerBlock + lane / 4;
   const bool live = e0 < n;
   const long long e = live ? e0 : n - 1;  // every lane takes part in the shuffles
 
@@ -210,8 +280,8 @@ __global__ void __launch_bounds__(kSswuThreads) sswu_kernel(const uint32_t* __re
   fp2_add(gx, gx, k);
 
   fp2_t y, other, gx1;
-  sqrt_candidate(y, gx, c);
-  // the other pair's candidate and gx (lane ^ 2)
+  sqrt_candidate(y, gx, tabs[lane / 2], c);
+  // the other candidate's root and gx (lane ^ 2)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
 #pragma unroll
@@ -230,10 +300,7 @@ __global__ void __launch_bounds__(kSswuThreads) sswu_kernel(const uint32_t* __re
   fp2_select(y, is_sq, y1, y2);
   if (fp2_sgn0(u) != fp2_sgn0(y)) fp2_neg(y, y);
   // thread (j, c) stores component c of x (j = 0) or y (j = 1)
-  if (live) {
-    uint32_t* dst = out + (j * n + e) * kFp2Words + c * FP_WORDS;
-    fp_store(dst, j == 0 ? xj[c] : y[c]);
-  }
+  if (live) store_part(out + (j * n + e) * kFp2Words + c * FP_WORDS, j == 0 ? xj : y, c);
 }
 
 __global__ void __launch_bounds__(kIsoThreads) iso3_map_kernel(const uint32_t* __restrict__ x_in, long long sx,
@@ -291,15 +358,16 @@ __global__ void __launch_bounds__(kIsoThreads) iso3_map_kernel(const uint32_t* _
 __global__ void __launch_bounds__(kSswuThreads) fp2_sqrt_candidate_kernel(const uint32_t* __restrict__ x_in,
                                                                           long long sx, uint32_t* __restrict__ out,
                                                                           long long n) {
+  __shared__ fp2_t tabs[kSqrtPerBlock][kChainRows];
   const int lane = threadIdx.x;
   const int c = lane & 1;
-  const long long e0 = (long long)blockIdx.x * (kSswuThreads / 2) + (lane >> 1);
+  const long long e0 = (long long)blockIdx.x * kSqrtPerBlock + lane / 2;
   const bool live = e0 < n;
   const long long e = live ? e0 : n - 1;  // every lane takes part in the shuffles
   fp2_t x, r;
   fp2_load(x, x_in + e * sx);
-  sqrt_candidate(r, x, c);
-  if (live) fp_store(out + e * kFp2Words + c * FP_WORDS, r[c]);
+  sqrt_candidate(r, x, tabs[lane / 2], c);
+  if (live) store_part(out + e * kFp2Words + c * FP_WORDS, r, c);
 }
 
 }  // namespace
@@ -327,7 +395,7 @@ int lh_iso3_map(const void* x, long long sx, const void* y, long long sy, const 
 
 int lh_fp2_sqrt_candidate(const void* x, long long sx, void* out, long long n, void* stream) {
   if (n > 0) {
-    const unsigned blocks = (unsigned)((n + kSswuThreads / 2 - 1) / (kSswuThreads / 2));
+    const unsigned blocks = (unsigned)((n + kSqrtPerBlock - 1) / kSqrtPerBlock);
     fp2_sqrt_candidate_kernel<<<blocks, kSswuThreads, 0, (cudaStream_t)stream>>>((const uint32_t*)x, sx,
                                                                                  (uint32_t*)out, n);
   }

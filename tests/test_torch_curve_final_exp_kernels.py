@@ -12,11 +12,12 @@
 2. `pow_abs_x_plain` bit-identical to the jitted JAX `pairing._pow_abs_x`
    on the same inputs.
 3. An emulation in Python integers of each kernel's per-thread schedule:
-   K10's table build and digit loop (one thread per element,
-   curve.cuh `scalar_mul_point`), the same schedule over G2 (G2's
-   products as K7's lazy sums, its products by 3b as additions: the
-   algorithm that K11's lane groups follow, whose warp
-   tests/test_torch_scalar_mul_lanes.py models), and K9's
+   the windowed multiplication's table build and digit loop on one thread
+   (g1.cuh's / g2.cuh's formulas, G2's products as K7's lazy sums, its
+   products by 3b as additions: the algorithm that K10's and K11's lane
+   groups follow, curve.cuh `scalar_mul_lanes`, whose warps
+   tests/test_torch_g1_scalar_mul_lanes.py and
+   tests/test_torch_scalar_mul_lanes.py model), and K9's
    twelve-thread squaring, eight-thread update, six parallel
    decompressions, shared inversion and six-thread Fp12 products, every
    double-width sum checked against fp384.cuh's bound
@@ -301,9 +302,9 @@ def _dbl(G, p):
 
 
 def scalar_mul_thread(G, point, bits):
-    """curve.cuh `scalar_mul_point` on one thread: K10's thread
-    (csrc/curve_kernels.cu `scalar_mul`) in G1, and in G2 the algorithm
-    that K11's and K17's lane groups follow step for step."""
+    """The windowed multiplication on one thread, g1.cuh's / g2.cuh's
+    formulas in its order: the algorithm that K10's, K11's and K17's lane
+    groups (curve.cuh `scalar_mul_lanes`) follow step for step."""
     inf = (G.zero, G.one, G.zero)
     tab = [inf, point] + [None] * 14
     for k in range(8):
@@ -330,8 +331,9 @@ def _coord_ints(c, i, elem_dims):
 @pytest.mark.parametrize("group", ["g1", "g2"])
 @pytest.mark.parametrize("width", [64, 127])
 def test_scalar_mul_thread_matches_plain(group, width):
-    """`scalar_mul_point`'s schedule in Python integers (K10's thread in
-    G1; in G2 the algorithm K11's lane groups run, modelled lane by lane in
+    """The lane groups' schedule on one thread in Python integers (the
+    algorithm K10's and K11's lane groups run, modelled lane by lane in
+    tests/test_torch_g1_scalar_mul_lanes.py and
     tests/test_torch_scalar_mul_lanes.py) equals the plain version's
     projective coordinates word for word (row 1 of the table rebuilt as
     T_0 + T_1, digit 0 adding infinity, the MSB padding)."""

@@ -312,11 +312,12 @@ def _psi_ints(p):
 
 
 def _lane_table():
-    """curve.cuh `kG2Lane`, read from the source: per step (outputs, then
-    per output k the fields xa/E, xb/F, ya/G, yb/H, 3b, negate, m)."""
+    """curve.cuh `kLane` (the lane-group law's step table, G1's and G2's),
+    read from the source: per step (outputs, then per output k the fields
+    xa/E, xb/F, ya/G, yb/H, 3b, negate, m)."""
     src = (pathlib.Path(tfp.__file__).parent / "csrc" / "curve.cuh").read_text()
     zero = int(re.search(r"constexpr int kLz = (\d+);", src).group(1))
-    body = re.search(r"kG2Lane\[kG2LaneSteps\]\[8\] = \{(.*?)\n\};", src, re.S).group(1)
+    body = re.search(r"kLane\[kLaneSteps\]\[8\] = \{(.*?)\n\};", src, re.S).group(1)
     body = "\n".join(line for line in body.splitlines() if not line.strip().startswith("//"))
     steps = []
     for row in re.findall(r"\{([^{}]*)\}", body):
@@ -346,7 +347,7 @@ _INF = ((0, 0), (R_MONT, 0), (0, 0))
 
 
 def lane_step(st, r, p, q, s, on=True):
-    """curve.cuh `g2_lane_step` on the twelve lanes of a group: lane 2k + c
+    """curve.cuh `lane_step<2>` on the twelve lanes of a group: lane 2k + c
     forms component c of output k from the step's table row. Every lane
     reads before any lane writes (__syncwarp), which the kernel gets from
     its banks: a step reads only slots it does not write, as asserted. A
@@ -387,13 +388,13 @@ def lane_step(st, r, p, q, s, on=True):
 
 
 def lanes_add(r, p, q, s, on=True):
-    """curve.cuh `g2_lanes_add`: r = p + q, four steps. r may alias p or q."""
+    """curve.cuh `lanes_add<2>`: r = p + q, four steps. r may alias p or q."""
     for st in range(4):
         lane_step(st, r, p, q, s, on)
 
 
 def lanes_dbl(r, p, s, on=True):
-    """curve.cuh `g2_lanes_dbl`: r = 2 p, four steps."""
+    """curve.cuh `lanes_dbl<2>`: r = 2 p, four steps."""
     for st in range(4, 8):
         lane_step(st, r, p, p, s, on)
 
@@ -425,7 +426,7 @@ def window_digit(row, j, nbits, step):
 
 
 def scalar_mul_lanes(groups, nbits, step):
-    """curve.cuh `g2_scalar_mul_lanes` on the lane groups of one warp:
+    """curve.cuh `scalar_mul_lanes<2>` on the lane groups of one warp:
     every group runs the same sequence of group operations (one
     instruction stream, each step ending in __syncwarp), and only the
     table row that a digit picks differs. The groups share no state, so

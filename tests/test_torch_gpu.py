@@ -4,8 +4,9 @@ composition they replaced, the chains K9-K14 against the K1-K4/K7/K8
 composition, the tree sums K15 and K16, the cofactor clearing K17, the
 Fp12 product K18, the final exponentiation K19, the psi comparison K20,
 the Miller inputs K21 and the standalone K22-K32 against the composition
-each replaced, K33 against its plain version; K11 also at 1, 2, 3, 255,
-256 and 257 elements, K12 at 1, 2, 129 and 130 pairs, K17 and K19 at 1,
+each replaced, K33 against its plain version; K10 also at 1, 2, 3, 127,
+128 and 129 elements, K11 at 1, 2, 3, 255, 256 and 257, K12 at 1, 2, 129
+and 130 pairs, K13 and K32 at 1, 7, 8, 9, 255, 256 and 257, K17 and K19 at 1,
 16, 17, 128 and 129 elements; the port's kernel registry walked on the
 card), launch
 counting, launches on a card other than the current one (and from a fresh
@@ -183,6 +184,38 @@ def test_g2_scalar_mul_kernel_matches_plain_at_counts(cuda_device, n):
     got = {name: run() for name, (_, run, _, _) in cases.items()}
     torch.cuda.synchronize()
     assert {k: v for k, v in fp.LAUNCHES.items() if v} == {"g2_scalar_mul": 1}
+    for name, (_, _, plain, composed) in cases.items():
+        for want in (plain(), composed()):
+            assert torch.equal(chip_smoke._stacked(got[name]), chip_smoke._stacked(want)), name
+
+
+@pytest.mark.parametrize("n", chip_smoke.G1_SCALAR_MUL_COUNTS)
+def test_g1_scalar_mul_kernel_matches_plain_at_counts(cuda_device, n):
+    """K10 (a lane group of six an element, one a warp) at 1, 2, 3, 127,
+    128 and 129 points, int64 bits at odd counts, against its plain
+    version and the composition it replaced, bit for bit: one launch
+    (chip_smoke's `lane_cases`)."""
+    cases = chip_smoke.lane_cases(torch, fp, curve, tower, pairing, (), (), 61, (n,))
+    fp.reset_launches()
+    got = {name: run() for name, (_, run, _, _) in cases.items()}
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fp.LAUNCHES.items() if v} == {"g1_scalar_mul": 1}
+    for name, (_, _, plain, composed) in cases.items():
+        for want in (plain(), composed()):
+            assert torch.equal(chip_smoke._stacked(got[name]), chip_smoke._stacked(want)), name
+
+
+@pytest.mark.parametrize("n", chip_smoke.SQRT_COUNTS)
+def test_sswu_kernel_matches_plain_at_counts(cuda_device, n):
+    """K13 (eight elements a block, windowed square-root chains) at 1, 7,
+    8, 9, 255, 256 and 257 u's with 0, one, u and -1 where the count
+    reaches them, against its plain version and the composition it
+    replaced, bit for bit: one launch (chip_smoke's `sswu_cases`)."""
+    cases = chip_smoke.sswu_cases(torch, fp, tower, h2c, P, (n,), 62)
+    fp.reset_launches()
+    got = {name: run() for name, (_, run, _, _) in cases.items()}
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fp.LAUNCHES.items() if v} == {"sswu": 1}
     for name, (_, _, plain, composed) in cases.items():
         for want in (plain(), composed()):
             assert torch.equal(chip_smoke._stacked(got[name]), chip_smoke._stacked(want)), name

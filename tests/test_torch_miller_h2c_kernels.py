@@ -15,14 +15,20 @@
    line warp's step groups one iteration ahead of the f warp on a
    two-slot ring of lines, the ring's read/write order asserted; the f
    warp's products on twelve lanes), K13's four threads (the
-   prologue, the power chains split over a thread pair, the exchange, the
-   selects) and K14's thread, every double-width sum checked against
-   fp384.cuh's bound (test_torch_tower_kernels.redc_wide), on real inputs
-   and on all-(p - 1) inputs, held to the plain versions bit for bit.
+   prologue, the windowed power chains split over a thread pair, the
+   exchange, the selects; the chains read from h2c_kernels.cu's
+   `kSqrtChain`, folded back into p >> 2 and p >> 1 and held to the
+   5-bit sliding window of p) and K14's thread, every double-width sum
+   checked against fp384.cuh's bound (test_torch_tower_kernels.redc_wide),
+   on real inputs and on all-(p - 1) inputs, held to the plain versions
+   bit for bit.
 3. The wrappers: one launch per call with the operands read in place
    (element stride 0 for a broadcast operand), no fallback to the plain
    version on a CUDA tensor.
 """
+
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -355,19 +361,98 @@ def _inv2(a):
     return _mm(a[0], n), (-_mm(a[1], n)) % P
 
 
-def _pow_pair(x, shift):
-    """K13's fp2_pow_p_shift: the two threads of a pair form one component
-    each (K7's split square and product), then exchange."""
-    acc = x
-    for i in range(379, shift - 1, -1):
-        acc = tuple(k7_thread(acc, None, c, tt.FP2_SQR) for c in (0, 1))
-        if (P >> i) & 1:
-            acc = tuple(k7_thread(acc, x, c, tt.FP2_MUL) for c in (0, 1))
+def _sqrt_chain():
+    """h2c_kernels.cu `kSqrtChain`, read from the source: per power (p >> 2,
+    then p >> 1) its entries (squares, d)."""
+    src = (pathlib.Path(tfp.__file__).parent / "csrc" / "h2c_kernels.cu").read_text()
+    entries = int(re.search(r"constexpr int kChainEntries = (\d+);", src).group(1))
+    body = re.search(r"kSqrtChain\[2\]\[kChainEntries\]\[2\] = \{(.*?)\n\};", src, re.S).group(1)
+    body = "\n".join(line for line in body.splitlines() if not line.strip().startswith("//"))
+    pairs = [(int(a), int(b)) for a, b in re.findall(r"\{(\d+), (\d+)\}", body)]
+    assert len(pairs) == 2 * entries
+    return pairs[:entries], pairs[entries:]
+
+
+def sliding_window_chain(e, width=5):
+    """The sliding-window schedule of x^e, MSB first: windows of at most
+    `width` bits that start and end on a one bit; per window the squares
+    before its product by x^d (the first window's 0: the chain starts at
+    x^d), then the trailing squares with d = 0."""
+    bits = bin(e)[2:]
+    out, pending, i = [], 0, 0
+    while i < len(bits):
+        if bits[i] == "0":
+            pending, i = pending + 1, i + 1
+            continue
+        j = min(i + width, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        out.append((pending + j - i if out else 0, int(bits[i:j], 2)))
+        pending, i = 0, j
+    return out + [(pending, 0)]
+
+
+SQRT_CHAIN = _sqrt_chain()
+
+
+def _fold(chain):
+    """The exponent that a chain computes."""
+    e = chain[0][1]
+    for squares, d in chain[1:]:
+        e = (e << squares) + d
+    return e
+
+
+def _pow_pair(x, which):
+    """K13's fp2_pow_chain on chain `which` (0: p >> 2, 1: p >> 1): the two
+    threads of a pair form one component each of every square and product
+    (K7's split), then exchange; the table of odd powers x .. x^31 first
+    (x^2, then 15 products by it)."""
+    x2 = tuple(k7_thread(x, None, c, tt.FP2_SQR) for c in (0, 1))
+    tab = [x]
+    for _ in range(15):
+        tab.append(tuple(k7_thread(tab[-1], x2, c, tt.FP2_MUL) for c in (0, 1)))
+    chain = SQRT_CHAIN[which]
+    acc = tab[chain[0][1] >> 1]
+    for squares, d in chain[1:]:
+        for _ in range(squares):
+            acc = tuple(k7_thread(acc, None, c, tt.FP2_SQR) for c in (0, 1))
+        if d:
+            acc = tuple(k7_thread(acc, tab[d >> 1], c, tt.FP2_MUL) for c in (0, 1))
     return acc
 
 
+@pytest.mark.parametrize("which,shift", [(0, 2), (1, 1)], ids=["p_shr_2", "p_shr_1"])
+def test_sqrt_chain_folds_back_to_its_exponent(which, shift):
+    """K13's windowed chain, read from h2c_kernels.cu, folds back into
+    p >> 2 (= (p - 3) / 4) and p >> 1 (= (p - 1) / 2) exactly; it is the
+    5-bit sliding window generated from p (odd digits below 32, 67
+    windows, trailing squares last); and it is shorter than binary square
+    and multiply (457 and 458 steps, the table's 16 included, against 605
+    and 607)."""
+    chain = SQRT_CHAIN[which]
+    e = P >> shift
+    assert _fold(chain) == e == ((P - 3) // 4 if shift == 2 else (P - 1) // 2)
+    assert chain == sliding_window_chain(e)
+    assert all(d % 2 == 1 and d < 32 for _, d in chain[:-1]) and chain[-1][1] == 0
+    steps = 16 + sum(s for s, _ in chain) + sum(1 for _, d in chain[1:] if d)
+    binary = e.bit_length() - 1 + bin(e).count("1") - 1
+    assert (steps, binary) == ((457, 605) if shift == 2 else (458, 607))
+
+
+def test_pow_pair_follows_the_chain():
+    """The pair's windowed power equals x^e (the integer, in Montgomery
+    form) on 0, one, -1, (p - 1, p - 1) and seeded elements."""
+    for x in SQRT_X:
+        for which, shift in ((0, 2), (1, 1)):
+            v = _pow_pair(x, which)
+            want = Fp2.from_ints(x[0] * R_INV % P, x[1] * R_INV % P).pow(P >> shift)
+            assert v == _mont(want)
+
+
 def _sqrt_candidate(x):
-    a1 = _pow_pair(x, 2)
+    """K13's (and K32's) `sqrt_candidate` on a thread pair."""
+    a1 = _pow_pair(x, 0)
     x0 = _mul(a1, x)
     alpha = _mul(a1, x0)
     cand = _mul(_pow_pair(_add(alpha, (R_MONT, 0)), 1), x0)
@@ -438,10 +523,15 @@ def test_h2c_constants_are_the_oracles():
 
 @pytest.mark.parametrize("e", [P - 2, (P - 3) // 4, (P - 1) // 2], ids=["inverse", "sqrt_e1", "sqrt_e2"])
 def test_bound_counts_powers_on_the_plain_schedule(e):
-    """chip_smoke.py's operations bound for K3, K9, K13 and K14 counts each
-    power as the plain version (`fp.pow_windowed`) computes it, its table's
-    base^2 as a square; and the SSWU constants it counts as additions are
-    small: Z = -(2 + u), A = 240 u."""
+    """chip_smoke.py's operations bound for K3, K13 and K32 counts each
+    power on the cheaper of two schedules: the plain version's
+    (`fp.pow_windowed`, its table's base^2 a square) and the 5-bit sliding
+    window generated from the exponent (K13's chains: the odd powers up to
+    the largest window's, a square per bit below the leading window, a
+    product per window below it). For all three exponents the sliding
+    window is the cheaper, and for p >> 2 and p >> 1 it is K13's
+    `kSqrtChain`, square for square and product for product. The SSWU
+    constants it counts as additions are small: Z = -(2 + u), A = 240 u."""
     import chip_smoke
 
     calls = {"mul": 0, "sqr": 0}
@@ -458,6 +548,17 @@ def test_bound_counts_powers_on_the_plain_schedule(e):
     mul_wp, sqr_wp = chip_smoke.WORD_PRODUCTS_PER_MUL, chip_smoke.WORD_PRODUCTS_PER_SQR
     want = (calls["sqr"] + 1) * sqr_wp + (calls["mul"] - 1) * mul_wp
     assert chip_smoke.pow_word_products(e, mul_wp, sqr_wp) == want
+    chain = sliding_window_chain(e)
+    assert _fold(chain) == e
+    squares = 1 + sum(s for s, _ in chain)
+    products = (max(d for _, d in chain) >> 1) + sum(1 for _, d in chain[1:] if d)
+    slide = squares * sqr_wp + products * mul_wp
+    assert chip_smoke.sliding_window_word_products(e, mul_wp, sqr_wp) == slide < want
+    assert chip_smoke.power_word_products(e, mul_wp, sqr_wp) == slide
+    for which, shift in ((0, 2), (1, 1)):
+        if e == P >> shift:
+            kernel = SQRT_CHAIN[which]
+            assert (squares, products) == (1 + sum(s for s, _ in kernel), 15 + sum(1 for _, d in kernel[1:] if d))
     assert ref_h2c.SSWU_Z == -Fp2(Fp(2), Fp(1)) and ref_h2c.ISO_A == Fp2(Fp(0), Fp(240))
 
 # -- 3. the wrappers -----------------------------------------------------------------

@@ -78,6 +78,49 @@ def test_chip_smoke_refuses_without_gpu(monkeypatch):
     assert chip_smoke.main() != 0
 
 
+@pytest.mark.parametrize("counts,taken", [([155], 1), ([143, 155], 2), ([0, 0, 155], 3), ([143] * 10, None)],
+                         ids=["whole", "partial_then_whole", "empty_then_whole", "always_partial"])
+def test_traces_that_lost_device_events_are_taken_again(monkeypatch, counts, taken):
+    """chip_smoke's profiler traces: a trace of a verify that holds no
+    device event, or another count than the verify's 155 operations, is
+    taken again; after TRACE_TRIES such traces the phase fails."""
+    import chip_smoke
+    import torch.profiler
+
+    traces = iter(counts)
+
+    class Event:
+        def __init__(self, count):
+            self.key, self.count, self.self_device_time_total = "k", count, 7.0 * count
+
+    class Profile:
+        def __init__(self, activities):
+            self.count = next(traces)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [Event(self.count)] if self.count else []
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(chip_smoke, "EMPTY_TRACES", 0)
+    monkeypatch.setattr(chip_smoke, "PARTIAL_TRACES", 0)
+    windows = []
+    if taken is None:
+        with pytest.raises(RuntimeError, match="not the 155 expected"):
+            chip_smoke.traced_device_events(lambda: windows.append(1), chip_smoke.VERIFY_DEVICE_OPS)
+        assert len(windows) == chip_smoke.TRACE_TRIES
+        return
+    rows, _ = chip_smoke.traced_device_events(lambda: windows.append(1), chip_smoke.VERIFY_DEVICE_OPS)
+    assert rows == [(7.0 * 155, 155, "k")] and len(windows) == taken
+    assert (chip_smoke.EMPTY_TRACES, chip_smoke.PARTIAL_TRACES) == (counts.count(0), taken - 1 - counts.count(0))
+
+
 def test_cpu_tensors_use_plain_versions_without_counting():
     tfp.reset_launches()
     a = torch.from_numpy(tfp.to_mont_host_bulk([3, 5, 7]))

@@ -13,8 +13,7 @@ lockstep on the lane-group law's model
 and the lazy sums' bound asserted), and writes X, Y, Z as n contiguous
 coordinates each. The output is held word for word to
 `curve.scalar_mul_bits_plain(FP2_PLAIN, ...)` and to the one-thread
-schedule of `scalar_mul_point` (test_torch_curve_final_exp_kernels
-`scalar_mul_thread`): widths 64 and 127, the scalars 0, 2^w - 1, 1, 5
+schedule (test_torch_curve_final_exp_kernels `scalar_mul_thread`): widths 64 and 127, the scalars 0, 2^w - 1, 1, 5
 and a seeded random one, int32 and int64 bits, odd counts (the last
 block's second group off), one point broadcast over the batch, public
 bits broadcast (stride 0) and clear_cofactor's two rows broadcast over a
@@ -59,7 +58,7 @@ def k11_kernel(mem, args):
     arguments: a block per two elements; lanes 0-11 (group 0) element 2b,
     lanes 12-23 (group 1) element 2b + 1, off where 2b + 1 = n, and an off
     group reads group 0's bit row; each group's point into its table's row
-    1, its zero slot cleared; both groups through `g2_scalar_mul_lanes` in
+    1, its zero slot cleared; both groups through `scalar_mul_lanes<2>` in
     lockstep; the on groups' accumulators written to out[(c n + e) W + w].
     Returns the output words (3 n W)."""
     x, sx, y, sy, z, sz, bits, inner, hi, lo, step, nbits, _, n = args
