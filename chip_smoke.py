@@ -34,8 +34,8 @@ Phases, one line each, any failure exits non-zero:
               (the isogeny, SSWU's 256 points and the kernel point X0),
               bit-identical to their plain versions and to the K1-K4/K7/K8
               composition they replaced. The tree sums K15 (G1, 2 columns)
-              and K16 (G2, one column) at column lengths 1, 2, 3, 5, 128
-              and 512 with P == Q, P == -Q and infinity rows, K17 (sum and
+              and K16 (G2, one column) at column lengths 1, 2, 3, 5, 128,
+              512 and 1,025 with P == Q, P == -Q and infinity rows, K17 (sum and
               cofactor clearing, 19 elements with u = 0's point, q1 = q0,
               q1 = -q0 and q1 at infinity, and without the sum) and K18
               (Fp12 product, n = 1, 2, 3, 129), and all four at the verify
@@ -104,6 +104,8 @@ Phases, one line each, any failure exits non-zero:
               (off the path: G1 128, G2 256, Fp6 128, Fp2 256) and
               K26-K33 at `STANDALONE_SHAPES` likewise, with the launches
               of one verify as `verify` counted them (0)
+     tree_levels K16 (one column) and K15 (128 columns) at column
+              lengths 2, 4, ..., 128: device ms a level deeper each
      registry every entry of the port's kernel registry
               (torch_backend/registry.py: the JAX registry's 38 names,
               SSWU, the three launch entry points) called once on the card
@@ -279,9 +281,15 @@ SHARDED_LAUNCHES = {**VERIFY_LAUNCHES, "product_reduce": 2}
 OFF_PATH_SHAPES = {"fp_mul": 258, "fp_addsub": 384, "fp_pow": 1, "fp_batch_inv": (257, 1), "fp2_mul": (512, 0),
                    "fp12_mul": (1, 0), "fp_mul_mma": 258}
 # the tree sums' edge column lengths (512: a sync-committee aggregate's
-# keys) and the Fp12 product's edge counts (129: the Miller values of a
-# 128-set verify); K17's edge batch, no multiple of its 16 pairs a block
-FOLD_LENGTHS = (1, 2, 3, 5, 128, 512)
+# keys; 1,025: a G2 column past 1,024 signatures with an odd leftover, its
+# levels several rounds of K16's 32 lane groups) and the Fp12 product's
+# edge counts (129: the Miller values of a 128-set verify); K17's edge
+# batch, no multiple of its 16 pairs a block
+FOLD_LENGTHS = (1, 2, 3, 5, 128, 512, 1025)
+# K15's (128 columns) and K16's (one column) device ms at columns of 2, 4,
+# ..., 128 points, one level more each: K16's level of 64 pairs runs two
+# rounds of its 32 lane groups (`[tree_levels]`)
+TREE_LEVEL_LENGTHS = (2, 4, 8, 16, 32, 64, 128)
 REDUCE_COUNTS = (1, 2, 3, 129)
 COFACTOR_EDGE = 19
 # K11's edge counts (two elements a warp: an odd count leaves the last
@@ -1111,12 +1119,13 @@ def ptxas_summary(log: str, kernel: str, nlines: int = 2) -> str:
 
 
 # [timing] lines that carry ptxas's registers, shared memory and spills:
-# K10, K11 and K17 (the lane-group law), K12 (two warps), K13 (the
-# windowed square-root chains), K19 and K22 (callers of fp384.cuh's
+# K10, K11, K15, K16 and K17 (the lane-group law), K12 (two warps), K13
+# (the windowed square-root chains), K19 and K22 (callers of fp384.cuh's
 # binary-GCD inversion; K22's line also gives the inversion's own stack
 # and spills).
 PTXAS_TIMED = {"g1_scalar_mul": "g1_scalar_mul_kernel", "g2_scalar_mul": "g2_scalar_mul_kernel",
-               "miller_loop": "miller_loop_kernel", "sswu": "sswu_kernel", "clear_cofactor": "clear_cofactor_kernel",
+               "miller_loop": "miller_loop_kernel", "sswu": "sswu_kernel", "g1_tree_sum": "g1_tree_sum_kernel",
+               "g2_tree_sum": "g2_tree_sum_kernel", "clear_cofactor": "clear_cofactor_kernel",
                "final_exponentiation": "final_exponentiation_kernel", "g1_to_affine": "g1_to_affine_kernel"}
 
 
@@ -1785,6 +1794,22 @@ def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s, log):
     return list(rows.values())
 
 
+def time_tree_levels(torch, fp, curve) -> None:
+    """K16 on one G2 column and K15 on N_SETS G1 columns of each length in
+    TREE_LEVEL_LENGTHS (`fold_inputs`): device ms per launch (profiler),
+    one `[tree_levels]` line a kernel. These launches are not main-path
+    launches."""
+    for group, F, columns, axis in (("g2", curve.FP2, 1, 0), ("g1", curve.FP, N_SETS, 1)):
+        saved = dict(fp.LAUNCHES)
+        ms = []
+        for length in TREE_LEVEL_LENGTHS:
+            pts = fold_inputs(torch, fp, curve, group, length, columns, 50 + length)
+            ms.append(kernel_device_ms(lambda: curve.tree_sum(F, pts, axis), 5, f"{group}_tree_sum_kernel"))
+        fp.LAUNCHES.update(saved)
+        phase("tree_levels", kernel=f"{group}_tree_sum", columns=columns,
+              lengths=",".join(map(str, TREE_LEVEL_LENGTHS)), ms=",".join(f"{t:.5f}" for t in ms))
+
+
 def offpath_timed(torch, fp, curve, tower, pairing, h2c, P):
     """K22-K33 at their `[timing]` shapes, off the verify path:
     [(kernel, (shape, run, plain, composed), word products, bytes)]."""
@@ -2227,6 +2252,7 @@ def main() -> int:
     results = time_kernels(torch, fp, tower, P, dev, {**launches_b, "fp_mul_mma": mxu_launches["fp_mul_mma"]},
                            peak_ops)
     results += time_chain_kernels(torch, fp, P, chains, launches_b, peak_ops, log)
+    time_tree_levels(torch, fp, curve)
     results.append(time_g1_kernel(torch, api, fp, curve, pk_keys[PK_SIZES[0]], pk_launches[PK_SIZES[0]], peak_ops))
     offpath_rows = time_offpath_kernels(torch, fp, offpath_timed(torch, fp, curve, tower, pairing, h2c, P),
                                         launches_b, peak_ops, log)

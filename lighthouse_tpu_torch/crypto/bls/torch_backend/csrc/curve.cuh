@@ -1,11 +1,11 @@
-// The group laws of G1 and G2 as one-copy routines, for the tree sums
-// K15 / K16 (fold_kernels.cu), the standalone additions K26 / K27
-// (standalone_kernels.cu) and the psi comparison K20 (verify_kernels.cu,
-// which loads its points with `load_point`); and the same laws with the
-// windowed scalar multiplication spread over a group of lanes, for K10 and
-// K11 (curve_kernels.cu) and the cofactor clearing K17
-// (cofactor_kernels.cu; see "the lane-group law" below). Each .cu compiles
-// on its own, so each keeps its own copy of what it uses.
+// The group laws of G1 and G2 as one-copy routines, for the standalone
+// additions K26 / K27 (standalone_kernels.cu) and the psi comparison K20
+// (verify_kernels.cu, which loads its points with `load_point`); and the
+// same laws spread over a group of lanes, with the windowed scalar
+// multiplication on them, for K10 and K11 (curve_kernels.cu), the tree
+// sums K15 / K16 (fold_kernels.cu, `lanes_add` alone) and the cofactor
+// clearing K17 (cofactor_kernels.cu; see "the lane-group law" below). Each
+// .cu compiles on its own, so each keeps its own copy of what it uses.
 //
 // `scalar_mul_lanes` is the plain version's algorithm step for step
 // (curve.py `scalar_mul_bits_plain`): a 16-row table built by the eight

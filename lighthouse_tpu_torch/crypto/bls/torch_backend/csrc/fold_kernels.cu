@@ -20,21 +20,44 @@
 //   stride in words, so that a fold along any axis is read in place; a
 //   scratch of 2 C ceil(L / 2) points from the caller; output X, Y, Z,
 //   each C contiguous coordinates.
-//   Design: a block per column, a thread per pair at each level (a block
-//   of at most 128 threads walks the pairs of a longer level in turns),
-//   __syncthreads between levels. Level 0 reads the caller's points; each
-//   level writes its points to one half of the column's scratch and the
-//   next reads them from there (ping-pong, so no thread overwrites a point
-//   that another has still to read). The scratch lies in device memory:
-//   a column has no fixed cap (a 512-key G1 column is 72 KB, a G2 column
-//   of 1,024 signatures 288 KB), and every level's points are written and
-//   read once, so L2 serves them.
-//   Work: L - 1 additions per column, an addition 12 field products (the
-//   products by 3b are additions; K15 forms G1's as products, G1_B3 = 12):
-//   3,600 word products in G1, 8,928 in G2 (Fp2 products of 744), against
-//   144 or 288 bytes a point. Operations bound; the verify path's columns
-//   (K = 128 keys, S = 128 signatures) are bound by log2(L) dependent
-//   additions on one SM each.
+//   Design: the pair sums run on curve.cuh's lane-group law (`lanes_add<C>`,
+//   C = 1 for G1, 2 for G2: RCB's addition in four steps, each product of
+//   a level on its own lane, `__syncwarp` between steps), the law that K10,
+//   K11 and K17 run; `tree_sum_lanes<C>` is both kernels. A warp packs
+//   32 / 6 C groups (five G1 groups on 30 lanes, two G2 groups on 24; the
+//   other lanes take no part but reach every `__syncwarp`), a block holds
+//   up to kTreeMaxWarps warps, enough for the first level's pairs, and the
+//   groups walk a level's pairs in rounds when the pairs outnumber them. A
+//   group gathers its two points into shared memory (X, Y, Z consecutive,
+//   as the law's slots want them) and writes the sum to one half of the
+//   column's scratch; the next level reads that half (ping-pong, so no
+//   group overwrites a point that another has still to read). Level 0
+//   gathers from the caller's points at their row and column strides. The
+//   odd leftover is copied by the whole block. An off group (no pair left
+//   this round) reads and writes nothing and still runs every step; a warp
+//   whose groups are all off leaves the level. __syncthreads between
+//   levels. Each group's two points and 13 scratch slots lie in shared
+//   memory (912 bytes in G1, 1,824 in G2; dynamic, up to 72,960 and 58,368
+//   bytes a block); the levels' points stay in the scratch in device
+//   memory, so a column has no fixed cap (a 512-key G1 column is 72 KB, a
+//   G2 column of 1,024 signatures 288 KB: each level is written and read
+//   once, and L2 serves it). K15: a block per column, the verify's 128
+//   columns of 128 keys on 128 SMs, 13 warps (65 groups) for the 64 pairs
+//   of level 1. K16: one column, 16 warps (32 groups), so level 1's 64
+//   pairs of a 128-signature verify take two rounds. The launch bounds
+//   (512 threads) hold a thread to 128 registers: 16 warps fill an SM's
+//   65,536.
+//   Work (unchanged): L - 1 additions per column, an addition 12 field
+//   products (the products by 3b are additions): 3,600 word products in
+//   G1, 8,928 in G2 (Fp2 products of 744), against 144 or 288 bytes a
+//   point. Operations bound; at the verify's columns (K = 128 keys,
+//   S = 128 signatures) the time is log2(L) dependent additions of four
+//   lane steps each (K16: eight, level 1 running twice).
+//   ptxas (sm_90a, CUDA 12.8): K15 124 registers, no spills; K16 128 (the
+//   launch bounds' cap) and 20 bytes of spill stores; 112 and 128 bytes of
+//   stack; no static shared memory (`chip_smoke.py [timing]`, `ptxas=`).
+//   A cap of 8 warps (256 threads: K16 152 registers, no spills) was
+//   about 7 % slower on the card at the verify's shapes (PERF.md).
 //   Bound (reduction): G1 products are K1's CIOS; G2's lazy sums hold
 //   N = 2 products, inside fp384.cuh's N <= 9 for one subtraction.
 //
@@ -68,80 +91,95 @@
 
 namespace {
 
-constexpr int kFoldThreads = 128;
+constexpr int kTreeMaxWarps = 16;  // K15 / K16: a block's warps at most
+constexpr int kTreeMaxThreads = 32 * kTreeMaxWarps;
 constexpr int kReduceGroups = 32;
 constexpr int kReduceThreads = 6 * kReduceGroups;
 
-// Where a level reads its points: three coordinate pointers and one row
-// stride each. Level 0 reads the caller's operands, later levels a scratch
-// half of packed points (X, Y, Z consecutive).
-struct Rows {
-  const uint32_t* c[3];
-  long long stride[3];
-};
-
-template <typename G>
-__device__ __forceinline__ void load_row(typename G::Point& p, const Rows& src, long long i) {
-  load_point<G>(p, src.c[0] + i * src.stride[0], src.c[1] + i * src.stride[1], src.c[2] + i * src.stride[2]);
+// Lane groups a warp: five in G1 (C = 1), two in G2 (C = 2).
+template <int C>
+__host__ __device__ constexpr int tree_groups_per_warp() {
+  return 32 / lane_group<C>();
 }
 
-template <typename G>
-__device__ __forceinline__ void tree_sum(const uint32_t* x, long long xr, long long xc, const uint32_t* y,
-                                         long long yr, long long yc, const uint32_t* z, long long zr, long long zc,
-                                         uint32_t* scratch, uint32_t* out, long long L, long long C) {
-  using Point = typename G::Point;
-  constexpr int W = G::kWords;
+// A lane group's shared memory: the pair it sums (X, Y, Z consecutive) and
+// the law's scratch, the zero slot last.
+template <int C>
+struct TreeGroup {
+  uint32_t pq[2][3 * C * FP_WORDS];
+  uint32_t s[kLaneScratch][C * FP_WORDS];
+};
+
+// The column sums of the header, on the lane groups of a block.
+template <int C>
+__device__ __forceinline__ void tree_sum_lanes(const uint32_t* x, long long xr, long long xc, const uint32_t* y,
+                                               long long yr, long long yc, const uint32_t* z, long long zr,
+                                               long long zc, uint32_t* scratch, uint32_t* out, long long L,
+                                               long long cols) {
+  constexpr int W = C * FP_WORDS;  // a coordinate's words
   constexpr int kPoint = 3 * W;
+  constexpr int kLanes = lane_group<C>();
+  constexpr int kPerWarp = tree_groups_per_warp<C>();
+  extern __shared__ uint32_t tree_smem[];
+  const int warp = threadIdx.x / 32;
+  const int gw = min((int)(threadIdx.x % 32) / kLanes, kPerWarp - 1);
+  const int l = threadIdx.x % 32 - gw * kLanes;  // >= kLanes on the lanes outside every group
+  const bool lane_on = l < kLanes;
+  const int gid = warp * kPerWarp + gw, groups = (blockDim.x / 32) * kPerWarp;
+  TreeGroup<C>& sh = reinterpret_cast<TreeGroup<C>*>(tree_smem)[gid];
   const long long col = blockIdx.x;
   const long long cap = (L + 1) / 2;
   uint32_t* buf[2] = {scratch + 2 * col * cap * kPoint, scratch + (2 * col + 1) * cap * kPoint};
-  Rows src = {{x + col * xc, y + col * yc, z + col * zc}, {xr, yr, zr}};
+  const uint32_t* src[3] = {x + col * xc, y + col * yc, z + col * zc};
+  long long stride[3] = {xr, yr, zr};
+  if (lane_on) {
+    for (int i = l; i < W; i += kLanes) sh.s[kLaneScratch - 1][i] = 0u;
+  }
   long long n = L;
   int next = 0;
   while (n > 1) {
-    const long long half = n / 2, m = half + (n & 1);
+    const long long half = n / 2;
     uint32_t* dst = buf[next];
-#pragma unroll 1
-    for (long long i = threadIdx.x; i < m; i += blockDim.x) {
-      Point a;
-      load_row<G>(a, src, i < half ? i : 2 * half);  // the odd leftover rides along
-      if (i < half) {
-        Point b;
-        load_row<G>(b, src, i + half);
-        G::add(a, a, b);
+    if (n & 1) {  // the odd leftover rides along
+      for (int w = threadIdx.x; w < kPoint; w += blockDim.x) {
+        dst[half * kPoint + w] = src[w / W][2 * half * stride[w / W] + w % W];
       }
+    }
 #pragma unroll 1
-      for (int c = 0; c < 3; ++c) {
-        const uint32_t* w = coord<G>(a, c);
-        for (int k = 0; k < W; ++k) dst[i * kPoint + c * W + k] = w[k];
+    for (long long base = 0; base < half; base += groups) {
+      if (base + warp * kPerWarp >= half) break;  // no group of this warp has a pair left
+      const long long i = base + gid;
+      const bool on = lane_on && i < half;
+      if (on) {  // rows i and i + half into the group's p and q
+        for (int w = l; w < 2 * kPoint; w += kLanes) {
+          const int t = w / kPoint, c = w % kPoint / W;
+          sh.pq[t][w % kPoint] = src[c][(i + t * half) * stride[c] + w % W];
+        }
       }
+      __syncwarp();
+      lanes_add<C>(dst + i * kPoint, sh.pq[0], sh.pq[1], &sh.s[0][0], l, on);
     }
     __syncthreads();
-    src = {{dst, dst + W, dst + 2 * W}, {kPoint, kPoint, kPoint}};
-    next ^= 1;
-    n = m;
-  }
-  if (threadIdx.x == 0) {
-    Point a;
-    load_row<G>(a, src, 0);
-#pragma unroll 1
     for (int c = 0; c < 3; ++c) {
-      const uint32_t* w = coord<G>(a, c);
-      for (int k = 0; k < W; ++k) out[(c * C + col) * W + k] = w[k];
+      src[c] = dst + c * W;
+      stride[c] = kPoint;
     }
+    next ^= 1;
+    n = half + (n & 1);
   }
+  for (int w = threadIdx.x; w < kPoint; w += blockDim.x) out[(w / W * cols + col) * W + w % W] = src[w / W][w % W];
 }
 
-__global__ void __launch_bounds__(kFoldThreads) g1_tree_sum_kernel(
+__global__ void __launch_bounds__(kTreeMaxThreads) g1_tree_sum_kernel(
     const uint32_t* x, long long xr, long long xc, const uint32_t* y, long long yr, long long yc, const uint32_t* z,
     long long zr, long long zc, uint32_t* scratch, uint32_t* out, long long L, long long C) {
-  tree_sum<G1>(x, xr, xc, y, yr, yc, z, zr, zc, scratch, out, L, C);
+  tree_sum_lanes<1>(x, xr, xc, y, yr, yc, z, zr, zc, scratch, out, L, C);
 }
 
-__global__ void __launch_bounds__(kFoldThreads) g2_tree_sum_kernel(
+__global__ void __launch_bounds__(kTreeMaxThreads) g2_tree_sum_kernel(
     const uint32_t* x, long long xr, long long xc, const uint32_t* y, long long yr, long long yc, const uint32_t* z,
     long long zr, long long zc, uint32_t* scratch, uint32_t* out, long long L, long long C) {
-  tree_sum<G2>(x, xr, xc, y, yr, yc, z, zr, zc, scratch, out, L, C);
+  tree_sum_lanes<2>(x, xr, xc, y, yr, yc, z, zr, zc, scratch, out, L, C);
 }
 
 __global__ void __launch_bounds__(kReduceThreads) product_reduce_kernel(const uint32_t* fs, long long sf,
@@ -174,10 +212,30 @@ __global__ void __launch_bounds__(kReduceThreads) product_reduce_kernel(const ui
   for (int w = threadIdx.x; w < kFp12Words; w += kReduceThreads) out[w] = src[w];
 }
 
-inline unsigned fold_threads(long long L) {
-  const long long pairs = (L + 1) / 2;
-  const long long warps = (pairs + 31) / 32;
-  return (unsigned)(warps * 32 < kFoldThreads ? warps * 32 : kFoldThreads);
+// Warps for a column of L points: enough groups for the first level's
+// pairs, at least one, at most kTreeMaxWarps.
+template <int C>
+inline int tree_warps(long long L) {
+  const long long warps = (L / 2 + tree_groups_per_warp<C>() - 1) / tree_groups_per_warp<C>();
+  return (int)(warps < 1 ? 1 : warps < kTreeMaxWarps ? warps : kTreeMaxWarps);
+}
+
+// One launch of K15 (C = 1) or K16 (C = 2): a block per column, the groups'
+// shared memory dynamic (above the 48 KB of static shared memory).
+template <int C>
+int tree_sum_launch(const void* x, long long xr, long long xc, const void* y, long long yr, long long yc,
+                    const void* z, long long zr, long long zc, void* scratch, void* out, long long L, long long cols,
+                    void* stream) {
+  const auto kernel = C == 1 ? g1_tree_sum_kernel : g2_tree_sum_kernel;
+  const int most = kTreeMaxWarps * tree_groups_per_warp<C>() * (int)sizeof(TreeGroup<C>);
+  if (L > 0 && cols > 0 &&
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most) == cudaSuccess) {
+    const int warps = tree_warps<C>(L);
+    kernel<<<(unsigned)cols, 32 * warps, warps * tree_groups_per_warp<C>() * sizeof(TreeGroup<C>),
+             (cudaStream_t)stream>>>((const uint32_t*)x, xr, xc, (const uint32_t*)y, yr, yc, (const uint32_t*)z, zr,
+                                     zc, (uint32_t*)scratch, (uint32_t*)out, L, cols);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -187,23 +245,13 @@ extern "C" {
 int lh_g1_tree_sum(const void* x, long long xr, long long xc, const void* y, long long yr, long long yc,
                    const void* z, long long zr, long long zc, void* scratch, void* out, long long L, long long C,
                    void* stream) {
-  if (L > 0 && C > 0) {
-    g1_tree_sum_kernel<<<(unsigned)C, fold_threads(L), 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)x, xr, xc, (const uint32_t*)y, yr, yc, (const uint32_t*)z, zr, zc, (uint32_t*)scratch,
-        (uint32_t*)out, L, C);
-  }
-  return (int)cudaGetLastError();
+  return tree_sum_launch<1>(x, xr, xc, y, yr, yc, z, zr, zc, scratch, out, L, C, stream);
 }
 
 int lh_g2_tree_sum(const void* x, long long xr, long long xc, const void* y, long long yr, long long yc,
                    const void* z, long long zr, long long zc, void* scratch, void* out, long long L, long long C,
                    void* stream) {
-  if (L > 0 && C > 0) {
-    g2_tree_sum_kernel<<<(unsigned)C, fold_threads(L), 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)x, xr, xc, (const uint32_t*)y, yr, yc, (const uint32_t*)z, zr, zc, (uint32_t*)scratch,
-        (uint32_t*)out, L, C);
-  }
-  return (int)cudaGetLastError();
+  return tree_sum_launch<2>(x, xr, xc, y, yr, yc, z, zr, zc, scratch, out, L, C, stream);
 }
 
 int lh_product_reduce(const void* fs, long long sf, void* scratch, void* out, long long n, void* stream) {

@@ -15,10 +15,10 @@
 //   inside K10, K11 and K15-K17.
 //   Computes: the complete addition of RCB 2016 (Algorithm 7, a = 0), the
 //   plain version's formulas (`curve.add_composed`), through curve.cuh's
-//   one-copy group laws (`G1::add`, `G2::add`), which K15 and K16 run
-//   (K10, K11 and K17 run the same formulas on curve.cuh's lane-group
-//   law). A projective output is not unique; the formulas are the same,
-//   so the words are the plain version's.
+//   one-copy group laws (`G1::add`, `G2::add`) (K10, K11 and K15-K17 run
+//   the same formulas on curve.cuh's lane-group law). A projective output
+//   is not unique; the formulas are the same, so the words are the plain
+//   version's.
 //   Design: a thread per element, 32 a block; the six coordinates read in
 //   place, X, Y, Z of the sum written as three contiguous planes.
 //   Work per element, in the word products the function needs: 12 field

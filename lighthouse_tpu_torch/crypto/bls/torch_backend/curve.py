@@ -452,8 +452,9 @@ def tree_sum(F: FieldOps, pts: Proj, axis: int) -> Proj:
 
 
 def _tree_sum_kernel(F: FieldOps, pts: Proj, axis: int) -> Proj:
-    """One launch of K15 or K16 (csrc/fold_kernels.cu), a block per column.
-    Each coordinate is read in place as (length, columns) points with a
+    """One launch of K15 or K16 (csrc/fold_kernels.cu), a block per column,
+    each pair sum on a group of lanes of curve.cuh's lane-group law. Each
+    coordinate is read in place as (length, columns) points with a
     row and a column stride in words (a layout that two strides cannot
     describe is copied once); the kernel's scratch, two halves of
     ceil(length / 2) points per column, comes from torch.empty."""

@@ -12,9 +12,9 @@ on the CPU.
    bit-identical to the composition it replaced, its affine result the
    oracle's `clear_cofactor_g2` of q0 + q1; (slow) bit-identical to the
    jitted JAX `map_to_g2` tail, the sum and `clear_cofactor`.
-2. A model in Python integers of each kernel: K15/K16's block (the levels
-   through two scratch halves, the odd leftover read from row 2 half),
-   K17's thread pair (lane 0: t3 and [z^2 - z - 1] p; lane 1: psi(p),
+2. A model in Python integers of each kernel: K15/K16's block (its lane
+   groups over the launch's own arguments, test_torch_tree_sum_lanes
+   `tree_kernel`), K17's thread pair (lane 0: t3 and [z^2 - z - 1] p; lane 1: psi(p),
    [|z - 1|] psi(p), negated; then lane 0's two additions) and K18's
    levels of K8's six-thread products, every double-width sum checked
    against fp384.cuh's bound (test_torch_tower_kernels.redc_wide), on real
@@ -52,7 +52,7 @@ from lighthouse_tpu_torch.crypto.bls.torch_backend import h2c as th2c
 from lighthouse_tpu_torch.crypto.bls.torch_backend import kernels as tkernels
 from lighthouse_tpu_torch.crypto.bls.torch_backend import pairing as tpair
 from lighthouse_tpu_torch.crypto.bls.torch_backend import tower as tt
-from test_torch_curve_final_exp_kernels import _G1, _G2, _add, _dbl, _fp2_mul, scalar_mul_thread
+from test_torch_curve_final_exp_kernels import _G2, _add, _dbl, _fp2_mul, scalar_mul_thread
 from test_torch_tower_kernels import k7_thread, k8_thread
 from torch_parity import assert_same, to_port
 
@@ -265,43 +265,25 @@ def _ints(c, i, elem_dims):
     return tuple(tfp.words_to_int(w) for w in c[i])
 
 
-def tree_block(G, column):
-    """One block of K15 / K16 (csrc/fold_kernels.cu `tree_sum`): a level
-    reads its source (the caller's points, then a scratch half) and writes
-    point i of the other scratch half, the pair sum of rows i and i + half
-    for i < half and row 2 half, the odd leftover, for i = half."""
-    src, bufs, nxt = list(column), [None, None], 0
-    while len(src) > 1:
-        n = len(src)
-        half, m = n // 2, n // 2 + n % 2
-        dst = [None] * m
-        for i in range(m):
-            a = src[i if i < half else 2 * half]
-            dst[i] = _add(G, a, src[i + half]) if i < half else a
-        bufs[nxt] = dst
-        src, nxt = dst, nxt ^ 1
-    return src[0]
-
-
 def _all_p_minus_1(shape, elem_dims):
     w = torch.from_numpy(tfp.int_to_words(P - 1))
     return tc.Proj(*(w.expand(*shape, *([2] if elem_dims == 2 else []), tfp.WORDS).clone() for _ in range(3)))
 
 
 @pytest.mark.parametrize("group,shape,axis", FOLDS, ids=[f"{g}_{'x'.join(map(str, s))}" for g, s, _ in FOLDS])
-def test_tree_block_matches_plain(group, shape, axis):
-    """K15 / K16's block on every column, and on columns of all-(p - 1)
-    coordinates (the lazy sums' bound asserted inside K7's thread model),
-    word for word against `tree_sum_plain`."""
-    F = GROUPS[group][5]
-    G = _G1 if group == "g1" else _G2
+def test_tree_block_matches_plain(monkeypatch, group, shape, axis):
+    """K15 / K16's block on its lane groups (test_torch_tree_sum_lanes
+    `tree_kernel`, over the launch that `tree_sum` records) on every
+    column, and on columns of all-(p - 1) coordinates (the lazy sums'
+    bound asserted inside K7's thread model), word for word against
+    `tree_sum_plain`."""
+    from test_torch_tree_sum_lanes import run_tree_model  # it imports this module
+
+    F, F_plain = GROUPS[group][4:]
     for pts in (_port_points(group, *FOLD_IN[(group, shape)]), _all_p_minus_1(shape, F.elem_dims)):
-        want = tc.tree_sum_plain(F, pts, axis)
-        cols = tc.Proj(*(c.movedim(axis, 0).reshape(shape[axis], -1, *c.shape[len(shape):]) for c in pts))
-        want_cols = tc.Proj(*(c.reshape(-1, *c.shape[len(shape) - 1:]) for c in want))
-        for j in range(cols.x.shape[1]):
-            column = [tuple(_ints(c[:, j], i, F.elem_dims) for c in cols) for i in range(shape[axis])]
-            assert tree_block(G, column) == tuple(_ints(c, j, F.elem_dims) for c in want_cols), f"column {j}"
+        got, _ = run_tree_model(monkeypatch, F, pts, axis)
+        want = tc.tree_sum_plain(F_plain, pts, axis)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def _psi_ints(p):

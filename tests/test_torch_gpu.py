@@ -288,7 +288,7 @@ def test_sswu_and_iso3_kernels_match_plain_on_card(cuda_device):
 @pytest.fixture(scope="module")
 def fold_edge_cases():
     """chip_smoke's [kernels] edge cases of K15-K18 (`fold_cases`): tree
-    sums over columns of 1, 2, 3, 5, 128 and 512 points with P == Q,
+    sums over columns of 1, 2, 3, 5, 128, 512 and 1,025 points with P == Q,
     P == -Q and infinity rows; the cofactor clearing of 19 elements with
     u = 0's point and q1 = q0, -q0 and infinity, with and without the sum;
     the Fp12 product of 1, 2, 3 and 129 values."""
