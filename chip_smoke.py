@@ -38,14 +38,17 @@ Phases, one line each, any failure exits non-zero:
               512 and 1,025 with P == Q, P == -Q and infinity rows, K17 (sum and
               cofactor clearing, 19 elements with u = 0's point, q1 = q0,
               q1 = -q0 and q1 at infinity, and without the sum) and K18
-              (Fp12 product, n = 1, 2, 3, 129), and all four at the verify
+              (Fp12 product, n = 1, 2, 3, 4, 17, 129, 1,025 and 2,049
+              values with no zero among them, and three with a zero), and
+              all four at the verify
               path's shapes, bit-identical to their plain versions and to
               the composition they replaced. The final exponentiation K19
               (n = 1 as on the verify path, n = 3 with p - 1 in every word
               slot, zero and one, and zero alone), the psi comparison K20
               (S = 128 and 19: G2 points, points of E2 outside G2,
               infinity, and a multiple of another point) and the Miller
-              inputs K21 (S = 128 and 1, infinity lanes), likewise. The
+              inputs K21 (S = 1, 33 and 128, infinity lanes in G1 and
+              G2), likewise. The
               standalone kernels off the verify path, K22 and K23
               (to_affine, G1 and G2: Z = 0, Z = one, p - 1 in every word
               slot), K24 (fp6_mul, with a broadcast operand and an all
@@ -106,6 +109,9 @@ Phases, one line each, any failure exits non-zero:
               of one verify as `verify` counted them (0)
      tree_levels K16 (one column) and K15 (128 columns) at column
               lengths 2, 4, ..., 128: device ms a level deeper each
+     reduce_levels K18 at 1, 2, 4, 8, 9, 16, 17, 32, 64, 128 and 129
+              values: device ms of a copy, of the cluster hand-off with
+              one to three fold levels, and a level deeper each
      registry every entry of the port's kernel registry
               (torch_backend/registry.py: the JAX registry's 38 names,
               SSWU, the three launch entry points) called once on the card
@@ -290,7 +296,16 @@ FOLD_LENGTHS = (1, 2, 3, 5, 128, 512, 1025)
 # ..., 128 points, one level more each: K16's level of 64 pairs runs two
 # rounds of its 32 lane groups (`[tree_levels]`)
 TREE_LEVEL_LENGTHS = (2, 4, 8, 16, 32, 64, 128)
-REDUCE_COUNTS = (1, 2, 3, 129)
+# K18's edge counts: one value (a copy), the sharded path's W = 2 to 4 (a
+# cluster of 2 and 4 one-value blocks), 17 (a cluster of 8, one block of
+# three values), the verify's 129, 1,025 (a level of 64 products on a
+# block's eight lane groups, eight rounds) and 2,049 (a block's 257 values
+# past its 256 rows: two loads)
+REDUCE_COUNTS = (1, 2, 3, 4, 17, 129, 1025, 2049)
+# K18's device ms at these counts (`[reduce_levels]`): 1 a copy; 2, 4, 8
+# the cluster hand-off and one to three fold levels; 9 a block level
+# more than 8; then 16 to 128 a level more each, and 129
+REDUCE_LEVEL_COUNTS = (1, 2, 4, 8, 9, 16, 17, 32, 64, 128, 129)
 COFACTOR_EDGE = 19
 # K11's edge counts (two elements a warp: an odd count leaves the last
 # block's second lane group off) and K12's edge pair counts (a block of two
@@ -304,10 +319,11 @@ G1_SCALAR_MUL_COUNTS = (1, 2, 3, 127, 128, 129)
 SQRT_COUNTS = (1, 7, 8, 9, 255, 256, 257)
 # K19's, K20's and K21's edge shapes: n = 3 Fp12 values (p - 1 in every word
 # slot, zero, one); K20 at 19 elements, no multiple of its 32 a block; K21 at
-# one set
+# 1, 33 and 128 sets (a lane a thread, one-warp blocks, G1 warps then G2
+# warps, the last of each partly filled at 33; infinity lanes in both)
 FINAL_EXP_EDGE = 3
 PSI_EDGE = 19
-MILLER_INPUTS_EDGE = 1
+MILLER_INPUTS_EDGE = (1, 33, 128)
 # K22, K23 and K25 run a thread per element in one-warp blocks, K24 sixteen
 # elements a block: whole blocks and counts that are none
 AFFINE_COUNTS = (1, 33, 256)
@@ -600,9 +616,18 @@ EMPTY_TRACES = 0
 #: traces that came back with another count of device events than the
 #: window issues (events lost), taken again
 PARTIAL_TRACES = 0
+#: the most tries that one trace took in this run
+TRACE_TRIES_MOST = 0
 # the card's profiler has returned three empty traces of one short window
-# in a row (K24's 20 launches of 7 us): ten tries before a phase fails
-TRACE_TRIES = 10
+# in a row (K24's 20 launches of 7 us), and on one machine ten in a row
+# of a verify's, three runs out of four: thirty tries before a phase
+# fails, each window left to settle (below) before the profiler stops
+TRACE_TRIES = 30
+# seconds a traced window waits, after its work has finished on the
+# device, before the profiler stops: the device's activity records reach
+# the profiler asynchronously (chip_probes/profiler_traces.py: without the
+# wait a verify's trace now and then comes back short of events)
+TRACE_SETTLE_S = 0.02
 # device operations (kernels, copies, fills) of one verify, at each
 # profiled shape and with the MXU flag
 VERIFY_DEVICE_OPS = 155
@@ -616,17 +641,20 @@ def traced_device_events(window, device_calls: int | None = None):
     device event at all, or one that lost some: a trace with no event, or
     with another count of events than `device_calls` where that is given,
     is counted in EMPTY_TRACES or PARTIAL_TRACES and taken again, and
-    after TRACE_TRIES such traces this raises."""
-    global EMPTY_TRACES, PARTIAL_TRACES
+    after TRACE_TRIES such traces this raises. The wall time ends when the
+    window's work has finished on the device, before the settling wait."""
+    global EMPTY_TRACES, PARTIAL_TRACES, TRACE_TRIES_MOST
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(TRACE_TRIES):
+    seen = []
+    for tries in range(1, TRACE_TRIES + 1):
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             window()
             torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(TRACE_SETTLE_S)
         rows = []
         for e in prof.key_averages():
             dev_us = getattr(e, "self_device_time_total", None)
@@ -634,14 +662,16 @@ def traced_device_events(window, device_calls: int | None = None):
                 dev_us = getattr(e, "self_cuda_time_total", 0)
             if dev_us > 0:
                 rows.append((dev_us, e.count, e.key))
+        seen.append(sum(r[1] for r in rows))
         if not rows:
             EMPTY_TRACES += 1
-        elif device_calls is not None and sum(r[1] for r in rows) != device_calls:
+        elif device_calls is not None and seen[-1] != device_calls:
             PARTIAL_TRACES += 1
         else:
+            TRACE_TRIES_MOST = max(TRACE_TRIES_MOST, tries)
             return rows, wall_ms
     raise RuntimeError(f"the profiler trace held no device events, or not the {device_calls} expected, "
-                       f"in {TRACE_TRIES} tries")
+                       f"in {TRACE_TRIES} tries: {seen}")
 
 
 def kernel_device_ms(fn, reps: int, kernel: str) -> float:
@@ -1120,13 +1150,14 @@ def ptxas_summary(log: str, kernel: str, nlines: int = 2) -> str:
 
 # [timing] lines that carry ptxas's registers, shared memory and spills:
 # K10, K11, K15, K16 and K17 (the lane-group law), K12 (two warps), K13
-# (the windowed square-root chains), K19 and K22 (callers of fp384.cuh's
-# binary-GCD inversion; K22's line also gives the inversion's own stack
-# and spills).
+# (the windowed square-root chains), K18 (a cluster of lane groups), K19,
+# K21 and K22 (callers of fp384.cuh's binary-GCD inversion; K22's line also
+# gives the inversion's own stack and spills).
 PTXAS_TIMED = {"g1_scalar_mul": "g1_scalar_mul_kernel", "g2_scalar_mul": "g2_scalar_mul_kernel",
                "miller_loop": "miller_loop_kernel", "sswu": "sswu_kernel", "g1_tree_sum": "g1_tree_sum_kernel",
                "g2_tree_sum": "g2_tree_sum_kernel", "clear_cofactor": "clear_cofactor_kernel",
-               "final_exponentiation": "final_exponentiation_kernel", "g1_to_affine": "g1_to_affine_kernel"}
+               "product_reduce": "product_reduce_kernel", "final_exponentiation": "final_exponentiation_kernel",
+               "miller_inputs": "miller_inputs_kernel", "g1_to_affine": "g1_to_affine_kernel"}
 
 
 def ptxas_fields(log: str, name: str) -> dict:
@@ -1330,8 +1361,10 @@ def fold_cases(torch, fp, curve, tower, pairing, h2c, P, g1_shapes, g2_lengths, 
     `g1_shapes` and K16 on one G2 column of each length in `g2_lengths`
     (`fold_inputs`), K17 on K14's 2-stacked images of `cofactor_m`
     messages (`cofactor_inputs`; with `nosum`, also on q0 alone), K18 on
-    each count of Fp12 values in `counts` (`fp12_inputs`: p - 1 in every
-    word slot, zero, one, seeded random values)."""
+    each count of Fp12 values in `counts` (`fp12_inputs` without its zero:
+    p - 1 in every word slot, one, seeded random values, so that the
+    product is no zero) and on `fp12_inputs`' first three values, zero
+    among them."""
     cases = {}
     trees = [("g1", columns, length, 1) for columns, length in g1_shapes]
     trees += [("g2", 1, length, 0) for length in g2_lengths]
@@ -1351,11 +1384,14 @@ def fold_cases(torch, fp, curve, tower, pairing, h2c, P, g1_shapes, g2_lengths, 
         cases[f"clear_cofactor_nosum_m{cofactor_m}"] = ([cofactor_m], lambda: h2c.clear_cofactor(q0),
                                                         lambda: h2c.clear_cofactor_plain(q0),
                                                         lambda: h2c.clear_cofactor_composed(q0, None, curve.FP2))
-    for n in counts:
-        fs = fp12_inputs(fp, tower, P, n, seed + n, DEVICE)
-        cases[f"product_reduce_n{n}"] = ([n], lambda fs=fs: pairing.product_reduce(fs),
-                                         lambda fs=fs: pairing.product_reduce_plain(fs),
-                                         lambda fs=fs: pairing.product_reduce_composed(fs, tower.KERNEL_TOWER))
+    reduce = {"product_reduce_zero_n3": fp12_inputs(fp, tower, P, 3, seed, DEVICE)}
+    for n in counts:  # without the zero row, so that the product is no zero
+        fs = fp12_inputs(fp, tower, P, n + 1, seed + n, DEVICE)
+        reduce[f"product_reduce_n{n}"] = torch.cat([fs[:1], fs[2:]])
+    for name, fs in reduce.items():
+        cases[name] = ([fs.shape[0]], lambda fs=fs: pairing.product_reduce(fs),
+                       lambda fs=fs: pairing.product_reduce_plain(fs),
+                       lambda fs=fs: pairing.product_reduce_composed(fs, tower.KERNEL_TOWER))
     return cases
 
 
@@ -1810,6 +1846,23 @@ def time_tree_levels(torch, fp, curve) -> None:
               lengths=",".join(map(str, TREE_LEVEL_LENGTHS)), ms=",".join(f"{t:.5f}" for t in ms))
 
 
+def time_reduce_levels(torch, fp, tower, pairing, P) -> None:
+    """K18 on `fp12_inputs` of each count in REDUCE_LEVEL_COUNTS: device ms
+    per launch (profiler), one `[reduce_levels]` line. 1 is a copy (one
+    block); 2, 4 and 8 the cluster hand-off (two cluster barriers, the
+    partials read across the cluster) and one, two and three fold levels;
+    9 a block level more than 8; the rest a level more each. These
+    launches are not main-path launches."""
+    saved = dict(fp.LAUNCHES)
+    ms = []
+    for n in REDUCE_LEVEL_COUNTS:
+        fs = fp12_inputs(fp, tower, P, n, 53 + n, DEVICE)
+        ms.append(kernel_device_ms(lambda fs=fs: pairing.product_reduce(fs), 5, "product_reduce_kernel"))
+    fp.LAUNCHES.update(saved)
+    phase("reduce_levels", kernel="product_reduce", counts=",".join(map(str, REDUCE_LEVEL_COUNTS)),
+          ms=",".join(f"{t:.5f}" for t in ms))
+
+
 def offpath_timed(torch, fp, curve, tower, pairing, h2c, P):
     """K22-K33 at their `[timing]` shapes, off the verify path:
     [(kernel, (shape, run, plain, composed), word products, bytes)]."""
@@ -2194,7 +2247,7 @@ def main() -> int:
     glue, verdicts = glue_cases(torch, fp, curve, tower, pairing, api, h2c, P,
                                 {f"final_exponentiation_n{FINAL_EXP_EDGE}": fe_edges,
                                  "final_exponentiation_zero": fe_edges[1:2]},
-                                [PSI_EDGE], [MILLER_INPUTS_EDGE], 33)
+                                [PSI_EDGE], MILLER_INPUTS_EDGE, 33)
     check_chain_kernels(torch, glue, verdicts)
     check_chain_kernels(torch, affine_cases(torch, fp, curve, tower, P, {
         "g1_to_affine": AFFINE_COUNTS, "g2_to_affine": AFFINE_COUNTS, "fp2_inv": AFFINE_COUNTS,
@@ -2253,6 +2306,7 @@ def main() -> int:
                            peak_ops)
     results += time_chain_kernels(torch, fp, P, chains, launches_b, peak_ops, log)
     time_tree_levels(torch, fp, curve)
+    time_reduce_levels(torch, fp, tower, pairing, P)
     results.append(time_g1_kernel(torch, api, fp, curve, pk_keys[PK_SIZES[0]], pk_launches[PK_SIZES[0]], peak_ops))
     offpath_rows = time_offpath_kernels(torch, fp, offpath_timed(torch, fp, curve, tower, pairing, h2c, P),
                                         launches_b, peak_ops, log)
@@ -2266,7 +2320,7 @@ def main() -> int:
     run_coalescer(torch, api, fp, name_power)
 
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}", empty_traces_retaken=EMPTY_TRACES,
-          partial_traces_retaken=PARTIAL_TRACES)
+          partial_traces_retaken=PARTIAL_TRACES, most_tries_a_trace=TRACE_TRIES_MOST)
     print(json.dumps({"kernels": results}))
     print(name_power)
     # the run drives cuda:0 only, whatever else the machine holds

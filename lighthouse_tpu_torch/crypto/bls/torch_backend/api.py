@@ -266,9 +266,9 @@ def miller_inputs_plain(r_pk: Proj, H: Proj, sig_acc: Proj):
 def miller_inputs(r_pk: Proj, H: Proj, sig_acc: Proj):
     """`miller_inputs_composed`'s six tensors for r_pk (S,) in G1, H (S,)
     and sig_acc (one point) in G2: one launch of K21
-    (csrc/verify_kernels.cu), one block, for CUDA tensors, each coordinate
-    of r_pk and H read in place by its element stride; the plain version
-    for CPU tensors."""
+    (csrc/verify_kernels.cu), a thread per denominator, for CUDA tensors,
+    each coordinate of r_pk and H read in place by its element stride; the
+    plain version for CPU tensors."""
     cpu = fp._is_cpu(*r_pk, *H, *sig_acc)
     S = r_pk.z.shape[0]
     g1, g2 = torch.Size((S, fp.WORDS)), torch.Size((S, 2, fp.WORDS))
@@ -286,14 +286,12 @@ def miller_inputs(r_pk: Proj, H: Proj, sig_acc: Proj):
     ops = [tower._operand(c, g1, 1, fp.WORDS) for c in r_pk] + [tower._operand(c, g2, 2, 2 * fp.WORDS) for c in H]
     ptrs = [x for t, st in ops for x in (t.data_ptr(), st)]
     acc = [c.contiguous() for c in sig_acc]
-    n = 2 * S + 1
-    scratch = torch.empty((2 * n - 1) * fp.WORDS, dtype=torch.int32, device=dev)
     pxy = torch.empty((2, S + 1, fp.WORDS), dtype=torch.int32, device=dev)
     qxy = torch.empty((2, S + 1, 2, fp.WORDS), dtype=torch.int32, device=dev)
     p_in = torch.empty(S + 1, dtype=torch.bool, device=dev)
     q_in = torch.empty(S + 1, dtype=torch.bool, device=dev)
     kernels.launch("lh_miller_inputs", dev, *ptrs, *(c.data_ptr() for c in acc),
-                   fp.const(_NEG_G1_GEN, dev).data_ptr(), scratch.data_ptr(), pxy.data_ptr(), p_in.data_ptr(),
+                   fp.const(_NEG_G1_GEN, dev).data_ptr(), pxy.data_ptr(), p_in.data_ptr(),
                    qxy.data_ptr(), q_in.data_ptr(), S)
     fp._count("miller_inputs")
     return pxy[0], pxy[1], p_in, qxy[0], qxy[1], q_in

@@ -1,7 +1,8 @@
 // The halving trees of the verify path, one launch per call, with plain C
 // launchers (extern "C", bound from Python with ctypes). Each launcher runs
-// on the caller's stream, allocates nothing (the caller passes the scratch),
-// does not synchronise, and returns cudaGetLastError().
+// on the caller's stream, allocates nothing (K15 and K16 take the caller's
+// scratch), does not synchronise, and returns the launch's error or
+// cudaGetLastError().
 //
 // K15 g1_tree_sum_kernel, K16 g2_tree_sum_kernel
 //   Replace: lighthouse_tpu/crypto/bls/jax_backend/curve.py:138 `add`
@@ -65,26 +66,64 @@
 //   Replaces: lighthouse_tpu/crypto/bls/jax_backend/pairing.py:282
 //   `product_reduce` (registered pairing.product_reduce): the product of
 //   the S + 1 Miller values of a verify (n = 129 at S = 128), and of the
-//   W ranks' partials of a sharded verify.
-//   Computes: the product of n tower Fp12 values by the plain version's
-//   halving tree (`pairing.product_reduce_plain`): half = n / 2 products
-//   of rows i and i + half a level, an odd leftover carried to the end.
-//   Every Fp12 product is canonical, so the order does not change the
-//   bytes; the plain order is kept all the same.
-//   Design: one block of 32 six-thread groups (192 threads); each product
-//   is K8's six-thread routine (tower.cuh `fp12_mul_thread`, thread k
-//   forming flat coefficient e_k), a group walking the level's products
-//   in turns; the levels ping-pong through a scratch of 2 ceil(n / 2)
-//   values in device memory from the caller (129 values are 74 KB, above
-//   the 48 KB of static shared memory), __syncthreads between levels.
-//   Work: n - 1 Fp12 products of 17,424 word products (K8 full) against
-//   576 bytes a value. Operations bound; at n = 129 the tree is 8 levels
-//   of dependent products on one SM.
+//   W ranks' partials of a sharded verify (n = 1 to 4).
+//   Computes: the product of n tower Fp12 values. Every Fp12 product is
+//   canonical and the product of field elements does not depend on the
+//   order, so any tree gives the plain version's words
+//   (`pairing.product_reduce_plain`, a halving tree of rows i and
+//   i + n / 2); this kernel runs its own.
+//   Design: one thread block cluster (`cudaLaunchKernelEx` with a cluster
+//   dimension) of B blocks on B SMs, B the largest power of two up to
+//   kReduceClusterMax = 8 (the portable size) and up to n; block b takes
+//   values [b n / B, (b + 1) n / B), loads them into its dynamic shared
+//   memory and reduces them in place (`reduce_rows`: rows i and i + h into
+//   row i, h = m - m / 2, until row 0 holds the block's partial); after a
+//   cluster barrier block 0 reads the other partials through distributed
+//   shared memory (`map_shared_rank`) into its rows 1 .. B - 1, a second
+//   barrier lets the other blocks leave, and block 0 folds the B partials
+//   the same way. A level's products run one a warp, each on 24 lanes:
+//   lane 2 (2k + c) + h sums terms 3h .. 3h + 2 of component c of e_k
+//   (tower.cuh `fp12_lane_terms`, six Fp products), a shuffle adds the
+//   lane pair's two double-width sums, and one `fp_redc_wide<2>` reduces
+//   the component's 12-product sum: the integer is the one K8 reduces, so
+//   the words are too. The operands sit in shared memory; the lanes of a
+//   warp have all read them (`__syncwarp`) before lane h = 0 stores over
+//   row i. Up to kReduceMaxGroups = 8 warps a block (enough for the first
+//   level of n = 129: shares of 16 and 17 values, 8 products), the warps
+//   walking a level's products in rounds above that. So n values take
+//   ceil(log2 n) dependent product levels (8 at n = 129: 5 in the blocks,
+//   3 in block 0's fold, where one block's tree takes 9 steps). A block
+//   holds at most kReduceMaxRows = 256 values (147,456 bytes): above 2,048
+//   values a block's share is loaded in turns, each later load after row
+//   0's running product, a level more for each. No scratch, no state kept
+//   across launches. A 12-lane form (a component a lane, the 12 products
+//   in one sum, two products a warp) was built, held bit-identical and
+//   timed in turns: 0.0872 and 0.0870 ms at n = 129 against 0.0543 and
+//   0.0542 for 24 lanes (NVIDIA H100 80GB HBM3, 700.00 W, PERF.md); it
+//   was deleted.
+//   Work: n - 1 Fp12 products. The function needs 17,424 word products a
+//   product (K8's count: Karatsuba Fp2 products; 2,230,272 at n = 129);
+//   the kernel forms each component's schoolbook sum, 22,608 a product
+//   (2,893,824 at n = 129), and lanes 24-31 of each warp run the same
+//   routine on a row they do not store. Against 576 bytes a value read
+//   and one written: operations bound (0.000133 ms at n = 129); at the
+//   verify's n = 129 the time is the 8 dependent levels, one product's
+//   latency each (5.4 to 6.5 us with one to four products a block: six Fp
+//   products a lane, the shuffle, the reduction; 8.3 us with eight), plus
+//   about 0.9 us of cluster hand-off (`chip_smoke.py [reduce_levels]`).
+//   Measured at n = 129 (NVIDIA H100 80GB HBM3, 700.00 W, `chip_smoke.py
+//   [timing]`, in turns with one block of K8's six-thread groups through
+//   device-memory scratch): 0.05387 and 0.05388 ms against 0.23277 and
+//   0.24061.
+//   ptxas (sm_90a, CUDA 12.8): 144 registers, no spills, no stack; shared
+//   memory dynamic, 576 bytes a row (9,792 bytes a block at n = 129).
 //   Bound (reduction): K8's, N = 12 products per component, two
-//   conditional subtractions.
+//   conditional subtractions; a lane's partial sum is below 6 p^2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include "curve.cuh"
 #include "tower.cuh"
@@ -93,8 +132,17 @@ namespace {
 
 constexpr int kTreeMaxWarps = 16;  // K15 / K16: a block's warps at most
 constexpr int kTreeMaxThreads = 32 * kTreeMaxWarps;
-constexpr int kReduceGroups = 32;
-constexpr int kReduceThreads = 6 * kReduceGroups;
+// K18: blocks in the cluster at most (the portable cluster size), lanes a
+// product (a lane group, one a warp: half of a component's six terms a
+// lane), lane groups (warps) a block at most (enough for the first level
+// of a 129-value product), values a block holds in shared memory at most
+// (147,456 bytes).
+constexpr int kReduceClusterMax = 8;
+constexpr int kReduceLanes = 24;
+constexpr int kReduceMaxGroups = 8;
+constexpr int kReduceMaxRows = 256;
+static_assert(kReduceMaxRows >= kReduceClusterMax && 2 * kReduceMaxGroups >= kReduceClusterMax,
+              "block 0 holds and folds every block's partial");
 
 // Lane groups a warp: five in G1 (C = 1), two in G2 (C = 2).
 template <int C>
@@ -182,34 +230,106 @@ __global__ void __launch_bounds__(kTreeMaxThreads) g2_tree_sum_kernel(
   tree_sum_lanes<2>(x, xr, xc, y, yr, yc, z, zr, zc, scratch, out, L, C);
 }
 
-__global__ void __launch_bounds__(kReduceThreads) product_reduce_kernel(const uint32_t* fs, long long sf,
-                                                                        uint32_t* scratch, uint32_t* out,
-                                                                        long long n) {
-  const int g = threadIdx.x / 6, k = threadIdx.x % 6;
-  const long long cap = (n + 1) / 2;
-  uint32_t* buf[2] = {scratch, scratch + cap * kFp12Words};
-  const uint32_t* src = fs;
-  long long stride = sf, m = n;
-  int next = 0;
+// K18's launch for n values: the blocks of its one cluster (a power of two,
+// at most kReduceClusterMax and at most n), the values a block holds at
+// once (its share, at least the cluster's partials, at most
+// kReduceMaxRows) and its lane groups (enough for the first level's
+// products and for the fold's first, at most kReduceMaxGroups).
+struct ReduceShape {
+  int blocks, rows, groups;
+};
+
+__host__ __device__ inline ReduceShape reduce_shape(long long n) {
+  int blocks = 1;
+  while (2 * blocks <= kReduceClusterMax && 2 * blocks <= n) blocks *= 2;
+  const long long share = (n + blocks - 1) / blocks;
+  const int rows = (int)(share < blocks ? blocks : share < kReduceMaxRows ? share : kReduceMaxRows);
+  const int pairs = rows / 2 > blocks / 2 ? rows / 2 : blocks / 2 > 1 ? blocks / 2 : 1;
+  return {blocks, rows, pairs < kReduceMaxGroups ? pairs : kReduceMaxGroups};
+}
+
+// The halving tree over the m values in shared memory `v` (kFp12Words
+// apart), in place: a level multiplies rows i and i + h into row i for
+// i < m / 2, h = m - m / 2 (an odd m leaves row h - 1 as it is), until
+// row 0 holds the product. The block's lane groups walk a level's
+// products in rounds, a warp its product (lanes 2 (2k + c) + half: terms
+// 3 half .. 3 half + 2 of component c of e_k); a warp with no product
+// left leaves the level. Every lane of a warp that stays runs the
+// product, an off lane (lanes 24-31, or a warp with no product this
+// round) on row m - 1, which no product of the level writes, and stores
+// nothing. A lane pair's two double-width sums are added (a shuffle)
+// before the one reduction; the lanes of a warp have all read their
+// operands (`__syncwarp`) before any stores over row i. __syncthreads
+// between levels.
+__device__ void reduce_rows(uint32_t* v, int m, int groups) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int comp = (lane % kReduceLanes) >> 1, k = comp >> 1, c = comp & 1, half = lane & 1;
   while (m > 1) {
-    const long long half = m / 2;
-    uint32_t* dst = buf[next];
+    const int pairs = m / 2, h = m - pairs;
 #pragma unroll 1
-    for (long long i = g; i < half; i += kReduceGroups) {
-      fp12_mul_thread(src + i * stride, src + (i + half) * stride, k, kFull, dst + i * kFp12Words);
-    }
-    if (m & 1) {  // the odd leftover rides along
-      for (int w = threadIdx.x; w < kFp12Words; w += kReduceThreads) {
-        dst[half * kFp12Words + w] = src[2 * half * stride + w];
-      }
+    for (int base = 0; base < pairs; base += groups) {
+      if (base + warp >= pairs) break;  // no product left for this warp
+      const int i = base + warp;
+      const bool on = lane < kReduceLanes && i < pairs;
+      const uint32_t* a = v + (on ? i : m - 1) * kFp12Words;
+      const uint32_t* b = v + (on ? i + h : m - 1) * kFp12Words;
+      uint32_t acc[FP_WIDE], other[FP_WIDE], r[FP_WORDS];
+#pragma unroll
+      for (int w = 0; w < FP_WIDE; ++w) acc[w] = 0;
+      fp12_lane_terms(acc, a, b, k, c, kFull, 3 * half, 3 * half + 3);
+#pragma unroll
+      for (int w = 0; w < FP_WIDE; ++w) other[w] = __shfl_xor_sync(0xffffffffu, acc[w], 1);
+      fp_add_wide(acc, other);  // the component's whole sum, 12 products
+      fp_redc_wide<2>(r, acc);
+      __syncwarp();
+      if (on && half == 0) fp_store(v + i * kFp12Words + tower_offset(k) + c * FP_WORDS, r);
     }
     __syncthreads();
-    src = dst;
-    stride = kFp12Words;
-    next ^= 1;
-    m = half + (m & 1);
+    m = h;
   }
-  for (int w = threadIdx.x; w < kFp12Words; w += kReduceThreads) out[w] = src[w];
+}
+
+// K18, one cluster of ReduceShape's blocks: block b takes values
+// [b n / B, (b + 1) n / B) of fs (element stride sf words), loads them
+// into its shared memory, at most ReduceShape's rows at a time (each
+// later load after row 0, which holds the running product), and reduces
+// each load with `reduce_rows`; then block 0 reads the other blocks' row 0 through
+// distributed shared memory into its rows 1 .. B - 1 and folds the B
+// partials the same way. Two cluster barriers: every partial ready;
+// every partial read (a block's shared memory lives as long as the block).
+__global__ void __launch_bounds__(32 * kReduceMaxGroups) product_reduce_kernel(const uint32_t* __restrict__ fs,
+                                                                           long long sf, uint32_t* __restrict__ out,
+                                                                           long long n) {
+  extern __shared__ uint32_t reduce_smem[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const ReduceShape shape = reduce_shape(n);
+  const int rank = (int)cluster.block_rank();
+  const int groups = (int)(blockDim.x / 32);
+  const long long hi = (rank + 1) * n / shape.blocks;
+  long long next = rank * n / shape.blocks;
+  int m = 0;
+  do {
+    const int take = (int)(hi - next < shape.rows - m ? hi - next : shape.rows - m);
+    for (int w = threadIdx.x; w < take * kFp12Words; w += blockDim.x) {
+      reduce_smem[m * kFp12Words + w] = fs[(next + w / kFp12Words) * sf + w % kFp12Words];
+    }
+    __syncthreads();
+    reduce_rows(reduce_smem, m + take, groups);
+    next += take;
+    m = 1;
+  } while (next < hi);
+  cluster.sync();
+  if (rank == 0) {
+    for (int w = threadIdx.x; w < (shape.blocks - 1) * kFp12Words; w += blockDim.x) {
+      const uint32_t* remote = cluster.map_shared_rank(reduce_smem, 1 + w / kFp12Words);
+      reduce_smem[kFp12Words + w] = remote[w % kFp12Words];
+    }
+  }
+  cluster.sync();
+  if (rank != 0) return;
+  reduce_rows(reduce_smem, shape.blocks, groups);
+  for (int w = threadIdx.x; w < kFp12Words; w += blockDim.x) out[w] = reduce_smem[w];
 }
 
 // Warps for a column of L points: enough groups for the first level's
@@ -254,10 +374,26 @@ int lh_g2_tree_sum(const void* x, long long xr, long long xc, const void* y, lon
   return tree_sum_launch<2>(x, xr, xc, y, yr, yc, z, zr, zc, scratch, out, L, C, stream);
 }
 
-int lh_product_reduce(const void* fs, long long sf, void* scratch, void* out, long long n, void* stream) {
+int lh_product_reduce(const void* fs, long long sf, void* out, long long n, void* stream) {
   if (n > 0) {
-    product_reduce_kernel<<<1, kReduceThreads, 0, (cudaStream_t)stream>>>((const uint32_t*)fs, sf,
-                                                                         (uint32_t*)scratch, (uint32_t*)out, n);
+    const ReduceShape shape = reduce_shape(n);
+    const int most = kReduceMaxRows * kFp12Words * (int)sizeof(uint32_t);
+    cudaError_t err = cudaFuncSetAttribute(product_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = (unsigned)shape.blocks;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3((unsigned)shape.blocks);
+    config.blockDim = dim3(32 * shape.groups);
+    config.dynamicSmemBytes = (size_t)shape.rows * kFp12Words * sizeof(uint32_t);
+    config.stream = (cudaStream_t)stream;
+    config.attrs = cluster;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, product_reduce_kernel, (const uint32_t*)fs, sf, (uint32_t*)out, n);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,9 @@
 // words. `fp12_mul_thread` is one thread's share of a product formed by a
 // group of six threads, thread k forming e_k; `fp12_mul_lane` one lane's
 // share of the same product formed by twelve lanes, lane 2k + c forming
-// component c of e_k: the thread's loop over c, one pass of it a lane.
+// component c of e_k: the thread's loop over c, one pass of it a lane;
+// `fp12_lane_terms` a share of one component's terms (K18 splits each
+// component's six terms over two lanes and adds their sums).
 // Each component is one lazy sum reduced once, so the two forms give the
 // same words; their bound and work are stated with K8 in
 // tower_kernels.cu.
@@ -80,19 +82,16 @@ __device__ __forceinline__ void fp12_mul_thread(const uint32_t* a, const uint32_
   }
 }
 
-// Lane 2k + c of a twelve-lane group: component c of flat coefficient e_k
-// of a * b, written to `out` (tower layout), with the operands and modes
-// of `fp12_mul_thread` and its sum for that c: 12 products (kFull,
-// kSquare) or 6 (kSparse) in one double-width sum, one reduction. `out`
-// must not overlap a or b.
-__device__ __forceinline__ void fp12_mul_lane(const uint32_t* a, const uint32_t* b, int k, int c, int mode,
-                                              uint32_t* out) {
-  const int terms = mode == kSparse ? 3 : 6;
-  uint32_t x0[FP_WORDS], x1[FP_WORDS], y0[FP_WORDS], y1[FP_WORDS], d[FP_WORDS], s[FP_WORDS], acc[FP_WIDE];
-#pragma unroll
-  for (int i = 0; i < FP_WIDE; ++i) acc[i] = 0;
+// Adds to `acc` the terms q0 <= q < q1 of component c of flat coefficient
+// e_k of a * b, with the operands and modes of `fp12_mul_thread` and its
+// order for that c: per term two products (x0 (y0 or y1) and u (y1 or
+// y0), u = x1 or -x1) into the double-width sum, 2 (q1 - q0) in all.
+// Terms are q < 6 (kFull, kSquare) or q < 3 (kSparse).
+__device__ __forceinline__ void fp12_lane_terms(uint32_t acc[FP_WIDE], const uint32_t* a, const uint32_t* b, int k,
+                                                int c, int mode, int q0, int q1) {
+  uint32_t x0[FP_WORDS], x1[FP_WORDS], y0[FP_WORDS], y1[FP_WORDS], d[FP_WORDS], s[FP_WORDS];
 #pragma unroll 1
-  for (int q = 0; q < terms; ++q) {
+  for (int q = q0; q < q1; ++q) {
     const int j = mode == kSparse ? (q == 0 ? 0 : q == 1 ? 3 : 5) : q;
     const int i = (k - j + 6) % 6;
     const uint32_t* bj = b + (mode == kSparse ? q * kFp2Words : tower_offset(j));
@@ -108,6 +107,19 @@ __device__ __forceinline__ void fp12_mul_lane(const uint32_t* a, const uint32_t*
     fp_select(x1, wrap, s, x1);
     fp2_component_mac(acc, c == 1, x0, x1, y0, y1);
   }
+}
+
+// Lane 2k + c of a twelve-lane group: component c of flat coefficient e_k
+// of a * b, written to `out` (tower layout), with the operands and modes
+// of `fp12_mul_thread` and its sum for that c: 12 products (kFull,
+// kSquare) or 6 (kSparse) in one double-width sum, one reduction. `out`
+// must not overlap a or b.
+__device__ __forceinline__ void fp12_mul_lane(const uint32_t* a, const uint32_t* b, int k, int c, int mode,
+                                              uint32_t* out) {
+  uint32_t acc[FP_WIDE];
+#pragma unroll
+  for (int i = 0; i < FP_WIDE; ++i) acc[i] = 0;
+  fp12_lane_terms(acc, a, b, k, c, mode, 0, mode == kSparse ? 3 : 6);
   uint32_t r[FP_WORDS];
   fp_redc_wide<2>(r, acc);
   fp_store(out + tower_offset(k) + c * FP_WORDS, r);

@@ -1,8 +1,7 @@
 // The glue of the verify pipeline around the chain kernels, one launch per
 // call each, with plain C launchers (extern "C", bound from Python with
-// ctypes). Each launcher runs on the caller's stream, allocates nothing
-// (the caller passes the scratch), does not synchronise, and returns
-// cudaGetLastError(). Point operands come as three coordinate pointers,
+// ctypes). Each launcher runs on the caller's stream, allocates nothing,
+// does not synchronise, and returns cudaGetLastError(). Point operands come as three coordinate pointers,
 // each with its element stride in words (0: one point broadcast).
 //
 // K20 g2_psi_check_kernel
@@ -41,27 +40,38 @@
 //   infinity since -1 is no square mod p); their inverses, zero where
 //   d = 0; px, py = x / z, y / z of G1 lane i and, as lane S, G1's
 //   generator (x, -y), never at infinity; qx, qy = x conj(z) / d, y conj(z)
-//   / d of G2 lane j; p_in, q_in the lanes whose z is zero. An inverse and
-//   an affine coordinate are unique, so any order of Montgomery's trick
-//   gives the plain version's words; infinity lanes get zeroed coordinates
-//   as there.
-//   Design: one block. The inverses come from a product tree over the n
-//   denominators (zeros read as one) in device-memory scratch of 2n - 1
-//   values: node i has children 2i + 1, 2i + 2, the leaves are nodes n - 1
-//   to 2n - 2; the products go up level by level (a thread per node), one
-//   thread inverts the root (fp384.cuh `fp_inv`), and the inverses come
-//   down level by level (inv(left) = inv(node) right, inv(right) =
-//   inv(node) left). That is ceil(log2 n) levels each way where K4, the
-//   kernel it replaces on this path, walked a serial chain of 3(n - 1)
-//   products; the root's inversion (the binary GCD) is one thread's.
-//   Work, in the word products the function needs: the S + 1 norms (two
-//   squares and one reduction, 312 each), 3(n - 1) Fp products of 300, one
-//   inversion on the plain version's schedule (120,354), two Fp products
-//   a G1 lane, two Fp products and two Fp2 products (744) a G2 lane:
-//   737,154 at S = 128, against 432 S + 290 (S + 1) + 384 bytes (points in,
-//   coordinates and flags out, sig_acc and the generator). Operations
-//   bound; at the verify path's n = 257 bound by the root's chain of
-//   about 610 dependent products.
+//   / d of G2 lane j; p_in, q_in the lanes whose z is zero. An inverse is
+//   unique, so inverting each denominator on its own gives the words of
+//   the plain version's Montgomery trick; fp_inv maps 0 to 0, so an
+//   infinity lane's coordinates come out zero as there.
+//   Design: a thread per denominator in one-warp blocks: ceil(S / 32) G1
+//   blocks (at least one; its first thread also writes lane S), then
+//   ceil((S + 1) / 32) G2 blocks, so no warp holds both paths and the
+//   verify's 257 lanes spread over 9 SMs. A G1 lane inverts its z
+//   (fp384.cuh `fp_inv`, the binary GCD, whose time does not depend on
+//   the value) and forms x / z, y / z; a G2 lane forms the norm (one lazy
+//   sum of two squares), inverts it, forms conj(z) / norm and two Fp2
+//   products. No product tree, no scratch, no barrier: every lane takes
+//   one inversion's time, where a one-block product tree runs the root's
+//   inversion in series with 18 levels of dependent products
+//   (`chip_probes/k21_tree_phases.py`, PERF.md).
+//   Work: the function needs the S + 1 norms (two squares and one
+//   reduction, 312 each), 3(n - 1) Fp products of 300 and one inversion
+//   (the binary GCD, 3,472) for Montgomery's trick, two Fp products a G1
+//   lane, two Fp products and two Fp2 products (744) a G2 lane: 620,272
+//   word products at S = 128 (`chip_smoke.k21_word_products`, the bound;
+//   this header's earlier 737,154 counted the inversion as a Fermat
+//   power). The kernel does n inversions where the function needs one:
+//   4,072 word products a G1 lane and 5,872 a G2 lane, 1,278,704 at
+//   S = 128. Against 432 S + 290 (S + 1) + 384 bytes (points in,
+//   coordinates and flags out, sig_acc and the generator): operations
+//   bound (0.000037 ms at S = 128); the time is one lane's chain, an
+//   inversion and a few products. Measured at S = 128 (NVIDIA H100 80GB
+//   HBM3, 700.00 W, `chip_smoke.py [timing]`, in turns with the one-block
+//   product tree): 0.08522 and 0.08621 ms against 0.14268 and 0.13965;
+//   the tree's root inversion alone took 0.062 of its 0.149 ms.
+//   ptxas (sm_90a, CUDA 12.8): 154 registers, no spills, 384 bytes of
+//   stack (fp_inv's frame), no shared memory.
 //   Bound (reduction): the norm a lazy sum of N = 2 squares (fp384.cuh:
 //   N <= 9); the Fp products K1's CIOS; the Fp2 products N = 2.
 
@@ -73,7 +83,7 @@
 namespace {
 
 constexpr int kPsiThreads = 32;      // a thread per element, one warp a block
-constexpr int kInputsThreads = 256;  // K21's one block
+constexpr int kInputsThreads = 32;   // K21: a lane a thread, one warp a block
 
 __global__ void __launch_bounds__(kPsiThreads) g2_psi_check_kernel(
     const uint32_t* __restrict__ sx, long long ssx, const uint32_t* __restrict__ sy, long long ssy,
@@ -105,85 +115,34 @@ __device__ __forceinline__ const uint32_t* g2_lane(const uint32_t* h, long long 
   return j < S ? h + j * sh : acc;
 }
 
+// K21's G1 blocks for S sets: a lane each, at least one (its first thread
+// also writes lane S, the generator); the G2 blocks follow them.
+__host__ __device__ inline long long inputs_g1_blocks(long long S) {
+  return S > 0 ? (S + kInputsThreads - 1) / kInputsThreads : 1;
+}
+
 __global__ void __launch_bounds__(kInputsThreads) miller_inputs_kernel(
     const uint32_t* __restrict__ rx, long long srx, const uint32_t* __restrict__ ry, long long sry,
     const uint32_t* __restrict__ rz, long long srz, const uint32_t* __restrict__ hx, long long shx,
     const uint32_t* __restrict__ hy, long long shy, const uint32_t* __restrict__ hz, long long shz,
     const uint32_t* __restrict__ ax, const uint32_t* __restrict__ ay, const uint32_t* __restrict__ az,
-    const uint32_t* __restrict__ gens, uint32_t* __restrict__ tree, uint32_t* __restrict__ pxy,
-    uint8_t* __restrict__ p_in, uint32_t* __restrict__ qxy, uint8_t* __restrict__ q_in, long long S) {
-  const long long n = 2 * S + 1;
-  const int t = threadIdx.x;
-  uint32_t a[FP_WORDS], b[FP_WORDS], r[FP_WORDS];
-
-  // the leaves: the denominators, a zero read as one
-#pragma unroll 1
-  for (long long j = t; j < n; j += blockDim.x) {
-    if (j < S) {
-      fp_load(r, rz + j * srz);
-    } else {
-      fp2_t z;
-      uint32_t acc[FP_WIDE];
-      fp2_load(z, g2_lane(hz, shz, az, j - S, S));
-      fp_mul_wide(acc, z[0], z[0]);
-      fp_mac_wide(acc, z[1], z[1]);
-      fp_redc_wide<1>(r, acc);
+    const uint32_t* __restrict__ gens, uint32_t* __restrict__ pxy, uint8_t* __restrict__ p_in,
+    uint32_t* __restrict__ qxy, uint8_t* __restrict__ q_in, long long S) {
+  const long long lanes = S + 1, g1_blocks = inputs_g1_blocks(S);
+  uint32_t a[FP_WORDS], inv[FP_WORDS], r[FP_WORDS];
+  if (blockIdx.x < g1_blocks) {  // G1 lane j: (x, y) / z; infinity: zeros
+    const long long j = (long long)blockIdx.x * kInputsThreads + threadIdx.x;
+    if (j == 0) {  // lane S: G1's generator (x, -y)
+      fp_load(a, gens);
+      fp_store(pxy + S * FP_WORDS, a);
+      fp_load(a, gens + FP_WORDS);
+      fp_store(pxy + (lanes + S) * FP_WORDS, a);
+      p_in[S] = 0;
     }
-    if (fp_is_zero(r)) fp_set_one(r);
-    fp_store(tree + (n - 1 + j) * FP_WORDS, r);
-  }
-  __syncthreads();
-
-  // up: node i = node(2i + 1) node(2i + 2), the deepest internal level first
-  const int top = n > 1 ? 63 - __clzll(n - 1) : -1;  // depth of node n - 2
-#pragma unroll 1
-  for (int d = top; d >= 0; --d) {
-    const long long lo = (1ll << d) - 1, hi = (2ll << d) - 2 < n - 2 ? (2ll << d) - 2 : n - 2;
-#pragma unroll 1
-    for (long long i = lo + t; i <= hi; i += blockDim.x) {
-      fp_load(a, tree + (2 * i + 1) * FP_WORDS);
-      fp_load(b, tree + (2 * i + 2) * FP_WORDS);
-      fp_mul(r, a, b);
-      fp_store(tree + i * FP_WORDS, r);
-    }
-    __syncthreads();
-  }
-
-  // the root's inverse
-  if (t == 0) {
-    fp_load(a, tree);
-    fp_inv(r, a);
-    fp_store(tree, r);
-  }
-  __syncthreads();
-
-  // down: each node holds its inverse; its children get theirs
-#pragma unroll 1
-  for (int d = 0; d <= top; ++d) {
-    const long long lo = (1ll << d) - 1, hi = (2ll << d) - 2 < n - 2 ? (2ll << d) - 2 : n - 2;
-#pragma unroll 1
-    for (long long i = lo + t; i <= hi; i += blockDim.x) {
-      uint32_t inv[FP_WORDS];
-      fp_load(inv, tree + i * FP_WORDS);
-      fp_load(a, tree + (2 * i + 1) * FP_WORDS);
-      fp_load(b, tree + (2 * i + 2) * FP_WORDS);
-      fp_mul(r, inv, b);
-      fp_store(tree + (2 * i + 1) * FP_WORDS, r);
-      fp_mul(r, inv, a);
-      fp_store(tree + (2 * i + 2) * FP_WORDS, r);
-    }
-    __syncthreads();
-  }
-
-  // G1 lanes: (x, y) / z; infinity: zeros
-  const long long lanes = S + 1;
-#pragma unroll 1
-  for (long long j = t; j < S; j += blockDim.x) {
-    uint32_t inv[FP_WORDS];
+    if (j >= S) return;
     fp_load(a, rz + j * srz);
     const bool inf = fp_is_zero(a);
-    fp_load(inv, tree + (n - 1 + j) * FP_WORDS);
-    fp_select(inv, inf, a, inv);  // a is zero here
+    fp_inv(inv, a);  // 0 -> 0
     fp_load(a, rx + j * srx);
     fp_mul(r, a, inv);
     fp_store(pxy + j * FP_WORDS, r);
@@ -191,35 +150,29 @@ __global__ void __launch_bounds__(kInputsThreads) miller_inputs_kernel(
     fp_mul(r, a, inv);
     fp_store(pxy + (lanes + j) * FP_WORDS, r);
     p_in[j] = inf ? 1 : 0;
+    return;
   }
-  if (t == 0) {  // lane S: G1's generator (x, -y)
-    fp_load(a, gens);
-    fp_store(pxy + S * FP_WORDS, a);
-    fp_load(a, gens + FP_WORDS);
-    fp_store(pxy + (lanes + S) * FP_WORDS, a);
-    p_in[S] = 0;
-  }
-
-  // G2 lanes: (x, y) conj(z) / norm; infinity: zeros
-#pragma unroll 1
-  for (long long j = t; j < lanes; j += blockDim.x) {
-    fp2_t z, zi, x;
-    uint32_t inv[FP_WORDS];
-    fp2_load(z, g2_lane(hz, shz, az, j, S));
-    const bool inf = fp2_is_zero(z);
-    fp_load(inv, tree + (n - 1 + S + j) * FP_WORDS);
-    fp_select(inv, inf, z[0], inv);  // z[0] is zero here
-    fp_mul(zi[0], z[0], inv);
-    fp_mul(r, z[1], inv);
-    fp_neg(zi[1], r);
-    fp2_load(x, g2_lane(hx, shx, ax, j, S));
-    fp2_mul(x, x, zi);
-    fp2_store(qxy + j * 2 * FP_WORDS, x);
-    fp2_load(x, g2_lane(hy, shy, ay, j, S));
-    fp2_mul(x, x, zi);
-    fp2_store(qxy + (lanes + j) * 2 * FP_WORDS, x);
-    q_in[j] = inf ? 1 : 0;
-  }
+  // G2 lane j: (x, y) conj(z) / norm; infinity: zeros
+  const long long j = (blockIdx.x - g1_blocks) * kInputsThreads + threadIdx.x;
+  if (j >= lanes) return;
+  fp2_t z, zi, x;
+  uint32_t acc[FP_WIDE];
+  fp2_load(z, g2_lane(hz, shz, az, j, S));
+  const bool inf = fp2_is_zero(z);
+  fp_mul_wide(acc, z[0], z[0]);
+  fp_mac_wide(acc, z[1], z[1]);
+  fp_redc_wide<1>(a, acc);  // the norm, zero exactly at infinity
+  fp_inv(inv, a);           // 0 -> 0
+  fp_mul(zi[0], z[0], inv);
+  fp_mul(r, z[1], inv);
+  fp_neg(zi[1], r);
+  fp2_load(x, g2_lane(hx, shx, ax, j, S));
+  fp2_mul(x, x, zi);
+  fp2_store(qxy + j * 2 * FP_WORDS, x);
+  fp2_load(x, g2_lane(hy, shy, ay, j, S));
+  fp2_mul(x, x, zi);
+  fp2_store(qxy + (lanes + j) * 2 * FP_WORDS, x);
+  q_in[j] = inf ? 1 : 0;
 }
 
 }  // namespace
@@ -239,14 +192,15 @@ int lh_g2_psi_check(const void* sx, long long ssx, const void* sy, long long ssy
 
 int lh_miller_inputs(const void* rx, long long srx, const void* ry, long long sry, const void* rz, long long srz,
                      const void* hx, long long shx, const void* hy, long long shy, const void* hz, long long shz,
-                     const void* ax, const void* ay, const void* az, const void* gens, void* scratch, void* pxy,
-                     void* p_in, void* qxy, void* q_in, long long S, void* stream) {
+                     const void* ax, const void* ay, const void* az, const void* gens, void* pxy, void* p_in,
+                     void* qxy, void* q_in, long long S, void* stream) {
   if (S >= 0) {
-    miller_inputs_kernel<<<1, kInputsThreads, 0, (cudaStream_t)stream>>>(
+    const long long blocks = inputs_g1_blocks(S) + (S + kInputsThreads) / kInputsThreads;
+    miller_inputs_kernel<<<(unsigned)blocks, kInputsThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)rx, srx, (const uint32_t*)ry, sry, (const uint32_t*)rz, srz, (const uint32_t*)hx, shx,
         (const uint32_t*)hy, shy, (const uint32_t*)hz, shz, (const uint32_t*)ax, (const uint32_t*)ay,
-        (const uint32_t*)az, (const uint32_t*)gens, (uint32_t*)scratch, (uint32_t*)pxy, (uint8_t*)p_in,
-        (uint32_t*)qxy, (uint8_t*)q_in, S);
+        (const uint32_t*)az, (const uint32_t*)gens, (uint32_t*)pxy, (uint8_t*)p_in, (uint32_t*)qxy,
+        (uint8_t*)q_in, S);
   }
   return (int)cudaGetLastError();
 }

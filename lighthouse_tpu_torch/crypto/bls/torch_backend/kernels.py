@@ -61,11 +61,11 @@ _SIGNATURES = {
     "lh_g2_tree_sum": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _LL, _LL, _P],
     "lh_clear_cofactor": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, ctypes.c_int, _P, _P, ctypes.c_int,
                           _P, _LL, _P],
-    "lh_product_reduce": [_P, _LL, _P, _P, _LL, _P],
+    "lh_product_reduce": [_P, _LL, _P, _LL, _P],
     "lh_final_exponentiation": [_P, _LL, _P, _P, _LL, _P],
     "lh_g2_psi_check": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _P, _LL, _P],
-    "lh_miller_inputs": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _LL, _P],
+    "lh_miller_inputs": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
+                         _P],
     "lh_g1_to_affine": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _LL, _P],
     "lh_g2_to_affine": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _LL, _P],
     "lh_fp6_mul": [_P, _LL, _P, _LL, _P, _LL, _P],

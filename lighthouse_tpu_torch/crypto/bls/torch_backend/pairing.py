@@ -346,8 +346,9 @@ def product_reduce_plain(fs):
 def product_reduce(fs):
     """The product of the tower Fp12 values fs (n, 2, 3, 2, W) along axis 0
     by `product_reduce_composed`'s tree: one launch of K18
-    (csrc/fold_kernels.cu), one block, for a CUDA tensor; the plain version
-    for a CPU tensor."""
+    (csrc/fold_kernels.cu), one cluster of up to eight blocks, for a CUDA
+    tensor (every product is canonical, so its tree gives the same words);
+    the plain version for a CPU tensor."""
     cpu = fp._is_cpu(fs)
     tower._check_trailing(fs, (2, 3, 2, fp.WORDS), "Fp12")
     if fs.dim() != 5 or fs.shape[0] == 0:
@@ -358,8 +359,7 @@ def product_reduce(fs):
 
     n = fs.shape[0]
     a, sa = tower._operand(fs, fs.shape, 4, _FP12_WORDS)
-    scratch = torch.empty(2 * ((n + 1) // 2) * _FP12_WORDS, dtype=torch.int32, device=fs.device)
     out = torch.empty(fs.shape[1:], dtype=torch.int32, device=fs.device)
-    kernels.launch("lh_product_reduce", fs.device, a.data_ptr(), sa, scratch.data_ptr(), out.data_ptr(), n)
+    kernels.launch("lh_product_reduce", fs.device, a.data_ptr(), sa, out.data_ptr(), n)
     fp._count("product_reduce")
     return out

@@ -21,7 +21,9 @@
 2. A model in Python integers of each kernel: K19's block (K9's chains,
    K8's six-thread products, the twelve-thread Frobenius maps and
    conjugations, the norm chain of the inversion with its one-thread Fp2
-   inversion), K20's thread and K21's product tree, every double-width sum
+   inversion), K20's thread and K21's grid (a lane per denominator, each
+   inverting its own, G1 and G2 lanes in separate warps; `kInputsThreads`
+   read from verify_kernels.cu), every double-width sum
    checked against fp384.cuh's bound (test_torch_tower_kernels.redc_wide),
    on real inputs and on all-(p - 1) inputs, held to the plain versions
    bit for bit.
@@ -31,7 +33,9 @@
    K20 and K21 once each and K1-K4 and K7-K9 never.
 """
 
+import pathlib
 import random
+import re
 
 import jax
 import jax.numpy as jnp
@@ -390,42 +394,60 @@ def test_psi_check_thread_matches_plain():
     assert [psi_check_thread(_g2_ints(edge, 0), _g2_ints(edge, 0))] == want
 
 
+_VERIFY_SRC = (pathlib.Path(tfp.__file__).parent / "csrc" / "verify_kernels.cu").read_text()
+# K21's threads a block (one warp: a lane a thread)
+K21_THREADS = int(re.search(r"constexpr int kInputsThreads = (\d+);", _VERIFY_SRC).group(1))
+
+
 def miller_inputs_block(r_pk, h, acc, gen):
-    """K21's block (csrc/verify_kernels.cu): the denominators as leaves of
-    a heap-ordered product tree (node i's children 2i + 1, 2i + 2, leaves
-    n - 1 .. 2n - 2, zeros read as one), the products up level by level,
-    the root's inverse, the inverses down; then the affine lanes. Points
-    are (x, y, z) ints, G2 coordinates (c0, c1) pairs."""
+    """K21's grid (csrc/verify_kernels.cu `miller_inputs_kernel`): one-warp
+    blocks, first the G1 blocks (a lane per set, at least one block; its
+    first thread also writes lane S, the generator (x, -y)), then the G2
+    blocks (a lane per hash and sig_acc last). Each lane inverts its own
+    denominator (fp384.cuh `fp_inv`, 0 -> 0: an infinity lane's affine
+    coordinates are zero): a G1 lane x / z, y / z; a G2 lane the norm z0^2
+    + z1^2 (one lazy sum, one reduction), conj(z) / norm and two Fp2
+    products. Asserts that no warp holds both kinds of lane and that
+    every output is written once. Points are (x, y, z) ints, G2
+    coordinates (c0, c1) pairs."""
     S = len(r_pk)
     g2 = h + [acc]
-    dens = [z for _, _, z in r_pk] + [redc_wide(z[0] * z[0] + z[1] * z[1], 2, 1) for _, _, z in g2]
-    n = len(dens)
-    tree = [None] * (n - 1) + [d or R_MONT for d in dens]
-    top = (n - 1).bit_length() - 1 if n > 1 else -1
+    g1_blocks = -(-S // K21_THREADS) if S else 1
+    g2_blocks = -(-(S + 1) // K21_THREADS)
+    out = {}
 
-    def level(d):
-        return range(2**d - 1, min(2 ** (d + 1) - 2, n - 2) + 1)
+    def write(key, value):
+        assert key not in out, f"{key} written twice"
+        out[key] = value
 
-    for d in range(top, -1, -1):
-        for i in level(d):
-            tree[i] = _mmul(tree[2 * i + 1], tree[2 * i + 2])
-    tree[0] = _mont_inv(tree[0])
-    for d in range(top + 1):
-        for i in level(d):
-            inv, a, b = tree[i], tree[2 * i + 1], tree[2 * i + 2]
-            tree[2 * i + 1], tree[2 * i + 2] = _mmul(inv, b), _mmul(inv, a)
-    invs = [tree[n - 1 + j] if d else 0 for j, d in enumerate(dens)]
-    px = [_mmul(x, invs[j]) for j, (x, _, _) in enumerate(r_pk)] + [gen[0]]
-    py = [_mmul(y, invs[j]) for j, (_, y, _) in enumerate(r_pk)] + [gen[1]]
-    p_in = [z == 0 for _, _, z in r_pk] + [False]
-    qx, qy = [], []
-    for j, (x, y, z) in enumerate(g2):
-        inv = invs[S + j]
-        zi = (_mmul(z[0], inv), _neg(_mmul(z[1], inv)))
-        qx.append(_fp2_mul(x, zi))
-        qy.append(_fp2_mul(y, zi))
-    q_in = [z == (0, 0) for _, _, z in g2]
-    return px, py, p_in, qx, qy, q_in
+    for b in range(g1_blocks + g2_blocks):
+        kinds = set()
+        for t in range(K21_THREADS):
+            if b < g1_blocks:
+                j = b * K21_THREADS + t
+                if j == 0:
+                    write(("p", S), (gen[0], gen[1], False))
+                if j >= S:
+                    continue
+                kinds.add("g1")
+                x, y, z = r_pk[j]
+                inv = _mont_inv(z)
+                write(("p", j), (_mmul(x, inv), _mmul(y, inv), z == 0))
+            else:
+                j = (b - g1_blocks) * K21_THREADS + t
+                if j > S:
+                    continue
+                kinds.add("g2")
+                x, y, z = g2[j]
+                inv = _mont_inv(redc_wide(z[0] * z[0] + z[1] * z[1], 2, 1))
+                zi = (_mmul(z[0], inv), _neg(_mmul(z[1], inv)))
+                write(("q", j), (_fp2_mul(x, zi), _fp2_mul(y, zi), z == (0, 0)))
+        assert len(kinds) <= 1, f"block {b} mixes G1 and G2 lanes"
+    assert len(out) == 2 * (S + 1)
+    p = [out[("p", j)] for j in range(S + 1)]
+    q = [out[("q", j)] for j in range(S + 1)]
+    return ([e[0] for e in p], [e[1] for e in p], [e[2] for e in p], [e[0] for e in q], [e[1] for e in q],
+            [e[2] for e in q])
 
 
 def _mi_block_run(r_pk, h, acc):
@@ -451,6 +473,34 @@ def test_miller_inputs_block_matches_plain(mi_plain):
     assert _mi_block_run(*one) == _mi_ints(tapi.miller_inputs_plain(*one))
     w = torch.from_numpy(tfp.int_to_words(P - 1))
     edge = (tc.Proj(*(w.expand(3, tfp.WORDS),) * 3), tc.Proj(*(w.expand(3, 2, tfp.WORDS),) * 3),
+            tc.Proj(*(w.expand(2, tfp.WORDS),) * 3))
+    assert _mi_block_run(*edge) == _mi_ints(tapi.miller_inputs_plain(*edge))
+
+
+def _mi_operands(S):
+    """r_pk, H and sig_acc of S sets from three seeded G1 and three G2
+    points, with infinity lanes in both groups: G1 lanes 0 and S - 1, G2
+    lanes S - 1 and 0 (a partly filled last warp at S = 33)."""
+    rnd = random.Random(0x21 + S)
+    g1 = [g1_generator().mul(rnd.getrandbits(62) | 1) for _ in range(3)]
+    g2 = [g2_generator().mul(rnd.getrandbits(62) | 1) for _ in range(3)]
+    r_pk = [g1[j % 3] for j in range(S)]
+    h = [g2[(j + 1) % 3] for j in range(S)]
+    r_pk[0] = r_pk[S - 1] = g1_infinity()
+    h[0] = h[S - 1] = g2_infinity()
+    return _proj_g1(r_pk), _projective(h), tc.unstack(_projective([g2[2]]), 0)
+
+
+@pytest.mark.parametrize("S", [1, 4, 33])
+def test_miller_inputs_block_matches_plain_at_counts(S):
+    """K21's grid at S = 1, 4 and 33 (one G1 and one G2 warp; two G2 warps
+    at 4 and 33, the last partly filled), infinity lanes in both groups,
+    and on all-(p - 1) coordinates (no zero denominator), bit for bit
+    against the plain version."""
+    operands = _mi_operands(S)
+    assert _mi_block_run(*operands) == _mi_ints(tapi.miller_inputs_plain(*operands))
+    w = torch.from_numpy(tfp.int_to_words(P - 1))
+    edge = (tc.Proj(*(w.expand(S, tfp.WORDS),) * 3), tc.Proj(*(w.expand(S, 2, tfp.WORDS),) * 3),
             tc.Proj(*(w.expand(2, tfp.WORDS),) * 3))
     assert _mi_block_run(*edge) == _mi_ints(tapi.miller_inputs_plain(*edge))
 
@@ -506,8 +556,8 @@ def test_psi_check_reads_k11_output_in_place(recorded_launches):
 
 def test_miller_inputs_reads_k10_k17_k16_outputs_in_place(recorded_launches):
     """K21 on K10's (3, S, 12), K17's (3, S, 2, 12) and K16's (3, 2, 12)
-    outputs, read in place (strides 12 and 24 words); the scratch holds
-    the 2n - 1 tree nodes of n = 2S + 1 denominators; one launch."""
+    outputs, read in place (strides 12 and 24 words); no scratch (each
+    lane inverts its own denominator); one launch."""
     S = 6
     r = torch.zeros(3, S, 12, dtype=torch.int32)
     h = torch.zeros(3, S, 2, 12, dtype=torch.int32)
@@ -519,7 +569,7 @@ def test_miller_inputs_reads_k10_k17_k16_outputs_in_place(recorded_launches):
     assert a[6:12] == (h[0].data_ptr(), 24, h[1].data_ptr(), 24, h[2].data_ptr(), 24)
     assert a[12:16] == (acc[0].data_ptr(), acc[1].data_ptr(), acc[2].data_ptr(),
                         tfp.const(tapi._NEG_G1_GEN, "cpu").data_ptr())
-    assert a[17:21] == (px.data_ptr(), p_in.data_ptr(), qx.data_ptr(), q_in.data_ptr())
+    assert len(a) == 21 and a[16:20] == (px.data_ptr(), p_in.data_ptr(), qx.data_ptr(), q_in.data_ptr())
     assert py.data_ptr() == px.data_ptr() + (S + 1) * 48 and qy.data_ptr() == qx.data_ptr() + (S + 1) * 96
     assert (px.shape, qx.shape, p_in.shape, q_in.dtype) == ((S + 1, 12), (S + 1, 2, 12), (S + 1,), torch.bool)
 

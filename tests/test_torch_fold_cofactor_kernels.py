@@ -8,7 +8,7 @@ on the CPU.
    addition the jitted JAX `curve.add`) for G1 along axis 1 and G2 along
    axis 0, with infinity lanes, P == Q and P == -Q; `product_reduce_plain`
    bit-identical to the JAX `pairing.product_reduce` (each level's product
-   the jitted JAX `fp12_mul`) at n = 1, 2, 3, 5; `clear_cofactor_plain`
+   the jitted JAX `fp12_mul`) at n = 1, 2, 3, 4, 5, 17, 129; `clear_cofactor_plain`
    bit-identical to the composition it replaced, its affine result the
    oracle's `clear_cofactor_g2` of q0 + q1; (slow) bit-identical to the
    jitted JAX `map_to_g2` tail, the sum and `clear_cofactor`.
@@ -16,7 +16,10 @@ on the CPU.
    groups over the launch's own arguments, test_torch_tree_sum_lanes
    `tree_kernel`), K17's thread pair (lane 0: t3 and [z^2 - z - 1] p; lane 1: psi(p),
    [|z - 1|] psi(p), negated; then lane 0's two additions) and K18's
-   levels of K8's six-thread products, every double-width sum checked
+   cluster (`reduce_cluster`: its blocks' shares, each block's in-place
+   tree, block 0's fold of the partials, each product's lanes with their
+   partial double-width sums added before the one reduction; constants
+   read from fold_kernels.cu), every double-width sum checked
    against fp384.cuh's bound (test_torch_tower_kernels.redc_wide), on real
    inputs and on all-(p - 1) inputs, held to the plain versions bit for
    bit.
@@ -53,7 +56,7 @@ from lighthouse_tpu_torch.crypto.bls.torch_backend import kernels as tkernels
 from lighthouse_tpu_torch.crypto.bls.torch_backend import pairing as tpair
 from lighthouse_tpu_torch.crypto.bls.torch_backend import tower as tt
 from test_torch_curve_final_exp_kernels import _G2, _add, _dbl, _fp2_mul, scalar_mul_thread
-from test_torch_tower_kernels import k7_thread, k8_thread
+from test_torch_tower_kernels import k7_thread, k8_thread, redc_wide
 from torch_parity import assert_same, to_port
 
 rng = np.random.default_rng(0x8F0)
@@ -152,8 +155,8 @@ def _fp12_limbs(n):
     return jfp.ints_to_limbs(vals).reshape(n, 2, 3, 2, jfp.N_LIMBS)
 
 
-REDUCE_IN = {n: _fp12_limbs(n) for n in (1, 2, 3, 5)}
-_JAX_FP12_MUL = _padded(jax.jit(jtower.fp12_mul), 4, rows=2)
+REDUCE_IN = {n: _fp12_limbs(n) for n in (1, 2, 3, 4, 5, 17, 129)}
+_JAX_FP12_MUL = _padded(jax.jit(jtower.fp12_mul), 4, rows=64)
 
 
 @pytest.mark.parametrize("n", sorted(REDUCE_IN))
@@ -517,24 +520,141 @@ def _flat(x, i):
     return [tuple(tfp.words_to_int(w) for w in c) for c in tt._to_flat(x[i])]
 
 
-def reduce_block(values):
-    """K18's block: each level's products by six-thread groups of K8's
-    routine (csrc/tower.cuh `fp12_mul_thread`), the odd leftover copied."""
-    src = list(values)
-    while len(src) > 1:
-        n, half = len(src), len(src) // 2
-        dst = [[tuple(k8_thread(src[i], src[i + half], k, comp, range(6)) for comp in (0, 1)) for k in range(6)]
-               for i in range(half)]
-        src = dst + ([src[2 * half]] if n % 2 else [])
-    return src[0]
+_FOLD_SRC = (pathlib.Path(tfp.__file__).parent / "csrc" / "fold_kernels.cu").read_text()
+# K18's constants: blocks in the cluster at most, lanes a product, lane
+# groups a block at most, values a block holds at once at most
+K18 = {name: int(re.search(rf"constexpr int {name} = (\d+);", _FOLD_SRC).group(1))
+       for name in ("kReduceClusterMax", "kReduceLanes", "kReduceMaxGroups", "kReduceMaxRows")}
+
+
+def reduce_shape(n, k18=K18):
+    """fold_kernels.cu `reduce_shape`: (blocks, rows, groups) for n values."""
+    blocks = 1
+    while 2 * blocks <= k18["kReduceClusterMax"] and 2 * blocks <= n:
+        blocks *= 2
+    share = -(-n // blocks)
+    rows = min(max(share, blocks), k18["kReduceMaxRows"])
+    return blocks, rows, min(max(rows // 2, blocks // 2, 1), k18["kReduceMaxGroups"])
+
+
+def lane_terms(a, b, k, c, q0, q1):
+    """tower.cuh `fp12_lane_terms` in full mode: terms q0 <= j < q1 of
+    component c of e_k as one double-width sum (two products a term), in
+    the routine's order, its bound asserted."""
+    t = 0
+    for j in range(q0, q1):
+        x0, x1 = a[(k - j) % 6]
+        if j > k:  # w^6 = xi = 1 + u
+            x0, x1 = (x0 - x1) % P, (x0 + x1) % P
+        y0, y1 = b[j]
+        u = x1 if c else (P - x1) % P
+        t += x0 * (y1 if c else y0) + u * (y0 if c else y1)
+    assert t < 2 * (q1 - q0) * P * P
+    return t
+
+
+def product_lanes(a, b, lanes):
+    """One Fp12 product on `lanes` = 24 lanes: lane 2 (2k + c) + h sums
+    terms [3h, 3h + 3) of component c of e_k; the lane pair's partial sums
+    are added (the shuffle), then one reduction of the 12-product sum, as
+    `reduce_rows` forms it. Checked against K8's thread, which sums all
+    six terms on one thread."""
+    assert lanes == 24
+    split, terms = 2, 3
+    out = []
+    for k in range(6):
+        comps = []
+        for c in (0, 1):
+            t = sum(lane_terms(a, b, k, c, h * terms, (h + 1) * terms) for h in range(split))
+            comps.append(redc_wide(t, 12, subs=2))
+            assert comps[-1] == k8_thread(a, b, k, c, range(6))
+        out.append(tuple(comps))
+    return out
+
+
+def reduce_rows(v, m, groups, lanes):
+    """fold_kernels.cu `reduce_rows` on the rows `v` (a block's shared
+    memory): level by level, rows i and i + h into row i for i < m // 2,
+    h = m - m // 2, the block's `groups` warps walking a level's products
+    in rounds, a warp leaving the level once it has no product left. Per
+    level asserts that no product reads a row that another product of the
+    level writes and that the off lanes (24-31) read only row m - 1, which
+    no product writes. Returns the levels run."""
+    levels = 0
+    while m > 1:
+        pairs, h = m // 2, m - m // 2
+        writes = set()
+        for base in range(0, pairs, groups):
+            for i in range(base, min(base + groups, pairs)):
+                v[i] = product_lanes(v[i], v[i + h], lanes)
+                writes.add(i)
+        assert writes == set(range(pairs)) and m - 1 not in writes
+        assert all(i + h not in writes for i in writes)
+        m = h
+        levels += 1
+    return levels
+
+
+def reduce_cluster(values, k18=K18):
+    """K18's cluster (fold_kernels.cu `product_reduce_kernel`) in Python
+    integers: `reduce_shape`'s blocks, block b loading values [b n / B,
+    (b + 1) n / B) at most `rows` at a time (later loads after row 0, the
+    running product) and reducing each load with `reduce_rows`; block 0
+    copying the other blocks' row 0 into its rows 1 .. B - 1 and folding
+    them. Returns (product, dependent product levels)."""
+    n = len(values)
+    blocks, rows, groups = reduce_shape(n, k18)
+    lanes = k18["kReduceLanes"]
+    smem, depth = [], 0
+    for rank in range(blocks):
+        lo, hi = rank * n // blocks, (rank + 1) * n // blocks
+        assert hi > lo
+        v, nxt, m, levels = [None] * rows, lo, 0, 0
+        while True:
+            take = min(hi - nxt, rows - m)
+            v[m : m + take] = values[nxt : nxt + take]
+            levels += reduce_rows(v, m + take, groups, lanes)
+            nxt, m = nxt + take, 1
+            if nxt >= hi:
+                break
+        smem.append(v)
+        depth = max(depth, levels)
+    v0 = smem[0]
+    assert rows >= blocks and groups >= blocks // 2
+    for r in range(1, blocks):
+        v0[r] = smem[r][0]
+    depth += reduce_rows(v0, blocks, groups, lanes)
+    return v0[0], depth
+
+
+def test_reduce_constants_read_from_the_source():
+    """A cluster of at most the portable 8 blocks, 24 lanes a product (a
+    warp each), enough warps for a 129-value product's first level."""
+    assert K18["kReduceClusterMax"] == 8 and K18["kReduceLanes"] == 24
+    assert reduce_shape(129) == (8, 17, 8) and reduce_shape(4) == (4, 4, 2) and reduce_shape(1) == (1, 1, 1)
 
 
 @pytest.mark.parametrize("n", sorted(REDUCE_IN))
 def test_reduce_block_matches_plain(n):
-    """On seeded values (the first all p - 1) and on all-(p - 1) values."""
+    """K18's cluster on seeded values (the first all p - 1) and on all-(p -
+    1) values, bit for bit against the plain version, in ceil(log2 n)
+    dependent product levels."""
     for fs in (to_port(REDUCE_IN[n]), torch.from_numpy(tfp.int_to_words(P - 1)).expand(n, 2, 3, 2, 12)):
         want = tpair.product_reduce_plain(fs)
-        assert reduce_block([_flat(fs, i) for i in range(n)]) == _flat(want[None], 0)
+        got, levels = reduce_cluster([_flat(fs, i) for i in range(n)])
+        assert got == _flat(want[None], 0)
+        assert levels == (n - 1).bit_length()
+
+
+@pytest.mark.parametrize("n", [5, 17, 129])
+def test_reduce_cluster_loads_in_rounds(n):
+    """Blocks whose shares outgrow their rows (here a cluster of 2 blocks
+    of 4 rows): each later load folds into row 0's running product, and
+    the words stay the plain version's."""
+    fs = to_port(REDUCE_IN[n])
+    k18 = {**K18, "kReduceClusterMax": 2, "kReduceMaxRows": 4}
+    got, _ = reduce_cluster([_flat(fs, i) for i in range(n)], k18)
+    assert got == _flat(tpair.product_reduce_plain(fs)[None], 0)
 
 
 # -- the wrappers ----------------------------------------------------------------------
@@ -571,7 +691,8 @@ def test_tree_sum_reads_columns_in_place(recorded_launches):
 def test_clear_cofactor_and_product_reduce_launch_once(recorded_launches):
     """K17 on K14's 2-stacked output, q0 and q1 read in place (stride 24
     words), the sum flag set; without q the flag is clear. K18 on (n, ...)
-    Fp12 values, stride 144 words. One launch each."""
+    Fp12 values, stride 144 words, no scratch (the levels stay in the
+    cluster's shared memory). One launch each."""
     q = tc.Proj(*(torch.arange(2 * 5 * 24, dtype=torch.int32).reshape(2, 5, 2, 12) + k for k in range(3)))
     h = th2c.clear_cofactor(tc.unstack(q, 0), tc.unstack(q, 1))
     th2c.clear_cofactor(tc.unstack(q, 1))
@@ -583,7 +704,7 @@ def test_clear_cofactor_and_product_reduce_launch_once(recorded_launches):
                        q.x[1].data_ptr(), 24, q.y[1].data_ptr(), 24, q.z[1].data_ptr(), 24)
     assert a1[12] == 1 and a2[12] == 0 and a2[:6] == a2[6:12] and a1[-1] == a2[-1] == 5
     assert a1[13] == tfp.const(tc._PSI_C, "cpu").data_ptr() and h.z.shape == (5, 2, 12) and a1[-2] == h.x.data_ptr()
-    assert a3[:2] == (fs.data_ptr(), 144) and a3[-1] == 5 and a3[-2] == f.data_ptr() and f.shape == (2, 3, 2, 12)
+    assert a3 == (fs.data_ptr(), 144, f.data_ptr(), 5) and f.shape == (2, 3, 2, 12)
 
 
 def test_wrappers_raise_on_a_failed_launch(monkeypatch):

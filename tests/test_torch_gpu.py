@@ -351,7 +351,7 @@ def glue_edge_cases():
     fe = {"final_exponentiation_n1": f[3:], "final_exponentiation_n3": f[:3], "final_exponentiation_zero": f[1:2]}
     return chip_smoke.glue_cases(torch, fp, curve, tower, pairing, api, h2c, P, fe,
                                  [chip_smoke.PSI_EDGE, chip_smoke.N_SETS],
-                                 [chip_smoke.MILLER_INPUTS_EDGE, chip_smoke.N_SETS], 46)
+                                 [*chip_smoke.MILLER_INPUTS_EDGE, chip_smoke.N_SETS], 46)
 
 
 @pytest.mark.parametrize("kernel", ["final_exponentiation", "g2_psi_check", "miller_inputs"])

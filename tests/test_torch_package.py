@@ -4,6 +4,7 @@ without one (no CPU fallback), and a CPU tensor runs the plain versions
 without counting a kernel launch."""
 
 import ast
+import itertools
 import os
 import pathlib
 import subprocess
@@ -78,16 +79,17 @@ def test_chip_smoke_refuses_without_gpu(monkeypatch):
     assert chip_smoke.main() != 0
 
 
-@pytest.mark.parametrize("counts,taken", [([155], 1), ([143, 155], 2), ([0, 0, 155], 3), ([143] * 10, None)],
+@pytest.mark.parametrize("counts,taken", [([155], 1), ([143, 155], 2), ([0, 0, 155], 3), ([143], None)],
                          ids=["whole", "partial_then_whole", "empty_then_whole", "always_partial"])
 def test_traces_that_lost_device_events_are_taken_again(monkeypatch, counts, taken):
     """chip_smoke's profiler traces: a trace of a verify that holds no
     device event, or another count than the verify's 155 operations, is
-    taken again; after TRACE_TRIES such traces the phase fails."""
+    taken again; after TRACE_TRIES such traces the phase fails (the last
+    count repeats for as many traces as are taken)."""
     import chip_smoke
     import torch.profiler
 
-    traces = iter(counts)
+    traces = itertools.chain(counts, itertools.repeat(counts[-1]))
 
     class Event:
         def __init__(self, count):
@@ -191,7 +193,7 @@ def test_fold_and_cofactor_kernels_are_registered():
     stream last) and counted."""
     assert "curve.cuh" in tkernels.SOURCES
     assert {"fold_kernels.cu", "cofactor_kernels.cu"} <= set(tkernels.UNITS)
-    arity = {"g1_tree_sum": 14, "g2_tree_sum": 14, "clear_cofactor": 19, "product_reduce": 6}
+    arity = {"g1_tree_sum": 14, "g2_tree_sum": 14, "clear_cofactor": 19, "product_reduce": 5}
     for name, n in arity.items():
         assert len(tkernels._SIGNATURES[f"lh_{name}"]) == n and name in tfp.KERNELS
 
@@ -203,7 +205,7 @@ def test_final_exp_and_verify_glue_kernels_are_registered():
     last) and counted."""
     assert "final_exp.cuh" in tkernels.SOURCES
     assert {"final_exponentiation_kernels.cu", "verify_kernels.cu"} <= set(tkernels.UNITS)
-    arity = {"final_exponentiation": 6, "g2_psi_check": 16, "miller_inputs": 23}
+    arity = {"final_exponentiation": 6, "g2_psi_check": 16, "miller_inputs": 22}
     for name, n in arity.items():
         assert len(tkernels._SIGNATURES[f"lh_{name}"]) == n and name in tfp.KERNELS
 
