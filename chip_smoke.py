@@ -31,7 +31,9 @@ Phases, one line each, any failure exits non-zero:
               infinity: the generator-substitution lanes),
               K13 (SSWU, 256 u's with 0, one, u and -1 among them; then
               1, 7, 8, 9, 255, 256 and 257 u's) and K14
-              (the isogeny, SSWU's 256 points and the kernel point X0),
+              (the isogeny, SSWU's 256 points and the kernel point X0;
+              then SSWU's points at K13's counts with X0 and all p - 1
+              coordinates among them, and each alone),
               bit-identical to their plain versions and to the K1-K4/K7/K8
               composition they replaced. The tree sums K15 (G1, 2 columns)
               and K16 (G2, one column) at column lengths 1, 2, 3, 5, 128,
@@ -46,7 +48,9 @@ Phases, one line each, any failure exits non-zero:
               (n = 1 as on the verify path, n = 3 with p - 1 in every word
               slot, zero and one, and zero alone), the psi comparison K20
               (S = 128 and 19: G2 points, points of E2 outside G2,
-              infinity, and a multiple of another point) and the Miller
+              infinity, and a multiple of another point; then 19 with sig,
+              zsig and both at infinity and all p - 1 coordinates) and the
+              Miller
               inputs K21 (S = 1, 33 and 128, infinity lanes in G1 and
               G2), likewise. The
               standalone kernels off the verify path, K22 and K23
@@ -392,7 +396,7 @@ K12_WORD_PRODUCTS = (63 * (K8_WORD_PRODUCTS[1] + K12_DBL_WP + K8_WORD_PRODUCTS[2
                      + 5 * (K12_ADD_WP + K8_WORD_PRODUCTS[2]))
 K12_BYTES = 2 * 48 + 2 * 96 + 2 + 576
 K13_BYTES, K14_BYTES = 3 * 96, 5 * 96  # u in, x and y out; x and y in, X, Y, Z out
-H2C_CONST_BYTES = 10 * 96  # K13's and K14's constant operand, read once
+H2C_CONST_BYTES = 12 * 96  # K13's and K14's constant operand, read once
 # K15, K16: an addition is 12 field products (products by 3b are additions);
 # a point is 3 coordinates of 48 or 96 bytes. K17: the sum (12 products),
 # psi three times (2 each), the doubling (6 products, 2 squares), the two
@@ -474,6 +478,14 @@ def inversion_word_products() -> int:
     closing Montgomery product. K3 is a general power and is counted on
     `power_word_products` instead."""
     return FP_INV_BATCHES * (2 * 24 + 2 * (24 + 12 + 1)) + WORD_PRODUCTS_PER_MUL
+
+
+def batch_inv_word_products(steps: int) -> int:
+    """Word products one lane of K4 needs over `steps` values: 3 steps - 1
+    Fp products (the forward products from one, the products by the
+    prefixes, the updates of the inverse on the way back) and one
+    inversion."""
+    return (3 * steps - 1) * WORD_PRODUCTS_PER_MUL + inversion_word_products()
 
 
 def h2c_word_products(P: int) -> tuple[int, int]:
@@ -631,6 +643,51 @@ TRACE_SETTLE_S = 0.02
 # device operations (kernels, copies, fills) of one verify, at each
 # profiled shape and with the MXU flag
 VERIFY_DEVICE_OPS = 155
+# the runtime calls that enqueue a device operation, as the profiler records
+# them on the host's side of a trace
+ENQUEUE_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemcpyAsync", "cudaMemsetAsync")
+# the one loss of device events that a verify's trace may keep: on one
+# machine every trace of a 128 x 128 verify lacked the window's first two
+# operations, the verify's one copy of a pageable host buffer to the device
+# and the kernel launched after it (chip_probes/trace_losses.py)
+HEAD_LOSS_COPY = "Memcpy HtoD (Pageable -> Device)"
+HEAD_LOSS_MOST = 2
+
+
+def device_op_kind(name: str) -> str:
+    """'copy', 'fill' or 'kernel': the kind of device operation that a
+    runtime call of ENQUEUE_CALLS enqueues, or that a device event is."""
+    if name == "cudaMemcpyAsync" or name.startswith("Memcpy"):
+        return "copy"
+    if name == "cudaMemsetAsync" or name.startswith("Memset"):
+        return "fill"
+    return "kernel"
+
+
+def head_loss(prof, device_calls: int) -> int:
+    """The device events a trace lost, where the loss is HEAD_LOSS_* and
+    nothing else, else 0. The runtime calls must number `device_calls`,
+    the first a copy and a second lost one a launch, and the trace must
+    hold no HEAD_LOSS_COPY event (the window's one such copy is the lost
+    one). Then, in order of start, each device event answers the call as
+    many places on as were lost (one stream runs the operations in the
+    order they were enqueued): it must be of that call's kind and start
+    after the call began, so that a loss further on, where the device
+    keeps up with the host, shifts an event onto a call made after it."""
+    events = list(prof.events())
+    calls = sorted((e for e in events if e.name in ENQUEUE_CALLS), key=lambda e: e.time_range.start)
+    dev = sorted((e for e in events if str(e.device_type).endswith("CUDA")), key=lambda e: e.time_range.start)
+    lost = len(calls) - len(dev)
+    if len(calls) != device_calls or not 1 <= lost <= HEAD_LOSS_MOST:
+        return 0
+    if [device_op_kind(e.name) for e in calls[:lost]] != ["copy", "kernel"][:lost]:
+        return 0
+    if any(e.name == HEAD_LOSS_COPY for e in dev):
+        return 0
+    if any(device_op_kind(c.name) != device_op_kind(d.name) or d.time_range.start < c.time_range.start
+           for c, d in zip(calls[lost:], dev)):
+        return 0
+    return lost
 
 
 def traced_device_events(window, device_calls: int | None = None):
@@ -639,15 +696,18 @@ def traced_device_events(window, device_calls: int | None = None):
     (self device microseconds, calls, name) of an event that spent time
     on the device. The profiler now and then returns a trace with no
     device event at all, or one that lost some: a trace with no event, or
-    with another count of events than `device_calls` where that is given,
-    is counted in EMPTY_TRACES or PARTIAL_TRACES and taken again, and
-    after TRACE_TRIES such traces this raises. The wall time ends when the
-    window's work has finished on the device, before the settling wait."""
+    where `device_calls` is given one whose device events or whose runtime
+    calls that enqueue device operations (ENQUEUE_CALLS) are not
+    `device_calls`, is counted in EMPTY_TRACES or PARTIAL_TRACES and taken
+    again. After TRACE_TRIES such traces, the one that lost fewest events
+    to `head_loss` alone is returned (its rows then lack them), else this
+    raises. The wall time ends when the window's work has finished on the
+    device, before the settling wait."""
     global EMPTY_TRACES, PARTIAL_TRACES, TRACE_TRIES_MOST
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    seen = []
+    seen, short, short_lost = [], None, HEAD_LOSS_MOST + 1
     for tries in range(1, TRACE_TRIES + 1):
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -655,23 +715,31 @@ def traced_device_events(window, device_calls: int | None = None):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             time.sleep(TRACE_SETTLE_S)
-        rows = []
+        rows, enqueued = [], 0
         for e in prof.key_averages():
             dev_us = getattr(e, "self_device_time_total", None)
             if dev_us is None:
                 dev_us = getattr(e, "self_cuda_time_total", 0)
             if dev_us > 0:
                 rows.append((dev_us, e.count, e.key))
-        seen.append(sum(r[1] for r in rows))
+            elif e.key in ENQUEUE_CALLS:
+                enqueued += e.count
+        seen.append((sum(r[1] for r in rows), enqueued))
         if not rows:
             EMPTY_TRACES += 1
-        elif device_calls is not None and seen[-1] != device_calls:
+        elif device_calls is not None and seen[-1] != (device_calls, device_calls):
             PARTIAL_TRACES += 1
+            lost = head_loss(prof, device_calls)
+            if 0 < lost < short_lost:
+                short, short_lost = (rows, wall_ms), lost
         else:
             TRACE_TRIES_MOST = max(TRACE_TRIES_MOST, tries)
             return rows, wall_ms
-    raise RuntimeError(f"the profiler trace held no device events, or not the {device_calls} expected, "
-                       f"in {TRACE_TRIES} tries: {seen}")
+    if short is None:
+        raise RuntimeError(f"the profiler trace held no device events, or not the {device_calls} expected, "
+                           f"in {TRACE_TRIES} tries (device events, enqueued operations): {seen}")
+    TRACE_TRIES_MOST = TRACE_TRIES
+    return short
 
 
 def kernel_device_ms(fn, reps: int, kernel: str) -> float:
@@ -1150,11 +1218,13 @@ def ptxas_summary(log: str, kernel: str, nlines: int = 2) -> str:
 
 # [timing] lines that carry ptxas's registers, shared memory and spills:
 # K10, K11, K15, K16 and K17 (the lane-group law), K12 (two warps), K13
-# (the windowed square-root chains), K18 (a cluster of lane groups), K19,
-# K21 and K22 (callers of fp384.cuh's binary-GCD inversion; K22's line also
-# gives the inversion's own stack and spills).
+# (the windowed square-root chains), K14 and K20 (a lane group an element),
+# K18 (a cluster of lane groups), K19, K21 and K22 (callers of fp384.cuh's
+# binary-GCD inversion; K22's line also gives the inversion's own stack
+# and spills).
 PTXAS_TIMED = {"g1_scalar_mul": "g1_scalar_mul_kernel", "g2_scalar_mul": "g2_scalar_mul_kernel",
-               "miller_loop": "miller_loop_kernel", "sswu": "sswu_kernel", "g1_tree_sum": "g1_tree_sum_kernel",
+               "miller_loop": "miller_loop_kernel", "sswu": "sswu_kernel", "iso3_map": "iso3_map_kernel",
+               "g2_psi_check": "g2_psi_check_kernel", "g1_tree_sum": "g1_tree_sum_kernel",
                "g2_tree_sum": "g2_tree_sum_kernel", "clear_cofactor": "clear_cofactor_kernel",
                "product_reduce": "product_reduce_kernel", "final_exponentiation": "final_exponentiation_kernel",
                "miller_inputs": "miller_inputs_kernel", "g1_to_affine": "g1_to_affine_kernel"}
@@ -1352,6 +1422,43 @@ def sswu_cases(torch, fp, tower, h2c, P, counts, seed):
         cases[f"sswu_m{n}"] = ([n], lambda u=u: h2c.sswu(u), lambda u=u: h2c.sswu_plain(u),
                                lambda u=u: h2c.sswu_composed(u, tower.KERNEL_TOWER))
     return cases
+
+
+def iso3_cases(torch, fp, tower, h2c, P, counts, seed):
+    """name -> (shape, kernel call, plain version, the composition it
+    replaced) for K14 on SSWU's images of `sswu_inputs` at each count of
+    `counts` (partial and whole blocks of its eight elements; from 7 on,
+    lane 3 the kernel point X0 and the last lane all p - 1 coordinates),
+    and on the kernel point alone and all p - 1 coordinates alone."""
+    x0 = fp.const(h2c._X0, DEVICE)
+    p1 = torch.from_numpy(fp.int_to_words(P - 1)).to(DEVICE).expand(2, fp.WORDS)
+    points = {"iso3_map_kernel_point": (x0[None], h2c.sswu(sswu_inputs(fp, P, 5, seed))[1][4:]),
+              "iso3_map_p_minus_1": (p1[None], p1[None])}
+    for n in counts:
+        x, y = (c.clone() for c in h2c.sswu(sswu_inputs(fp, P, max(n, 4), seed + n)[:n]))
+        if n >= 7:
+            x[3], x[n - 1], y[n - 1] = x0, p1, p1
+        points[f"iso3_map_edge_m{n}"] = (x, y)
+    return {name: ([x.shape[0]], lambda x=x, y=y: h2c.iso3_map(x, y), lambda x=x, y=y: h2c.iso3_map_plain(x, y),
+                   lambda x=x, y=y: h2c.iso3_map_composed(x, y, tower.KERNEL_TOWER))
+            for name, (x, y) in points.items()}
+
+
+def psi_edge_cases(torch, fp, curve, h2c, P, n: int, seed: int):
+    """name -> (shape, kernel call, plain version, the composition it
+    replaced) for K20 on `psi_inputs` of n >= 5 with its infinities and
+    words at their edges: row 0 sig at infinity with a finite zsig (row
+    2's), row 1 both at infinity, row 3's zsig at infinity under a finite
+    sig, row 4 every coordinate of both all p - 1."""
+    sig, zsig, _ = psi_inputs(torch, fp, curve, h2c, P, n, seed)
+    p1 = torch.from_numpy(fp.int_to_words(P - 1)).to(DEVICE).expand(2, fp.WORDS)
+    for c, v in zip(zsig, curve.infinity(curve.FP2, (), DEVICE)):
+        c[0], c[3] = c[2], v
+    for c in (*sig, *zsig):
+        c[4] = p1
+    return {f"g2_psi_check_edges_n{n}": ([n], lambda: curve.g2_psi_check(sig, zsig),
+                                         lambda: curve.g2_psi_check_plain(sig, zsig),
+                                         lambda: curve.g2_psi_check_composed(sig, zsig, curve.FP2))}
 
 
 def fold_cases(torch, fp, curve, tower, pairing, h2c, P, g1_shapes, g2_lengths, cofactor_m, counts, seed,
@@ -1660,19 +1767,23 @@ def profile_verify(torch, api, sets, label: str, warm_ms: float) -> None:
     the most device time. The idle share is taken against `warm_ms`, the
     median wall time of the same verify run without the profiler, which
     inflates the wall time of the verify it traces. The trace must hold
-    the verify's VERIFY_DEVICE_OPS device operations (a trace that lost
-    some is taken again), each kernel of VERIFY_LAUNCHES as many times as
+    the runtime calls of the verify's VERIFY_DEVICE_OPS device operations
+    and as many device events, or have lost only `head_loss`'s (see
+    `traced_device_events`; `lost_device_events` counts them, and the busy
+    time then lacks them), each kernel of VERIFY_LAUNCHES as many times as
     the verify launches it."""
     api.verify_signature_sets(sets)
     torch.cuda.synchronize()
     rows, profiled_wall_ms = traced_device_events(lambda: api.verify_signature_sets(sets), VERIFY_DEVICE_OPS)
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
+    device_calls = sum(r[1] for r in rows)
     top = [{"kernel": k[:60], "ms": round(us / 1e3, 3), "calls": c} for us, c, k in rows[:8]]
     traced = {k: sum(c for _, c, key in rows if f"{k}_kernel" in key) for k in VERIFY_LAUNCHES}
     phase("profile", shape=label, warm_wall_ms=f"{warm_ms:.3f}", profiled_wall_ms=f"{profiled_wall_ms:.1f}",
           device_busy_ms=f"{busy_ms:.3f}", idle_share=f"{1 - busy_ms / warm_ms:.4f}",
-          device_calls=sum(r[1] for r in rows), traced=json.dumps(traced, separators=(",", ":")),
+          device_calls=device_calls, lost_device_events=VERIFY_DEVICE_OPS - device_calls,
+          traced=json.dumps(traced, separators=(",", ":")),
           top=json.dumps(top, separators=(",", ":")))
     if traced != VERIFY_LAUNCHES:
         raise AssertionError(f"profile {label}: the trace holds {traced}, a verify launches {VERIFY_LAUNCHES}")
@@ -1688,7 +1799,6 @@ def time_kernels(torch, fp, tower, P, dev, launches, peak_ops_per_s):
     call). K4's inversion is the kernels' binary GCD; K3 is a general
     power, counted as the power p - 2 on `power_word_products`."""
     results = []
-    inv_word_products = inversion_word_products()
     pow_inv_word_products = power_word_products(P - 2, WORD_PRODUCTS_PER_MUL, WORD_PRODUCTS_PER_SQR)
     for name, shape in OFF_PATH_SHAPES.items():
         composed = None
@@ -1697,7 +1807,7 @@ def time_kernels(torch, fp, tower, P, dev, launches, peak_ops_per_s):
             x = field_inputs(fp, P, steps * lanes, 3, dev)[8 : 8 + steps * lanes].reshape(steps, lanes, fp.WORDS)
             run, plain = (lambda: fp.batch_inv(x)), (lambda: fp.batch_inv_plain(x))
             elems = steps * lanes
-            ops_s = lanes * ((3 * steps - 1) * WORD_PRODUCTS_PER_MUL + inv_word_products) / peak_ops_per_s
+            ops_s = lanes * batch_inv_word_products(steps) / peak_ops_per_s
             nbytes = 2 * 48 * elems
         elif name == "fp2_mul":
             n, op = shape
@@ -2243,6 +2353,8 @@ def main() -> int:
     check_chain_kernels(torch, lane_cases(torch, fp, curve, tower, pairing, SCALAR_MUL_COUNTS, MILLER_COUNTS, 36,
                                           G1_SCALAR_MUL_COUNTS))
     check_chain_kernels(torch, sswu_cases(torch, fp, tower, h2c, P, SQRT_COUNTS, 37))
+    check_chain_kernels(torch, iso3_cases(torch, fp, tower, h2c, P, SQRT_COUNTS, 38))
+    check_chain_kernels(torch, psi_edge_cases(torch, fp, curve, h2c, P, PSI_EDGE, 39))
     fe_edges = fp12_inputs(fp, tower, P, FINAL_EXP_EDGE, 32, DEVICE)  # p - 1 in every word slot, zero, one
     glue, verdicts = glue_cases(torch, fp, curve, tower, pairing, api, h2c, P,
                                 {f"final_exponentiation_n{FINAL_EXP_EDGE}": fe_edges,

@@ -22,9 +22,9 @@
 //   norm is zero only for Z = 0 (-1 is no square mod p), and then both
 //   output words are zero, as inv0 gives. Every value is canonical, so the
 //   words are those of the plain version's K3/K1 (G1) or fp2_inv/K7 (G2).
-//   Work per point, in the word products the function needs (the inversion
-//   on the plain version's 4-bit window schedule, 120,354): G1 120,954,
-//   G2 122,754 (the norm 312, the inversion, two Fp products, two Fp2
+//   Work per point, in the word products the function needs (the
+//   inversion, fp384.cuh's binary GCD, 3,472): G1 4,072, G2 5,872 (the
+//   norm 312, the inversion, two Fp products, two Fp2
 //   products of 744), against 241 or 481 bytes (a point in, x, y and the
 //   flag out). Operations bound; at a few hundred points bound by one
 //   thread's inversion and its products.
@@ -64,8 +64,9 @@
 //   Design: a thread per element, one-warp blocks, over g2.cuh `fp2_inv`,
 //   the routine that K13, K14 and K19 run inside their bodies, so the
 //   standalone launch and those kernels cannot drift apart.
-//   Work per element: 121,266 word products the function needs (the norm
-//   312, the inversion, two Fp products), against 192 bytes. Operations
+//   Work per element: 4,384 word products the function needs (the norm
+//   312, the inversion, fp384.cuh's binary GCD 3,472, two Fp products),
+//   against 192 bytes. Operations
 //   bound; one thread's inversion sets the time at any batch up to a few
 //   thousand.
 

@@ -307,7 +307,8 @@ __device__ __forceinline__ void lanes_dbl(uint32_t* r, const uint32_t* p, uint32
   for (int st = kDblL1; st <= kDblOut; ++st) lane_step<C>(st, r, p, p, s, l, on);
 }
 
-// r = psi(p) on a lane group, g2.cuh g2_psi's values: lanes 0-3 form
+// r = psi(p) = (conj(x) CX, conj(y) CY, conj(z)) on a lane group (curve.py
+// `psi`'s values, with CX, CY from `curve._PSI_C`): lanes 0-3 form
 // component c of conj(x) CX = conj(x conj(CX)) and of conj(y) CY from
 // cc = [conj(CX), conj(CY)] (two Fp2 in shared memory), lanes 4, 5
 // conj(z). r may alias p.

@@ -39,12 +39,11 @@
 //   Karatsuba Fp2 product 744, an Fp2 square 600, K1's product 300, an Fp
 //   square 234, an Fp12 product 17,424): 63 squarings of 3,888, 244,944;
 //   six decompressions of 5,688, 34,128; the shared inversion, 15
-//   products and the power p - 2 on the plain version's 4-bit windows
-//   (381 squares, 104 products), 124,854; the product of six 87,120:
-//   491,046, against 1,152 bytes moved (g in, g^|z| out). Operations
-//   bound; one element (the verify path) is bound by the chain: 63
-//   squarings of one sum each (444 word products), the inversion and
-//   three Fp12 products.
+//   products and fp384.cuh's binary GCD (3,472), 7,972; the product of
+//   six 87,120: 374,164, against 1,152 bytes moved (g in, g^|z| out).
+//   Operations bound; one element (the verify path) is bound by the
+//   chain: 63 squarings of one sum each (444 word products), the
+//   inversion and three Fp12 products.
 //   Bound (reduction): the squaring's and decompression's sums hold N = 2
 //   products, T < 2 p^2, one conditional subtraction (fp384.cuh: N <= 9);
 //   the Fp12 products K8's N = 12, two subtractions.

@@ -41,11 +41,11 @@
 //   The routines stay `__noinline__`: one copy of each, as K9's and K17's.
 //   Work per element, in the word products the function needs (an Fp12
 //   product 17,424, an Fp2 product 744, an Fp product 300): five K9
-//   chains of 491,046; fourteen Fp12 products (ten, and fp12_inv's four);
+//   chains of 374,164; fourteen Fp12 products (ten, and fp12_inv's four);
 //   five Frobenius maps of six Fp2 products; phi(N) and phi^2(N), eight Fp
-//   products (N lies in Fp6); the Fp2 inversion, 121,266 (its norm 312,
-//   the power p - 2 on the plain version's schedule 120,354, two
-//   products); the product by M^-1, six Fp2 products: 2,849,616, against
+//   products (N lies in Fp6); the Fp2 inversion, 4,384 (its norm 312,
+//   fp384.cuh's binary GCD 3,472, two products); the product by M^-1,
+//   six Fp2 products: 2,148,324, against
 //   2,304 bytes (f in, the result out, the constants). Operations bound;
 //   one element (the verify path) is bound by the chains: the five |z|
 //   chains' 315 squarings, six inversions (fp384.cuh's binary GCD, one
@@ -68,8 +68,8 @@
 //   Design: one block (one warp) per element, as K19; the inversion's
 //   scratch (five Fp12 slots and M^-1, 2.9 KB) in shared memory.
 //   Work per element, in the word products the function needs: K30 four
-//   Fp12 products, eight Fp products, the Fp2 inversion (121,266) and six
-//   Fp2 products, 197,826, against 1,728 bytes (a in, out, the phi
+//   Fp12 products, eight Fp products, the Fp2 inversion (4,384) and six
+//   Fp2 products, 80,944, against 1,728 bytes (a in, out, the phi
 //   scalars); one warp's chain of dependent steps sets its time. K31 six Fp2 products, 4,464, against 1,728
 //   bytes (a in, out, the gammas).
 

@@ -30,18 +30,22 @@
 // K3 fp_pow_kernel
 //   Replaces: fp.py:422 `_pow_bits_windowed` as used by fp.py:460 `inv`
 //   and fp.py:497 `sqrt_candidate` (a 95-step lax.scan of windowed steps).
-//   Bound: operations: the power p - 2 on the plain version's 4-bit
-//   windows needs 381 squares and 104 products (120,354 word products)
+//   Bound: operations: the power p - 2, on the cheaper of the plain
+//   version's 4-bit windows and 5-bit sliding windows (here the sliding
+//   ones, `chip_smoke.power_word_products`), needs 113,052 word products
 //   per element, against 96 bytes moved.
 //   Design: plain MSB-first square-and-multiply in registers with the
 //   public exponent read from a uniform (cached) global array; 0 -> 0.
 // K4 fp_batch_inv_kernel
 //   Replaces: fp.py:466 `batch_inv` (two lax.scans of N steps and one
 //   Fermat chain).
-//   Bound: operations: 3(N-1) products plus one inversion (counted on the
-//   plain version's Fermat schedule, 120,354 word products) per lane,
-//   against 2 * 48 * N bytes per lane; with few lanes it is bound by the
-//   latency of one thread's dependent product chain.
+//   Bound: operations: 3N - 1 products (N forward from one, N - 1 by the
+//   prefixes and N updates of the inverse on the way back) and one
+//   inversion (fp384.cuh's binary GCD, 3,472 word products) per lane,
+//   (3N - 1) 300 + 3,472: 234,472 word products a lane at N = 257
+//   (`chip_smoke.batch_inv_word_products`), against 2 * 48 * N bytes per
+//   lane; with few lanes it is bound by the latency of one thread's
+//   dependent product chain.
 //   Design: one thread per trailing lane walks the leading axis: a
 //   forward prefix-product loop written into the output, one inversion
 //   (fp384.cuh `fp_inv`, the binary GCD), a backward loop that overwrites

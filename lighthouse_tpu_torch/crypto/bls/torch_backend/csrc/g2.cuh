@@ -87,6 +87,34 @@ __device__ __forceinline__ void fp2_mul_part(uint32_t r[FP_WORDS], const fp2_t a
   fp_redc_wide<1>(r, t);
 }
 
+// Component c of e f + a0 b0 (+ a1 b1 where n = 2), for e, f in Fp and
+// a_k, b_k in Fp2 (each 24 words, c0 then c1): e f, then per pair
+// fp2_mul_part's terms (c0: a0 b0 + (-a1) b1; c1: a0 b1 + a1 b0), one lazy
+// sum of N = 2n + 1 <= 5 products below p^2, reduced once (fp384.cuh:
+// N <= 9). The operands may lie in shared or global memory and are taken
+// by address, so every lane runs one instruction stream. The terms run in
+// a rolled loop: one copy of the product, where the unrolled sum's copies
+// cost a caller that runs it a few times more in instruction fetches than
+// they save (K14, PERF.md).
+__device__ __forceinline__ void fp2_sum_part(uint32_t r[FP_WORDS], const uint32_t* e, const uint32_t* f,
+                                             const uint32_t* a0, const uint32_t* b0, const uint32_t* a1,
+                                             const uint32_t* b1, int n, int c) {
+  uint32_t t[FP_WIDE], x[FP_WORDS], y[FP_WORDS], u[FP_WORDS];
+  fp_load(x, e);
+  fp_load(y, f);
+  fp_mul_wide(t, x, y);
+#pragma unroll 1
+  for (int i = 0; i < 2 * n; ++i) {
+    const int h = i & 1;  // term h of pair i / 2: that a's component h
+    fp_load(x, (i < 2 ? a0 : a1) + h * FP_WORDS);
+    fp_neg(u, x);
+    fp_select(x, h == 1 && c == 0, u, x);
+    fp_load(y, (i < 2 ? b0 : b1) + (h ^ c) * FP_WORDS);
+    fp_mac_wide(t, x, y);
+  }
+  fp_redc_wide<1>(r, t);
+}
+
 // Component c of a^2: c0 = (a0 + a1)(a0 - a1), c1 = (a0 + a0) a1, one
 // product below p^2, reduced once (K7's square).
 __device__ __forceinline__ void fp2_sqr_part(uint32_t r[FP_WORDS], const fp2_t a, int c) {
@@ -231,24 +259,4 @@ __device__ __forceinline__ void g2_dbl(G2Proj& r, const G2Proj& p) {
   fp2_copy(r.x, x3);
   fp2_copy(r.y, y3);
   fp2_copy(r.z, z3);
-}
-
-// r = psi(p) = (conj(x) CX, conj(y) CY, conj(z)), the untwist-Frobenius-
-// twist endomorphism (curve.py `psi`), with psi_c = [CX, CY]
-// (curve._PSI_C, Fp2 each): two products. r may alias p. For K17
-// (cofactor_kernels.cu) and K20 (verify_kernels.cu).
-static __device__ __noinline__ void g2_psi(G2Proj& r, const G2Proj& p, const uint32_t* psi_c) {
-  fp2_t c, k;
-  fp_copy(c[0], p.x[0]);
-  fp_neg(c[1], p.x[1]);
-  fp_load(k[0], psi_c);
-  fp_load(k[1], psi_c + FP_WORDS);
-  fp2_mul(r.x, c, k);
-  fp_copy(c[0], p.y[0]);
-  fp_neg(c[1], p.y[1]);
-  fp_load(k[0], psi_c + 2 * FP_WORDS);
-  fp_load(k[1], psi_c + 3 * FP_WORDS);
-  fp2_mul(r.y, c, k);
-  fp_copy(r.z[0], p.z[0]);
-  fp_neg(r.z[1], p.z[1]);
 }

@@ -3,12 +3,13 @@
 // runs on the caller's stream, allocates nothing, does not synchronise,
 // and returns cudaGetLastError().
 //
-// Both kernels read a constant operand of ten Fp2 rows (`h2c._H2C_CONSTS`,
-// Montgomery words): A, B, Z of the isogenous curve E' and SSWU, the x1
-// constants C1 = -B/A and C2 = B/(Z A), the isogeny's kernel point X0 and
-// its T, U, then 1/9 and -1/27 (the sign pin) in c0. Every value is
-// canonical, so the arithmetic inside a formula is arranged freely: a
-// power is one number, whatever the addition chain.
+// Both kernels read a constant operand of twelve Fp2 rows
+// (`h2c._H2C_CONSTS`, Montgomery words): A, B, Z of the isogenous curve E'
+// and SSWU, the x1 constants C1 = -B/A and C2 = B/(Z A), the isogeny's
+// kernel point X0, 1/9 and -1/27 (the sign pin) in c0, then K14's folded
+// T/9, U/9, T' = T/27 and U' = 2U/27 of the isogeny's T and U. Every
+// value is canonical, so the arithmetic inside a formula is arranged
+// freely: a power is one number, whatever the addition chain.
 //
 // K13 sswu_kernel
 //   Replaces: lighthouse_tpu/crypto/bls/jax_backend/h2c.py:117 `sswu`, with
@@ -67,19 +68,54 @@
 // K14 iso3_map_kernel
 //   Replaces: lighthouse_tpu/crypto/bls/jax_backend/h2c.py:146 `iso3_map`;
 //   the port's `h2c.iso3_map`, called once per verify on SSWU's m points.
-//   Computes: the plain version's steps (`h2c.iso3_map_composed`):
-//   d = x - X0, 1/d with inv0, d^2, d^3; xo = (x + T/d + U/d^2) / 9,
-//   yo = y (1 - T/d^2 - 2U/d^3) (-1/27); (xo, yo, 1), or the canonical
-//   infinity (0, 1, 0) where d = 0 (x is the kernel point X0).
-//   Design: one thread per element, 32 a block; the Fp2 products are
-//   g2.cuh's `fp2_mul` (each component one lazy sum of N = 2).
-//   Work per element: the inversion 4,384; d^2 600; d^3, T/d, U/d^2,
-//   T/d^2, 2U/d^3 and the product by y, six products, 4,464; the two
-//   scalings by 1/9 and -1/27, four Fp products, 1,200: 10,648, against
-//   480 bytes moved (x, y in; X, Y, Z out). Operations bound; at 256
-//   elements bound by one thread's inversion (fp384.cuh's binary GCD) and
-//   its eleven products.
-//   Bound (reduction): N <= 2 per component, one conditional subtraction.
+//   Computes: the plain version's function (`h2c.iso3_map_composed`):
+//   d = x - X0, xo = (x + T/d + U/d^2) / 9, yo = y (1 - T/d^2 - 2U/d^3)
+//   (-1/27); (xo, yo, 1), or the canonical infinity (0, 1, 0) where d = 0
+//   (x is the kernel point X0). With the scalings folded into the
+//   constants: xo = x (1/9) + (T/9) d^-1 + (U/9) d^-2 and yo = y (-1/27) +
+//   V d^-2, V = y T' + y U' d^-1. Every value is canonical, so this
+//   arrangement gives the plain version's words.
+//   Design: a group of four lanes per element, eight elements a one-warp
+//   block (32 blocks at m = 256); lane (j, c) takes part j and component
+//   c. The group's Fp2 values lie in its slots in shared memory (864
+//   bytes, 6,912 a block). Every step is one row of `kIsoLane`: lane
+//   (j, c) forms component c of e_c f + a0 b0 (+ a1 b1) as one lazy sum
+//   (g2.cuh `fp2_sum_part`, as wide as the step needs: `kIsoPairs`),
+//   stores it in its slot, and a `__syncwarp` hands it to the group.
+//   Step 0, before the inversion: y T' and y U'.
+//   Then every lane forms d, the norm d0^2 + d1^2 (one lazy sum), its
+//   inverse (fp384.cuh `fp_inv`, the binary GCD, in every lane: one
+//   instruction stream, one GCD's time) and component c of d^-1. Step 1:
+//   d^-2 (part 0) and V (part 1); step 2: xo (part 0) and yo (part 1),
+//   stored as they come, part 0 also storing Z. Where the thread-per-
+//   element kernel ran the inversion and eleven dependent products on one
+//   thread, a lane runs one step, the GCD, then two steps. Lanes past
+//   the end take the last element and store nothing.
+//   Work per element, in the word products the function needs: the
+//   inversion 4,384; d^2 600; six Fp2 products 4,464; four Fp products
+//   by 1/9 and -1/27, 1,200: 10,648 (`chip_smoke.h2c_word_products`, the
+//   bound), against 480 bytes moved (x, y in; X, Y, Z out). The kernel
+//   does more: seven Fp2 products where the function needs d^2 and six
+//   (y T', y U', d^-1 d^-1, y U' d^-1, (T/9) d^-1, (U/9) d^-2, V d^-2),
+//   each lane each step at the step's widest sum (N = 3, 3, 5: 588, 588
+//   and 876 word products) and every lane the norm (444), the GCD (3,472)
+//   and a component of d^-1 (300): 6,268 a lane, 25,072 a group.
+//   Operations bound; at 256 elements bound by one lane's chain, the GCD
+//   and three steps.
+//   Measured at m = 257 (NVIDIA H100 80GB HBM3, 700.00 W, device ms, each
+//   form against another in turns in one call; PERF.md): the thread per
+//   element 0.1273; this kernel 0.0811-0.0814. Forms timed and dropped:
+//   every sum at N = 5 unrolled, 0.0878-0.0888; a routine a step, each as
+//   wide as it needs, unrolled, 0.0934-0.0940 (three copies of the sum,
+//   each run once: instruction fetches cost more than the products it
+//   saved); every sum at N = 5 in the rolled loop, 0.0830-0.0841. The
+//   inversion alone, a thread an element, takes 0.068
+//   (`chip_probes/fp_inv_phases.py`): the floor of this design.
+//   ptxas (sm_90a, CUDA 12.8): 126 registers, 192 bytes of stack
+//   (fp_inv's call), no spills, 6,912 bytes of shared memory.
+//   Bound (reduction): every step's sum N <= 5 products below p^2 (e f and
+//   one or two Fp2 pairs), the norm N = 2; one conditional subtraction
+//   (fp384.cuh: N <= 9).
 //
 // K32 fp2_sqrt_candidate_kernel
 //   Replaces: jax_backend/h2c.py:102 `fp2_sqrt_candidate` (registered
@@ -113,9 +149,12 @@ namespace {
 constexpr int kSswuThreads = 32;  // one warp a block
 constexpr int kSswuPerBlock = kSswuThreads / 4;  // K13: two candidates an element, a thread pair each
 constexpr int kSqrtPerBlock = kSswuThreads / 2;  // K32: one candidate
-constexpr int kIsoThreads = 32;
+constexpr int kIsoThreads = 32;  // one warp a block
+constexpr int kIsoLanes = 4;  // K14: an element's lane group
+constexpr int kIsoPerBlock = kIsoThreads / kIsoLanes;
 constexpr int kFp2Words = 2 * FP_WORDS;
-enum Const { kConstA, kConstB, kConstZ, kConstC1, kConstC2, kConstX0, kConstT, kConstU, kConstInv9, kConstInv27 };
+enum Const { kConstA, kConstB, kConstZ, kConstC1, kConstC2, kConstX0, kConstInv9, kConstInv27, kConstT9, kConstU9,
+             kConstYT, kConstYU };
 
 __device__ __forceinline__ void fp2_load(fp2_t r, const uint32_t* src) {
   fp_load(r[0], src);
@@ -303,56 +342,96 @@ __global__ void __launch_bounds__(kSswuThreads) sswu_kernel(const uint32_t* __re
   if (live) store_part(out + (j * n + e) * kFp2Words + c * FP_WORDS, j == 0 ? xj : y, c);
 }
 
+// K14: lane (j, c) of element g's group takes part j and component c. A
+// group's Fp2 values lie in its slots in shared memory; a slot number at or
+// past kSlotCst names row (number - kSlotCst) of the constant operand.
+enum IsoSlot { kSlotX, kSlotY, kSlotD1, kSlotD2, kSlotV, kSlotYT, kSlotYU, kSlotZero, kSlotOne, kIsoSlots };
+constexpr int kSlotOut = 15;  // the last step's result: coordinate j of the output
+constexpr int kSlotCst = 16;
+constexpr int kIsoSteps = 3;
+// The Fp2 pairs of each step's sum: N = 2 kIsoPairs[s] + 1 products.
+static __constant__ uint8_t kIsoPairs[kIsoSteps] = {1, 1, 2};
+// Step s, part j: {out, e, f, a0, b0, a1, b1}: lane (j, c) forms component
+// c of e_c f_0 + a0 b0 (+ a1 b1 where the step has two pairs; else both
+// kSlotZero) as one lazy sum (g2.cuh `fp2_sum_part`) and stores it in slot
+// `out`. Step 0 runs before the inversion, steps 1 and 2 after it, with
+// d^-1 in kSlotD1.
+static __constant__ uint8_t kIsoLane[kIsoSteps][2][7] = {
+    // y T' and y U' (T' = T / 27, U' = 2U / 27)
+    {{kSlotYT, kSlotZero, kSlotZero, kSlotY, kSlotCst + kConstYT, kSlotZero, kSlotZero},
+     {kSlotYU, kSlotZero, kSlotZero, kSlotY, kSlotCst + kConstYU, kSlotZero, kSlotZero}},
+    // d^-2, and V = y T' + y U' d^-1
+    {{kSlotD2, kSlotZero, kSlotZero, kSlotD1, kSlotD1, kSlotZero, kSlotZero},
+     {kSlotV, kSlotYT, kSlotOne, kSlotYU, kSlotD1, kSlotZero, kSlotZero}},
+    // xo = x (1/9) + (T/9) d^-1 + (U/9) d^-2, yo = y (-1/27) + V d^-2
+    {{kSlotOut, kSlotX, kSlotCst + kConstInv9, kSlotCst + kConstT9, kSlotD1, kSlotCst + kConstU9, kSlotD2},
+     {kSlotOut, kSlotY, kSlotCst + kConstInv27, kSlotV, kSlotD2, kSlotZero, kSlotZero}},
+};
+
+__device__ __forceinline__ const uint32_t* iso_slot(int s, const uint32_t* group, const uint32_t* cst) {
+  return s >= kSlotCst ? cst + (s - kSlotCst) * kFp2Words : group + s * kFp2Words;
+}
+
+// Lane (j, c)'s share of step s (kIsoLane), stored in its slot unless it
+// is the output; returns it in r. One routine for the three steps.
+__device__ __noinline__ void iso_step(uint32_t r[FP_WORDS], int s, int j, int c, uint32_t* group,
+                                      const uint32_t* cst) {
+  const uint8_t* t = kIsoLane[s][j];
+  fp2_sum_part(r, iso_slot(t[1], group, cst) + c * FP_WORDS, iso_slot(t[2], group, cst), iso_slot(t[3], group, cst),
+               iso_slot(t[4], group, cst), iso_slot(t[5], group, cst), iso_slot(t[6], group, cst), kIsoPairs[s], c);
+  if (t[0] != kSlotOut) fp_store(group + t[0] * kFp2Words + c * FP_WORDS, r);
+}
+
 __global__ void __launch_bounds__(kIsoThreads) iso3_map_kernel(const uint32_t* __restrict__ x_in, long long sx,
                                                                const uint32_t* __restrict__ y_in, long long sy,
                                                                const uint32_t* __restrict__ cst,
                                                                uint32_t* __restrict__ out, long long n) {
-  const long long e = (long long)blockIdx.x * kIsoThreads + threadIdx.x;
-  if (e >= n) return;
-  fp2_t x, y, d, dinv, d2, d3, a, b, k;
-  fp2_load(x, x_in + e * sx);
-  fp2_load(y, y_in + e * sy);
+  __shared__ uint32_t slots[kIsoPerBlock][kIsoSlots * kFp2Words];
+  const int lane = threadIdx.x, g = lane / kIsoLanes, j = (lane >> 1) & 1, c = lane & 1;
+  const long long e0 = (long long)blockIdx.x * kIsoPerBlock + g;
+  const bool live = e0 < n;
+  const long long e = live ? e0 : n - 1;  // every lane takes part in the steps
+  uint32_t* group = slots[g];
+  uint32_t w[FP_WORDS], r[FP_WORDS];
+  // lane (j, c): component c of x (j = 0) or y (j = 1), and of zero or one
+  fp_load(w, (j == 0 ? x_in + e * sx : y_in + e * sy) + c * FP_WORDS);
+  fp_store(group + (j == 0 ? kSlotX : kSlotY) * kFp2Words + c * FP_WORDS, w);
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) w[i] = j == 1 && c == 0 ? FP_ONE[i] : 0u;
+  fp_store(group + (j == 0 ? kSlotZero : kSlotOne) * kFp2Words + c * FP_WORDS, w);
+  __syncwarp();
+  iso_step(r, 0, j, c, group, cst);
+  // d = x - X0 and component c of d^-1 = conj(d) / (d0^2 + d1^2), 0 -> 0,
+  // in every lane (one instruction stream: one GCD's time)
+  fp2_t d, k;
+  fp2_load(d, group + kSlotX * kFp2Words);
   fp2_load(k, cst + kConstX0 * kFp2Words);
-  fp2_sub(d, x, k);
+  fp2_sub(d, d, k);
   const bool kernel_point = fp2_is_zero(d);
-  fp2_inv(dinv, d);
-  fp2_mul(d2, dinv, dinv);
-  fp2_mul(d3, d2, dinv);
-  // xo = (x + (T / d + U / d^2)) / 9
-  fp2_load(k, cst + kConstT * kFp2Words);
-  fp2_mul(a, k, dinv);
-  fp2_mul(b, k, d2);  // T / d^2, for yo
-  fp2_load(k, cst + kConstU * kFp2Words);
-  fp2_mul(d2, k, d2);
-  fp2_add(a, a, d2);
-  fp2_add(a, x, a);
-  // yo = y (1 - (T / d^2 + 2U / d^3)) (-1/27)
-  fp2_add(k, k, k);
-  fp2_mul(d3, k, d3);
-  fp2_add(b, b, d3);
-  fp_sub(b[0], FP_ONE, b[0]);
-  fp_neg(b[1], b[1]);
-  fp2_mul(b, y, b);
-  uint32_t s[FP_WORDS];
-  fp_load(s, cst + kConstInv9 * kFp2Words);
-  fp_mul(a[0], a[0], s);
-  fp_mul(a[1], a[1], s);
-  fp_load(s, cst + kConstInv27 * kFp2Words);
-  fp_mul(b[0], b[0], s);
-  fp_mul(b[1], b[1], s);
+  uint32_t t[FP_WIDE];
+  fp_mul_wide(t, d[0], d[0]);
+  fp_mac_wide(t, d[1], d[1]);
+  fp_redc_wide<1>(w, t);
+  fp_inv(w, w);
+  fp_select(k[0], c == 1, d[1], d[0]);
+  fp_mul(r, k[0], w);
+  fp_neg(w, r);
+  fp_select(r, c == 1, w, r);
+  if (j == 0) fp_store(group + kSlotD1 * kFp2Words + c * FP_WORDS, r);
+  __syncwarp();
+  iso_step(r, 1, j, c, group, cst);
+  __syncwarp();
+  iso_step(r, 2, j, c, group, cst);
+  if (!live) return;
   // (xo, yo, 1), or (0, 1, 0) at the kernel point
-  fp2_t zero, one;
 #pragma unroll
   for (int i = 0; i < FP_WORDS; ++i) {
-    zero[0][i] = zero[1][i] = one[1][i] = 0u;
-    one[0][i] = FP_ONE[i];
+    const uint32_t one = c == 0 ? FP_ONE[i] : 0u;
+    r[i] = kernel_point ? (j == 1 ? one : 0u) : r[i];
+    w[i] = kernel_point ? 0u : one;
   }
-  fp2_select(a, kernel_point, zero, a);
-  fp2_select(b, kernel_point, one, b);
-  fp2_select(d, kernel_point, zero, one);
-  fp2_store(out + e * kFp2Words, a);
-  fp2_store(out + (n + e) * kFp2Words, b);
-  fp2_store(out + (2 * n + e) * kFp2Words, d);
+  fp_store(out + (j * n + e) * kFp2Words + c * FP_WORDS, r);
+  if (j == 0) fp_store(out + (2 * n + e) * kFp2Words + c * FP_WORDS, w);
 }
 
 __global__ void __launch_bounds__(kSswuThreads) fp2_sqrt_candidate_kernel(const uint32_t* __restrict__ x_in,
@@ -386,7 +465,7 @@ int lh_sswu(const void* u, long long su, const void* cst, void* out, long long n
 int lh_iso3_map(const void* x, long long sx, const void* y, long long sy, const void* cst, void* out, long long n,
                 void* stream) {
   if (n > 0) {
-    const unsigned blocks = (unsigned)((n + kIsoThreads - 1) / kIsoThreads);
+    const unsigned blocks = (unsigned)((n + kIsoPerBlock - 1) / kIsoPerBlock);
     iso3_map_kernel<<<blocks, kIsoThreads, 0, (cudaStream_t)stream>>>((const uint32_t*)x, sx, (const uint32_t*)y, sy,
                                                                       (const uint32_t*)cst, (uint32_t*)out, n);
   }

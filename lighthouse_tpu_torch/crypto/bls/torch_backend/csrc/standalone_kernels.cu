@@ -61,8 +61,8 @@
 //   g2 != 0 three Fp2 squares (g5^2, g4^2, g1^2) and three products (g1,
 //   g2 g5, g3 g4), where g2 = 0 one square and four products (2 g4 g5
 //   too); the norm (two Fp squares summed and reduced once, 312), the
-//   inversion on the plain version's 4-bit window schedule (120,354) and
-//   two Fp products: 125,298 or 124,842, against 960 bytes. Operations
+//   inversion (fp384.cuh's binary GCD, 3,472) and two Fp products: 8,416
+//   or 7,960, against 960 bytes. Operations
 //   bound; one thread's chain sets the time at any batch up to a few
 //   thousand.
 //

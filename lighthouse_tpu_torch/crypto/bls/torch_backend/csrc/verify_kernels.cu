@@ -12,18 +12,37 @@
 //   once per verify on the S signatures and their [|z|] multiples (K11's
 //   first half, read in place).
 //   Computes, per element: eq_points(psi(sig), -zsig) | is_infinity(sig),
-//   by the plain version's steps (`curve.g2_psi_check_plain`): psi is
-//   g2.cuh `g2_psi`, (conj(x) CX, conj(y) CY, conj(z)) with CX, CY from
-//   `curve._PSI_C`; the comparison is the cross-multiplied one, X1 Z2 ==
-//   X2 Z1 and Y1 Z2 == Y2 Z1 word for word (every value canonical), where
+//   by the plain version's function (`curve.g2_psi_check_plain`): psi is
+//   (conj(x) CX, conj(y) CY, conj(z)) with CX, CY from `curve._PSI_C`;
+//   the comparison is the cross-multiplied one, X1 Z2 == X2 Z1 and
+//   Y1 Z2 == Y2 Z1 word for word (every value canonical), where
 //   canonical infinities (Z = 0) equal each other and nothing else. One
 //   byte out, 0 or 1 (a torch.bool).
-//   Design: a thread per element, one-warp blocks, so the verify path's
-//   128 elements spread over 4 SMs. Work per element: six Fp2 products
-//   (two in psi, four in the comparison) of 744 word products, 4,464,
-//   against 577 bytes (two points in, a byte out) and the constant's 192
-//   once. Operations bound; at 128 elements bound by one thread's six
-//   dependent products.
+//   Design: a group of eight lanes per element, four elements a one-warp
+//   block (32 blocks at S = 128), the six products in two dependent
+//   rounds, each product on a lane pair, lane (k, c) forming component c
+//   as one lazy sum (g2.cuh `fp2_mul_part`). The rounds are the rows of
+//   `kPsiLane`: round 0 the four independent products X1 = conj(x) CX,
+//   Y1 = conj(y) CY, X2 Z1 = zx conj(z) and Y2 Z1 = (-zy) conj(z), each
+//   lane reading its operands from device memory; round 1 X1 Z2 and
+//   Y1 Z2 on lanes 0-3, X1 and Y1 taken from round 0's lanes by
+//   `__shfl_sync`, lanes 4-7 off. Each comparison lane takes round 0's
+//   matching component (`kPsiEq`) by shuffle; one `__ballot_sync` over the
+//   group's mask gives the word equality, two more the infinity flags
+//   (every lane tests component c of sig's and zsig's z). Lanes past the
+//   end take the last element and store nothing; the group's first lane
+//   stores the byte. Where the thread per element ran six dependent
+//   products, a lane runs two.
+//   Work per element: six Fp2 products (two in psi, four in the
+//   comparison) of 744 word products, 4,464, against 577 bytes (two
+//   points in, a byte out) and the constant's 192 once; the kernel does
+//   the same six. Operations bound; at 128 elements bound by two
+//   dependent component products and the loads. Measured at S = 128
+//   (NVIDIA H100 80GB HBM3, 700.00 W, `chip_smoke.py [timing]`, in turns
+//   with the thread per element): 0.00733 and 0.00738 ms against 0.03561
+//   and 0.03549. ptxas (sm_90a, CUDA 12.8): 124 registers, no stack, no
+//   spills (the thread per element: 128 registers, 1,008 bytes of stack,
+//   8 bytes of spills).
 //   Bound (reduction): every Fp2 component a lazy sum of N = 2 products,
 //   one conditional subtraction (fp384.cuh: N <= 9).
 //
@@ -82,31 +101,97 @@
 
 namespace {
 
-constexpr int kPsiThreads = 32;      // a thread per element, one warp a block
+constexpr int kPsiThreads = 32;      // one warp a block
+constexpr int kPsiLanes = 8;         // K20: an element's lane group
+constexpr int kPsiPerBlock = kPsiThreads / kPsiLanes;
+static_assert(kPsiThreads % kPsiLanes == 0 && kPsiLanes < 32, "whole lane groups a warp");
 constexpr int kInputsThreads = 32;   // K21: a lane a thread, one warp a block
+
+// K20's operands: sig's and zsig's coordinates, CX and CY, then round 0's
+// products (kRound0 + k: product k, on lanes 2k and 2k + 1 of the group).
+enum PsiOperand { kSigX, kSigY, kSigZ, kZsigX, kZsigY, kZsigZ, kPsiCX, kPsiCY, kRound0, kPsiOff = 15 };
+enum PsiMap { kAsIs, kConj, kNegated };
+constexpr int kPsiRounds = 2;
+constexpr int kPsiProducts = kPsiLanes / 2;
+// Round r, product k (lanes 2k and 2k + 1 of the group, a component each,
+// g2.cuh `fp2_mul_part`): {a, a's map, b, b's map}; kPsiOff: no product.
+static __constant__ uint8_t kPsiLane[kPsiRounds][kPsiProducts][4] = {
+    // X1 = conj(x) CX, Y1 = conj(y) CY (psi(sig)); X2 Z1 = zx conj(z), Y2 Z1 = (-zy) conj(z)
+    {{kSigX, kConj, kPsiCX, kAsIs}, {kSigY, kConj, kPsiCY, kAsIs}, {kZsigX, kAsIs, kSigZ, kConj},
+     {kZsigY, kNegated, kSigZ, kConj}},
+    // X1 Z2, Y1 Z2
+    {{kRound0 + 0, kAsIs, kZsigZ, kAsIs}, {kRound0 + 1, kAsIs, kZsigZ, kAsIs}, {kPsiOff, kAsIs, kPsiOff, kAsIs},
+     {kPsiOff, kAsIs, kPsiOff, kAsIs}},
+};
+// Round 1's product k equals round 0's product kPsiEq[k] when the points
+// agree: X1 Z2 == X2 Z1, Y1 Z2 == Y2 Z1.
+static __constant__ uint8_t kPsiEq[kPsiProducts] = {2, 3, kPsiOff, kPsiOff};
+
+// Operand `id` of element e under `map`, read from device memory.
+__device__ __forceinline__ void psi_operand(fp2_t r, int id, int map, const uint32_t* const* coords,
+                                            const long long* strides, const uint32_t* psi_c, long long e) {
+  const uint32_t* src = psi_c + (id == kPsiCY ? 2 * FP_WORDS : 0);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) src = id == i ? coords[i] + e * strides[i] : src;
+  uint32_t t[FP_WORDS];
+  fp2_load(r, src);
+  fp_neg(t, r[0]);
+  fp_select(r[0], map == kNegated, t, r[0]);
+  fp_neg(t, r[1]);
+  fp_select(r[1], map != kAsIs, t, r[1]);
+}
 
 __global__ void __launch_bounds__(kPsiThreads) g2_psi_check_kernel(
     const uint32_t* __restrict__ sx, long long ssx, const uint32_t* __restrict__ sy, long long ssy,
     const uint32_t* __restrict__ sz, long long ssz, const uint32_t* __restrict__ zx, long long szx,
     const uint32_t* __restrict__ zy, long long szy, const uint32_t* __restrict__ zz, long long szz,
     const uint32_t* __restrict__ psi_c, uint8_t* __restrict__ out, long long n) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  G2Proj p, q;
-  load_point<G2>(p, sx + e * ssx, sy + e * ssy, sz + e * ssz);
-  load_point<G2>(q, zx + e * szx, zy + e * szy, zz + e * szz);
-  const bool sig_inf = fp2_is_zero(p.z);
-  g2_psi(p, p, psi_c);
-  fp2_neg(q.y, q.y);
-  fp2_t m0, m1;
-  fp2_mul(m0, p.x, q.z);
-  fp2_mul(m1, q.x, p.z);
-  const bool x_eq = fp2_eq(m0, m1);
-  fp2_mul(m0, p.y, q.z);
-  fp2_mul(m1, q.y, p.z);
-  const bool y_eq = fp2_eq(m0, m1);
-  const bool p_inf = fp2_is_zero(p.z), q_inf = fp2_is_zero(q.z);
-  out[e] = ((p_inf && q_inf) || (!p_inf && !q_inf && x_eq && y_eq) || sig_inf) ? 1 : 0;
+  const int lane = threadIdx.x, g = lane / kPsiLanes, k = (lane % kPsiLanes) >> 1, c = lane & 1;
+  const int base = g * kPsiLanes;
+  const long long e0 = (long long)blockIdx.x * kPsiPerBlock + g;
+  const bool live = e0 < n;
+  const long long e = live ? e0 : n - 1;  // every lane takes part in the shuffles
+  const uint32_t* coords[6] = {sx, sy, sz, zx, zy, zz};
+  const long long strides[6] = {ssx, ssy, ssz, szx, szy, szz};
+  fp2_t a, b;
+  uint32_t r0[FP_WORDS], r1[FP_WORDS] = {}, o[FP_WORDS];
+  // round 0: four independent products, a component a lane
+  const uint8_t* t = kPsiLane[0][k];
+  psi_operand(a, t[0], t[1], coords, strides, psi_c, e);
+  psi_operand(b, t[2], t[3], coords, strides, psi_c, e);
+  fp2_mul_part(r0, a, b, c);
+  // round 1: a round-0 product (both components, by shuffle) times an operand
+  t = kPsiLane[1][k];
+  const bool on = t[0] != kPsiOff;
+  const int src = base + 2 * (on && t[0] >= kRound0 ? t[0] - kRound0 : 0);
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) {
+    a[0][i] = __shfl_sync(0xffffffffu, r0[i], src);
+    a[1][i] = __shfl_sync(0xffffffffu, r0[i], src + 1);
+  }
+  if (on) {
+    if (t[0] < kRound0) psi_operand(a, t[0], t[1], coords, strides, psi_c, e);
+    psi_operand(b, t[2], t[3], coords, strides, psi_c, e);
+    fp2_mul_part(r1, a, b, c);
+  }
+  // the comparisons, component c on lane (k, c) against lane (kPsiEq[k], c)
+  const int eq_k = kPsiEq[k];
+  const bool compares = on && eq_k != kPsiOff;
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) o[i] = __shfl_sync(0xffffffffu, r0[i], base + 2 * (compares ? eq_k : 0) + c);
+  uint32_t diff = 0;
+#pragma unroll
+  for (int i = 0; i < FP_WORDS; ++i) diff |= compares ? r1[i] ^ o[i] : 0u;
+  // the infinity flags: component c of sig's and zsig's z on every lane
+  fp_load(o, sz + e * ssz + c * FP_WORDS);
+  const bool sz_zero = fp_is_zero(o);
+  fp_load(o, zz + e * szz + c * FP_WORDS);
+  const bool zz_zero = fp_is_zero(o);
+  const unsigned group = ((1u << kPsiLanes) - 1) << base;
+  const bool eq = (__ballot_sync(0xffffffffu, diff == 0) & group) == group;
+  const bool p_inf = (__ballot_sync(0xffffffffu, sz_zero) & group) == group;  // psi keeps z's zeros: sig_inf
+  const bool q_inf = (__ballot_sync(0xffffffffu, zz_zero) & group) == group;
+  if (live && lane == base) out[e] = ((p_inf && q_inf) || (!p_inf && !q_inf && eq) || p_inf) ? 1 : 0;
 }
 
 // Coordinate of G2 lane j: the hashes H_j (j < S, stride sh), then sig_acc.
@@ -183,7 +268,7 @@ int lh_g2_psi_check(const void* sx, long long ssx, const void* sy, long long ssy
                     const void* zx, long long szx, const void* zy, long long szy, const void* zz, long long szz,
                     const void* psi_c, void* out, long long n, void* stream) {
   if (n > 0) {
-    g2_psi_check_kernel<<<(unsigned)((n + kPsiThreads - 1) / kPsiThreads), kPsiThreads, 0, (cudaStream_t)stream>>>(
+    g2_psi_check_kernel<<<(unsigned)((n + kPsiPerBlock - 1) / kPsiPerBlock), kPsiThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)sx, ssx, (const uint32_t*)sy, ssy, (const uint32_t*)sz, ssz, (const uint32_t*)zx, szx,
         (const uint32_t*)zy, szy, (const uint32_t*)zz, szz, (const uint32_t*)psi_c, (uint8_t*)out, n);
   }

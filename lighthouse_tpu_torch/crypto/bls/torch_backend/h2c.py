@@ -47,14 +47,21 @@ _T = pack_fp2_el(ref_h2c._ISO_T)
 _U = pack_fp2_el(ref_h2c._ISO_U)
 _INV9 = fp.to_mont_host(ref_h2c._INV9.n)
 _INV27 = fp.to_mont_host(ref_h2c._INV27.n)  # carries the -1/27 sign pin
+# K14's folded constants: xo = x (1/9) + (T/9) / d + (U/9) / d^2 and
+# yo = y (-1/27) + y (T/27) / d^2 + y (2U/27) / d^3
+_T9 = pack_fp2_el(ref_h2c._ISO_T.scale(ref_h2c._INV9))
+_U9 = pack_fp2_el(ref_h2c._ISO_U.scale(ref_h2c._INV9))
+_YT = pack_fp2_el(-ref_h2c._ISO_T.scale(ref_h2c._INV27))
+_YU = pack_fp2_el(-(ref_h2c._ISO_U + ref_h2c._ISO_U).scale(ref_h2c._INV27))
 _MINUS_ONE = pack_fp2_el(RefFp2(RefFp(P - 1), RefFp(0)))
 
 _SQRT_E1 = (P - 3) // 4
 _SQRT_E2 = (P - 1) // 2
 # K13's and K14's constant operand, one Fp2 row each (INV9 and INV27 with a
-# zero c1): A, B, Z, C1, C2, X0, T, U, INV9, INV27
-_H2C_CONSTS = np.stack([_A, _B, _Z, _C1, _C2, _X0, _T, _U,
-                        np.stack([_INV9, fp.ZERO]), np.stack([_INV27, fp.ZERO])])
+# zero c1): A, B, Z, C1, C2, X0, INV9, INV27, then K14's T/9, U/9, T/27,
+# 2U/27
+_H2C_CONSTS = np.stack([_A, _B, _Z, _C1, _C2, _X0, np.stack([_INV9, fp.ZERO]), np.stack([_INV27, fp.ZERO]),
+                        _T9, _U9, _YT, _YU])
 
 
 def _one_like(x):

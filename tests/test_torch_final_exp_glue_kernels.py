@@ -21,7 +21,8 @@
 2. A model in Python integers of each kernel: K19's block (K9's chains,
    K8's six-thread products, the twelve-thread Frobenius maps and
    conjugations, the norm chain of the inversion with its one-thread Fp2
-   inversion), K20's thread and K21's grid (a lane per denominator, each
+   inversion), K20's lane groups (test_torch_iso3_psi_lanes) and K21's
+   grid (a lane per denominator, each
    inverting its own, G1 and G2 lanes in separate warps; `kInputsThreads`
    read from verify_kernels.cu), every double-width sum
    checked against fp384.cuh's bound (test_torch_tower_kernels.redc_wide),
@@ -60,6 +61,7 @@ from lighthouse_tpu_torch.crypto.bls.torch_backend import kernels as tkernels
 from lighthouse_tpu_torch.crypto.bls.torch_backend import pairing as tpair
 from lighthouse_tpu_torch.crypto.bls.torch_backend import tower as tt
 from test_torch_curve_final_exp_kernels import _fp2_mul, _fp12, _mmul, _mont_inv, _tower_flat, cyclotomic_pow_x_block
+from test_torch_iso3_psi_lanes import psi_grid
 from test_torch_tower_kernels import k7_thread, k8_thread, redc_wide
 from torch_parity import assert_same, base_sets, to_port
 
@@ -369,29 +371,16 @@ def _g2_ints(p, i):
     return tuple(tuple(tfp.words_to_int(w) for w in c[i]) for c in p)
 
 
-def psi_check_thread(sig, zsig):
-    """One thread of K20 (csrc/verify_kernels.cu): g2.cuh `g2_psi`, the
-    negation, four lazy Fp2 products and the comparisons."""
-    cx, cy = (tuple(tfp.words_to_int(w) for w in c) for c in tc._PSI_C)
-    zero = (0, 0)
-    sig_inf = sig[2] == zero
-    conj = [(c[0], _neg(c[1])) for c in sig]
-    px, py, pz = _fp2_mul(conj[0], cx), _fp2_mul(conj[1], cy), conj[2]
-    qx, qy, qz = zsig[0], (_neg(zsig[1][0]), _neg(zsig[1][1])), zsig[2]
-    x_eq = _fp2_mul(px, qz) == _fp2_mul(qx, pz)
-    y_eq = _fp2_mul(py, qz) == _fp2_mul(qy, pz)
-    p_inf, q_inf = pz == zero, qz == zero
-    return (p_inf and q_inf) or (not p_inf and not q_inf and x_eq and y_eq) or sig_inf
-
-
 def test_psi_check_thread_matches_plain():
-    """On every lane of the psi inputs, and on all-(p - 1) coordinates."""
-    got = [psi_check_thread(_g2_ints(PSI_SIG, i), _g2_ints(PSI_ZSIG, i)) for i in range(len(PSI_WANT))]
+    """K20's lane groups (test_torch_iso3_psi_lanes `psi_grid`) on every
+    lane of the psi inputs in one launch, and on all-(p - 1) coordinates."""
+    n = len(PSI_WANT)
+    got = psi_grid([_g2_ints(PSI_SIG, i) for i in range(n)], [_g2_ints(PSI_ZSIG, i) for i in range(n)])
     assert got == tc.g2_psi_check_plain(PSI_SIG, PSI_ZSIG).tolist() == PSI_WANT
     w = torch.from_numpy(tfp.int_to_words(P - 1)).expand(1, 2, tfp.WORDS)
     edge = tc.Proj(w, w, w)
     want = tc.g2_psi_check_plain(edge, edge).tolist()
-    assert [psi_check_thread(_g2_ints(edge, 0), _g2_ints(edge, 0))] == want
+    assert psi_grid([_g2_ints(edge, 0)], [_g2_ints(edge, 0)]) == want
 
 
 _VERIFY_SRC = (pathlib.Path(tfp.__file__).parent / "csrc" / "verify_kernels.cu").read_text()

@@ -221,6 +221,24 @@ def test_sswu_kernel_matches_plain_at_counts(cuda_device, n):
             assert torch.equal(chip_smoke._stacked(got[name]), chip_smoke._stacked(want)), name
 
 
+def test_iso3_and_psi_kernels_match_plain_at_edges(cuda_device):
+    """K14 (four lanes an element, eight elements a block) on SSWU's points
+    at K13's counts with the kernel point and all p - 1 coordinates among
+    them, and on each alone (chip_smoke's `iso3_cases`); K20 (eight lanes
+    an element) with sig, zsig and both at infinity and all p - 1
+    coordinates (`psi_edge_cases`): against the plain versions and the
+    compositions replaced, bit for bit, one launch a case."""
+    cases = chip_smoke.iso3_cases(torch, fp, tower, h2c, P, chip_smoke.SQRT_COUNTS, 63)
+    cases.update(chip_smoke.psi_edge_cases(torch, fp, curve, h2c, P, chip_smoke.PSI_EDGE, 64))
+    fp.reset_launches()
+    got = {name: run() for name, (_, run, _, _) in cases.items()}
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fp.LAUNCHES.items() if v} == {"iso3_map": len(cases) - 1, "g2_psi_check": 1}
+    for name, (_, _, plain, composed) in cases.items():
+        for want in (plain(), composed()):
+            assert torch.equal(chip_smoke._stacked(got[name]), chip_smoke._stacked(want)), name
+
+
 def test_pow_abs_x_kernel_matches_plain_on_card(cuda_device):
     """K9 against its plain version and the composition it replaced, bit
     for bit, one launch per call: cyclotomic elements, one, and a lane

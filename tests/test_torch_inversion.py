@@ -237,3 +237,74 @@ def test_bound_counts_the_gcds_word_products():
     fp_inv_replay(SEEDED[0])
     assert chip_smoke.FP_INV_BATCHES == BATCHES
     assert chip_smoke.inversion_word_products() == WORD_PRODUCTS[0] + chip_smoke.WORD_PRODUCTS_PER_MUL
+
+
+_CSRC = pathlib.Path(tfp.__file__).parent / "csrc"
+
+
+def _section(source: str, title: str) -> str:
+    """The comment block of `source` from the line `// {title}` to the next
+    kernel's title (or the block's end), as one line of text."""
+    text, on = [], False
+    for line in (_CSRC / source).read_text().splitlines():
+        line = line.strip()
+        if not line.startswith("//"):
+            if on:
+                break
+            continue
+        body = line[2:].strip()
+        if on and re.match(r"K\d+ \w+_kernel", body):
+            break
+        on = on or body.startswith(title)
+        if on:
+            text.append(body)
+    assert text, f"no header {title!r} in {source}"
+    return " ".join(text)
+
+
+def _header_totals():
+    """kernel -> (source, title, a pattern whose groups are the header's
+    stated word products, chip_smoke.py's counts of them)."""
+    import chip_smoke as c
+
+    inv, mul = c.inversion_word_products(), c.WORD_PRODUCTS_PER_MUL
+    aff = c.affine_word_products()
+    return {
+        "K3": ("fp_kernels.cu", "K3 fp_pow_kernel", r"the power p - 2, .*? needs ([\d,]+) word products per element",
+               [c.power_word_products(P - 2, mul, c.WORD_PRODUCTS_PER_SQR)]),
+        "K4": ("fp_kernels.cu", "K4 fp_batch_inv_kernel",
+               r"binary GCD, ([\d,]+) word products\) per lane, .*?: ([\d,]+) word products a lane at N = (\d+)",
+               [inv, c.batch_inv_word_products(257), 257]),
+        "K9": ("final_exp_kernels.cu", "K9 cyclotomic_pow_x_kernel",
+               r"the shared inversion, 15 products and fp384.cuh's binary GCD \(([\d,]+)\), ([\d,]+); "
+               r"the product of six [\d,]+: ([\d,]+),",
+               [inv, 15 * mul + inv, c.K9_WORD_PRODUCTS_BUT_POWER + inv]),
+        "K19": ("final_exponentiation_kernels.cu", "K19 final_exponentiation_kernel",
+                r"five K9 chains of ([\d,]+);.*?the Fp2 inversion, ([\d,]+) \(its norm 312, fp384.cuh's binary GCD "
+                r"([\d,]+), two products\); the product by M\^-1, six Fp2 products: ([\d,]+),",
+                [c.K9_WORD_PRODUCTS_BUT_POWER + inv, c.fp2_inv_word_products(), inv, c.k19_word_products()]),
+        "K30": ("final_exponentiation_kernels.cu", "K30 fp12_inv_kernel",
+                r"the Fp2 inversion \(([\d,]+)\) and six Fp2 products, ([\d,]+),",
+                [c.fp2_inv_word_products(), c.standalone_word_products(P)["fp12_inv"]]),
+        "K22/K23": ("affine_kernels.cu", "K22 g1_to_affine_kernel",
+                    r"the inversion, fp384.cuh's binary GCD, ([\d,]+)\): G1 ([\d,]+), G2 ([\d,]+) ",
+                    [inv, aff["g1_to_affine"], aff["g2_to_affine"]]),
+        "K25": ("affine_kernels.cu", "K25 fp2_inv_kernel",
+                r"Work per element: ([\d,]+) word products .*?binary GCD ([\d,]+), two Fp products\)",
+                [aff["fp2_inv"], inv]),
+        "K29": ("standalone_kernels.cu", "K29 karabina_decompress_kernel",
+                r"the inversion \(fp384.cuh's binary GCD, ([\d,]+)\) and two Fp products: ([\d,]+) or ([\d,]+),",
+                [inv, c.decompress_word_products(True), c.decompress_word_products(False)]),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4", "K9", "K19", "K30", "K22/K23", "K25", "K29"])
+def test_inverting_kernel_headers_state_the_bound(kernel):
+    """Each inverting kernel's header states the word products that
+    chip_smoke.py's bound counts: an inversion as the binary GCD's (the
+    replay's count above), K3's power p - 2 on the cheaper of its two
+    schedules, and each total built on them."""
+    source, title, pattern, want = _header_totals()[kernel]
+    m = re.search(pattern, _section(source, title))
+    assert m, f"{kernel}: the header does not state its totals as {pattern!r}"
+    assert [int(g.replace(",", "")) for g in m.groups()] == want

@@ -18,7 +18,8 @@
    prologue, the windowed power chains split over a thread pair, the
    exchange, the selects; the chains read from h2c_kernels.cu's
    `kSqrtChain`, folded back into p >> 2 and p >> 1 and held to the
-   5-bit sliding window of p) and K14's thread, every double-width sum
+   5-bit sliding window of p) and K14's lane groups
+   (test_torch_iso3_psi_lanes), every double-width sum
    checked against fp384.cuh's bound (test_torch_tower_kernels.redc_wide),
    on real inputs and on all-(p - 1) inputs, held to the plain versions
    bit for bit.
@@ -50,6 +51,7 @@ from lighthouse_tpu_torch.crypto.bls.torch_backend import kernels as tkernels
 from lighthouse_tpu_torch.crypto.bls.torch_backend import pairing as tpair
 from lighthouse_tpu_torch.crypto.bls.torch_backend import tower as tt
 from lighthouse_tpu_torch.crypto.bls.torch_backend.curve import Proj
+from test_torch_iso3_psi_lanes import iso3_grid
 from test_torch_tower_kernels import fp12_lane, k7_thread, redc_wide
 from torch_parity import assert_same, to_port
 
@@ -482,24 +484,11 @@ def sswu_element(u):
     return x, _neg(y) if _sgn0(u) != _sgn0(y) else y
 
 
-def iso3_element(x, y):
-    """K14's thread."""
-    X0, Tc, U, inv9, inv27 = _const(5), _const(6), _const(7), _const(8)[0], _const(9)[0]
-    d = _sub(x, X0)
-    if d == (0, 0):
-        return (0, 0), (R_MONT, 0), (0, 0)
-    dinv = _inv2(d)
-    d2 = _mul(dinv, dinv)
-    d3 = _mul(d2, dinv)
-    xo = _scale(_add(x, _add(_mul(Tc, dinv), _mul(U, d2))), inv9)
-    yo = _scale(_mul(y, _sub((R_MONT, 0), _add(_mul(Tc, d2), _mul(_add(U, U), d3)))), inv27)
-    return xo, yo, (R_MONT, 0)
-
-
 def test_sswu_and_iso3_threads_match_plain(sswu_out):
-    """K13 on every input u and on u = (p - 1, p - 1); K14 on SSWU's points,
-    the kernel point and (p - 1, p - 1) coordinates: the bounds asserted in
-    every lazy sum, the words equal to the plain versions."""
+    """K13 on every input u and on u = (p - 1, p - 1); K14's lane groups
+    (test_torch_iso3_psi_lanes `iso3_grid`) on SSWU's points, the kernel
+    point and (p - 1, p - 1) coordinates in one launch: the bounds asserted
+    in every lazy sum, the words equal to the plain versions."""
     p1 = torch.from_numpy(tfp.int_to_words(P - 1)).expand(1, 2, 12)
     edge = th2c.sswu_plain(p1)
     for i, u in enumerate(_fp2_vals(to_port(SSWU_IN)) + [(P - 1, P - 1)]):
@@ -508,16 +497,18 @@ def test_sswu_and_iso3_threads_match_plain(sswu_out):
     x = torch.cat([sswu_out[0][:3], to_port(jpack.pack_fp2_el(ref_h2c._ISO_X0))[None], p1])
     y = torch.cat([sswu_out[1][:3], sswu_out[1][:1], p1])
     want = th2c.iso3_map_plain(x, y)
-    for i, (xi, yi) in enumerate(zip(_fp2_vals(x), _fp2_vals(y))):
-        assert iso3_element(xi, yi) == tuple(_fp2_vals(c)[i] for c in want), f"point {i}"
+    assert iso3_grid(_fp2_vals(x), _fp2_vals(y)) == [_fp2_vals(c) for c in want]
 
 
 def test_h2c_constants_are_the_oracles():
-    """K13's and K14's constant operand holds what the plain versions use."""
+    """K13's and K14's constant operand holds what the plain versions use,
+    and K14's folded T/9, U/9, T/27 and 2U/27 (-T (-1/27), -2U (-1/27))."""
+    T, U, inv9, inv27 = ref_h2c._ISO_T, ref_h2c._ISO_U, ref_h2c._INV9, ref_h2c._INV27
     rows = [ref_h2c.ISO_A, ref_h2c.ISO_B, ref_h2c.SSWU_Z, -(ref_h2c.ISO_B * ref_h2c.ISO_A.inv()),
-            ref_h2c.ISO_B * (ref_h2c.SSWU_Z * ref_h2c.ISO_A).inv(), ref_h2c._ISO_X0, ref_h2c._ISO_T, ref_h2c._ISO_U,
-            Fp2(ref_h2c._INV9, Fp(0)), Fp2(ref_h2c._INV27, Fp(0))]
-    assert [_const(i) for i in range(10)] == [_mont(r) for r in rows]
+            ref_h2c.ISO_B * (ref_h2c.SSWU_Z * ref_h2c.ISO_A).inv(), ref_h2c._ISO_X0, Fp2(inv9, Fp(0)),
+            Fp2(inv27, Fp(0)), T.scale(inv9), U.scale(inv9), -T.scale(inv27), -(U + U).scale(inv27)]
+    assert len(th2c._H2C_CONSTS) == len(rows)
+    assert [_const(i) for i in range(len(rows))] == [_mont(r) for r in rows]
 
 
 
