@@ -1217,17 +1217,22 @@ def ptxas_summary(log: str, kernel: str, nlines: int = 2) -> str:
 
 
 # [timing] lines that carry ptxas's registers, shared memory and spills:
-# K10, K11, K15, K16 and K17 (the lane-group law), K12 (two warps), K13
-# (the windowed square-root chains), K14 and K20 (a lane group an element),
-# K18 (a cluster of lane groups), K19, K21 and K22 (callers of fp384.cuh's
-# binary-GCD inversion; K22's line also gives the inversion's own stack
-# and spills).
-PTXAS_TIMED = {"g1_scalar_mul": "g1_scalar_mul_kernel", "g2_scalar_mul": "g2_scalar_mul_kernel",
+# K8 and K9 (the 24-lane Fp12 product; the |z| chain in registers, with
+# its routine's own stack and spills), K10, K11, K15, K16 and K17 (the
+# lane-group law), K12 (two warps), K13 (the windowed square-root chains),
+# K14 and K20 (a lane group an element), K18 (a cluster of lane groups),
+# K19, K21 and K22 (callers of fp384.cuh's binary-GCD inversion; K22's
+# line also gives the inversion's own stack and spills).
+PTXAS_TIMED = {"fp12_mul": "fp12_mul_kernel", "cyclotomic_pow_x": "cyclotomic_pow_x_kernel",
+               "g1_scalar_mul": "g1_scalar_mul_kernel", "g2_scalar_mul": "g2_scalar_mul_kernel",
                "miller_loop": "miller_loop_kernel", "sswu": "sswu_kernel", "iso3_map": "iso3_map_kernel",
                "g2_psi_check": "g2_psi_check_kernel", "g1_tree_sum": "g1_tree_sum_kernel",
                "g2_tree_sum": "g2_tree_sum_kernel", "clear_cofactor": "clear_cofactor_kernel",
                "product_reduce": "product_reduce_kernel", "final_exponentiation": "final_exponentiation_kernel",
                "miller_inputs": "miller_inputs_kernel", "g1_to_affine": "g1_to_affine_kernel"}
+# the device functions whose own stack and spills a kernel's line adds
+PTXAS_ROUTINES = {"cyclotomic_pow_x": ("ptxas_chain", "cyclotomic_pow_x_block"),
+                  "g1_to_affine": ("ptxas_fp_inv", "fp_inv")}
 
 
 def ptxas_fields(log: str, name: str) -> dict:
@@ -1236,8 +1241,9 @@ def ptxas_fields(log: str, name: str) -> dict:
     if name not in PTXAS_TIMED:
         return {}
     fields = {"ptxas": ptxas_summary(log, PTXAS_TIMED[name])}
-    if name == "g1_to_affine":
-        fields["ptxas_fp_inv"] = ptxas_summary(log, "fp_inv", 1)
+    if name in PTXAS_ROUTINES:
+        key, routine = PTXAS_ROUTINES[name]
+        fields[key] = ptxas_summary(log, routine, 1)
     return fields
 
 
@@ -1789,7 +1795,7 @@ def profile_verify(torch, api, sets, label: str, warm_ms: float) -> None:
         raise AssertionError(f"profile {label}: the trace holds {traced}, a verify launches {VERIFY_LAUNCHES}")
 
 
-def time_kernels(torch, fp, tower, P, dev, launches, peak_ops_per_s):
+def time_kernels(torch, fp, tower, P, dev, launches, peak_ops_per_s, log):
     """The field and tower kernels at `OFF_PATH_SHAPES`: device time per
     launch (profiler), time per call from the host (CUDA events, launch
     overhead included), the plain version's time, the bound, and the
@@ -1797,7 +1803,8 @@ def time_kernels(torch, fp, tower, P, dev, launches, peak_ops_per_s):
     K7 and K8 run in the op or mode of their shape, and the K1/K2
     composition they replaced is timed beside them (`composed_ms`, per
     call). K4's inversion is the kernels' binary GCD; K3 is a general
-    power, counted as the power p - 2 on `power_word_products`."""
+    power, counted as the power p - 2 on `power_word_products`. K8's row
+    carries ptxas's report (`ptxas_fields`)."""
     results = []
     pow_inv_word_products = power_word_products(P - 2, WORD_PRODUCTS_PER_MUL, WORD_PRODUCTS_PER_SQR)
     for name, shape in OFF_PATH_SHAPES.items():
@@ -1868,11 +1875,12 @@ def time_kernels(torch, fp, tower, P, dev, launches, peak_ops_per_s):
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "shape": list(shape) if isinstance(shape, tuple) else [shape],
-            "ms_per_call": call_ms, **extra,
+            "ms_per_call": call_ms, **extra, **ptxas_fields(log, name),
         })
         phase("timing", kernel=name, shape=shape, ms=f"{ms:.5f}", ms_per_call=f"{call_ms:.5f}",
               plain_ms=f"{plain_ms:.3f}", bound_ms=f"{max(t_ops, t_bytes):.6f}", max_abs_err=err,
-              **{k: f"{v:.5f}" for k, v in extra.items()})
+              **{k: f"{v:.5f}" for k, v in extra.items()},
+              **{k: f'"{v}"' for k, v in ptxas_fields(log, name).items()})
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version at shape {shape}")
     return results
@@ -2415,7 +2423,7 @@ def main() -> int:
     profile_verify(torch, api, gossip, gossip_shape, gossip_ms)
     profile_verify(torch, api, block, block_shape, block_ms)
     results = time_kernels(torch, fp, tower, P, dev, {**launches_b, "fp_mul_mma": mxu_launches["fp_mul_mma"]},
-                           peak_ops)
+                           peak_ops, log)
     results += time_chain_kernels(torch, fp, P, chains, launches_b, peak_ops, log)
     time_tree_levels(torch, fp, curve)
     time_reduce_levels(torch, fp, tower, pairing, P)

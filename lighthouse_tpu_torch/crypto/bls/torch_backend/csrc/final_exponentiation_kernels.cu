@@ -31,9 +31,11 @@
 //   by flat coefficient and component, then the phi and phi^2 scalars by
 //   flat coefficient, 24 Fp rows); out, contiguous.
 //   Design: one block (one warp) per element, the state in shared memory
-//   (K9's chain state, 11 KB, and seven Fp12 slots, 4 KB). Each step is a
-//   block routine that ends in __syncthreads: a product is K8's six-thread
-//   routine (tower.cuh `fp12_mul_thread`, one call site here); a conjugation
+//   (K9's checkpoints and decompression, 9.6 KB, and seven Fp12 slots, 4
+//   KB). Each step is a block routine that ends in __syncthreads: a chain
+//   is K9's (its squarings in registers, final_exp.cuh); a product is K8's
+//   24-lane routine (tower.cuh `fp12_mul_pairs`, one call site here, so
+//   K30 runs it too); a conjugation
 //   twelve threads, one Fp component each; a Frobenius map twelve threads,
 //   thread 2k + c forming component c of conj(f_k) gamma_k (g2.cuh
 //   `fp2_mul_part`); phi(N) and phi^2(N) 24 threads, one Fp product each;
@@ -49,9 +51,10 @@
 //   2,304 bytes (f in, the result out, the constants). Operations bound;
 //   one element (the verify path) is bound by the chains: the five |z|
 //   chains' 315 squarings, six inversions (fp384.cuh's binary GCD, one
-//   thread each) and the rest one after the other on one warp.
-//   Bound (reduction): K9's and K8's (fp384.cuh: N = 2, one subtraction;
-//   N = 12, two); the Frobenius and M^-1 products K7's N = 2.
+//   thread's time each) and the rest one after the other on one warp.
+//   Bound (reduction): K9's and K8's (fp384.cuh: a lane pair's Fp2
+//   component N = 2, doubled N = 4, one subtraction; a lane pair's Fp12
+//   component N = 12, two); the Frobenius and M^-1 products K7's N = 2.
 //
 // K30 fp12_inv_kernel / K31 frobenius_kernel
 //   Replace: jax_backend/tower.py:546 `fp12_inv` (registered
@@ -90,9 +93,10 @@ struct FinalExpShared {
   uint32_t minv[2 * FP_WORDS];
 };
 
-// out = a b (K8's routine on six threads). out must not overlap a or b.
+// out = a b (K8's routine, tower.cuh `fp12_mul_pairs`, on the block's
+// warp). out may overlap a or b.
 __device__ __noinline__ void fp12_mul_block(const uint32_t* a, const uint32_t* b, uint32_t* out) {
-  if (threadIdx.x < 6) fp12_mul_thread(a, b, threadIdx.x, kFull, out);
+  fp12_mul_pairs(a, b, kFull, out);
   __syncthreads();
 }
 

@@ -81,14 +81,14 @@
 //   cluster barrier block 0 reads the other partials through distributed
 //   shared memory (`map_shared_rank`) into its rows 1 .. B - 1, a second
 //   barrier lets the other blocks leave, and block 0 folds the B partials
-//   the same way. A level's products run one a warp, each on 24 lanes:
-//   lane 2 (2k + c) + h sums terms 3h .. 3h + 2 of component c of e_k
-//   (tower.cuh `fp12_lane_terms`, six Fp products), a shuffle adds the
-//   lane pair's two double-width sums, and one `fp_redc_wide<2>` reduces
-//   the component's 12-product sum: the integer is the one K8 reduces, so
-//   the words are too. The operands sit in shared memory; the lanes of a
-//   warp have all read them (`__syncwarp`) before lane h = 0 stores over
-//   row i. Up to kReduceMaxGroups = 8 warps a block (enough for the first
+//   the same way. A level's products run one a warp, each on 24 lanes
+//   (tower.cuh `fp12_mul_pairs`, K8's routine): lane 2 (2k + c) + h sums
+//   terms 3h .. 3h + 2 of component c of e_k (six Fp products), a shuffle
+//   adds the lane pair's two double-width sums, and one `fp_redc_wide<2>`
+//   reduces the component's 12-product sum: the integer is the one K8
+//   reduces, so the words are too. The operands sit in shared memory; the
+//   lanes of a warp have all read them (`__syncwarp`) before lane h = 0
+//   stores over row i. Up to kReduceMaxGroups = 8 warps a block (enough for the first
 //   level of n = 129: shares of 16 and 17 values, 8 products), the warps
 //   walking a level's products in rounds above that. So n values take
 //   ceil(log2 n) dependent product levels (8 at n = 129: 5 in the blocks,
@@ -104,8 +104,8 @@
 //   Work: n - 1 Fp12 products. The function needs 17,424 word products a
 //   product (K8's count: Karatsuba Fp2 products; 2,230,272 at n = 129);
 //   the kernel forms each component's schoolbook sum, 22,608 a product
-//   (2,893,824 at n = 129), and lanes 24-31 of each warp run the same
-//   routine on a row they do not store. Against 576 bytes a value read
+//   (2,893,824 at n = 129), and lanes 24-31 of each warp repeat lanes
+//   0-7's terms and store nothing. Against 576 bytes a value read
 //   and one written: operations bound (0.000133 ms at n = 129); at the
 //   verify's n = 129 the time is the 8 dependent levels, one product's
 //   latency each (5.4 to 6.5 us with one to four products a block: six Fp
@@ -132,13 +132,11 @@ namespace {
 
 constexpr int kTreeMaxWarps = 16;  // K15 / K16: a block's warps at most
 constexpr int kTreeMaxThreads = 32 * kTreeMaxWarps;
-// K18: blocks in the cluster at most (the portable cluster size), lanes a
-// product (a lane group, one a warp: half of a component's six terms a
-// lane), lane groups (warps) a block at most (enough for the first level
-// of a 129-value product), values a block holds in shared memory at most
-// (147,456 bytes).
+// K18: blocks in the cluster at most (the portable cluster size), warps a
+// block at most (a product a warp, tower.cuh `fp12_mul_pairs`: enough for
+// the first level of a 129-value product), values a block holds in shared
+// memory at most (147,456 bytes).
 constexpr int kReduceClusterMax = 8;
-constexpr int kReduceLanes = 24;
 constexpr int kReduceMaxGroups = 8;
 constexpr int kReduceMaxRows = 256;
 static_assert(kReduceMaxRows >= kReduceClusterMax && 2 * kReduceMaxGroups >= kReduceClusterMax,
@@ -251,38 +249,20 @@ __host__ __device__ inline ReduceShape reduce_shape(long long n) {
 // The halving tree over the m values in shared memory `v` (kFp12Words
 // apart), in place: a level multiplies rows i and i + h into row i for
 // i < m / 2, h = m - m / 2 (an odd m leaves row h - 1 as it is), until
-// row 0 holds the product. The block's lane groups walk a level's
-// products in rounds, a warp its product (lanes 2 (2k + c) + half: terms
-// 3 half .. 3 half + 2 of component c of e_k); a warp with no product
-// left leaves the level. Every lane of a warp that stays runs the
-// product, an off lane (lanes 24-31, or a warp with no product this
-// round) on row m - 1, which no product of the level writes, and stores
-// nothing. A lane pair's two double-width sums are added (a shuffle)
-// before the one reduction; the lanes of a warp have all read their
-// operands (`__syncwarp`) before any stores over row i. __syncthreads
-// between levels.
+// row 0 holds the product. The block's warps walk a level's products in
+// rounds, a warp its product (tower.cuh `fp12_mul_pairs`: lanes
+// 2 (2k + c) + half sum terms 3 half .. 3 half + 2 of component c of e_k,
+// a shuffle adds the pair's two double-width sums before the one
+// reduction, lanes 24-31 repeat lanes 0-7 and store nothing; the lanes
+// have all read their operands before any stores over row i); a warp with
+// no product left leaves the level. __syncthreads between levels.
 __device__ void reduce_rows(uint32_t* v, int m, int groups) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int comp = (lane % kReduceLanes) >> 1, k = comp >> 1, c = comp & 1, half = lane & 1;
+  const int warp = threadIdx.x / 32;
   while (m > 1) {
     const int pairs = m / 2, h = m - pairs;
 #pragma unroll 1
-    for (int base = 0; base < pairs; base += groups) {
-      if (base + warp >= pairs) break;  // no product left for this warp
-      const int i = base + warp;
-      const bool on = lane < kReduceLanes && i < pairs;
-      const uint32_t* a = v + (on ? i : m - 1) * kFp12Words;
-      const uint32_t* b = v + (on ? i + h : m - 1) * kFp12Words;
-      uint32_t acc[FP_WIDE], other[FP_WIDE], r[FP_WORDS];
-#pragma unroll
-      for (int w = 0; w < FP_WIDE; ++w) acc[w] = 0;
-      fp12_lane_terms(acc, a, b, k, c, kFull, 3 * half, 3 * half + 3);
-#pragma unroll
-      for (int w = 0; w < FP_WIDE; ++w) other[w] = __shfl_xor_sync(0xffffffffu, acc[w], 1);
-      fp_add_wide(acc, other);  // the component's whole sum, 12 products
-      fp_redc_wide<2>(r, acc);
-      __syncwarp();
-      if (on && half == 0) fp_store(v + i * kFp12Words + tower_offset(k) + c * FP_WORDS, r);
+    for (int i = warp; i < pairs; i += groups) {
+      fp12_mul_pairs(v + i * kFp12Words, v + (i + h) * kFp12Words, kFull, v + i * kFp12Words);
     }
     __syncthreads();
     m = h;

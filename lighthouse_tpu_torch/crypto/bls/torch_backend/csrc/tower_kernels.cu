@@ -34,31 +34,37 @@
 //   :352 `fp12_sqr` (`_flat_sqr`, :299) and :342 `fp12_mul_sparse035`;
 //   `mode` selects full (0), square (1: b = a) and sparse (2: b only at
 //   w^0, w^3, w^5, given as three Fp2 operands with their own strides).
-//   Design: a group of six threads per element, sixteen groups (three
-//   warps) a block. The group stages its a and b (1,152 bytes) in shared
-//   memory with coalesced loads; thread k then forms flat coefficient
-//   e_k = sum_j a_((k-j) mod 6) b_j, with xi = 1 + u applied to the a
-//   operand of the terms that wrap (i + j >= 6, i.e. j > k):
-//   xi (x0 + x1 u) = (x0 - x1) + (x0 + x1) u, two Fp additions in
-//   registers. Each thread does 6 Fp2 products (3 in sparse mode), so the
-//   group stays balanced, and accumulates each output component in double
-//   width: c0 += x0 y0 + (-x1) y1, c1 += x0 y1 + x1 y0.
-//   Bound (lazy reduction): N = 12 products per component (6 sparse),
-//   T < 12 p^2, one reduction and two conditional subtractions. Chosen
-//   over reducing each Fp2 product (6 x 2 reductions a thread instead of
-//   2) because it does fewer word products, 2 x (12 x 144 + 156) = 3,768
-//   a thread instead of 6 x 2 x (2 x 144 + 156) = 5,328, and keeps the
-//   reduction out of the inner loop.
+//   Design: one warp per element, four elements (four warps) a block. The
+//   block stages its a and b (1,152 bytes an element) in shared memory
+//   with coalesced loads; the warp then forms the product on 24 lanes
+//   (tower.cuh `fp12_mul_pairs`): lane 2 (2k + c) + half sums its half of
+//   component c of flat coefficient e_k = sum_j a_((k-j) mod 6) b_j, terms
+//   3 half .. 3 half + 2 (sparse: terms 0 and 1, or 2), with xi = 1 + u
+//   applied to the a operand of the terms that wrap (i + j >= 6, i.e.
+//   j > k): xi (x0 + x1 u) = (x0 - x1) + (x0 + x1) u, two Fp additions in
+//   registers. A term is two products into the lane's double-width sum:
+//   c0 += x0 y0 + (-x1) y1, c1 += x0 y1 + x1 y0. The lane pair adds its
+//   two sums by a shuffle and the even lane reduces once and stores;
+//   lanes 24-31 repeat lanes 0-7 and store nothing. Each lane's chain is
+//   six products (four sparse) and one reduction, where the six-thread
+//   form it replaced ran 24 products and two reductions on one thread.
+//   Bound (lazy reduction): a lane's half is 6 products (sparse 4 or 2),
+//   N = 12 after the add (6 sparse), T < 12 p^2, one reduction and two
+//   conditional subtractions. Chosen over reducing each Fp2 product
+//   (three reductions a lane instead of one) because it does fewer word
+//   products, 6 x 144 + 156 = 1,020 a lane instead of
+//   3 x (2 x 144 + 156) = 1,332, and keeps the reduction out of the loop
+//   over terms.
 //   Work: 22,608 word products per element (full and square), 12,240
 //   (sparse; the function needs 17,424, 10,080 and 9,648 with Karatsuba
 //   Fp2 products and a square's 21 distinct terms), against 1,728 bytes moved (1,440 sparse, 1,152 square):
 //   operations bound for a batch that filled the card; the verify path's
 //   (129 elements or fewer) are bound by launch latency and by one
-//   thread's chain of 24 products.
+//   lane's chain of 6 products, a shuffle of 24 words and a reduction.
 //   Flat index k = 2v + w lies at tower offset (3w + v) x 24 words, so
 //   operands and output stay in the tower layout and no copy to the flat
-//   basis is made. A thread's share is `fp12_mul_thread` (tower.cuh),
-//   which K9 reuses for its product of six.
+//   basis is made. The warp's routine is `fp12_mul_pairs` (tower.cuh),
+//   which K9, K18 and K19 run for their products too.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,9 +75,8 @@
 namespace {
 
 constexpr int kFp2Threads = 128;  // 64 elements a block
-constexpr int kGroup = 6;         // threads per Fp12 element
-constexpr int kFp12PerBlock = 16;
-constexpr int kFp12Threads = kGroup * kFp12PerBlock;  // three warps
+constexpr int kFp12PerBlock = 4;  // one warp per Fp12 element
+constexpr int kFp12Threads = 32 * kFp12PerBlock;
 
 __global__ void __launch_bounds__(kFp2Threads) fp2_mul_kernel(const uint32_t* __restrict__ a, long long sa,
                                                               const uint32_t* __restrict__ b, long long sb,
@@ -132,12 +137,12 @@ __global__ void __launch_bounds__(kFp12Threads) fp12_mul_kernel(
   }
   __syncthreads();
 
-  const int g = threadIdx.x / kGroup, k = threadIdx.x % kGroup;
-  const long long e = first + g;
-  if (e >= n) return;
-  const uint32_t* ea = sh_a + g * kFp12Words;
-  const uint32_t* eb = (mode == kSquare ? sh_a : sh_b) + g * kFp12Words;
-  fp12_mul_thread(ea, eb, k, mode, out + e * kFp12Words);
+  const int w = threadIdx.x / 32;
+  const long long e = first + w;
+  if (e >= n) return;  // the whole warp
+  const uint32_t* ea = sh_a + w * kFp12Words;
+  const uint32_t* eb = (mode == kSquare ? sh_a : sh_b) + w * kFp12Words;
+  fp12_mul_pairs(ea, eb, mode, out + e * kFp12Words);
 }
 
 }  // namespace

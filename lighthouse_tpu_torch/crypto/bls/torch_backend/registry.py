@@ -197,7 +197,7 @@ _reg("tower.fp2_inv", "jax_backend/tower.py:100", tower.fp2_inv, tower.fp2_inv_p
 _reg("tower.fp6_mul", "jax_backend/tower.py:155", tower.fp6_mul, tower.fp6_mul_plain,
      lambda s: (_fp(_rng(s), 3, 2), _fp(_rng(s + 1), 3, 2)), {"fp6_mul": 1},
      "not on the verify path; standalone K24", "kernel")
-_F12_INSIDE = "inside K9, K12, K18, K19 (tower.cuh fp12_mul_thread)"
+_F12_INSIDE = "inside K9, K18, K19 (tower.cuh fp12_mul_pairs) and K12 (fp12_mul_lane)"
 _reg("tower.fp12_mul", "jax_backend/tower.py:292", tower.fp12_mul,
      lambda a, b: tower.fp12_product_plain(a, (b,), tower.FP12_FULL),
      lambda s: (_fp(_rng(s), 2, 3, 2), _fp(_rng(s + 1), 2, 3, 2)), {"fp12_mul": 1}, _F12_INSIDE, "kernel")

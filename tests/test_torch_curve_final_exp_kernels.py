@@ -17,17 +17,23 @@
    products by 3b as additions: the algorithm that K10's and K11's lane
    groups follow, curve.cuh `scalar_mul_lanes`, whose warps
    tests/test_torch_g1_scalar_mul_lanes.py and
-   tests/test_torch_scalar_mul_lanes.py model), and K9's
-   twelve-thread squaring, eight-thread update, six parallel
-   decompressions, shared inversion and six-thread Fp12 products, every
-   double-width sum checked against fp384.cuh's bound
-   (test_torch_tower_kernels.redc_wide). Each is held to the plain
-   version bit for bit.
+   tests/test_torch_scalar_mul_lanes.py model), and K9's warp lane by
+   lane (final_exp.cuh, its lane table `kPowLane` read from the source):
+   the squarings in registers, each shuffle a read of another lane's
+   value, the checkpoints in shared memory written once and read only
+   after a `__syncwarp`; the decompression on twelve lanes, the norms'
+   product tree and one inversion; the product of six on K8's warp
+   (test_torch_tower_kernels `k8_warp`), every double-width sum checked
+   against fp384.cuh's bound (test_torch_tower_kernels.redc_wide). Each
+   is held to the plain version bit for bit.
 4. The wrappers: one launch per call with the operands read in place
    (strides of broadcast bits and points), no fallback to the plain
    version on a CUDA tensor; the bits' window digits made without a host
    tensor; and a structurally invalid batch returning False without a GPU.
 """
+
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -49,7 +55,7 @@ from lighthouse_tpu_torch.crypto.bls.torch_backend import kernels as tkernels
 from lighthouse_tpu_torch.crypto.bls.torch_backend import pairing as tpair
 from lighthouse_tpu_torch.crypto.bls.torch_backend import tower as tt
 from test_torch_inversion import fp_inv_model
-from test_torch_tower_kernels import k7_thread, k8_thread, redc_wide
+from test_torch_tower_kernels import k7_thread, k8_warp, redc_wide
 from torch_parity import assert_same, to_port
 
 rng = np.random.default_rng(0x6B9)
@@ -360,73 +366,209 @@ def _tower_flat(x):
     return [tuple(tfp.words_to_int(w) for w in c) for c in tt._to_flat(x)]
 
 
-def cyclotomic_pow_x_block(g):
-    """One block of K9 (csrc/final_exp_kernels.cu), thread by thread: g and
-    the result as flat lists of six Fp2 (c0, c1) Montgomery ints."""
-    add = lambda a, b: (a + b) % P  # noqa: E731
-    sub = lambda a, b: (a - b) % P  # noqa: E731
-    xi_c = lambda b, c: sub(b[0], b[1]) if c == 0 else add(b[0], b[1])  # noqa: E731
-    c = [g[1], g[4], g[2], g[5]]  # compress: g2, g3, g4, g5
-    xs, ys = [0, 2, 1, 3, 2, 0], [0, 2, 1, 3, 3, 1]
-    cps = []
-    for s in range(1, 64):
-        # twelve threads: product t // 2, component t % 2
-        sq = [tuple(k7_thread(c[xs[k]], c[ys[k]], comp, tt.FP2_MUL) for comp in (0, 1)) for k in range(6)]
-        new = [[None, None] for _ in range(4)]
-        for t in range(8):  # eight threads: coordinate t // 2, component t % 2
-            h, comp = t >> 1, t & 1
-            two_g = add(c[h][comp], c[h][comp])
-            if h in (0, 3):
-                a = xi_c(sq[4], comp) if h == 0 else sq[5][comp]
-                x = add(add(a, a), a)
-                new[h][comp] = add(add(x, x), two_g)
+_FINAL_EXP_SRC = (pathlib.Path(tfp.__file__).parent / "csrc" / "final_exp.cuh").read_text()
+POW_FLAG = {name: int(v) for name, v in re.findall(
+    r"(k\w+) = (\d+),", re.search(r"enum PowFlag : uint8_t \{(.*?)\};", _FINAL_EXP_SRC, re.S).group(1))}
+POW_FIELDS = re.search(r"struct PowLane \{\s*uint8_t ([^;]*);", _FINAL_EXP_SRC).group(1).replace(" ", "").split(",")
+
+
+POW_LANES = int(re.search(r"constexpr int kPowLanes = (\d+);", _FINAL_EXP_SRC).group(1))
+
+
+def _pow_lanes():
+    """`kPowLane`'s rows, each a dict of PowLane's fields, the flags an or
+    of PowFlag's names, read from final_exp.cuh."""
+    body = re.search(r"PowLane kPowLane\[kPowLanes\] = \{(.*?)\n\};", _FINAL_EXP_SRC, re.S).group(1)
+    rows = []
+    for row in re.findall(r"\{([^{}]*)\}", re.sub(r"//[^\n]*", "", body)):
+        vals = [sum(POW_FLAG[t.strip()] for t in e.split("|")) if "k" in e else int(e) for e in row.split(",")]
+        rows.append(dict(zip(POW_FIELDS, vals)))
+    assert len(rows) == POW_LANES
+    return rows
+
+
+POW_LANE = _pow_lanes()
+POW_ABS_Z = int(re.search(r"kAbsZ = (0x[0-9a-f]+)ull;", _FINAL_EXP_SRC).group(1), 16)
+POW_STEPS = int(re.search(r"constexpr int kSteps = (\d+);", _FINAL_EXP_SRC).group(1))
+POW_CHECKPOINTS = int(re.search(r"constexpr int kCheckpoints = (\d+);", _FINAL_EXP_SRC).group(1))
+SLOT_FLAT = (1, 4, 2, 5)  # compressed slots g2, g3, g4, g5 as flat Fp12 coefficients
+
+
+class Shared:
+    """A block's shared-memory slots. A write lands at the next `__syncwarp`
+    (`sync`); a read sees only what landed; a slot is written at most once
+    between two syncs. `once` names the slots written once in all."""
+
+    def __init__(self, once=()):
+        self.landed, self.pending, self.once, self.written = {}, {}, set(once), set()
+
+    def write(self, key, v):
+        assert 0 <= v < P
+        assert key not in self.pending, f"{key} written twice before a __syncwarp"
+        if key[0] in self.once:
+            assert key not in self.written, f"{key} written twice"
+            self.written.add(key)
+        self.pending[key] = v
+
+    def read(self, key):
+        assert key in self.landed, f"{key} read before a __syncwarp after its write"
+        return self.landed[key]
+
+    def sync(self):
+        self.landed.update(self.pending)
+        self.pending = {}
+
+
+def _shfl(vals, src):
+    """__shfl_sync over the warp: lane l receives lane src[l]'s value."""
+    return [vals[s] for s in src]
+
+
+def _sqr_part(a, c):
+    """g2.cuh `fp2_sqr_part`: c0 = (a0 + a1)(a0 - a1), c1 = (a0 + a0) a1."""
+    x = (a[0] + (a[0] if c else a[1])) % P
+    y = a[1] if c else (a[0] - a[1]) % P
+    return redc_wide(x * y, 1, 1)
+
+
+def _mul_part(a, b, c):
+    """g2.cuh `fp2_mul_part` (K7's split): one lazy sum of N = 2."""
+    return k7_thread(a, b, c, tt.FP2_MUL)
+
+
+def _pow_chain(g, sh):
+    """K9's 63 squarings, lane by lane (final_exp.cuh, `kPowLane`): each of
+    the 32 lanes keeps `own`, lanes 24-31 repeating lanes 0-7; per step
+    the operand shuffles, one product a lane (a half of an Fp2 product's
+    or square's component: its pair's sums added, doubled where kDbl), the
+    update's shuffles and additions; the keepers store the checkpoint
+    steps."""
+    me = [POW_LANE[lane % POW_LANES] for lane in range(32)]
+    keepers = {(m["slot"], m["c"]): lane for lane, m in enumerate(me[:POW_LANES])
+               if m["flags"] & POW_FLAG["kOwner"]}
+    assert len(keepers) == 8, "every state component has one keeper"
+    for m in me:  # operands come from keepers only
+        assert all(me[m[f]]["flags"] & POW_FLAG["kOwner"] for f in ("u", "v"))
+    own = [g[SLOT_FLAT[m["slot"]]][m["c"]] for m in me]
+    for s in range(1, POW_STEPS + 1):
+        u, v = _shfl(own, [m["u"] for m in me]), _shfl(own, [m["v"] for m in me])
+        wide = []
+        for m, x, y in zip(me, u, v):
+            x = (P - x) % P if m["flags"] & POW_FLAG["kNegU"] else x
+            assert 0 <= x < P and 0 <= y < P
+            wide.append(x * y)
+        other = _shfl(wide, [lane ^ 1 for lane in range(32)])
+        pr = []
+        for m, t, o in zip(me, wide, other):
+            if m["flags"] & POW_FLAG["kDbl"]:
+                pr.append(redc_wide(2 * (t + o), 4, 1))
             else:
-                a = add(sq[1 if h == 1 else 0][comp], xi_c(sq[3 if h == 1 else 2], comp))
-                new[h][comp] = sub(add(add(a, a), a), two_g)
-        c = [tuple(v) for v in new]
-        if (ABS_Z >> s) & 1:
-            cps.append(c)
-    # six threads decompress side by side, up to den's norm
-    dec = []
-    for g2, g3, g4, g5 in cps:
-        g3g4, g2g5 = _fp2_mul(g3, g4), _fp2_mul(g2, g5)
-        s5 = _fp2_mul(g5, g5)
-        s5 = (sub(s5[0], s5[1]), add(s5[0], s5[1]))
-        s4 = _fp2_mul(g4, g4)
-        num1 = tuple(sub(add(s5[i], add(add(s4[i], s4[i]), s4[i])), add(g3[i], g3[i])) for i in (0, 1))
-        b45 = _fp2_mul(g4, g5)
-        num2 = tuple(add(b45[i], b45[i]) for i in (0, 1))
-        four_g2 = tuple(add(add(g2[i], g2[i]), add(g2[i], g2[i])) for i in (0, 1))
+                pr.append(redc_wide(t + o, 2, 1))
+        r1, r2 = _shfl(pr, [m["a"] for m in me]), _shfl(pr, [m["b"] for m in me])
+        for lane, m in enumerate(me):
+            x = pr[lane]
+            if m["flags"] & POW_FLAG["kXi"]:
+                x = (x + r1[lane]) % P if m["c"] == 1 else (x - r1[lane]) % P
+            if m["flags"] & POW_FLAG["kAddB"]:
+                x = (x + r2[lane]) % P
+            two_g = 2 * own[lane] % P
+            own[lane] = (2 * x + (x + (P - two_g if m["flags"] & POW_FLAG["kMinus"] else two_g))) % P
+        if (POW_ABS_Z >> s) & 1:
+            idx = bin(POW_ABS_Z & ((1 << s) - 1)).count("1")
+            for (slot, c), lane in keepers.items():
+                sh.write(("cp", idx, slot, c), own[lane])
+    sh.sync()
+
+
+def cyclotomic_pow_x_block(g):
+    """One block of K9 (csrc/final_exp_kernels.cu, final_exp.cuh
+    `cyclotomic_pow_x_block`), lane by lane on one warp: g and the result
+    as flat lists of six Fp2 (c0, c1) Montgomery ints. Shared memory is a
+    `Shared` (checkpoints written once, every read after a `__syncwarp`
+    that follows its write); shuffles read other lanes' registers."""
+    sh = Shared(once=("cp", "dec"))
+    _pow_chain(g, sh)
+    lanes = range(32)
+    tc_ = [((lane >> 1) % POW_CHECKPOINTS, lane & 1) for lane in lanes]
+    lead = [lane < 2 * POW_CHECKPOINTS for lane in lanes]
+    partner = [lane ^ 1 for lane in lanes]
+    cp = [[tuple(sh.read(("cp", t, s, k)) for k in (0, 1)) for s in range(4)] for t, _ in tc_]
+
+    # part 1: products, num, den, den's norm (the pair's squares added)
+    q = [_sqr_part(cp[lane][3], c) for lane, (_, c) in enumerate(tc_)]
+    qo = _shfl(q, partner)
+    norm_wide, dens = [], []
+    for lane, (t, c) in enumerate(tc_):
+        g2, g3, g4, g5 = cp[lane]
+        r34, r25 = _mul_part(g3, g4, c), _mul_part(g2, g5, c)
+        x = (q[lane] + qo[lane]) % P if c else (q[lane] - qo[lane]) % P
+        x = (x + 3 * _sqr_part(g4, c) - 2 * g3[c]) % P
+        num2 = 2 * _mul_part(g4, g5, c) % P
         nz = g2 != (0, 0)
-        num, den = (num1, four_g2) if nz else (num2, g3)
-        norm = redc_wide(den[0] * den[0] + den[1] * den[1], 2, 1)
-        dec.append((num, den, g3g4, g2g5, norm))
-    # thread 0: Montgomery's trick over the nonzero norms
-    ms = [d[4] or R_MONT for d in dec]
-    pre = [ms[0]]
-    for m in ms[1:]:
-        pre.append(_mmul(pre[-1], m))
-    inv = _mont_inv(pre[-1])
-    invs = [None] * 6
-    for i in range(5, 0, -1):
-        invs[i] = _mmul(inv, pre[i - 1])
-        inv = _mmul(inv, ms[i])
-    invs[0] = inv
-    fs = []
-    for (g2, g3, g4, g5), (num, den, g3g4, g2g5, norm), ninv in zip(cps, dec, invs):
-        ninv = ninv if norm else 0
-        assert ninv == _mont_inv(norm)
-        dinv = (_mmul(den[0], ninv), (P - _mmul(den[1], ninv)) % P)
-        g1 = _fp2_mul(num, dinv)
-        s1 = _fp2_mul(g1, g1)
-        a = tuple(sub(add(add(s1[i], s1[i]), g2g5[i]), add(add(g3g4[i], g3g4[i]), g3g4[i])) for i in (0, 1))
-        g0 = (add(sub(a[0], a[1]), R_MONT), add(a[0], a[1]))
-        fs.append([g0, g2, g4, g1, g3, g5])
+        num, den = (x, 4 * g2[c] % P) if nz else (num2, g3[c])
+        if lead[lane]:
+            for j, val in enumerate((num, den, r34, r25)):
+                sh.write(("dec", t, j, c), val)
+        dens.append(den)
+        norm_wide.append(den * den)
+    other = _shfl(norm_wide, partner)
+    norm = [redc_wide(w + o, 2, 1) for w, o in zip(norm_wide, other)]
+    sh.sync()
 
-    def fp12_mul(a, b):  # six threads of K8's routine
-        return [tuple(k8_thread(a, b, k, comp, range(6)) for comp in (0, 1)) for k in range(6)]
+    # the norms' inverses: a product tree over the lanes, one inversion
+    m = [n or R_MONT for n in norm]
+    mp = _shfl(m, [2 * (t ^ 1) + c for t, c in tc_])
+    pp = [_mmul(a, b) for a, b in zip(m, mp)]
+    q1 = _shfl(pp, [4 * (((t >> 1) + 1) % 3) + c for t, c in tc_])
+    q2 = _shfl(pp, [4 * (((t >> 1) + 2) % 3) + c for t, c in tc_])
+    others = [_mmul(b, _mmul(x, y)) for b, x, y in zip(mp, q1, q2)]
+    total = {_mmul(o, a) for o, a in zip(others, m)}
+    assert len(total) == 1, "every lane inverts the same value"
+    inv = _mont_inv(total.pop())
+    inv = [_mmul(inv, o) if n else 0 for o, n in zip(others, norm)]
+    assert all(i == _mont_inv(n) for i, n in zip(inv, norm))
 
-    return fp12_mul(fp12_mul(fp12_mul(fs[0], fs[3]), fp12_mul(fs[1], fs[4])), fp12_mul(fs[2], fs[5]))
+    # part 2: g1 = num / den, g0, the tower layout
+    num = [tuple(sh.read(("dec", t, 0, k)) for k in (0, 1)) for t, _ in tc_]
+    d = []
+    for lane, (t, c) in enumerate(tc_):
+        r = _mmul(sh.read(("dec", t, 1, c)), inv[lane])
+        d.append((P - r) % P if c else r)
+    do = _shfl(d, partner)
+    g1c = [_mul_part(num[lane], (do[lane], d[lane]) if c else (d[lane], do[lane]), c)
+           for lane, (_, c) in enumerate(tc_)]
+    g1o = _shfl(g1c, partner)
+    a = []
+    for lane, (t, c) in enumerate(tc_):
+        g1 = (g1o[lane], g1c[lane]) if c else (g1c[lane], g1o[lane])
+        r = (2 * _sqr_part(g1, c) + sh.read(("dec", t, 3, c)) - 3 * sh.read(("dec", t, 2, c))) % P
+        a.append(r)
+    ao = _shfl(a, partner)
+    for lane, (t, c) in enumerate(tc_):
+        g0 = (a[lane] + ao[lane]) % P if c else (a[lane] - ao[lane] + R_MONT) % P
+        if lead[lane]:
+            g2, g3, g4, g5 = cp[lane]
+            for k, val in enumerate((g0, g2[c], g4[c], g1c[lane], g3[c], g5[c])):
+                sh.write(("f", t, k, c), val)
+    sh.sync()
+
+    # ((f0 f3)(f1 f4))(f2 f5): five of K8's warp products on the slots
+    def fp12(name, i):
+        return [tuple(sh.read((name, i, k, c)) for c in (0, 1)) for k in range(6)]
+
+    out = None
+    for i in range(5):
+        x = fp12("f", i) if i < 3 else fp12("p", 0)
+        y = fp12("f", i + 3) if i < 3 else fp12("p", i - 2)
+        r = k8_warp(x, y, tt.FP12_FULL)
+        if i < 4:
+            for k in range(6):
+                for c in (0, 1):
+                    sh.write(("p", i if i < 3 else 0, k, c), r[k][c])
+        else:
+            out = r
+        sh.sync()
+    return out
 
 
 def test_cyclotomic_pow_x_block_matches_plain():
@@ -570,3 +712,28 @@ def test_final_exponentiation_runs_five_chains():
 
     assert jpack.unpack_fp12_el(tfp.to_jax_limbs(got)) == final_exponentiation(f)
     assert torch.equal(plain, got) and torch.equal(tpair.final_exponentiation(x), got)
+
+
+def test_k9_phase_probe_stamps_the_sources():
+    """final_exp.cuh marks the end of each phase that
+    chip_probes/k9_chain_phases.py stamps with a `// K9_PHASE(i)` line,
+    phases 0-5 and the product loop's 6 + i, and the probe turns each into
+    a stamp; in K19's body it stamps the five chains, the Frobenius maps
+    and the conjugations, `fp12_inv_block` once, and `fp12_mul_block`
+    inside."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_probes" / "k9_chain_phases.py"
+    spec = importlib.util.spec_from_file_location("k9_chain_phases", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    csrc = pathlib.Path(tfp.__file__).parent / "csrc"
+    assert probe.layout_of(_FINAL_EXP_SRC) == "register_chain"
+    marks = re.findall(r"^ *// K9_PHASE\((.+)\)$", _FINAL_EXP_SRC, re.M)
+    assert tuple(marks) == probe.PHASES == ("0", "1", "2", "3", "4", "5", "6 + i")
+    stamped = probe.stamped_header(_FINAL_EXP_SRC)
+    assert not re.search(r"^ *// K9_PHASE\(", stamped, re.M) and all(f"K9_MARK({m});" in stamped for m in marks)
+    assert len(probe.NAMES["register_chain"]) == 11
+    k19 = probe.stamped_k19((csrc / "final_exponentiation_kernels.cu").read_text())
+    assert k19.count("K19_ADD(0,") == 5 and k19.count("K19_ADD(2,") == 1 and k19.count("K19_ADD(1,") == 1
+    assert k19.count("K19_ADD(3,") == 5 and k19.count("K19_ADD(4,") == 5

@@ -62,7 +62,7 @@ from lighthouse_tpu_torch.crypto.bls.torch_backend import pairing as tpair
 from lighthouse_tpu_torch.crypto.bls.torch_backend import tower as tt
 from test_torch_curve_final_exp_kernels import _fp2_mul, _fp12, _mmul, _mont_inv, _tower_flat, cyclotomic_pow_x_block
 from test_torch_iso3_psi_lanes import psi_grid
-from test_torch_tower_kernels import k7_thread, k8_thread, redc_wide
+from test_torch_tower_kernels import k7_thread, k8_warp, redc_wide
 from torch_parity import assert_same, base_sets, to_port
 
 rng = np.random.default_rng(0x919)
@@ -310,8 +310,8 @@ def _conj(a):
 
 
 def _mul12(a, b):
-    """Six threads of K8's routine (csrc/tower.cuh `fp12_mul_thread`)."""
-    return [tuple(k8_thread(a, b, k, comp, range(6)) for comp in (0, 1)) for k in range(6)]
+    """K8's routine on the block's warp (csrc/tower.cuh `fp12_mul_pairs`)."""
+    return k8_warp(a, b, tt.FP12_FULL)
 
 
 def _frob(a):

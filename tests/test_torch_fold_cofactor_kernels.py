@@ -56,7 +56,7 @@ from lighthouse_tpu_torch.crypto.bls.torch_backend import kernels as tkernels
 from lighthouse_tpu_torch.crypto.bls.torch_backend import pairing as tpair
 from lighthouse_tpu_torch.crypto.bls.torch_backend import tower as tt
 from test_torch_curve_final_exp_kernels import _G2, _add, _dbl, _fp2_mul, scalar_mul_thread
-from test_torch_tower_kernels import k7_thread, k8_thread, redc_wide
+from test_torch_tower_kernels import PAIR_LANES, k7_thread, k8_warp, redc_wide
 from torch_parity import assert_same, to_port
 
 rng = np.random.default_rng(0x8F0)
@@ -521,10 +521,11 @@ def _flat(x, i):
 
 
 _FOLD_SRC = (pathlib.Path(tfp.__file__).parent / "csrc" / "fold_kernels.cu").read_text()
-# K18's constants: blocks in the cluster at most, lanes a product, lane
-# groups a block at most, values a block holds at once at most
+# K18's constants: blocks in the cluster at most, lane groups a block at
+# most, values a block holds at once at most (a product takes a warp's
+# PAIR_LANES lanes, tower.cuh `fp12_mul_pairs`)
 K18 = {name: int(re.search(rf"constexpr int {name} = (\d+);", _FOLD_SRC).group(1))
-       for name in ("kReduceClusterMax", "kReduceLanes", "kReduceMaxGroups", "kReduceMaxRows")}
+       for name in ("kReduceClusterMax", "kReduceMaxGroups", "kReduceMaxRows")}
 
 
 def reduce_shape(n, k18=K18):
@@ -557,8 +558,9 @@ def product_lanes(a, b, lanes):
     """One Fp12 product on `lanes` = 24 lanes: lane 2 (2k + c) + h sums
     terms [3h, 3h + 3) of component c of e_k; the lane pair's partial sums
     are added (the shuffle), then one reduction of the 12-product sum, as
-    `reduce_rows` forms it. Checked against K8's thread, which sums all
-    six terms on one thread."""
+    `reduce_rows` forms it (tower.cuh `fp12_mul_pairs`). Checked against
+    K8's warp model (test_torch_tower_kernels `k8_warp`, the same
+    routine's lanes in all three modes)."""
     assert lanes == 24
     split, terms = 2, 3
     out = []
@@ -567,8 +569,8 @@ def product_lanes(a, b, lanes):
         for c in (0, 1):
             t = sum(lane_terms(a, b, k, c, h * terms, (h + 1) * terms) for h in range(split))
             comps.append(redc_wide(t, 12, subs=2))
-            assert comps[-1] == k8_thread(a, b, k, c, range(6))
         out.append(tuple(comps))
+    assert out == k8_warp(a, b, tt.FP12_FULL)
     return out
 
 
@@ -578,8 +580,8 @@ def reduce_rows(v, m, groups, lanes):
     h = m - m // 2, the block's `groups` warps walking a level's products
     in rounds, a warp leaving the level once it has no product left. Per
     level asserts that no product reads a row that another product of the
-    level writes and that the off lanes (24-31) read only row m - 1, which
-    no product writes. Returns the levels run."""
+    level writes (lanes 24-31 repeat lanes 0-7 on the same rows and store
+    nothing; row m - 1 is written by no product). Returns the levels run."""
     levels = 0
     while m > 1:
         pairs, h = m // 2, m - m // 2
@@ -604,7 +606,7 @@ def reduce_cluster(values, k18=K18):
     them. Returns (product, dependent product levels)."""
     n = len(values)
     blocks, rows, groups = reduce_shape(n, k18)
-    lanes = k18["kReduceLanes"]
+    lanes = PAIR_LANES
     smem, depth = [], 0
     for rank in range(blocks):
         lo, hi = rank * n // blocks, (rank + 1) * n // blocks
@@ -628,9 +630,9 @@ def reduce_cluster(values, k18=K18):
 
 
 def test_reduce_constants_read_from_the_source():
-    """A cluster of at most the portable 8 blocks, 24 lanes a product (a
-    warp each), enough warps for a 129-value product's first level."""
-    assert K18["kReduceClusterMax"] == 8 and K18["kReduceLanes"] == 24
+    """A cluster of at most the portable 8 blocks, enough warps for a
+    129-value product's first level."""
+    assert K18["kReduceClusterMax"] == 8
     assert reduce_shape(129) == (8, 17, 8) and reduce_shape(4) == (4, 4, 2) and reduce_shape(1) == (1, 1, 1)
 
 
