@@ -1217,13 +1217,13 @@ def ptxas_summary(log: str, kernel: str, nlines: int = 2) -> str:
 
 
 # [timing] lines that carry ptxas's registers, shared memory and spills:
-# K8 and K9 (the 24-lane Fp12 product; the |z| chain in registers, with
+# K1 and K2 (fp384.cuh's carry chains alone), K8 and K9 (the 24-lane Fp12 product; the |z| chain in registers, with
 # its routine's own stack and spills), K10, K11, K15, K16 and K17 (the
 # lane-group law), K12 (two warps), K13 (the windowed square-root chains),
 # K14 and K20 (a lane group an element), K18 (a cluster of lane groups),
 # K19, K21 and K22 (callers of fp384.cuh's binary-GCD inversion; K22's
 # line also gives the inversion's own stack and spills).
-PTXAS_TIMED = {"fp12_mul": "fp12_mul_kernel", "cyclotomic_pow_x": "cyclotomic_pow_x_kernel",
+PTXAS_TIMED = {"fp_mul": "fp_mul_kernel", "fp_addsub": "fp_addsub_kernel", "fp12_mul": "fp12_mul_kernel", "cyclotomic_pow_x": "cyclotomic_pow_x_kernel",
                "g1_scalar_mul": "g1_scalar_mul_kernel", "g2_scalar_mul": "g2_scalar_mul_kernel",
                "miller_loop": "miller_loop_kernel", "sswu": "sswu_kernel", "iso3_map": "iso3_map_kernel",
                "g2_psi_check": "g2_psi_check_kernel", "g1_tree_sum": "g1_tree_sum_kernel",
@@ -1263,14 +1263,35 @@ def ptxas_spills(log: str) -> dict[str, int]:
 # -- phases ----------------------------------------------------------------------
 
 
+def fp_edge_values(fp, P) -> list[int]:
+    """Edge operands of K1 and K2 (fp384.cuh's carry chains): 0, 1 and
+    p - 1 (stored and in Montgomery form); one word 1 or all ones in each
+    of the 12 word positions (where below p); all ones below p's top word
+    and p less all ones below it, whose words carry or borrow through every
+    chain."""
+    vals = [0, 1, P - 1, fp.R_MONT, (P - 1) * fp.R_MONT % P, P - 2]
+    for i in range(fp.WORDS):
+        vals += [v << (32 * i) for v in (1, 0xFFFFFFFF) if v << (32 * i) < P]
+    vals += [(1 << 352) - 1, (1 << 380) - 1, P - (1 << 352), P - (1 << 32)]
+    return vals
+
+
 def check_kernels(torch, fp, P, dev) -> None:
     a = field_inputs(fp, P, N_RANDOM, 1, dev)
     b = a.roll(1, dims=0)
+    # K1 and K2 on every pair of edge operands, and all-(p - 1)
+    edges = fp_edge_values(fp, P)
+    ea = torch.from_numpy(fp.ints_to_words([x for x in edges for _ in edges])).to(dev)
+    eb = torch.from_numpy(fp.ints_to_words([y for _ in edges for y in edges])).to(dev)
     checks = {
         "fp_mul": (fp.mul(a, b), fp.mul_plain(a, b)),
         "fp_add": (fp.add(a, b), fp.addsub_plain(a, b, 0)),
         "fp_sub": (fp.sub(a, b), fp.addsub_plain(a, b, 1)),
         "fp_neg": (fp.neg(a), fp.addsub_plain(a, None, 2)),
+        "fp_mul_edges": (fp.mul(ea, eb), fp.mul_plain(ea, eb)),
+        "fp_add_edges": (fp.add(ea, eb), fp.addsub_plain(ea, eb, 0)),
+        "fp_sub_edges": (fp.sub(ea, eb), fp.addsub_plain(ea, eb, 1)),
+        "fp_neg_edges": (fp.neg(ea), fp.addsub_plain(ea, None, 2)),
         "fp_pow_inv": (fp.inv(a), fp.pow_plain(a, fp.INV_EXP)),
         "fp_pow_sqrt": (fp.sqrt_candidate(a), fp.pow_plain(a, fp.SQRT_EXP)),
     }
@@ -1298,7 +1319,8 @@ def check_kernels(torch, fp, P, dev) -> None:
     rinv = pow(fp.R_MONT, -1, P)
     for i, v in enumerate(ints):
         assert fp.words_to_int(got[i]) == v * v * rinv % P, "plain mul disagrees with integers"
-    phase("kernels", ok=True, compared=",".join(checks), elements=a.shape[0], batch_inv_steps=n)
+    phase("kernels", ok=True, compared=",".join(checks), elements=a.shape[0], edge_pairs=ea.shape[0],
+          batch_inv_steps=n)
 
 
 def check_tower_kernels(torch, fp, tower, P, dev) -> None:
@@ -1803,8 +1825,8 @@ def time_kernels(torch, fp, tower, P, dev, launches, peak_ops_per_s, log):
     K7 and K8 run in the op or mode of their shape, and the K1/K2
     composition they replaced is timed beside them (`composed_ms`, per
     call). K4's inversion is the kernels' binary GCD; K3 is a general
-    power, counted as the power p - 2 on `power_word_products`. K8's row
-    carries ptxas's report (`ptxas_fields`)."""
+    power, counted as the power p - 2 on `power_word_products`. K1's, K2's
+    and K8's rows carry ptxas's report (`ptxas_fields`)."""
     results = []
     pow_inv_word_products = power_word_products(P - 2, WORD_PRODUCTS_PER_MUL, WORD_PRODUCTS_PER_SQR)
     for name, shape in OFF_PATH_SHAPES.items():

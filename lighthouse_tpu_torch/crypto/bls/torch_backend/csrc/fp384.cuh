@@ -1,22 +1,39 @@
 // Fp arithmetic for BLS12-381 on 12 little-endian 32-bit words, as
 // __device__ building blocks for the launchers in fp_kernels.cu and for
-// later fused tower / Miller-loop / final-exponentiation kernels.
+// every fused kernel of the port (each .cu includes this file).
 //
 // Representation: an Fp element is 12 u32 words, value < p, kept in
 // Montgomery form with R = 2^384 (the same integers the JAX package keeps
 // in 32 12-bit limbs, so the two agree after a pure limb repack).
 //
-// Hopper multiplies 32 x 32 -> 64 bits natively (IMAD.WIDE), so the product
-// is a plain CIOS Montgomery multiplication with 64-bit accumulators. Every
-// helper works in registers; nothing here touches shared memory. The
-// constants are static: each .cu that includes this file is compiled on
-// its own and keeps its own copy.
+// All multi-word integer arithmetic is written by hand in PTX carry
+// chains (`add.cc` / `addc`, `sub.cc` / `subc`, `mad.lo.cc` / `madc.hi.cc`),
+// one inline `asm` statement a chain, so that the carry flag never has to
+// live across two statements; a carry that a later chain needs is saved
+// in a register (`addc.u32 c, 0, 0`). p's words are immediates. A row of
+// products by one word is split into two chains, the even words of the
+// multiplicand (whose low and high halves fill words 0, 1, 2, ...) and
+// the odd ones (words 1, 2, 3, ...), each into an accumulator of its own,
+// so that the two chains share no register and run side by side; the two
+// meet only at the row's lowest word, which one chain folds into the
+// other. A product's halves become one IMAD.WIDE.U32.X, which wants them
+// in an aligned register pair, so the accumulators keep words at fixed
+// positions and never shift (below). The statements are plain `asm` (not
+// volatile): the compiler may interleave independent chains. Every helper
+// works in registers; nothing here touches shared memory. The constants
+// are static: each .cu that includes this file is compiled on its own and
+// keeps its own copy.
+//
+// tests/test_torch_fp384_chains.py reads each chain's text below and runs
+// it in a Python interpreter of the PTX it uses, carry flag included.
 
 #pragma once
 
 #include <stdint.h>
 
 #define FP_WORDS 12
+// A double-width value (a product, a lazy sum of products): 24 words.
+#define FP_WIDE 24
 
 // p, little-endian words.
 static __constant__ uint32_t FP_P[FP_WORDS] = {
@@ -63,105 +80,363 @@ __device__ __forceinline__ bool fp_is_zero(const uint32_t a[FP_WORDS]) {
   return acc == 0;
 }
 
-// r = t - p if t >= p else t, for t < 2p held in 12 words plus a top word.
+// -- the carry chains ------------------------------------------------------------
+//
+// Operand lists: 12 words of array x as outputs (FP_W12), read and written
+// (FP_RW12), inputs (FP_R12); the same from word s of x on (FP_W12_AT,
+// FP_RW12_AT, FP_R12_AT; FP_RW13_AT for 13 words); the even / odd words of
+// a multiplicand (FP_EVEN6, FP_ODD6).
+
+#define FP_W12_AT(x, s)                                                                                   \
+  "=r"((x)[(s) + 0]), "=r"((x)[(s) + 1]), "=r"((x)[(s) + 2]), "=r"((x)[(s) + 3]), "=r"((x)[(s) + 4]),     \
+      "=r"((x)[(s) + 5]), "=r"((x)[(s) + 6]), "=r"((x)[(s) + 7]), "=r"((x)[(s) + 8]), "=r"((x)[(s) + 9]), \
+      "=r"((x)[(s) + 10]), "=r"((x)[(s) + 11])
+#define FP_RW12_AT(x, s)                                                                                  \
+  "+r"((x)[(s) + 0]), "+r"((x)[(s) + 1]), "+r"((x)[(s) + 2]), "+r"((x)[(s) + 3]), "+r"((x)[(s) + 4]),     \
+      "+r"((x)[(s) + 5]), "+r"((x)[(s) + 6]), "+r"((x)[(s) + 7]), "+r"((x)[(s) + 8]), "+r"((x)[(s) + 9]), \
+      "+r"((x)[(s) + 10]), "+r"((x)[(s) + 11])
+#define FP_RW13_AT(x, s) FP_RW12_AT(x, s), "+r"((x)[(s) + 12])
+#define FP_R12_AT(x, s)                                                                                   \
+  "r"((x)[(s) + 0]), "r"((x)[(s) + 1]), "r"((x)[(s) + 2]), "r"((x)[(s) + 3]), "r"((x)[(s) + 4]),          \
+      "r"((x)[(s) + 5]), "r"((x)[(s) + 6]), "r"((x)[(s) + 7]), "r"((x)[(s) + 8]), "r"((x)[(s) + 9]),      \
+      "r"((x)[(s) + 10]), "r"((x)[(s) + 11])
+#define FP_W12(x) FP_W12_AT(x, 0)
+#define FP_RW12(x) FP_RW12_AT(x, 0)
+#define FP_R12(x) FP_R12_AT(x, 0)
+#define FP_EVEN6(x) "r"((x)[0]), "r"((x)[2]), "r"((x)[4]), "r"((x)[6]), "r"((x)[8]), "r"((x)[10])
+#define FP_ODD6(x) "r"((x)[1]), "r"((x)[3]), "r"((x)[5]), "r"((x)[7]), "r"((x)[9]), "r"((x)[11])
+
+// The product and reduction chains work on a double-width value held in
+// two accumulators z[0] and z[1], 25 words each at their absolute word
+// positions, whose sum is the value. A product's low and high halves form
+// a register pair (IMAD.WIDE's 64-bit operand), so each accumulator only
+// ever takes pairs that start at even (z[0]) or odd (z[1]) positions: in
+// row i, the products by the multiplicand's even words (positions i, i+1,
+// ...) go to z[i & 1] and those by its odd words (positions i+1, ...) to
+// the other, and the same for p's words in a reduction step. Each row is
+// two chains on disjoint registers, and no word moves between rows.
+
+// x[0..11] = six words (%12-%17) times one (%18): the low and high halves
+// of each product side by side, no carries.
+#define FP_ASM_HALF_MUL \
+  "mul.lo.u32 %0, %12, %18;\n\t" \
+  "mul.hi.u32 %1, %12, %18;\n\t" \
+  "mul.lo.u32 %2, %13, %18;\n\t" \
+  "mul.hi.u32 %3, %13, %18;\n\t" \
+  "mul.lo.u32 %4, %14, %18;\n\t" \
+  "mul.hi.u32 %5, %14, %18;\n\t" \
+  "mul.lo.u32 %6, %15, %18;\n\t" \
+  "mul.hi.u32 %7, %15, %18;\n\t" \
+  "mul.lo.u32 %8, %16, %18;\n\t" \
+  "mul.hi.u32 %9, %16, %18;\n\t" \
+  "mul.lo.u32 %10, %17, %18;\n\t" \
+  "mul.hi.u32 %11, %17, %18;"
+
+// A reduction's first step, odd half: m (%12) from the value's word 0
+// (%13), x[0..11] = m times p's odd words (no carries).
+#define FP_ASM_REDC_ODD_FIRST \
+  "mul.lo.u32 %12, %13, 0xfffcfffd;\n\t" \
+  "mul.lo.u32 %0, %12, 0xb9feffff;\n\t" \
+  "mul.hi.u32 %1, %12, 0xb9feffff;\n\t" \
+  "mul.lo.u32 %2, %12, 0x1eabfffe;\n\t" \
+  "mul.hi.u32 %3, %12, 0x1eabfffe;\n\t" \
+  "mul.lo.u32 %4, %12, 0x6730d2a0;\n\t" \
+  "mul.hi.u32 %5, %12, 0x6730d2a0;\n\t" \
+  "mul.lo.u32 %6, %12, 0x64774b84;\n\t" \
+  "mul.hi.u32 %7, %12, 0x64774b84;\n\t" \
+  "mul.lo.u32 %8, %12, 0x4b1ba7b6;\n\t" \
+  "mul.hi.u32 %9, %12, 0x4b1ba7b6;\n\t" \
+  "mul.lo.u32 %10, %12, 0x1a0111ea;\n\t" \
+  "mul.hi.u32 %11, %12, 0x1a0111ea;"
+
+// Z (%0-%12, from the row's first position) += six words (%13-%18) times
+// one (%19), in place; the carry out of word 11 into word 12.
+#define FP_ASM_ROW \
+  "mad.lo.cc.u32 %0, %13, %19, %0;\n\t" \
+  "madc.hi.cc.u32 %1, %13, %19, %1;\n\t" \
+  "madc.lo.cc.u32 %2, %14, %19, %2;\n\t" \
+  "madc.hi.cc.u32 %3, %14, %19, %3;\n\t" \
+  "madc.lo.cc.u32 %4, %15, %19, %4;\n\t" \
+  "madc.hi.cc.u32 %5, %15, %19, %5;\n\t" \
+  "madc.lo.cc.u32 %6, %16, %19, %6;\n\t" \
+  "madc.hi.cc.u32 %7, %16, %19, %7;\n\t" \
+  "madc.lo.cc.u32 %8, %17, %19, %8;\n\t" \
+  "madc.hi.cc.u32 %9, %17, %19, %9;\n\t" \
+  "madc.lo.cc.u32 %10, %18, %19, %10;\n\t" \
+  "madc.hi.cc.u32 %11, %18, %19, %11;\n\t" \
+  "addc.u32 %12, %12, 0;"
+
+// The other chain of a row, led by the fold of the row's lowest position:
+// X[i] (%13) += Y[i] (%14), whose carry enters Y's chain from position
+// i + 1 on (%0-%12): Y += six words (%15-%20) times one (%21), in place.
+// X[i] is then the value's final word i.
+#define FP_ASM_FOLD_ROW \
+  "add.cc.u32 %13, %13, %14;\n\t" \
+  "madc.lo.cc.u32 %0, %15, %21, %0;\n\t" \
+  "madc.hi.cc.u32 %1, %15, %21, %1;\n\t" \
+  "madc.lo.cc.u32 %2, %16, %21, %2;\n\t" \
+  "madc.hi.cc.u32 %3, %16, %21, %3;\n\t" \
+  "madc.lo.cc.u32 %4, %17, %21, %4;\n\t" \
+  "madc.hi.cc.u32 %5, %17, %21, %5;\n\t" \
+  "madc.lo.cc.u32 %6, %18, %21, %6;\n\t" \
+  "madc.hi.cc.u32 %7, %18, %21, %7;\n\t" \
+  "madc.lo.cc.u32 %8, %19, %21, %8;\n\t" \
+  "madc.hi.cc.u32 %9, %19, %21, %9;\n\t" \
+  "madc.lo.cc.u32 %10, %20, %21, %10;\n\t" \
+  "madc.hi.cc.u32 %11, %20, %21, %11;\n\t" \
+  "addc.u32 %12, %12, 0;"
+
+// A reduction step's odd chain, led by the fold: X[i] (%13) += Y[i] (%15),
+// m = X[i] (-p^-1) mod 2^32 (%14), Y (%0-%12, from position i + 1) += m
+// times p's odd words, the fold's carry entering it.
+#define FP_ASM_FOLD_RED \
+  "add.cc.u32 %13, %13, %15;\n\t" \
+  "mul.lo.u32 %14, %13, 0xfffcfffd;\n\t" \
+  "madc.lo.cc.u32 %0, %14, 0xb9feffff, %0;\n\t" \
+  "madc.hi.cc.u32 %1, %14, 0xb9feffff, %1;\n\t" \
+  "madc.lo.cc.u32 %2, %14, 0x1eabfffe, %2;\n\t" \
+  "madc.hi.cc.u32 %3, %14, 0x1eabfffe, %3;\n\t" \
+  "madc.lo.cc.u32 %4, %14, 0x6730d2a0, %4;\n\t" \
+  "madc.hi.cc.u32 %5, %14, 0x6730d2a0, %5;\n\t" \
+  "madc.lo.cc.u32 %6, %14, 0x64774b84, %6;\n\t" \
+  "madc.hi.cc.u32 %7, %14, 0x64774b84, %7;\n\t" \
+  "madc.lo.cc.u32 %8, %14, 0x4b1ba7b6, %8;\n\t" \
+  "madc.hi.cc.u32 %9, %14, 0x4b1ba7b6, %9;\n\t" \
+  "madc.lo.cc.u32 %10, %14, 0x1a0111ea, %10;\n\t" \
+  "madc.hi.cc.u32 %11, %14, 0x1a0111ea, %11;\n\t" \
+  "addc.u32 %12, %12, 0;"
+
+// A reduction step's even chain: X (%0-%12, from position i) += m (%13)
+// times p's even words; word i becomes 0 (dropped).
+#define FP_ASM_RED \
+  "{\n\t" \
+  ".reg .u32 q;\n\t" \
+  "mad.lo.cc.u32 q, %13, 0xffffaaab, %0;\n\t" \
+  "madc.hi.cc.u32 %1, %13, 0xffffaaab, %1;\n\t" \
+  "madc.lo.cc.u32 %2, %13, 0xb153ffff, %2;\n\t" \
+  "madc.hi.cc.u32 %3, %13, 0xb153ffff, %3;\n\t" \
+  "madc.lo.cc.u32 %4, %13, 0xf6b0f624, %4;\n\t" \
+  "madc.hi.cc.u32 %5, %13, 0xf6b0f624, %5;\n\t" \
+  "madc.lo.cc.u32 %6, %13, 0xf38512bf, %6;\n\t" \
+  "madc.hi.cc.u32 %7, %13, 0xf38512bf, %7;\n\t" \
+  "madc.lo.cc.u32 %8, %13, 0x434bacd7, %8;\n\t" \
+  "madc.hi.cc.u32 %9, %13, 0x434bacd7, %9;\n\t" \
+  "madc.lo.cc.u32 %10, %13, 0x397fe69a, %10;\n\t" \
+  "madc.hi.cc.u32 %11, %13, 0x397fe69a, %11;\n\t" \
+  "addc.u32 %12, %12, 0;\n\t" \
+  "}"
+
+// s (%0-%11) += x (%12-%23); no carry out.
+#define FP_ASM_ADD12 \
+  "add.cc.u32 %0, %0, %12;\n\t" \
+  "addc.cc.u32 %1, %1, %13;\n\t" \
+  "addc.cc.u32 %2, %2, %14;\n\t" \
+  "addc.cc.u32 %3, %3, %15;\n\t" \
+  "addc.cc.u32 %4, %4, %16;\n\t" \
+  "addc.cc.u32 %5, %5, %17;\n\t" \
+  "addc.cc.u32 %6, %6, %18;\n\t" \
+  "addc.cc.u32 %7, %7, %19;\n\t" \
+  "addc.cc.u32 %8, %8, %20;\n\t" \
+  "addc.cc.u32 %9, %9, %21;\n\t" \
+  "addc.cc.u32 %10, %10, %22;\n\t" \
+  "addc.u32 %11, %11, %23;"
+
+// s (%0-%11) += x (%13-%24), the carry out added to c (%12).
+#define FP_ASM_ADD12_CARRY \
+  "add.cc.u32 %0, %0, %13;\n\t" \
+  "addc.cc.u32 %1, %1, %14;\n\t" \
+  "addc.cc.u32 %2, %2, %15;\n\t" \
+  "addc.cc.u32 %3, %3, %16;\n\t" \
+  "addc.cc.u32 %4, %4, %17;\n\t" \
+  "addc.cc.u32 %5, %5, %18;\n\t" \
+  "addc.cc.u32 %6, %6, %19;\n\t" \
+  "addc.cc.u32 %7, %7, %20;\n\t" \
+  "addc.cc.u32 %8, %8, %21;\n\t" \
+  "addc.cc.u32 %9, %9, %22;\n\t" \
+  "addc.cc.u32 %10, %10, %23;\n\t" \
+  "addc.cc.u32 %11, %11, %24;\n\t" \
+  "addc.u32 %12, %12, 0;"
+
+// s (%0-%11) += x (%12-%23) + c (%24, 0 or 1): c is turned back into the
+// carry flag first.
+#define FP_ASM_ADD12_CARRY_IN \
+  "{\n\t" \
+  ".reg .u32 q;\n\t" \
+  "add.cc.u32 q, %24, 0xffffffff;\n\t" \
+  "addc.cc.u32 %0, %0, %12;\n\t" \
+  "addc.cc.u32 %1, %1, %13;\n\t" \
+  "addc.cc.u32 %2, %2, %14;\n\t" \
+  "addc.cc.u32 %3, %3, %15;\n\t" \
+  "addc.cc.u32 %4, %4, %16;\n\t" \
+  "addc.cc.u32 %5, %5, %17;\n\t" \
+  "addc.cc.u32 %6, %6, %18;\n\t" \
+  "addc.cc.u32 %7, %7, %19;\n\t" \
+  "addc.cc.u32 %8, %8, %20;\n\t" \
+  "addc.cc.u32 %9, %9, %21;\n\t" \
+  "addc.cc.u32 %10, %10, %22;\n\t" \
+  "addc.u32 %11, %11, %23;\n\t" \
+  "}"
+
+// d (%0-%11) = t (%13-%24) - p; %12 = top (%25) - the borrow, all ones
+// exactly when t + top 2^384 < p.
+#define FP_ASM_SUB_P \
+  "sub.cc.u32 %0, %13, 0xffffaaab;\n\t" \
+  "subc.cc.u32 %1, %14, 0xb9feffff;\n\t" \
+  "subc.cc.u32 %2, %15, 0xb153ffff;\n\t" \
+  "subc.cc.u32 %3, %16, 0x1eabfffe;\n\t" \
+  "subc.cc.u32 %4, %17, 0xf6b0f624;\n\t" \
+  "subc.cc.u32 %5, %18, 0x6730d2a0;\n\t" \
+  "subc.cc.u32 %6, %19, 0xf38512bf;\n\t" \
+  "subc.cc.u32 %7, %20, 0x64774b84;\n\t" \
+  "subc.cc.u32 %8, %21, 0x434bacd7;\n\t" \
+  "subc.cc.u32 %9, %22, 0x4b1ba7b6;\n\t" \
+  "subc.cc.u32 %10, %23, 0x397fe69a;\n\t" \
+  "subc.cc.u32 %11, %24, 0x1a0111ea;\n\t" \
+  "subc.u32 %12, %25, 0;"
+
+// d (%0-%11) -= b (%13-%24); %12 = all ones on a borrow, else 0.
+#define FP_ASM_SUB12 \
+  "sub.cc.u32 %0, %0, %13;\n\t" \
+  "subc.cc.u32 %1, %1, %14;\n\t" \
+  "subc.cc.u32 %2, %2, %15;\n\t" \
+  "subc.cc.u32 %3, %3, %16;\n\t" \
+  "subc.cc.u32 %4, %4, %17;\n\t" \
+  "subc.cc.u32 %5, %5, %18;\n\t" \
+  "subc.cc.u32 %6, %6, %19;\n\t" \
+  "subc.cc.u32 %7, %7, %20;\n\t" \
+  "subc.cc.u32 %8, %8, %21;\n\t" \
+  "subc.cc.u32 %9, %9, %22;\n\t" \
+  "subc.cc.u32 %10, %10, %23;\n\t" \
+  "subc.cc.u32 %11, %11, %24;\n\t" \
+  "subc.u32 %12, 0, 0;"
+
+// d (%0-%11) += p & mask (%12), modulo 2^384.
+#define FP_ASM_ADD_P_MASKED \
+  "{\n\t" \
+  ".reg .u32 q;\n\t" \
+  "and.b32 q, %12, 0xffffaaab;\n\t" \
+  "add.cc.u32 %0, %0, q;\n\t" \
+  "and.b32 q, %12, 0xb9feffff;\n\t" \
+  "addc.cc.u32 %1, %1, q;\n\t" \
+  "and.b32 q, %12, 0xb153ffff;\n\t" \
+  "addc.cc.u32 %2, %2, q;\n\t" \
+  "and.b32 q, %12, 0x1eabfffe;\n\t" \
+  "addc.cc.u32 %3, %3, q;\n\t" \
+  "and.b32 q, %12, 0xf6b0f624;\n\t" \
+  "addc.cc.u32 %4, %4, q;\n\t" \
+  "and.b32 q, %12, 0x6730d2a0;\n\t" \
+  "addc.cc.u32 %5, %5, q;\n\t" \
+  "and.b32 q, %12, 0xf38512bf;\n\t" \
+  "addc.cc.u32 %6, %6, q;\n\t" \
+  "and.b32 q, %12, 0x64774b84;\n\t" \
+  "addc.cc.u32 %7, %7, q;\n\t" \
+  "and.b32 q, %12, 0x434bacd7;\n\t" \
+  "addc.cc.u32 %8, %8, q;\n\t" \
+  "and.b32 q, %12, 0x4b1ba7b6;\n\t" \
+  "addc.cc.u32 %9, %9, q;\n\t" \
+  "and.b32 q, %12, 0x397fe69a;\n\t" \
+  "addc.cc.u32 %10, %10, q;\n\t" \
+  "and.b32 q, %12, 0x1a0111ea;\n\t" \
+  "addc.u32 %11, %11, q;\n\t" \
+  "}"
+
+// r (%0-%11) = (p & mask (%24)) - a (%12-%23).
+#define FP_ASM_NEG_MASKED \
+  "{\n\t" \
+  ".reg .u32 q;\n\t" \
+  "and.b32 q, %24, 0xffffaaab;\n\t" \
+  "sub.cc.u32 %0, q, %12;\n\t" \
+  "and.b32 q, %24, 0xb9feffff;\n\t" \
+  "subc.cc.u32 %1, q, %13;\n\t" \
+  "and.b32 q, %24, 0xb153ffff;\n\t" \
+  "subc.cc.u32 %2, q, %14;\n\t" \
+  "and.b32 q, %24, 0x1eabfffe;\n\t" \
+  "subc.cc.u32 %3, q, %15;\n\t" \
+  "and.b32 q, %24, 0xf6b0f624;\n\t" \
+  "subc.cc.u32 %4, q, %16;\n\t" \
+  "and.b32 q, %24, 0x6730d2a0;\n\t" \
+  "subc.cc.u32 %5, q, %17;\n\t" \
+  "and.b32 q, %24, 0xf38512bf;\n\t" \
+  "subc.cc.u32 %6, q, %18;\n\t" \
+  "and.b32 q, %24, 0x64774b84;\n\t" \
+  "subc.cc.u32 %7, q, %19;\n\t" \
+  "and.b32 q, %24, 0x434bacd7;\n\t" \
+  "subc.cc.u32 %8, q, %20;\n\t" \
+  "and.b32 q, %24, 0x4b1ba7b6;\n\t" \
+  "subc.cc.u32 %9, q, %21;\n\t" \
+  "and.b32 q, %24, 0x397fe69a;\n\t" \
+  "subc.cc.u32 %10, q, %22;\n\t" \
+  "and.b32 q, %24, 0x1a0111ea;\n\t" \
+  "subc.u32 %11, q, %23;\n\t" \
+  "}"
+
+// -- the routines ------------------------------------------------------------------
+
+// r = t - p if t + top 2^384 >= p, else t, for t + top 2^384 < 2p held in
+// 12 words and a top word (0 or 1): one borrow chain and a select.
 __device__ __forceinline__ void fp_reduce_once(uint32_t r[FP_WORDS], const uint32_t t[FP_WORDS],
                                                uint32_t top) {
-  uint32_t d[FP_WORDS];
-  uint64_t borrow = 0;
+  uint32_t d[FP_WORDS], keep;
+  asm(FP_ASM_SUB_P : FP_W12(d), "=r"(keep) : FP_R12(t), "r"(top));
 #pragma unroll
-  for (int i = 0; i < FP_WORDS; ++i) {
-    uint64_t s = (uint64_t)t[i] - FP_P[i] - borrow;
-    d[i] = (uint32_t)s;
-    borrow = (s >> 32) & 1u;
-  }
-  // t >= p exactly when the subtraction did not borrow past the top word.
-  bool take = top != 0 || borrow == 0;
-#pragma unroll
-  for (int i = 0; i < FP_WORDS; ++i) r[i] = take ? d[i] : t[i];
+  for (int i = 0; i < FP_WORDS; ++i) r[i] = keep == 0xffffffffu ? t[i] : d[i];
 }
 
-// Montgomery product r = a * b * 2^-384 mod p (CIOS). Inputs canonical,
-// output canonical. r may alias a or b.
+// Montgomery product r = a * b * 2^-384 mod p (CIOS: a row of products by
+// b's word i, then a reduction step). Inputs canonical, output canonical.
+// r may alias a or b. The running value stays below 2p after every row
+// (a < p) and below 2p + 2^32 p < 2^414 within one, so no accumulator
+// word past position i + 12 is ever nonzero in row i, and the sum at
+// positions 12-24 needs one conditional subtraction.
 __device__ __forceinline__ void fp_mul(uint32_t r[FP_WORDS], const uint32_t a[FP_WORDS],
                                        const uint32_t b[FP_WORDS]) {
-  uint32_t t[FP_WORDS + 2];
+  uint32_t z[2][FP_WIDE + 1], s[FP_WORDS], m;
 #pragma unroll
-  for (int i = 0; i < FP_WORDS + 2; ++i) t[i] = 0;
+  for (int k = 0; k <= FP_WIDE; ++k) z[0][k] = z[1][k] = 0;
+  asm(FP_ASM_HALF_MUL : FP_W12_AT(z[0], 0) : FP_EVEN6(a), "r"(b[0]));
+  asm(FP_ASM_HALF_MUL : FP_W12_AT(z[1], 1) : FP_ODD6(a), "r"(b[0]));
+  asm(FP_ASM_FOLD_RED : FP_RW13_AT(z[1], 1), "+r"(z[0][0]), "=r"(m) : "r"(z[1][0]));
+  asm(FP_ASM_RED : FP_RW13_AT(z[0], 0) : "r"(m));
 #pragma unroll
-  for (int i = 0; i < FP_WORDS; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < FP_WORDS; ++j) {
-      uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[FP_WORDS] + c;
-    t[FP_WORDS] = (uint32_t)s;
-    t[FP_WORDS + 1] = (uint32_t)(s >> 32);
-
-    uint32_t m = t[0] * FP_PINV;
-    s = (uint64_t)m * FP_P[0] + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < FP_WORDS; ++j) {
-      s = (uint64_t)m * FP_P[j] + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[FP_WORDS] + c;
-    t[FP_WORDS - 1] = (uint32_t)s;
-    t[FP_WORDS] = t[FP_WORDS + 1] + (uint32_t)(s >> 32);
+  for (int i = 1; i < FP_WORDS; ++i) {
+    const int x = i & 1, y = x ^ 1;
+    asm(FP_ASM_ROW : FP_RW13_AT(z[x], i) : FP_EVEN6(a), "r"(b[i]));
+    asm(FP_ASM_ROW : FP_RW13_AT(z[y], i + 1) : FP_ODD6(a), "r"(b[i]));
+    asm(FP_ASM_FOLD_RED : FP_RW13_AT(z[y], i + 1), "+r"(z[x][i]), "=r"(m) : "r"(z[y][i]));
+    asm(FP_ASM_RED : FP_RW13_AT(z[x], i) : "r"(m));
   }
-  fp_reduce_once(r, t, t[FP_WORDS]);
+  uint32_t top = z[0][FP_WIDE] + z[1][FP_WIDE];
+  asm(FP_ASM_ADD12_CARRY : FP_RW12_AT(z[0], FP_WORDS), "+r"(top) : FP_R12_AT(z[1], FP_WORDS));
+#pragma unroll
+  for (int k = 0; k < FP_WORDS; ++k) s[k] = z[0][FP_WORDS + k];
+  fp_reduce_once(r, s, top);
 }
 
-// r = a + b mod p.
+// r = a + b mod p: the sum (below 2p < 2^382, no carry out), then one
+// conditional subtraction.
 __device__ __forceinline__ void fp_add(uint32_t r[FP_WORDS], const uint32_t a[FP_WORDS],
                                        const uint32_t b[FP_WORDS]) {
-  uint32_t t[FP_WORDS];
-  uint64_t c = 0;
-#pragma unroll
-  for (int i = 0; i < FP_WORDS; ++i) {
-    uint64_t s = (uint64_t)a[i] + b[i] + c;
-    t[i] = (uint32_t)s;
-    c = s >> 32;
-  }
-  fp_reduce_once(r, t, (uint32_t)c);
+  uint32_t s[FP_WORDS];
+  fp_copy(s, a);
+  asm(FP_ASM_ADD12 : FP_RW12(s) : FP_R12(b));
+  fp_reduce_once(r, s, 0);
 }
 
-// r = a - b mod p.
+// r = a - b mod p: the difference, then p added under the borrow's mask
+// (the sum wraps past 2^384 exactly then, into (0, p)).
 __device__ __forceinline__ void fp_sub(uint32_t r[FP_WORDS], const uint32_t a[FP_WORDS],
                                        const uint32_t b[FP_WORDS]) {
-  uint32_t t[FP_WORDS];
-  uint64_t borrow = 0;
-#pragma unroll
-  for (int i = 0; i < FP_WORDS; ++i) {
-    uint64_t s = (uint64_t)a[i] - b[i] - borrow;
-    t[i] = (uint32_t)s;
-    borrow = (s >> 32) & 1u;
-  }
-  // a < b: add p back (the result then lies in (0, p)).
-  uint32_t mask = borrow ? 0xffffffffu : 0u;
-  uint64_t c = 0;
-#pragma unroll
-  for (int i = 0; i < FP_WORDS; ++i) {
-    uint64_t s = (uint64_t)t[i] + (FP_P[i] & mask) + c;
-    r[i] = (uint32_t)s;
-    c = s >> 32;
-  }
+  uint32_t d[FP_WORDS], mask;
+  fp_copy(d, a);
+  asm(FP_ASM_SUB12 : FP_RW12(d), "=r"(mask) : FP_R12(b));
+  asm(FP_ASM_ADD_P_MASKED : FP_RW12(d) : "r"(mask));
+  fp_copy(r, d);
 }
 
-// r = -a mod p (0 stays 0).
+// r = -a mod p (0 stays 0): (p & mask) - a, mask all ones for a != 0.
 __device__ __forceinline__ void fp_neg(uint32_t r[FP_WORDS], const uint32_t a[FP_WORDS]) {
-  uint32_t mask = fp_is_zero(a) ? 0u : 0xffffffffu;
-  uint64_t borrow = 0;
-#pragma unroll
-  for (int i = 0; i < FP_WORDS; ++i) {
-    uint64_t s = (uint64_t)(FP_P[i] & mask) - a[i] - borrow;
-    r[i] = (uint32_t)s;
-    borrow = (s >> 32) & 1u;
-  }
+  const uint32_t mask = fp_is_zero(a) ? 0u : 0xffffffffu;
+  asm(FP_ASM_NEG_MASKED : FP_W12(r) : FP_R12(a), "r"(mask));
 }
 
 // r = a^e for a public exponent e of `nbits` bits (little-endian words),
@@ -195,69 +470,102 @@ __device__ __forceinline__ void fp_pow(uint32_t r[FP_WORDS], const uint32_t a[FP
 // where one conditional subtraction makes it canonical (SUBS = 1), and
 // below 3p for N <= 19, where two do (SUBS = 2). On the way,
 // T + m p < 19 p^2 + 2^384 p < 2^767, so the 24 words never carry out.
+//
+// Where the carries go. The product rows and the reduction's steps keep
+// the value in two accumulators at absolute word positions (z[0], z[1]
+// above), each a nonnegative part of it, so neither has a nonzero word
+// past the value's top. In row or step i the chains reach position i + 13
+// at most, and the value so far is below 2^(32 (i + 13)): in fp_mul_wide
+// below 2^(32 (i + 1)) a with a < p < 2^381; in fp_mac_wide that plus T's
+// low words (< 2^384); in fp_redc_wide T's low words plus m p 2^(32 j)
+// for j <= i (< 2^384 + 2^(32 i + 413)); in fp_mul below 2^(32 i)
+// (2p + 2^32 p). So no chain carries out. T's high words enter
+// fp_redc_wide after its steps (no m depends on them) and fp_mac_wide at
+// its end; those sums are the results, below 3p and 2^768.
 
-#define FP_WIDE 24
-
-// r = a * b in 24 words, schoolbook: 144 word products in IMAD.WIDE chains.
+// r = a * b in 24 words, schoolbook: 144 word products, a row of two
+// chains for each word of b, the row's lowest position folded and final.
+// a canonical, so the value past row i's positions stays below
+// 2^(32 i + 32) a: no word past position i + 12 is nonzero.
 __device__ __forceinline__ void fp_mul_wide(uint32_t r[FP_WIDE], const uint32_t a[FP_WORDS],
                                             const uint32_t b[FP_WORDS]) {
+  uint32_t z[2][FP_WIDE + 1];
 #pragma unroll
-  for (int i = 0; i < FP_WORDS; ++i) r[i] = 0;
+  for (int k = 0; k <= FP_WIDE; ++k) z[0][k] = z[1][k] = 0;
+  asm(FP_ASM_HALF_MUL : FP_W12_AT(z[0], 0) : FP_EVEN6(a), "r"(b[0]));
+  asm(FP_ASM_HALF_MUL : FP_W12_AT(z[1], 1) : FP_ODD6(a), "r"(b[0]));
+  r[0] = z[0][0];
 #pragma unroll
-  for (int i = 0; i < FP_WORDS; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < FP_WORDS; ++j) {
-      uint64_t s = (uint64_t)a[j] * b[i] + r[i + j] + c;
-      r[i + j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    r[i + FP_WORDS] = (uint32_t)c;
+  for (int i = 1; i < FP_WORDS; ++i) {
+    const int x = i & 1, y = x ^ 1;
+    asm(FP_ASM_ROW : FP_RW13_AT(z[x], i) : FP_EVEN6(a), "r"(b[i]));
+    asm(FP_ASM_FOLD_ROW : FP_RW13_AT(z[y], i + 1), "+r"(z[x][i]) : "r"(z[y][i]), FP_ODD6(a), "r"(b[i]));
+    r[i] = z[x][i];
   }
+  asm(FP_ASM_ADD12 : FP_RW12_AT(z[0], FP_WORDS) : FP_R12_AT(z[1], FP_WORDS));
+#pragma unroll
+  for (int k = 0; k < FP_WORDS; ++k) r[FP_WORDS + k] = z[0][FP_WORDS + k];
 }
 
-// t += x over 24 words (the caller's bound keeps the sum below 2^768).
+// t += x over 24 words (the caller's bound keeps the sum below 2^768): two
+// chains of 12, the carry between them in a register.
 __device__ __forceinline__ void fp_add_wide(uint32_t t[FP_WIDE], const uint32_t x[FP_WIDE]) {
-  uint64_t c = 0;
-#pragma unroll
-  for (int i = 0; i < FP_WIDE; ++i) {
-    uint64_t s = (uint64_t)t[i] + x[i] + c;
-    t[i] = (uint32_t)s;
-    c = s >> 32;
-  }
+  uint32_t c = 0;
+  asm(FP_ASM_ADD12_CARRY : FP_RW12(t), "+r"(c) : FP_R12(x));
+  asm(FP_ASM_ADD12_CARRY_IN : FP_RW12_AT(t, FP_WORDS) : FP_R12_AT(x, FP_WORDS), "r"(c));
 }
 
-// t += a * b.
+// t += a * b (a canonical, t + a b < 2^768): fp_mul_wide's rows over T's
+// low words, T's high words added at the end; no 24-word temporary.
 __device__ __forceinline__ void fp_mac_wide(uint32_t t[FP_WIDE], const uint32_t a[FP_WORDS],
                                             const uint32_t b[FP_WORDS]) {
-  uint32_t prod[FP_WIDE];
-  fp_mul_wide(prod, a, b);
-  fp_add_wide(t, prod);
+  uint32_t z[2][FP_WIDE + 1];
+#pragma unroll
+  for (int k = 0; k <= FP_WIDE; ++k) {
+    z[0][k] = k < FP_WORDS ? t[k] : 0u;
+    z[1][k] = 0;
+  }
+  asm(FP_ASM_ROW : FP_RW13_AT(z[0], 0) : FP_EVEN6(a), "r"(b[0]));
+  asm(FP_ASM_HALF_MUL : FP_W12_AT(z[1], 1) : FP_ODD6(a), "r"(b[0]));
+  t[0] = z[0][0];
+#pragma unroll
+  for (int i = 1; i < FP_WORDS; ++i) {
+    const int x = i & 1, y = x ^ 1;
+    asm(FP_ASM_ROW : FP_RW13_AT(z[x], i) : FP_EVEN6(a), "r"(b[i]));
+    asm(FP_ASM_FOLD_ROW : FP_RW13_AT(z[y], i + 1), "+r"(z[x][i]) : "r"(z[y][i]), FP_ODD6(a), "r"(b[i]));
+    t[i] = z[x][i];
+  }
+  asm(FP_ASM_ADD12 : FP_RW12_AT(t, FP_WORDS) : FP_R12_AT(z[0], FP_WORDS));
+  asm(FP_ASM_ADD12 : FP_RW12_AT(t, FP_WORDS) : FP_R12_AT(z[1], FP_WORDS));
 }
 
 // r = T * 2^-384 mod p, canonical, for T < N p^2 with N <= 9 (SUBS = 1) or
 // N <= 19 (SUBS = 2); see the bound above. Word-serial Montgomery
-// reduction: 12 rounds of m = t_i (-p^-1) mod 2^32, t += m p 2^(32 i), each
-// round's carry out of word i + 12 kept in one word for the next round.
-// T is overwritten.
+// reduction: 12 steps of m = t_i (-p^-1) mod 2^32, t += m p 2^(32 i),
+// each an odd and an even chain over T's low words; m never depends on
+// T's high words, so they are added after the steps. T is not written.
 template <int SUBS>
 __device__ __forceinline__ void fp_redc_wide(uint32_t r[FP_WORDS], uint32_t t[FP_WIDE]) {
-  uint32_t hi = 0;
+  uint32_t z[2][FP_WIDE + 1], s[FP_WORDS], m;
 #pragma unroll
-  for (int i = 0; i < FP_WORDS; ++i) {
-    uint32_t m = t[i] * FP_PINV;
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < FP_WORDS; ++j) {
-      uint64_t s = (uint64_t)m * FP_P[j] + t[i + j] + c;
-      t[i + j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[i + FP_WORDS] + c + hi;
-    t[i + FP_WORDS] = (uint32_t)s;
-    hi = (uint32_t)(s >> 32);
+  for (int k = 0; k <= FP_WIDE; ++k) {
+    z[0][k] = k < FP_WORDS ? t[k] : 0u;
+    z[1][k] = 0;
   }
-  fp_reduce_once(r, t + FP_WORDS, hi);
+  asm(FP_ASM_REDC_ODD_FIRST : FP_W12_AT(z[1], 1), "=r"(m) : "r"(z[0][0]));
+  asm(FP_ASM_RED : FP_RW13_AT(z[0], 0) : "r"(m));
+#pragma unroll
+  for (int i = 1; i < FP_WORDS; ++i) {
+    const int x = i & 1, y = x ^ 1;
+    asm(FP_ASM_FOLD_RED : FP_RW13_AT(z[y], i + 1), "+r"(z[x][i]), "=r"(m) : "r"(z[y][i]));
+    asm(FP_ASM_RED : FP_RW13_AT(z[x], i) : "r"(m));
+  }
+  uint32_t top = z[0][FP_WIDE] + z[1][FP_WIDE];
+  asm(FP_ASM_ADD12_CARRY : FP_RW12_AT(z[0], FP_WORDS), "+r"(top) : FP_R12_AT(z[1], FP_WORDS));
+  asm(FP_ASM_ADD12_CARRY : FP_RW12_AT(z[0], FP_WORDS), "+r"(top) : FP_R12_AT(t, FP_WORDS));
+#pragma unroll
+  for (int k = 0; k < FP_WORDS; ++k) s[k] = z[0][FP_WORDS + k];
+  fp_reduce_once(r, s, top);
 #pragma unroll
   for (int k = 1; k < SUBS; ++k) fp_reduce_once(r, r, 0);
 }

@@ -16,17 +16,44 @@
 //   of about 5 integer multiply-adds per byte of memory bandwidth, so a
 //   batch that filled the card would be bound by bytes. The verify path's
 //   batches are a few hundred to a few tens of thousands of elements, so
-//   in practice each launch is bound by launch latency.
-//   Design: CIOS with 64-bit accumulators fully unrolled in registers, no
-//   shared memory, one conditional subtraction; the compiler emits
-//   IMAD.WIDE chains. Fusing tower operations into one launch is later
-//   work.
+//   in practice each launch is bound by launch latency; inside the fused
+//   kernels, which run fp384.cuh's routines on a few threads each, by the
+//   latency of one thread's dependent product chain.
+//   Bound (reduction): a, b < p. After each of the 12 rows (products by
+//   b's word i, then m = t_i (-p^-1) mod 2^32 and m p 2^(32 i) added, word
+//   i dropped) the running value over the words not dropped is below
+//   (2p + (2^32 - 1)(a + p)) / 2^32 < 2p < 2^382, and within a row below
+//   2p + 2^32 p < 2^414. The two accumulators whose sum it is are each a
+//   nonnegative part of it, so in row i neither has a nonzero word past
+//   position i + 12, which the row's chains reach and carry into: no
+//   carry leaves the words. The final sum (positions 12-24) is below 2p,
+//   so one conditional subtraction makes it canonical.
+//   Design: fp384.cuh `fp_mul`, CIOS on PTX carry chains: each row is two
+//   chains of `madc.lo.cc` / `madc.hi.cc` (the multiplicand's even and
+//   odd words, into two accumulators), then the reduction's two chains
+//   (the fold of the row's lowest word and m, then p's odd words; p's
+//   even words), p's words immediates; one `asm` statement a chain, so
+//   the carry flag never crosses statements. The accumulators keep words
+//   at fixed positions, so a product's halves stay one register pair and
+//   each word product is one IMAD.WIDE.U32.X. A thread owns an element, no
+//   shared memory. The same routine, or `fp_mul_wide` with `fp_redc_wide`
+//   on the same chains, is every kernel's Fp product.
 // K2 fp_addsub_kernel
 //   Replaces: fp.py:294/299/304 `add` / `sub` / `neg`.
 //   Bound: bytes (144 per element for add/sub, 96 for neg) against one
 //   carry chain of 12 adds and a conditional correction: memory bound.
-//   Design: one carry chain and one branch-free correction per element;
-//   `op` selects add (0), sub (1) or neg (2).
+//   Bound (reduction): a, b < p. add: a + b < 2p < 2^382, so the sum's
+//   chain never carries out of 12 words and one conditional subtraction
+//   (`fp_reduce_once`, t - p taken when it does not borrow) makes it
+//   canonical. sub: a - b borrows out of the top word exactly when a < b;
+//   then p is added under the borrow's mask, and that sum carries out of
+//   the top word, back to a - b + p in (0, p). neg: a != 0 gives p - a in
+//   (0, p), no borrow; a = 0 gives 0 (the mask clears p).
+//   Design: fp384.cuh `fp_add` (an `add.cc` / `addc.cc` chain, then a
+//   `sub.cc` / `subc.cc` chain by p and one branch-free select), `fp_sub`
+//   (a borrow chain, its borrow as a mask, p & mask added in a carry
+//   chain) and `fp_neg` ((p & mask) - a in one borrow chain); `op` selects
+//   add (0), sub (1) or neg (2).
 // K3 fp_pow_kernel
 //   Replaces: fp.py:422 `_pow_bits_windowed` as used by fp.py:460 `inv`
 //   and fp.py:497 `sqrt_candidate` (a 95-step lax.scan of windowed steps).

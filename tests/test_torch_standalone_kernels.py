@@ -238,28 +238,22 @@ def test_mont_reduce_plain_matches_jax():
 
 MASK32 = (1 << 32) - 1
 P_INV32 = (-pow(P, -1, 1 << 32)) % (1 << 32)
-P_WORDS = [(P >> (32 * j)) & MASK32 for j in range(12)]
 
 
 def _redc_wide_model(t: int, subs: int) -> int:
-    """fp384.cuh `fp_redc_wide<SUBS>` word by word: 12 rounds of
-    m = t_i (-p^-1) mod 2^32, t += m p 2^(32 i), the carry out of word
-    i + 12 kept in one word; then SUBS conditional subtractions. Asserts
-    that no carry leaves the 24 words and the one top word."""
-    w = [(t >> (32 * i)) & MASK32 for i in range(24)]
-    hi = 0
+    """fp384.cuh `fp_redc_wide<SUBS>` step by step: 12 steps of
+    m = t_i (-p^-1) mod 2^32, t += m p 2^(32 i) over T's low 12 words (no m
+    depends on the high ones), then T's high words added; then SUBS
+    conditional subtractions. Asserts that after step i the value has no
+    word past position i + 12 (the chains' reach) and that the reduced
+    value is below 3p. The chains' own words: tests/test_torch_fp384_chains.py."""
+    v = t & ((1 << 384) - 1)
     for i in range(12):
-        m = (w[i] * P_INV32) & MASK32
-        c = 0
-        for j in range(12):
-            s = m * P_WORDS[j] + w[i + j] + c
-            w[i + j] = s & MASK32
-            c = s >> 32
-        s = w[i + 12] + c + hi
-        w[i + 12] = s & MASK32
-        hi = s >> 32
-        assert hi <= 1
-    r = sum(w[12 + k] << (32 * k) for k in range(12)) + (hi << 384)
+        m = ((v >> (32 * i)) & MASK32) * P_INV32 & MASK32
+        v += (m * P) << (32 * i)
+        assert v < 1 << (32 * (i + 13))
+    assert v & ((1 << 384) - 1) == 0
+    r = (v >> 384) + (t >> 384)
     assert r < 3 * P  # T / 2^384 + p for T < 2 p 2^384
     for _ in range(subs):
         r = r - P if r >= P else r
