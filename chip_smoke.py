@@ -71,7 +71,9 @@ Phases, one line each, any failure exits non-zero:
               plain version only: it replaced no composition). After
               set-up, K5 bit-identical to its plain version (on CPU
               tensors) on 64 points: interop keys, the order-3 point
-              (0, 2), points of E(Fp) outside G1 and infinity rows
+              (0, 2), points of E(Fp) outside G1 and infinity rows; and
+              on 1, 5, 6, 7, 8, 9 and 31 of them (partial warps: eight
+              keys a warp, a quad of lanes each)
   4. verify   the verify path, `verify_signature_sets`, on 128 sets x 1
               key and on the mainnet-block shape 128 sets x 128 keys: both
               True, with the kernels' launch counts of one verify (K10-K21
@@ -103,8 +105,9 @@ Phases, one line each, any failure exits non-zero:
      timing   each kernel against its plain version and its bound: K1-K4,
               K6, K7 and K8, which a verify no longer launches, at the
               shapes that carried most of their main-path work before
-              (`OFF_PATH_SHAPES`; K6 at K1's, so the two compare; K7 and
-              K8 also against the K1/K2 composition they replaced);
+              (`OFF_PATH_SHAPES`; K4 also at 257 x 8; K6 at K1's, so the
+              two compare; K7 and K8 also against the K1/K2 composition
+              they replaced); K5 at both admission shapes;
               K9-K21 at the verify path's shapes against their plain
               versions, the composition they replaced and their bounds;
               K22-K25 at `AFFINE_SHAPES`
@@ -186,6 +189,11 @@ PK_SIZES = (16384, 16)
 PK_DISTINCT = 256
 PK_INVALID_EVERY = 8
 K5_POINTS = 64
+# the counts K5 is held to its plain version at: partial warps (eight keys a
+# warp, a quad of lanes each), a whole one and K5_POINTS
+K5_COUNTS = (1, 5, 6, 7, 8, 9, 31, K5_POINTS)
+# K4's second timed shape: several columns, a warp each
+BATCH_INV_COLUMNS_SHAPE = (BATCH_INV_STEPS, 8)
 
 # The card's published memory rate (H100 SXM data sheet): the bytes bound.
 MEM_BYTES_PER_S = 3.35e12
@@ -1217,13 +1225,17 @@ def ptxas_summary(log: str, kernel: str, nlines: int = 2) -> str:
 
 
 # [timing] lines that carry ptxas's registers, shared memory and spills:
-# K1 and K2 (fp384.cuh's carry chains alone), K8 and K9 (the 24-lane Fp12 product; the |z| chain in registers, with
+# K1 and K2 (fp384.cuh's carry chains alone), K4 (a chunk of a column a
+# thread), K5 (a quad of lanes a key), K8 and K9 (the 24-lane Fp12
+# product; the |z| chain in registers, with
 # its routine's own stack and spills), K10, K11, K15, K16 and K17 (the
 # lane-group law), K12 (two warps), K13 (the windowed square-root chains),
 # K14 and K20 (a lane group an element), K18 (a cluster of lane groups),
 # K19, K21 and K22 (callers of fp384.cuh's binary-GCD inversion; K22's
 # line also gives the inversion's own stack and spills).
-PTXAS_TIMED = {"fp_mul": "fp_mul_kernel", "fp_addsub": "fp_addsub_kernel", "fp12_mul": "fp12_mul_kernel", "cyclotomic_pow_x": "cyclotomic_pow_x_kernel",
+PTXAS_TIMED = {"fp_mul": "fp_mul_kernel", "fp_addsub": "fp_addsub_kernel", "fp_batch_inv": "fp_batch_inv_kernel",
+               "g1_subgroup_check": "g1_subgroup_check_kernel", "fp12_mul": "fp12_mul_kernel",
+               "cyclotomic_pow_x": "cyclotomic_pow_x_kernel",
                "g1_scalar_mul": "g1_scalar_mul_kernel", "g2_scalar_mul": "g2_scalar_mul_kernel",
                "miller_loop": "miller_loop_kernel", "sswu": "sswu_kernel", "iso3_map": "iso3_map_kernel",
                "g2_psi_check": "g2_psi_check_kernel", "g1_tree_sum": "g1_tree_sum_kernel",
@@ -1599,19 +1611,25 @@ def check_chain_kernels(torch, cases, verdicts=None) -> None:
 def check_g1_kernel(torch, api, fp, curve, valid: list[bytes], invalid: list[bytes]) -> None:
     """K5 on the card bit-identical to its plain version, the composed
     g1_in_subgroup on CPU tensors, on K5_POINTS points: valid keys, the
-    decodable invalid ones, and infinity rows (the rest, and padding)."""
+    decodable invalid ones, and infinity rows (the rest, and padding); at
+    each of K5_COUNTS, n of those points from the last one back (five
+    apart, tiled), so that the invalid ones come first."""
     keys = valid[: K5_POINTS - len(invalid)] + invalid
     pts, _ = api.decompress_public_keys(keys)
     x, y, inf = (torch.from_numpy(a) for a in api.pack_g1_batch(pts))
     xw, yw = fp.from_jax_limbs(x), fp.from_jax_limbs(y)
     want = curve.g1_subgroup_check_plain(xw, yw, inf)
-    got = curve.g1_in_subgroup_kernel(xw.to(DEVICE), yw.to(DEVICE), inf.to(DEVICE)).cpu()
     n_valid = len(keys) - len(invalid)
     assert want.tolist() == [True] * n_valid + [False] * (len(pts) - n_valid), "plain K5 verdicts are wrong"
-    if not torch.equal(got, want):
-        raise AssertionError(f"g1_subgroup_check differs from its plain version at {(got != want).nonzero().tolist()}")
+    m = len(pts)
+    for n in K5_COUNTS:
+        idx = (m - 1 - 5 * torch.arange(n)) % m
+        got = curve.g1_in_subgroup_kernel(xw[idx].to(DEVICE), yw[idx].to(DEVICE), inf[idx].to(DEVICE)).cpu()
+        if not torch.equal(got, want[idx]):
+            raise AssertionError(f"g1_subgroup_check differs from its plain version at n={n}, rows "
+                                 f"{(got != want[idx]).nonzero().flatten()[:8].tolist()}")
     phase("kernels", ok=True, compared="g1_subgroup_check", points=len(pts), g1=n_valid,
-          non_g1=int((~inf).sum()) - n_valid, infinity=int(inf.sum()))
+          non_g1=int((~inf).sum()) - n_valid, infinity=int(inf.sum()), counts=",".join(map(str, K5_COUNTS)))
 
 
 def run_pk(torch, api, fp, keys: list[bytes], want: list[bool], card: str, tag: str = "pk"):
@@ -1651,45 +1669,53 @@ def run_pk(torch, api, fp, keys: list[bytes], want: list[bool], card: str, tag: 
     return launches
 
 
-def time_g1_kernel(torch, api, fp, curve, keys: list[bytes], launches, peak_ops_per_s):
-    """K5 at the admission chunk's shape: device ms per launch (profiler),
-    ms per call, the plain version's ms on the same card tensors, and the
-    bound, counting only the rows that are not infinity (those return at
-    once)."""
+def time_g1_kernel(torch, api, fp, curve, pk_keys: dict, pk_launches: dict, peak_ops_per_s, log):
+    """K5 at both admission shapes (PK_SIZES): device ms per launch
+    (profiler), ms per call, the plain version's ms on the same card
+    tensors, and the bound, counting only the rows that are not infinity
+    (those return at once). The JSON entry is the admission chunk's
+    (S = 16,384), with one block's deposits (S = 16) beside it."""
     from lighthouse_tpu_torch.crypto.bls.constants import X
 
-    x, y, inf, _ = api.stage_public_keys(keys)
-    xw, yw = fp.from_jax_limbs(x, DEVICE), fp.from_jax_limbs(y, DEVICE)
-    infd = torch.from_numpy(inf).to(DEVICE)
-    n = len(inf)
-    run = lambda: curve.g1_in_subgroup_kernel(xw, yw, infd)  # noqa: E731
-    plain = lambda: curve.g1_subgroup_check_plain(xw, yw, infd)  # noqa: E731
-    saved = dict(fp.LAUNCHES)
-    got, want = run(), plain()
-    err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-    call_ms = cuda_ms(run, 5)
-    ms = kernel_device_ms(run, 5, "g1_subgroup_check_kernel")
-    plain_ms = cuda_ms(plain, 1)
-    fp.LAUNCHES.update(saved)
     # [z^2] P as two chains over |z|: per chain bit_length - 1 doublings (6
     # products, 2 squares) and popcount - 1 additions (12); the products by
     # 3b are additions; phi and the comparison 5 products.
     absz = abs(X)
     dbls, adds = 2 * (absz.bit_length() - 1), 2 * (bin(absz).count("1") - 1)
     word_products = (dbls * 6 + adds * 12 + 5) * WORD_PRODUCTS_PER_MUL + dbls * 2 * WORD_PRODUCTS_PER_SQR
-    live = int((~infd).sum())
-    t_ops = live * word_products / peak_ops_per_s * 1e3
-    t_bytes = (n * (2 * 48 + 1) + n + 48) / MEM_BYTES_PER_S * 1e3
-    phase("timing", kernel="g1_subgroup_check", shape=n, live=live, ms=f"{ms:.5f}", ms_per_call=f"{call_ms:.5f}",
-          plain_ms=f"{plain_ms:.3f}", bound_ms=f"{max(t_ops, t_bytes):.6f}", max_abs_err=err)
-    if err != 0:
-        raise AssertionError(f"g1_subgroup_check differs from its plain version at S={n}")
-    return {
-        "name": "g1_subgroup_check", "route": "cuda", "source": G1_SOURCE, "replaces": REPLACES["g1_subgroup_check"],
-        "launches": launches["g1_subgroup_check"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, "shape": [n], "ms_per_call": call_ms,
-    }
+    row = None
+    for size in PK_SIZES:
+        x, y, inf, _ = api.stage_public_keys(pk_keys[size])
+        xw, yw = fp.from_jax_limbs(x, DEVICE), fp.from_jax_limbs(y, DEVICE)
+        infd = torch.from_numpy(inf).to(DEVICE)
+        n = len(inf)
+        run = lambda: curve.g1_in_subgroup_kernel(xw, yw, infd)  # noqa: E731
+        plain = lambda: curve.g1_subgroup_check_plain(xw, yw, infd)  # noqa: E731
+        saved = dict(fp.LAUNCHES)
+        got, want = run(), plain()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        call_ms = cuda_ms(run, 5)
+        ms = kernel_device_ms(run, 5, "g1_subgroup_check_kernel")
+        plain_ms = cuda_ms(plain, 1)
+        fp.LAUNCHES.update(saved)
+        live = int((~infd).sum())
+        t_ops = live * word_products / peak_ops_per_s * 1e3
+        t_bytes = (n * (2 * 48 + 1) + n + 48) / MEM_BYTES_PER_S * 1e3
+        phase("timing", kernel="g1_subgroup_check", shape=n, live=live, ms=f"{ms:.5f}",
+              ms_per_call=f"{call_ms:.5f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{max(t_ops, t_bytes):.6f}",
+              max_abs_err=err, **{k: f'"{v}"' for k, v in ptxas_fields(log, "g1_subgroup_check").items()})
+        if err != 0:
+            raise AssertionError(f"g1_subgroup_check differs from its plain version at S={n}")
+        shape_row = {"shape": [n], "ms": ms, "ms_per_call": call_ms, "plain_ms": plain_ms,
+                     "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        if row is None:
+            row = {"name": "g1_subgroup_check", "route": "cuda", "source": G1_SOURCE,
+                   "replaces": REPLACES["g1_subgroup_check"], "launches": pk_launches[size]["g1_subgroup_check"],
+                   "max_abs_err": err, "library_ms": None, **shape_row, **ptxas_fields(log, "g1_subgroup_check")}
+        else:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["at_deposit_shape"] = {**shape_row, "launches": pk_launches[size]["g1_subgroup_check"]}
+    return row
 
 
 def check_extras(torch, fp, tower, P) -> None:
@@ -1818,18 +1844,20 @@ def profile_verify(torch, api, sets, label: str, warm_ms: float) -> None:
 
 
 def time_kernels(torch, fp, tower, P, dev, launches, peak_ops_per_s, log):
-    """The field and tower kernels at `OFF_PATH_SHAPES`: device time per
+    """The field and tower kernels at `OFF_PATH_SHAPES`, and K4 also at
+    BATCH_INV_COLUMNS_SHAPE (its JSON entry the first shape's, the second
+    beside it as `at_columns_shape`): device time per
     launch (profiler), time per call from the host (CUDA events, launch
     overhead included), the plain version's time, the bound, and the
     largest word difference from the plain version. K6 runs at K1's shape.
     K7 and K8 run in the op or mode of their shape, and the K1/K2
     composition they replaced is timed beside them (`composed_ms`, per
     call). K4's inversion is the kernels' binary GCD; K3 is a general
-    power, counted as the power p - 2 on `power_word_products`. K1's, K2's
-    and K8's rows carry ptxas's report (`ptxas_fields`)."""
-    results = []
+    power, counted as the power p - 2 on `power_word_products`. K1's, K2's,
+    K4's and K8's rows carry ptxas's report (`ptxas_fields`)."""
+    results = {}
     pow_inv_word_products = power_word_products(P - 2, WORD_PRODUCTS_PER_MUL, WORD_PRODUCTS_PER_SQR)
-    for name, shape in OFF_PATH_SHAPES.items():
+    for name, shape in [*OFF_PATH_SHAPES.items(), ("fp_batch_inv", BATCH_INV_COLUMNS_SHAPE)]:
         composed = None
         if name == "fp_batch_inv":
             steps, lanes = shape
@@ -1891,21 +1919,27 @@ def time_kernels(torch, fp, tower, P, dev, launches, peak_ops_per_s, log):
         extra = {} if composed is None else {"composed_ms": cuda_ms(composed, 10)}
         fp.LAUNCHES.update(saved)
         t_ops, t_bytes = ops_s * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
-        results.append({
+        row = {
             "name": name, "route": "cuda", "source": SOURCES.get(name, SOURCE),
             "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "shape": list(shape) if isinstance(shape, tuple) else [shape],
             "ms_per_call": call_ms, **extra, **ptxas_fields(log, name),
-        })
+        }
+        if name in results:  # K4's columns shape, beside its first
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+            results[name]["at_columns_shape"] = {k: row[k] for k in ("shape", "ms", "ms_per_call", "plain_ms",
+                                                                     "bound_ms", "bound_by")}
+        else:
+            results[name] = row
         phase("timing", kernel=name, shape=shape, ms=f"{ms:.5f}", ms_per_call=f"{call_ms:.5f}",
               plain_ms=f"{plain_ms:.3f}", bound_ms=f"{max(t_ops, t_bytes):.6f}", max_abs_err=err,
               **{k: f"{v:.5f}" for k, v in extra.items()},
               **{k: f'"{v}"' for k, v in ptxas_fields(log, name).items()})
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version at shape {shape}")
-    return results
+    return list(results.values())
 
 
 def time_chain_kernels(torch, fp, P, cases, launches, peak_ops_per_s, log):
@@ -2449,7 +2483,7 @@ def main() -> int:
     results += time_chain_kernels(torch, fp, P, chains, launches_b, peak_ops, log)
     time_tree_levels(torch, fp, curve)
     time_reduce_levels(torch, fp, tower, pairing, P)
-    results.append(time_g1_kernel(torch, api, fp, curve, pk_keys[PK_SIZES[0]], pk_launches[PK_SIZES[0]], peak_ops))
+    results.append(time_g1_kernel(torch, api, fp, curve, pk_keys, pk_launches, peak_ops, log))
     offpath_rows = time_offpath_kernels(torch, fp, offpath_timed(torch, fp, curve, tower, pairing, h2c, P),
                                         launches_b, peak_ops, log)
     registry_launches = run_registry(torch, fp, registry, dev)

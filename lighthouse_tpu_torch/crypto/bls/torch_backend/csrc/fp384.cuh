@@ -577,6 +577,15 @@ __device__ __forceinline__ void fp_select(uint32_t r[FP_WORDS], bool c, const ui
   for (int i = 0; i < FP_WORDS; ++i) r[i] = c ? x[i] : y[i];
 }
 
+// r = 12 a in Fp, by additions (2a, 3a, 6a, 12a).
+__device__ __forceinline__ void fp_mul12(uint32_t r[FP_WORDS], const uint32_t a[FP_WORDS]) {
+  uint32_t t[FP_WORDS];
+  fp_add(t, a, a);
+  fp_add(t, t, a);
+  fp_add(t, t, t);
+  fp_add(r, t, t);
+}
+
 // -- inversion: a constant-iteration binary GCD ----------------------------------
 //
 // fp_inv(r, a) = a^-1 in Montgomery form (a = x R gives x^-1 R), 0 -> 0:

@@ -4,8 +4,8 @@
 // and returns cudaGetLastError() so that a refused launch is reported.
 //
 // Arrays are (n, 12) int32 tensors holding u32 words, contiguous, one
-// Fp element per row. One thread owns one element (K1-K3) or one lane
-// (K4) and keeps it in registers.
+// Fp element per row. One thread owns one element (K1-K3) or a chunk of
+// one lane (K4) and keeps it in registers.
 //
 // K1 fp_mul_kernel
 //   Replaces: lighthouse_tpu/crypto/bls/jax_backend/fp.py:310 `mul` (and
@@ -73,11 +73,36 @@
 //   (`chip_smoke.batch_inv_word_products`), against 2 * 48 * N bytes per
 //   lane; with few lanes it is bound by the latency of one thread's
 //   dependent product chain.
-//   Design: one thread per trailing lane walks the leading axis: a
-//   forward prefix-product loop written into the output, one inversion
-//   (fp384.cuh `fp_inv`, the binary GCD), a backward loop that overwrites
-//   the prefixes with the inverses. Zero lanes are masked to one and back
-//   to zero.
+//   Design: a column (trailing lane) is cut into `chunks` contiguous
+//   chunks of c = ceil(N / chunks) rows, a thread each; thread j of a
+//   column walks rows [j c, min((j + 1) c, N)): the chunk's prefix
+//   products from its first value (zeros read as one) written into the
+//   output, one inversion of the chunk's total (fp384.cuh `fp_inv`, the
+//   binary GCD), a backward loop that overwrites the prefixes with the
+//   inverses (inv_k = t prefix_(k-1), t = t a'_k; the first row's is t),
+//   zero entries written back as zero. The inverse of each entry is
+//   unique, so any cut gives the plain version's words; no thread reads
+//   another's values, so there is no shuffle and no barrier.
+//   `chunks_per_column`: 32 (a warp a column, its 32 GCDs side by side)
+//   below kWarpColumns = 512 columns, 8 below kThreadColumns = 16,384,
+//   then 1 (a thread a column, the cheapest schedule, once the columns
+//   alone fill the card): each the fastest of 32, 8 and 1 at 257 rows and
+//   1, 8, 128, 1,024, 4,096 and 16,384 columns on the card
+//   (`chip_probes/k4_k5_schedules.py`, PERF.md). The cut does more work
+//   than the bound counts: 3 (N - m) products and m inversions a column,
+//   m = ceil(N / c) its nonempty chunks; at N = 257 in 32 chunks c = 9
+//   and m = 29, 684 products and 29 inversions, 305,888 word products a
+//   column (the thread a column: 3 (N - 1) products and one inversion,
+//   233,872). At one column the time is one chunk's chain: 8 + 16
+//   products and a GCD.
+//   Measured (NVIDIA H100 80GB HBM3, 700.00 W, `chip_smoke.py [timing]`,
+//   in turns with the thread a column): 0.08209 and 0.08440 ms at 257 x 1
+//   against 0.83598 and 0.83596; 0.09560 and 0.09534 at 257 x 8. ptxas
+//   (sm_90a, CUDA 12.8): 110 registers, 192 bytes of stack (`fp_inv`'s),
+//   no spills (the thread a column: 92 registers, the same stack).
+//   Bound (reduction): every product is K1's CIOS (canonical in, canonical
+//   out); `fp_inv` returns the canonical inverse (its closing Montgomery
+//   product is K1's).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,6 +112,8 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr long long kWarpColumns = 512;       // K4: 32 threads a column below this many columns,
+constexpr long long kThreadColumns = 16384;   // 8 below this many, then a thread a column
 
 inline unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
@@ -130,43 +157,54 @@ __global__ void fp_pow_kernel(const uint32_t* __restrict__ a, const uint32_t* __
   fp_store(out + i * FP_WORDS, r);
 }
 
+// Threads a column for `lanes` columns (see K4's header).
+inline int chunks_per_column(long long lanes) { return lanes < kWarpColumns ? 32 : lanes < kThreadColumns ? 8 : 1; }
+
 __global__ void fp_batch_inv_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
-                                    long long steps, long long lanes) {
-  long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+                                    long long steps, long long lanes, int chunks) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long lane = t / chunks;
   if (lane >= lanes) return;
+  const long long per = (steps + chunks - 1) / chunks;
+  const long long begin = (t % chunks) * per, end = min(begin + per, steps);
+  if (begin >= end) return;  // an empty chunk
   const long long stride = lanes * FP_WORDS;
   const uint32_t* src = a + lane * FP_WORDS;
   uint32_t* dst = out + lane * FP_WORDS;
 
-  // Forward: out[k] = prod_{j <= k} a'[j], with zero entries read as one.
+  // Forward: out[k] = prod_{begin <= j <= k} a'[j], with zero entries read as one.
   uint32_t acc[FP_WORDS], x[FP_WORDS];
-  fp_set_one(acc);
-  for (long long k = 0; k < steps; ++k) {
+  fp_load(acc, src + begin * stride);
+  if (fp_is_zero(acc)) fp_set_one(acc);
+  fp_store(dst + begin * stride, acc);
+  for (long long k = begin + 1; k < end; ++k) {
     fp_load(x, src + k * stride);
     if (fp_is_zero(x)) fp_set_one(x);
     fp_mul(acc, acc, x);
     fp_store(dst + k * stride, acc);
   }
-  // t = (prod a')^-1, then walk back: inv_k = t * prefix_{k-1}, t *= a'_k.
-  uint32_t t[FP_WORDS], p[FP_WORDS], r[FP_WORDS];
-  fp_inv(t, acc);
-  for (long long k = steps - 1; k >= 0; --k) {
+  // t = (prod a')^-1 over the chunk, then walk back: inv_k = t * prefix_{k-1}, t *= a'_k.
+  uint32_t t_inv[FP_WORDS], p[FP_WORDS], r[FP_WORDS];
+  fp_inv(t_inv, acc);
+  for (long long k = end - 1; k > begin; --k) {
     fp_load(x, src + k * stride);
-    bool zero = fp_is_zero(x);
+    const bool zero = fp_is_zero(x);
     if (zero) fp_set_one(x);
-    if (k > 0) {
-      fp_load(p, dst + (k - 1) * stride);
-      fp_mul(r, t, p);
-    } else {
-      fp_copy(r, t);
-    }
-    fp_mul(t, t, x);
+    fp_load(p, dst + (k - 1) * stride);
+    fp_mul(r, t_inv, p);
+    fp_mul(t_inv, t_inv, x);
     if (zero) {
 #pragma unroll
       for (int w = 0; w < FP_WORDS; ++w) r[w] = 0;
     }
     fp_store(dst + k * stride, r);
   }
+  fp_load(x, src + begin * stride);
+  if (fp_is_zero(x)) {
+#pragma unroll
+    for (int w = 0; w < FP_WORDS; ++w) t_inv[w] = 0;
+  }
+  fp_store(dst + begin * stride, t_inv);
 }
 
 }  // namespace
@@ -199,8 +237,9 @@ int lh_fp_pow(const void* a, const void* e, int nbits, void* out, long long n, v
 
 int lh_fp_batch_inv(const void* a, void* out, long long steps, long long lanes, void* stream) {
   if (steps > 0 && lanes > 0) {
-    fp_batch_inv_kernel<<<blocks_for(lanes), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)a, (uint32_t*)out, steps, lanes);
+    const int chunks = chunks_per_column(lanes);
+    fp_batch_inv_kernel<<<blocks_for(lanes * chunks), kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)a, (uint32_t*)out, steps, lanes, chunks);
   }
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // G1 (y^2 = x^3 + 4 over Fp) in homogeneous projective coordinates
 // (X : Y : Z), infinity = (0 : 1 : 0), as __device__ building blocks over
-// fp384.cuh, for K5 (g1_kernels.cu) and later fused curve kernels.
+// fp384.cuh, for curve.cuh's one-copy group law (K26 and the lane-group
+// law's reference formulas).
 //
 // The formulas are the complete ones of Renes-Costello-Batina 2016 for
 // a = 0: Algorithm 7 (addition, 12 products + 2 by 3b) and Algorithm 9
@@ -92,43 +93,4 @@ __device__ __forceinline__ void g1_dbl(G1Proj& r, const G1Proj& p) {
   fp_copy(r.x, x3);
   fp_copy(r.y, y3);
   fp_copy(r.z, z3);
-}
-
-// Affine (x, y) or infinity -> projective; infinity = (0 : 1 : 0).
-__device__ __forceinline__ void g1_from_affine(G1Proj& r, const uint32_t x[FP_WORDS],
-                                               const uint32_t y[FP_WORDS], bool inf) {
-#pragma unroll
-  for (int i = 0; i < FP_WORDS; ++i) {
-    r.x[i] = inf ? 0u : x[i];
-    r.y[i] = inf ? FP_ONE[i] : y[i];
-    r.z[i] = inf ? 0u : FP_ONE[i];
-  }
-}
-
-// r = [k] p for a public 64-bit k > 0, MSB-first double-and-add with the
-// complete formulas. The branch on k's bits is the same in every thread.
-__device__ __forceinline__ void g1_mul_u64(G1Proj& r, const G1Proj& p, uint64_t k) {
-  int top = 63 - __clzll((long long)k);
-  G1Proj acc = p;
-#pragma unroll 1
-  for (int b = top - 1; b >= 0; --b) {
-    g1_dbl(acc, acc);
-    if ((k >> b) & 1u) g1_add(acc, acc, p);
-  }
-  r = acc;
-}
-
-// Projective equality of p and q (cross-multiplied); two infinities are
-// equal, infinity equals no finite point. Inputs canonical.
-__device__ __forceinline__ bool g1_eq(const G1Proj& p, const G1Proj& q) {
-  uint32_t a[FP_WORDS], b[FP_WORDS], c[FP_WORDS], d[FP_WORDS];
-  fp_mul(a, p.x, q.z);
-  fp_mul(b, q.x, p.z);
-  fp_mul(c, p.y, q.z);
-  fp_mul(d, q.y, p.z);
-  uint32_t diff = 0;
-#pragma unroll
-  for (int i = 0; i < FP_WORDS; ++i) diff |= (a[i] ^ b[i]) | (c[i] ^ d[i]);
-  bool p_inf = fp_is_zero(p.z), q_inf = fp_is_zero(q.z);
-  return (p_inf && q_inf) || (!p_inf && !q_inf && diff == 0);
 }

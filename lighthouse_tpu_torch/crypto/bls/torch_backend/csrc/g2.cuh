@@ -170,15 +170,6 @@ __device__ __forceinline__ void fp2_mul_xi(fp2_t r, const fp2_t a) {
   fp_copy(r[0], d);
 }
 
-// r = 12 a in Fp, by additions (2a, 3a, 6a, 12a).
-__device__ __forceinline__ void fp_mul12(uint32_t r[FP_WORDS], const uint32_t a[FP_WORDS]) {
-  uint32_t t[FP_WORDS];
-  fp_add(t, a, a);
-  fp_add(t, t, a);
-  fp_add(t, t, t);
-  fp_add(r, t, t);
-}
-
 // r = 3b a = 12 (1 + u) a. r may alias a.
 __device__ __forceinline__ void fp2_mul_b3(fp2_t r, const fp2_t a) {
   fp2_mul_xi(r, a);

@@ -7,8 +7,9 @@ the Miller inputs K21 and the standalone K22-K32 against the composition
 each replaced, K33 against its plain version; K10 also at 1, 2, 3, 127,
 128 and 129 elements, K11 at 1, 2, 3, 255, 256 and 257, K12 at 1, 2, 129
 and 130 pairs, K13 and K32 at 1, 7, 8, 9, 255, 256 and 257, K17 and K19 at 1,
-16, 17, 128 and 129 elements; the port's kernel registry walked on the
-card), launch
+16, 17, 128 and 129 elements, K5 at 1 to 64 keys, K4 at 1 x 1 to
+3 x 16,384 values around its thresholds; the port's kernel registry
+walked on the card), launch
 counting, launches on a card other than the current one (and from a fresh
 thread), and a small verify, also with every direct Fp product on the
 tensor cores (K6). Every test needs a
@@ -18,7 +19,9 @@ package, so it runs on a machine that has only PyTorch for CUDA and nvcc:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 """
 
+import pathlib
 import random
+import re
 import threading
 
 import pytest
@@ -582,6 +585,48 @@ def test_g1_subgroup_kernel_matches_plain_on_card(cuda_device):
     torch.cuda.synchronize()
     assert fp.LAUNCHES["g1_subgroup_check"] == 1
     assert got.cpu().tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("n", chip_smoke.K5_COUNTS)
+def test_g1_subgroup_kernel_matches_plain_at_counts(cuda_device, n):
+    """K5 (a quad of four lanes a key, eight keys a warp) at 1, 5, 6, 7, 8,
+    9, 31 and 64 keys, partial warps among them: G1 points, the order-3
+    point, points outside G1 and infinity rows, tiled."""
+    rng = random.Random(34)
+    order3 = ref.g1_from_compressed(b"\x80" + bytes(47), subgroup_check=False)
+    pts = [g1_generator().mul(rng.randrange(1, R)) for _ in range(3)] + [order3] + _non_g1_points(2)
+    pts += [g1_infinity()]
+    x, y, inf = pack_g1_batch([pts[(5 * i) % len(pts)] for i in range(n)])
+    xw, yw, infb = fp.from_jax_limbs(x)[:n], fp.from_jax_limbs(y)[:n], torch.from_numpy(inf)[:n]
+    want = curve.g1_subgroup_check_plain(xw, yw, infb)
+    fp.reset_launches()
+    got = curve.g1_in_subgroup_kernel(xw.to(cuda_device), yw.to(cuda_device), infb.to(cuda_device))
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["g1_subgroup_check"] == 1
+    assert got.cpu().tolist() == want.tolist()
+
+
+def _k4_columns(name):
+    src = (pathlib.Path(fp.__file__).parent / "csrc" / "fp_kernels.cu").read_text()
+    return int(re.search(rf"constexpr long long {name} = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (33, 3), (257, 1), (257, 8), (9, _k4_columns("kWarpColumns") - 1),
+                                   (9, _k4_columns("kWarpColumns")), (3, _k4_columns("kThreadColumns"))])
+def test_batch_inv_kernel_matches_plain_at_shapes(cuda_device, shape):
+    """K4 (32 threads a column below kWarpColumns columns, 8 below
+    kThreadColumns, then one) against its plain version, with zeros at
+    chunk edges and a column of zeros: one launch."""
+    steps, lanes = shape
+    a = _elements(35 + lanes, steps * lanes, cuda_device)[: steps * lanes]
+    a = a.reshape(steps, lanes, fp.WORDS).contiguous()
+    a[:: max(1, -(-steps // 32)), 0] = 0
+    a[:, lanes // 2] = 0
+    fp.reset_launches()
+    got = fp.batch_inv(a)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fp.LAUNCHES.items() if v} == {"fp_batch_inv": 1}
+    assert torch.equal(got, fp.batch_inv_plain(a))
 
 
 def test_batch_validate_public_keys_launches_k5_once(cuda_device):
