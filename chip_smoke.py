@@ -153,6 +153,23 @@ Phases, one line each, any failure exits non-zero:
               verdicts equal to the oracle's, no internal error,
               `device_fingerprint` on "cuda"; dispatches, their sizes,
               launches (each dispatch one verify's) and wall time
+     chain    block import through the port's consensus host (chain/,
+              state_transition/, fork_choice/, store/) on the torch
+              backend: minimal preset, phase0, 64 interop validators.
+              Chain A, `BeaconChainHarness(64, TransitionContext.minimal())
+              .extend_chain(40)`: 40 blocks, each imported by
+              `BeaconChain.process_block` with one verify on the card
+              (K10-K21 once a block, K1-K9 never), finalized epoch >= 2.
+              Chain B, a fresh chain on the same genesis: chain A's first
+              32 blocks as one `process_chain_segment` (one verify of 126
+              sets, staged 128 x 4) to chain A's block 32. Refused, the
+              head unchanged: the other 8 as a segment whose last block
+              carries an aggregate with another aggregate's signature,
+              and a block whose proposal another validator signed; then
+              the genuine 8 reach chain A's head.
+              `lighthouse_tpu_bls_signature_sets_total` grown by exactly
+              the sets verified. Host seconds of set-up, signing and
+              import; ms per import, per verify and per segment
 
 then a `{"kernels": [...]}` JSON line, the nvidia-smi name/power line, and
 as the last line `{"ok": true, "device": {...}}`. Signature sets are built
@@ -161,6 +178,7 @@ with the port's own ref oracle from fixed interop keys.
 
 from __future__ import annotations
 
+import collections
 import datetime
 import json
 import os
@@ -601,6 +619,13 @@ SHARDED_JOIN_SECONDS = 420
 COALESCER_THREADS = 8
 COALESCER_PER_THREAD = 4
 COALESCER_BUCKET = 32
+# Block import: minimal preset, phase0, 64 interop validators (2 committees
+# of 4 a slot, so a block carries 4 signature sets), 40 slots; chain B
+# takes the first 32 blocks as one segment (126 sets, staged 128 x 4).
+CHAIN_VALIDATORS = 64
+CHAIN_SLOTS = 40
+CHAIN_SEGMENT = 32
+CHAIN_MIN_FINALIZED = 2
 
 
 def phase(tag: str, **fields) -> None:
@@ -1123,21 +1148,42 @@ def standalone_cases(torch, fp, curve, tower, pairing, h2c, P, shapes: dict, see
     return cases, work
 
 
-def make_sets(api, n_sets: int, keys_per_set: int):
+def interop_public_key(i: int):
+    """Interop validator i's public key (the ref oracle's: a pure-Python
+    scalar multiplication, so the set-up maps it over a process pool)."""
+    from lighthouse_tpu_torch.crypto.bls.ref import api as ref
+
+    return ref.interop_keypair(i)[1]
+
+
+def host_pool():
+    """A pool of spawned host processes for the set-up's pure-Python key
+    work, one a core up to 8; leaving its `with` block ends them all."""
+    import multiprocessing
+
+    return multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1))
+
+
+def make_sets(api, n_sets: int, keys_per_set: int, pubkeys=None):
     """bench.py's shapes: 8 distinct single-key sets tiled to n_sets, or one
     aggregate set of keys_per_set signers repeated n_sets times. The
     aggregate signature is the signature under the sum of the secret keys,
-    which equals the sum of the signers' signatures."""
+    which equals the sum of the signers' signatures. `pubkeys[i]`, where
+    given, is interop validator i's public key."""
     from lighthouse_tpu_torch.crypto.bls.constants import R
+
+    def pair(i):
+        sk = api.interop_secret_key(i)
+        return sk, (pubkeys[i] if pubkeys is not None else sk.public_key())
 
     if keys_per_set == 1:
         base = []
         for i in range(8):
-            sk, pk = api.interop_keypair(i)
+            sk, pk = pair(i)
             msg = bytes([i]) * 32
             base.append(api.SignatureSet(signature=sk.sign(msg), signing_keys=[pk], message=msg))
         return [base[i % 8] for i in range(n_sets)]
-    pairs = [api.interop_keypair(i) for i in range(keys_per_set)]
+    pairs = [pair(i) for i in range(keys_per_set)]
     msg = b"\x07" * 32
     agg = api.SecretKey(sum(sk.k for sk, _ in pairs) % R).sign(msg)
     one = api.SignatureSet(signature=agg, signing_keys=[pk for _, pk in pairs], message=msg)
@@ -2360,6 +2406,182 @@ def run_coalescer(torch, api, fp, card: str) -> None:
           launches=json.dumps(launches, separators=(",", ":")), card=f'"{card}"')
 
 
+def block_sets(signed) -> int:
+    """Signature sets one phase0 block carries: proposal, RANDAO, one a
+    slashing, attestation and exit (deposits verify alone, and the
+    harness makes none)."""
+    body = signed.message.body
+    assert not body.deposits, "the chain phase counts no deposit signatures"
+    return (2 + 2 * len(body.proposer_slashings) + 2 * len(body.attester_slashings) + len(body.attestations)
+            + len(body.voluntary_exits))
+
+
+def run_chain(torch, api, fp, card: str) -> None:
+    """Block import on the card; see the module docstring. Every verify is
+    one `api.verify_staged` call, recorded with its (S, K) by a wrapper
+    that is removed afterwards whatever happens."""
+    from lighthouse_tpu_torch.chain import BeaconChain, BeaconChainHarness, BlockError, ManualSlotClock
+    from lighthouse_tpu_torch.common import metrics
+    from lighthouse_tpu_torch.state_transition import TransitionContext
+
+    ctx = TransitionContext.minimal()
+    assert ctx.bls is api, f"TransitionContext.minimal() runs on {ctx.bls.__name__}, not the card's backend"
+    staged_shapes = []
+    verify_staged = api.verify_staged
+
+    def recorded(flat, S, K):
+        staged_shapes.append((S, K))
+        return verify_staged(flat, S, K)
+
+    def counted(fn):
+        """fn() with the launch counts set to 0 just before it and read just
+        after: (its value or the BlockError it raised, launches, the (S, K)
+        of each verify, the sets verified, the verifies' seconds, wall ms)."""
+        del staged_shapes[:]
+        sets0, secs0, calls0 = metrics.BLS_SETS_TOTAL.value, metrics.BLS_BATCH_SECONDS.sum, \
+            metrics.BLS_BATCH_SECONDS.count
+        torch.cuda.synchronize()
+        fp.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        except BlockError as e:
+            out = e
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(fp.LAUNCHES)
+        assert metrics.BLS_BATCH_SECONDS.count - calls0 == len(staged_shapes), "a verify was not staged once"
+        return (out, launches, list(staged_shapes), int(metrics.BLS_SETS_TOTAL.value - sets0),
+                metrics.BLS_BATCH_SECONDS.sum - secs0, wall_ms)
+
+    validators, slots, segment = CHAIN_VALIDATORS, CHAIN_SLOTS, CHAIN_SEGMENT
+
+    def per_verify(launches, n):
+        counts = {k: launches[k] for k in VERIFY_LAUNCHES}
+        want = {k: v * n for k, v in VERIFY_LAUNCHES.items()}
+        assert counts == want, f"{n} verifies launched {counts}, expected {want}"
+        return json.dumps(launches, separators=(",", ":"))
+
+    sets_total0 = metrics.BLS_SETS_TOTAL.value
+    expected_sets = 0
+    api.verify_staged = recorded
+    try:
+        t0 = time.perf_counter()
+        harness = BeaconChainHarness(validators, ctx)
+        setup_s = time.perf_counter() - t0
+        chain_a = harness.chain
+        genesis = chain_a.store.get_state(chain_a.genesis_block_root).copy()
+        # each import's wall ms: the first blocks also fill the pubkey cache
+        # (a ref decompression with the subgroup check a validator)
+        import_ms, process_block = [], chain_a.process_block
+
+        def timed_import(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return process_block(*args, **kwargs)
+            finally:
+                import_ms.append((time.perf_counter() - t) * 1e3)
+
+        chain_a.process_block = timed_import
+        import0, nimport0 = metrics.BLOCK_IMPORT_SECONDS.sum, metrics.BLOCK_IMPORT_SECONDS.count
+        head_a, launches, shapes, nsets, verify_s, wall_ms = counted(lambda: harness.extend_chain(slots))
+        assert not isinstance(head_a, BlockError), f"chain A: {head_a}"
+        import_s = metrics.BLOCK_IMPORT_SECONDS.sum - import0
+        nimports = metrics.BLOCK_IMPORT_SECONDS.count - nimport0
+        assert nimports == slots == len(import_ms), "chain A: not one import a slot"
+        blocks, root = [], head_a
+        while root != chain_a.genesis_block_root:
+            blocks.append(chain_a.store.get_block(root))
+            root = bytes(blocks[-1].message.parent_root)
+        blocks.reverse()
+        assert [int(b.message.slot) for b in blocks] == list(range(1, slots + 1)), "chain A: a slot has no block"
+        per_block = [block_sets(b) for b in blocks]
+        expected_sets += sum(per_block)
+        assert nsets == sum(per_block), f"chain A verified {nsets} sets, its blocks carry {sum(per_block)}"
+        assert len(shapes) == slots, f"chain A: {len(shapes)} verifies for {slots} blocks"
+        fin, just = harness.finalized_epoch(), harness.justified_epoch()
+        assert fin >= CHAIN_MIN_FINALIZED, f"chain A finalized only epoch {fin}"
+        phase("chain", step="A", validators=validators, blocks=slots, verify_calls=len(shapes),
+              sets=nsets, sets_per_block=json.dumps(dict(sorted(collections.Counter(per_block).items())),
+                                                    separators=(",", ":")),
+              shapes=json.dumps(sorted(set(shapes)), separators=(",", ":")), finalized_epoch=fin,
+              justified_epoch=just, setup_s=f"{setup_s:.2f}", sign_and_produce_s=f"{wall_ms / 1e3 - import_s:.2f}",
+              import_s=f"{import_s:.3f}", ms_per_import=f"{import_s / slots * 1e3:.3f}",
+              import_ms_median=f"{statistics.median(import_ms):.3f}", import_ms_max=f"{max(import_ms):.3f}",
+              verify_ms_per_import=f"{verify_s / slots * 1e3:.3f}", launches=per_verify(launches, slots),
+              card=f'"{card}"')
+
+        chain_b = BeaconChain(genesis, ctx, slot_clock=ManualSlotClock())
+        chain_b.slot_clock.set_slot(slots)
+        seg = blocks[:segment]
+        roots, launches, shapes, nsets, verify_s, wall_ms = counted(lambda: chain_b.process_chain_segment(seg))
+        assert not isinstance(roots, BlockError), f"chain B: {roots}"
+        want_sets = sum(per_block[:segment])
+        expected_sets += want_sets
+        assert nsets == want_sets and len(shapes) == 1, f"chain B: {len(shapes)} verifies of {nsets} sets"
+        S, K = shapes[0]
+        assert (S, K) == (api._next_pow2(want_sets), 4), f"chain B staged {S} x {K}"
+        root_a = type(seg[-1].message).hash_tree_root(seg[-1].message)
+        assert chain_b.head_root == root_a and roots[-1] == root_a, "chain B's head is not chain A's block"
+        phase("chain", step="B_segment", blocks=len(seg), sets=nsets, S=S, K=K, result=True,
+              segment_ms=f"{wall_ms:.3f}", verify_ms=f"{verify_s * 1e3:.3f}", head_equal=True,
+              launches=per_verify(launches, 1), card=f'"{card}"')
+
+        # reject 1: the rest of chain A, its last block made again on the
+        # same parent with one aggregate's signature replaced by another
+        # aggregate's (well-formed, in G2) and signed by its proposer, so
+        # that only that aggregate is wrong
+        rest = blocks[segment:]
+        last = rest[-1].message
+        atts = list(last.body.attestations)
+        assert len(atts) >= 2 and bytes(atts[0].signature) != bytes(atts[1].signature)
+        atts[0] = ctx.types.Attestation(aggregation_bits=list(atts[0].aggregation_bits), data=atts[0].data,
+                                        signature=bytes(atts[1].signature))
+        parent = chain_a.store.get_state(bytes(last.parent_root)).copy()
+        block, _ = chain_a.produce_block_on_state(parent, int(last.slot), bytes(last.body.randao_reveal),
+                                                  attestations=atts, graffiti=bytes(last.body.graffiti))
+        bad = rest[:-1] + [chain_a.sign_block(block, harness.keypairs[int(last.proposer_index)][0])]
+        head_b = chain_b.head_root
+        err, launches, shapes, nsets, verify_s, wall_ms = counted(lambda: chain_b.process_chain_segment(bad))
+        expected_sets += nsets
+        assert isinstance(err, BlockError) and "signature" in str(err), f"tampered segment: {err!r}"
+        assert nsets == sum(per_block[segment:]) and len(shapes) == 1, "tampered segment: not one verify"
+        assert chain_b.head_root == head_b, "a refused segment moved the head"
+        assert all(chain_b.store.get_block(type(b.message).hash_tree_root(b.message)) is None for b in bad)
+        phase("chain", step="reject_segment", blocks=len(bad), sets=nsets, S=shapes[0][0], K=shapes[0][1],
+              refused=f'"{err}"', head_unchanged=True, verify_ms=f"{verify_s * 1e3:.3f}",
+              launches=per_verify(launches, 1), card=f'"{card}"')
+
+        # reject 2: the next block, its proposal signed by another validator
+        nxt = rest[0]
+        forger = (int(nxt.message.proposer_index) + 1) % validators
+        forged = chain_a.sign_block(nxt.message, harness.keypairs[forger][0])
+        assert bytes(forged.signature) != bytes(nxt.signature)
+        err, launches, shapes, nsets, verify_s, wall_ms = counted(lambda: chain_b.process_block(forged))
+        expected_sets += nsets
+        assert isinstance(err, BlockError), f"a block signed by validator {forger} was imported"
+        assert nsets == block_sets(nxt) and len(shapes) == 1, "forged proposal: not one verify"
+        assert chain_b.head_root == head_b, "a refused block moved the head"
+        phase("chain", step="reject_proposer", slot=int(nxt.message.slot), signer=forger,
+              proposer=int(nxt.message.proposer_index), sets=nsets, refused=f'"{err}"', head_unchanged=True,
+              verify_ms=f"{verify_s * 1e3:.3f}", launches=per_verify(launches, 1), card=f'"{card}"')
+
+        # the genuine rest, as one segment: chain B reaches chain A's head
+        roots, launches, shapes, nsets, verify_s, wall_ms = counted(lambda: chain_b.process_chain_segment(rest))
+        assert not isinstance(roots, BlockError), f"chain B, the rest: {roots}"
+        expected_sets += nsets
+        assert chain_b.head_root == head_a, "chain B did not reach chain A's head"
+        phase("chain", step="B_rest", blocks=len(rest), sets=nsets, S=shapes[0][0], K=shapes[0][1],
+              head_equal=True, segment_ms=f"{wall_ms:.3f}", verify_ms=f"{verify_s * 1e3:.3f}",
+              launches=per_verify(launches, 1), card=f'"{card}"')
+    finally:
+        api.verify_staged = verify_staged
+    grown = int(metrics.BLS_SETS_TOTAL.value - sets_total0)
+    assert grown == expected_sets, f"{metrics.BLS_SETS_TOTAL.name} grew by {grown}, {expected_sets} sets verified"
+    phase("chain", step="metrics", metric=metrics.BLS_SETS_TOTAL.name, grown=grown,
+          sets_verified=expected_sets, card=f'"{card}"')
+
+
 def main() -> int:
     import torch
 
@@ -2431,13 +2653,14 @@ def main() -> int:
     check_chain_kernels(torch, standalone_cases(torch, fp, curve, tower, pairing, h2c, P, STANDALONE_COUNTS, 35)[0])
 
     t0 = time.perf_counter()
-    gossip = make_sets(api, N_SETS, 1)
-    block = make_sets(api, N_SETS, BLOCK_KEYS)
-    bad_sig = non_subgroup_signature(api)
-    valid = [pk.to_bytes() for pk in block[0].signing_keys]
-    valid += [api.interop_keypair(i)[1].to_bytes() for i in range(len(valid), PK_DISTINCT)]
     invalid = list(invalid_encodings().values())
-    oracle = {kb: oracle_pk_verdict(kb) for kb in valid + invalid}
+    with host_pool() as pool:
+        pubkeys = pool.map(interop_public_key, range(max(PK_DISTINCT, BLOCK_KEYS, 8)))
+        valid = [pk.to_bytes() for pk in pubkeys[:PK_DISTINCT]]
+        oracle = dict(zip(valid + invalid, pool.map(oracle_pk_verdict, valid + invalid)))
+    gossip = make_sets(api, N_SETS, 1, pubkeys)
+    block = make_sets(api, N_SETS, BLOCK_KEYS, pubkeys)
+    bad_sig = non_subgroup_signature(api)
     assert all(oracle[kb] for kb in valid) and not any(oracle[kb] for kb in invalid)
     phase("setup", host_seconds=f"{time.perf_counter() - t0:.2f}", pk_distinct=len(valid), pk_invalid=len(invalid))
 
@@ -2494,6 +2717,7 @@ def main() -> int:
     check_parity(torch, api, fp, pairing)
     run_sharded(torch, api, fp, pairing, name_power)
     run_coalescer(torch, api, fp, name_power)
+    run_chain(torch, api, fp, name_power)
 
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}", empty_traces_retaken=EMPTY_TRACES,
           partial_traces_retaken=PARTIAL_TRACES, most_tries_a_trace=TRACE_TRIES_MOST)

@@ -1,1 +1,2 @@
-"""Host-side services of the port: metrics and tracing."""
+"""Host-side services of the port: metrics, tracing, logging, the flight
+recorder and the slot ledger."""

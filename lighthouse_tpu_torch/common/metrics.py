@@ -3,9 +3,9 @@
 A process-global registry of counters, gauges and histograms with timer
 helpers, and text exposition in the Prometheus format. Copied from the JAX
 package's common/metrics.py (which the port may not import): the registry
-classes, and only the families that the port's BLS api and coalescer
-record, under the same names and help texts, so one dashboard reads either
-package.
+classes, and the families that the port's BLS api, coalescer, chain and
+its services record, under the same names and help texts, so one dashboard
+reads either package.
 
 Labeled families: `CounterVec` / `GaugeVec` / `HistogramVec` hand out
 cached per-label-set children via `.labels(**kv)` and expose as ONE family
@@ -298,6 +298,22 @@ BLS_STAGE_SECONDS = REGISTRY.histogram(
     "Host staging wall time per batch (point packing + hash-to-field + "
     "RLC scalar draw — everything before device dispatch)",
     buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 1.0),
+)
+
+# Block import (chain/beacon_chain.py).
+BLOCK_IMPORT_SECONDS = REGISTRY.histogram(
+    "lighthouse_tpu_block_import_seconds", "Full block import wall time"
+)
+CHAIN_REORGS_TOTAL = REGISTRY.counter(
+    "lighthouse_tpu_chain_reorgs_total",
+    "Head moved to a block that does not descend from the previous head",
+)
+# Fed by the beacon processor's drain; common/slot_ledger.py reads it to
+# attribute a slot's queue wait.
+PROCESSOR_QUEUE_WAIT_SECONDS = REGISTRY.histogram_vec(
+    "lighthouse_tpu_processor_queue_wait_seconds",
+    "Time work items spent queued before a drain picked them up",
+    ("kind",),
 )
 
 # Cross-caller batch coalescing (crypto/bls/batch_verifier.py).

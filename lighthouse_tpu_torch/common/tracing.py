@@ -1,10 +1,17 @@
 """Pipeline tracing of the port: timed span trees + per-stage histograms.
 
-Copied from the JAX package's common/tracing.py. A span times itself,
-nests under whatever span is open on ITS thread, and on completion feeds
-`lighthouse_tpu_stage_seconds{stage=...}`; completed root spans enter a
-bounded keep-the-N-slowest ring. Stacks are thread-local (spans never
-cross threads), and exceptions propagate with the span still recorded.
+Copied from the JAX package's common/tracing.py. Every pipeline stage
+(block import, chain segment import, BLS device funnel) runs under
+`span("stage_name")`. A span times itself, nests under whatever span is
+open on ITS thread, and on completion feeds
+`lighthouse_tpu_stage_seconds{stage=...}`.
+
+Design constraints:
+  - thread-local stacks: spans never cross threads.
+  - completed ROOT spans (no parent) enter a bounded keep-the-N-slowest
+    ring, so "what were the worst block imports" is answerable after the
+    fact without logging every import.
+  - exceptions propagate; the span still closes and records its time.
 """
 
 from __future__ import annotations
@@ -41,6 +48,11 @@ class Span:
             "children": [c.tree() for c in self.children],
         }
 
+    def walk(self):
+        yield self
+        for c in self.children:
+            yield from c.walk()
+
 
 class Tracer:
     def __init__(self, keep: int = SLOW_TRACE_KEEP, stage_histogram=STAGE_SECONDS):
@@ -49,6 +61,12 @@ class Tracer:
         self._stage_histogram = stage_histogram
         self._slowest: list[Span] = []  # sorted slowest-first, len <= keep
         self._lock = threading.Lock()
+        # cumulative EXCLUSIVE (self) time per stage: a span's duration
+        # minus its children's — non-overlapping within a thread, so
+        # windowed deltas sum to at most wall time. The slot-SLO ledger
+        # (common/slot_ledger.py) diffs this dict at slot boundaries;
+        # monotonic by design, so reset() leaves it alone.
+        self._self_times: dict[str, float] = {}
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
@@ -69,6 +87,11 @@ class Tracer:
             s.duration = time.perf_counter() - s.started_at
             stack.pop()
             self._stage_histogram.labels(stage=name).observe(s.duration)
+            child_s = sum(c.duration or 0.0 for c in s.children)
+            with self._lock:
+                self._self_times[name] = self._self_times.get(name, 0.0) + max(
+                    0.0, s.duration - child_s
+                )
             if not stack:  # a completed root trace
                 self._record_root(s)
 
@@ -84,6 +107,33 @@ class Tracer:
         with self._lock:
             roots = list(self._slowest[: n if n is not None else self._keep])
         return [r.tree() for r in roots]
+
+    def stage_report(self) -> dict[str, dict]:
+        """{stage: {count, total_s, mean_s}} from the stage histogram — the
+        table a stage profile prints."""
+        out = {}
+        for (stage,), child in sorted(self._stage_histogram.children().items()):
+            n = child.count
+            out[stage] = {
+                "count": n,
+                "total_s": child.sum,
+                "mean_s": (child.sum / n) if n else 0.0,
+            }
+        return out
+
+    def self_time_report(self) -> dict[str, float]:
+        """{stage: cumulative exclusive seconds} — duration minus children,
+        so summing stages never double-counts nested spans. Monotonic: the
+        slot ledger attributes a slot by diffing two snapshots."""
+        with self._lock:
+            return dict(self._self_times)
+
+    def reset(self) -> None:
+        """Drop the slow-trace ring (tests; the stage histogram is owned by
+        the metrics registry and is NOT cleared here; self-times stay —
+        the slot ledger depends on their monotonicity)."""
+        with self._lock:
+            self._slowest.clear()
 
 
 # The process-global tracer; `span("x")` is the instrumentation one-liner.

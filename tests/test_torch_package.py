@@ -62,6 +62,35 @@ def test_import_does_not_load_jax():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
+def test_consensus_host_import_does_not_load_jax_and_defaults_to_the_card():
+    """A fresh process: the BLS seam and the chain load no jax and no
+    lighthouse_tpu module; TransitionContext.minimal() with no argument
+    (and no LIGHTHOUSE_TPU_BLS_BACKEND) takes the torch backend, whose
+    verify raises where there is no GPU instead of running on the CPU."""
+    code = (
+        "import sys, torch\n"
+        "import lighthouse_tpu_torch.crypto.bls as bls, lighthouse_tpu_torch.chain\n"
+        "from lighthouse_tpu_torch.state_transition import TransitionContext\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lighthouse_tpu')]\n"
+        "assert not bad, bad\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "ctx = TransitionContext.minimal()\n"
+        "assert ctx.bls is bls.backend('torch') and ctx.bls.__name__.endswith('torch_backend.api'), ctx.bls\n"
+        "sk, pk = ctx.bls.interop_keypair(0)\n"
+        "s = ctx.bls.SignatureSet(signature=sk.sign(b'\\x01' * 32), signing_keys=[pk], message=b'\\x01' * 32)\n"
+        "try:\n"
+        "    ctx.bls.verify_signature_sets([s])\n"
+        "except RuntimeError as e:\n"
+        "    assert 'no CUDA device' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('a verify ran without a GPU')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lighthouse_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "LIGHTHOUSE_TPU_BLS_BACKEND"}
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
+
+
 def test_default_device_is_cuda_and_fails_without_gpu(monkeypatch):
     assert tapi.DEFAULT_DEVICE == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -311,3 +340,22 @@ def test_mul_mxu_on_cuda_tensors_raises_without_a_gpu(monkeypatch):
         with pytest.raises((RuntimeError, AssertionError)):
             fn(a, a)
     assert tfp.LAUNCHES["fp_mul_mma"] == 0
+
+
+def test_native_hasher_builds_outside_the_package_and_matches_hashlib():
+    """The port's merkleization hasher compiles tree_hash.c at first use
+    into build/native/ (the port commits no binary) and hashes as
+    hashlib does; a process that cannot build it falls back to hashlib."""
+    import hashlib
+
+    from lighthouse_tpu_torch import native
+
+    pkg = pathlib.Path(lighthouse_tpu_torch.__file__).parent
+    assert not list((pkg / "native").glob("*.so"))
+    assert native._SO.parent == ROOT / "build" / "native"
+    if not native.available():
+        pytest.skip("no C compiler: the hashlib fallback is taken")
+    data = bytes(range(256)) * 2
+    want = b"".join(hashlib.sha256(data[i : i + 64]).digest() for i in range(0, len(data), 64))
+    assert native.hash_pairs(data) == want
+    assert native._SO.is_file()
