@@ -170,6 +170,41 @@ Phases, one line each, any failure exits non-zero:
               `lighthouse_tpu_bls_signature_sets_total` grown by exactly
               the sets verified. Host seconds of set-up, signing and
               import; ms per import, per verify and per segment
+     conformance  the port generator's 39 eth2 BLS cases (sign, verify,
+              aggregate, aggregate_verify, fast_aggregate_verify,
+              eth_aggregate_pubkeys, eth_fast_aggregate_verify; infinity,
+              non-subgroup and malformed encodings among them) through
+              `conformance.run_case(case, api)` on the card: each with its
+              expected outcome, each verify launching K10-K21 once and
+              nothing else, the cases decided on the host launching
+              nothing; per case type the cases, the verifies and their
+              launches, and K5's launches (public keys decompress on the
+              host, so none); generation (host `ref` signing) timed apart
+     gossip   the gossip path over chain A, wired as the network service
+              wires it: one epoch at its last slot, every validator's
+              one-bit attestation and one SignedAggregateAndProof a
+              committee, signed in host processes, with a tampered
+              signature, an exact duplicate in a later batch of the same
+              cycle, an unknown head block, a future slot, an aggregate
+              with another validator's selection proof and an attestation
+              on the aggregate queue. Each item admitted with a
+              flight-recorder id, the BeaconProcessor draining into
+              `PipelinedGossipVerifier` and `batch_verify_gossip_aggregates`
+              over the coalescer (default bucket), routed into the op pool
+              and the reprocess queue. Every verdict the expected one; the
+              tampered set blamed alone in its batch; every set's verdict
+              the ref oracle's on that set alone (all sets, host
+              processes); the wrong container dropped once; the early
+              attestation released at its slot and accepted; launches
+              K10-K21 once a dispatch (first level and bisection);
+              `lighthouse_tpu_bls_signature_sets_total` grown by the sets;
+              queue depth 0 after every drain; fork choice holding every
+              validator's vote. Then the next block, packed by the op
+              pool with the gossip attestations, imported with one verify
+              and fork choice weighing the votes. Dispatches, batch sizes,
+              bisection, drain and aggregate-handler ms, per-set latency
+              from admission to verdict (recorder clock), queue-depth peak,
+              import and verify ms
 
 then a `{"kernels": [...]}` JSON line, the nvidia-smi name/power line, and
 as the last line `{"ok": true, "device": {...}}`. Signature sets are built
@@ -626,6 +661,8 @@ CHAIN_VALIDATORS = 64
 CHAIN_SLOTS = 40
 CHAIN_SEGMENT = 32
 CHAIN_MIN_FINALIZED = 2
+# Conformance: the port generator's eth2 BLS cases, seven types.
+CONFORMANCE_CASES = 39
 
 
 def phase(tag: str, **fields) -> None:
@@ -1162,6 +1199,28 @@ def host_pool():
     import multiprocessing
 
     return multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1))
+
+
+def sign_root(task) -> bytes:
+    """(secret key as an integer, 32-byte signing root) -> the compressed
+    signature by the ref oracle (a host process of `host_pool`)."""
+    from lighthouse_tpu_torch.crypto.bls.ref import api as ref
+
+    k, root = task
+    return ref.SecretKey(k).sign(root).to_bytes()
+
+
+def oracle_set_verdict(task) -> bool:
+    """(signature bytes, [public key bytes], message) -> the ref oracle's
+    verdict on that one set, decoding with the subgroup checks."""
+    from lighthouse_tpu_torch.crypto.bls.ref import api as ref
+
+    sig, keys, message = task
+    try:
+        s = ref.SignatureSet(ref.Signature.from_bytes(sig), [ref.PublicKey.from_bytes(k) for k in keys], message)
+    except ref.DecodeError:
+        return False
+    return bool(ref.verify_signature_sets([s]))
 
 
 def make_sets(api, n_sets: int, keys_per_set: int, pubkeys=None):
@@ -2416,10 +2475,11 @@ def block_sets(signed) -> int:
             + len(body.voluntary_exits))
 
 
-def run_chain(torch, api, fp, card: str) -> None:
+def run_chain(torch, api, fp, card: str):
     """Block import on the card; see the module docstring. Every verify is
     one `api.verify_staged` call, recorded with its (S, K) by a wrapper
-    that is removed afterwards whatever happens."""
+    that is removed afterwards whatever happens. Returns chain A's harness,
+    which `[gossip]` goes on with."""
     from lighthouse_tpu_torch.chain import BeaconChain, BeaconChainHarness, BlockError, ManualSlotClock
     from lighthouse_tpu_torch.common import metrics
     from lighthouse_tpu_torch.state_transition import TransitionContext
@@ -2580,6 +2640,374 @@ def run_chain(torch, api, fp, card: str) -> None:
     assert grown == expected_sets, f"{metrics.BLS_SETS_TOTAL.name} grew by {grown}, {expected_sets} sets verified"
     phase("chain", step="metrics", metric=metrics.BLS_SETS_TOTAL.name, grown=grown,
           sets_verified=expected_sets, card=f'"{card}"')
+    return harness
+
+
+def run_conformance(torch, api, fp, card: str) -> None:
+    """The port's BLS conformance cases on the card; see the module
+    docstring. A case's verifies are counted by the sync verify's timer
+    (`lighthouse_tpu_bls_batch_verify_seconds`), its launches by the
+    kernels' counts set to 0 just before the case and read just after."""
+    from lighthouse_tpu_torch.common import metrics
+    from lighthouse_tpu_torch.conformance import ALL_CASE_TYPES, generate_bls_cases, run_case
+    from lighthouse_tpu_torch.crypto.bls import batch_verifier as bv
+
+    assert bv.active_for(api) is None, "a coalescer still runs over the card's backend"
+    t0 = time.perf_counter()
+    cases = generate_bls_cases()
+    generate_s = time.perf_counter() - t0
+    assert len(cases) == CONFORMANCE_CASES, f"{len(cases)} conformance cases, expected {CONFORMANCE_CASES}"
+    rows = {t: {"cases": 0, "verify_cases": 0, "verifies": 0, "ms": 0.0, "launches": collections.Counter()}
+            for t in ALL_CASE_TYPES}
+    admission = 0
+    t0 = time.perf_counter()
+    for case in cases:
+        row = rows[case.case_type]
+        calls0 = metrics.BLS_BATCH_SECONDS.count
+        torch.cuda.synchronize()
+        fp.reset_launches()
+        t = time.perf_counter()
+        run_case(case, api)  # raises on an outcome other than the expected one
+        torch.cuda.synchronize()
+        row["ms"] += (time.perf_counter() - t) * 1e3
+        launches = dict(fp.LAUNCHES)
+        calls = metrics.BLS_BATCH_SECONDS.count - calls0
+        counts = {k: launches[k] for k in VERIFY_LAUNCHES}
+        want = {k: v * calls for k, v in VERIFY_LAUNCHES.items()}
+        assert calls <= 1 and counts == want, f"{case.name}: {calls} verifies launched {counts}, expected {want}"
+        admission += launches["g1_subgroup_check"]
+        row["cases"] += 1
+        row["verify_cases"] += int(calls > 0)
+        row["verifies"] += calls
+        row["launches"].update({k: n for k, n in launches.items() if n})
+    cases_s = time.perf_counter() - t0
+    for case_type, row in rows.items():
+        phase("conformance", case_type=case_type, cases=row["cases"], verify_cases=row["verify_cases"],
+              host_decided=row["cases"] - row["verify_cases"], verifies=row["verifies"], ms=f"{row['ms']:.3f}",
+              launches=json.dumps(dict(sorted(row["launches"].items())), separators=(",", ":")), card=f'"{card}"')
+    phase("conformance", cases=len(cases), expected_outcomes=len(cases),
+          verify_cases=sum(r["verify_cases"] for r in rows.values()), k5_launches=admission,
+          generate_s=f"{generate_s:.2f}", cases_s=f"{cases_s:.2f}", card=f'"{card}"')
+
+
+def run_gossip(torch, api, fp, card: str, harness) -> None:
+    """The gossip path on the card over chain A; see the module docstring.
+    The glue (admission with a flight-recorder id, the handlers and the
+    route into the op pool and the reprocess queue) is the network
+    service's, written out here."""
+    from lighthouse_tpu_torch.chain.attestation_processing import (
+        AttestationError,
+        PipelinedGossipVerifier,
+        batch_verify_gossip_aggregates,
+    )
+    from lighthouse_tpu_torch.common import metrics
+    from lighthouse_tpu_torch.crypto.bls import batch_verifier as bv
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+    from lighthouse_tpu_torch.op_pool import OperationPool
+    from lighthouse_tpu_torch.scheduler import BeaconProcessor, WorkType
+    from lighthouse_tpu_torch.scheduler.reprocess import ReprocessQueue
+    from lighthouse_tpu_torch.state_transition.helpers import get_beacon_committee, get_committee_count_per_slot
+    from lighthouse_tpu_torch.state_transition.signature_sets import _signing_root_for_uint64
+    from lighthouse_tpu_torch.types import compute_signing_root, get_domain, schedule_domain
+    from lighthouse_tpu_torch.types.containers import Checkpoint
+
+    chain, ctx = harness.chain, harness.ctx
+    assert ctx.bls is api, f"chain A runs on {ctx.bls.__name__}, not the card's backend"
+    t, preset, spec = ctx.types, ctx.preset, ctx.spec
+    spe = preset.slots_per_epoch
+    state, head = chain.head_state(), bytes(chain.head_root)
+    epoch = int(state.slot) // spe
+    assert int(state.slot) == epoch * spe, "the gossip epoch starts at the head's slot"
+    clock = (epoch + 1) * spe - 1  # every slot of the epoch inside the gossip window
+    secret = [int(kp[0].k) for kp in harness.keypairs]
+    gvr = bytes(state.genesis_validators_root)
+    root_type = t.AttestationData.hash_tree_root
+
+    def data_at(slot: int, index: int, target_epoch: int = epoch):
+        return t.AttestationData(slot=slot, index=index, beacon_block_root=head,
+                                 source=state.current_justified_checkpoint,
+                                 target=Checkpoint(epoch=target_epoch, root=head))
+
+    def att_root(data, target_epoch: int = epoch) -> bytes:
+        return compute_signing_root(data, get_domain(state, spec.domain_beacon_attester, target_epoch, preset))
+
+    def selection_root(slot: int) -> bytes:
+        return _signing_root_for_uint64(slot, schedule_domain(spec, spec.domain_selection_proof, slot // spe, gvr))
+
+    # the epoch's duties: every validator once, in one committee of one slot
+    duties = [(slot, index, list(get_beacon_committee(state, slot, index, preset, spec)))
+              for slot in range(epoch * spe, clock + 1)
+              for index in range(get_committee_count_per_slot(state, epoch, preset))]
+    assert sorted(v for _, _, c in duties for v in c) == list(range(len(secret))), "not one duty a validator"
+    early_committee = list(get_beacon_committee(state, clock + 1, 0, preset, spec))
+    early_data = data_at(clock + 1, 0, epoch + 1)
+
+    t0 = time.perf_counter()
+    tasks = [(secret[v], att_root(data_at(slot, index))) for slot, index, c in duties for v in c]
+    tasks += [(secret[c[0]], selection_root(slot)) for slot, _, c in duties]
+    tasks += [(sum(secret[v] for v in c) % R, att_root(data_at(slot, index))) for slot, index, c in duties]
+    tasks += [(secret[duties[0][2][0]], selection_root(duties[0][0])),  # for another aggregator's proof
+              (secret[early_committee[0]], att_root(early_data, epoch + 1))]
+    with host_pool() as pool:
+        sigs = iter(pool.map(sign_root, tasks))
+        single = {(slot, index, j): next(sigs) for slot, index, c in duties for j in range(len(c))}
+        proofs = [next(sigs) for _ in duties]
+        inner = [next(sigs) for _ in duties]
+        stolen_proof, early_sig = next(sigs), next(sigs)
+        messages = [t.AggregateAndProof(aggregator_index=c[0], selection_proof=proof,
+                                        aggregate=t.Attestation(aggregation_bits=[True] * len(c),
+                                                                data=data_at(slot, index), signature=sig))
+                    for (slot, index, c), proof, sig in zip(duties, proofs, inner)]
+        slot0, index0, c0 = duties[0]
+        messages.append(t.AggregateAndProof(aggregator_index=c0[1], selection_proof=stolen_proof,
+                                            aggregate=messages[0].aggregate))
+        outer = pool.map(sign_root, [
+            (secret[m.aggregator_index],
+             compute_signing_root(m, schedule_domain(spec, spec.domain_aggregate_and_proof, epoch, gvr)))
+            for m in messages])
+    sign_s = time.perf_counter() - t0
+
+    def one_bit(slot, index, c, j, sig):
+        return t.Attestation(aggregation_bits=[i == j for i in range(len(c))], data=data_at(slot, index),
+                             signature=sig)
+
+    unagg = {c[j]: one_bit(slot, index, c, j, single[(slot, index, j)])
+             for slot, index, c in duties for j in range(len(c))}
+    aggregates = [t.SignedAggregateAndProof(message=m, signature=s) for m, s in zip(messages, outer)]
+    victim = c0[0]  # its attestation arrives first with another member's signature, then genuine
+    hostile = {
+        "tampered_signature": one_bit(slot0, index0, c0, 0, single[(slot0, index0, 1)]),
+        "unknown_head": t.Attestation(aggregation_bits=list(unagg[c0[1]].aggregation_bits),
+                                      data=t.AttestationData(slot=slot0, index=index0, beacon_block_root=b"\xfe" * 32,
+                                                             source=state.current_justified_checkpoint,
+                                                             target=Checkpoint(epoch=epoch, root=head)),
+                                      signature=single[(slot0, index0, 1)]),
+        "future_slot": t.Attestation(aggregation_bits=[i == 0 for i in range(len(early_committee))],
+                                     data=early_data, signature=early_sig),
+        "bad_selection_proof": aggregates.pop(),
+        "duplicate": t.Attestation.deserialize(t.Attestation.serialize(unagg[duties[-1][2][-1]])),
+        "wrong_container": t.Attestation(aggregation_bits=[True] * len(c0), data=data_at(slot0, index0),
+                                         signature=b"\xc0" + bytes(95)),
+    }
+    batch_a = [a for v, a in sorted(unagg.items()) if v != victim] + [hostile["tampered_signature"]]
+    invalid = AttestationError("invalid signature")
+    expect = {id(a): True for a in batch_a}
+    expect.update({id(a): True for a in aggregates})
+    expect[id(unagg[victim])] = True
+    expect[id(hostile["tampered_signature"])] = invalid
+    expect[id(hostile["bad_selection_proof"])] = invalid
+    expect[id(hostile["duplicate"])] = AttestationError("prior attestation known")
+    expect[id(hostile["unknown_head"])] = AttestationError("unknown head block")
+    expect[id(hostile["future_slot"])] = AttestationError("future slot")
+
+    recorder = chain.flight_recorder
+    reprocess, op_pool = ReprocessQueue(), OperationPool(ctx)
+    got, routed, agg_ms, depth = [], collections.Counter(), [], [0]
+    current = [clock]
+
+    def admit(kind: str, item, work_type) -> None:
+        """Gossip admission: a flight-recorder id minted and bound to the
+        message's root, then the processor's queue."""
+        recorder.bind(bytes(type(item).hash_tree_root(item)), recorder.mint(kind, node="chip_smoke"))
+        processor.submit(work_type, item)
+        depth[0] = max(depth[0], int(metrics.PROCESSOR_QUEUE_DEPTH.value))
+
+    def route(att, ok, signed=None, work_type=WorkType.GOSSIP_ATTESTATION) -> None:
+        got.append((signed if signed is not None else att, ok))
+        if ok is True:
+            op_pool.insert_attestation(att)
+        elif isinstance(ok, AttestationError) and "unknown head block" in str(ok):
+            routed["unknown_block"] += reprocess.park_unknown_block(
+                att if signed is None else signed, bytes(att.data.beacon_block_root), current[0], work_type=work_type)
+        elif isinstance(ok, AttestationError) and "future slot" in str(ok):
+            routed["early"] += reprocess.park_early(att if signed is None else signed, int(att.data.slot), current[0],
+                                                    work_type=work_type)
+
+    def handle_aggs(items) -> None:
+        t1 = time.perf_counter()
+        try:
+            results = batch_verify_gossip_aggregates(chain, items)
+        finally:
+            agg_ms.append((time.perf_counter() - t1) * 1e3)
+        for signed, ok in zip(items, results):
+            route(signed.message.aggregate, ok, signed, WorkType.GOSSIP_AGGREGATE)
+
+    def drain(verifier) -> float:
+        t1 = time.perf_counter()
+        processor.drain({WorkType.GOSSIP_ATTESTATION: BeaconProcessor.isolated(verifier.submit),
+                         WorkType.GOSSIP_AGGREGATE: BeaconProcessor.isolated(handle_aggs)})
+        assert metrics.PROCESSOR_QUEUE_DEPTH.value == 0 and len(processor) == 0, "work left queued after a drain"
+        return (time.perf_counter() - t1) * 1e3
+
+    sizes, submissions = [], []
+    dispatch = api.verify_signature_sets_async
+
+    def recorded(batch, rng=None):
+        sizes.append(len(batch))
+        return dispatch(batch, rng=rng)
+
+    sets0, dropped0 = metrics.BLS_SETS_TOTAL.value, metrics.PROCESSOR_ITEMS_DROPPED.value
+    bisect0 = metrics.BLS_BISECTION_DISPATCHES_TOTAL.value
+    svc = bv.ensure_running(api)
+    try:
+        assert svc is not None and svc.s_bucket == bv.DEFAULT_S_BUCKET, "the coalescer is not the card backend's"
+        real_submit = svc.submit
+
+        def submit(sets, corr_meta=None):
+            fut = real_submit(sets, corr_meta=corr_meta)
+            submissions.append((list(sets), fut))
+            return fut
+
+        svc.submit = submit
+        api.verify_signature_sets_async = recorded
+        processor = BeaconProcessor(coalescer=svc)
+        chain.slot_clock.set_slot(clock)
+        chain.fork_choice.on_tick(clock)
+        torch.cuda.synchronize()
+        fp.reset_launches()
+        dispatches0 = svc.dispatches
+        t0 = time.perf_counter()
+        # cycle 1: the epoch's gossip, hostile items among it; batch B (the
+        # victim's genuine attestation and a duplicate of batch A's) is
+        # admitted while batch A's verdicts are in flight
+        for a in batch_a + [hostile["unknown_head"], hostile["future_slot"]]:
+            admit("attestation", a, WorkType.GOSSIP_ATTESTATION)
+        for s in aggregates + [hostile["bad_selection_proof"]]:
+            admit("aggregate", s, WorkType.GOSSIP_AGGREGATE)
+        verifier = PipelinedGossipVerifier(chain)
+        drain_ms = drain(verifier)
+        for a in (unagg[victim], hostile["duplicate"]):
+            admit("attestation", a, WorkType.GOSSIP_ATTESTATION)
+        admit("aggregate", hostile["wrong_container"], WorkType.GOSSIP_AGGREGATE)
+        drain_b_ms = drain(verifier)
+        verifier.flush(route)
+        cycle1_ms = (time.perf_counter() - t0) * 1e3
+        n_cycle1 = len(submissions)
+        events = recorder.events()
+        parked = len(reprocess)
+        # cycle 2: the next slot applies the last slot's votes and releases
+        # the early attestation
+        current[0] = clock + 1
+        chain.slot_clock.set_slot(clock + 1)
+        chain.fork_choice.on_tick(clock + 1)
+        votes = [(bytes(chain.fork_choice.votes[v].next_root), chain.fork_choice.votes[v].next_epoch)
+                 for v in range(len(secret))]
+        released = reprocess.on_slot(clock + 1)
+        for work_type, item in released:
+            processor.submit(work_type, item)
+        verifier = PipelinedGossipVerifier(chain)
+        drain_c_ms = drain(verifier)
+        verifier.flush(route)
+        verdicts = [f.result(timeout=SHARDED_JOIN_SECONDS) for _, f in submissions]
+        torch.cuda.synchronize()
+        launches = dict(fp.LAUNCHES)
+        dispatches = svc.dispatches - dispatches0
+        events_all = recorder.events()
+    finally:
+        api.verify_signature_sets_async = dispatch
+        svc.__dict__.pop("submit", None)
+        bv.release(svc)
+    bisections = int(metrics.BLS_BISECTION_DISPATCHES_TOTAL.value - bisect0)
+
+    # verdicts, item by item, against the expected ones
+    early = hostile["future_slot"]
+    assert [item for _, item in released] == [early], f"on_slot({clock + 1}) released {len(released)} items"
+    outcome = lambda r: True if r is True else (type(r).__name__, str(r))  # noqa: E731
+    first = {}
+    for item, ok in got:
+        first.setdefault(id(item), outcome(ok))
+    want = {k: outcome(v) for k, v in expect.items()}
+    assert first == want, f"verdicts differ: {[(k, first.get(k), w) for k, w in want.items() if first.get(k) != w]}"
+    assert outcome(got[-1][1]) is True and got[-1][0] is early, "the released early attestation was not accepted"
+    dropped = int(metrics.PROCESSOR_ITEMS_DROPPED.value - dropped0)
+    assert dropped == 1, f"{dropped} items dropped, the wrong container alone expected"
+    assert parked == 2 and routed["unknown_block"] == 1 and routed["early"] == 1, f"parked {parked}: {routed}"
+    assert len(reprocess) == 1, "the unknown-block attestation left the queue before it expired"
+
+    # per-set verdicts: the tampered set blamed alone in its batch, and each
+    # equal to the ref oracle's on that set alone (all sets, host processes)
+    flat = [(s, v) for (sets, _), vs in zip(submissions, verdicts) for s, v in zip(sets, vs)]
+    shapes = [len(sets) for sets, _ in submissions]
+    assert shapes == [3 * (len(aggregates) + 1), len(batch_a), 1, 1], f"coalescer submissions of {shapes} sets"
+    assert verdicts[1].count(False) == 1, "the tampered attestation was not blamed alone"
+    t0 = time.perf_counter()
+    with host_pool() as pool:
+        oracle = pool.map(oracle_set_verdict, [(s.signature.to_bytes(), [pk.to_bytes() for pk in s.signing_keys],
+                                                s.message) for s, _ in flat])
+    oracle_s = time.perf_counter() - t0
+    assert [v for _, v in flat] == oracle, "a set's verdict differs from the ref oracle's"
+    assert sum(not v for _, v in flat) == 2, "not exactly the tampered and the stolen-proof sets failed"
+
+    # the device work: one verify a dispatch (first level and bisection)
+    assert len(sizes) == dispatches + bisections, f"{len(sizes)} verifies, {dispatches} + {bisections} dispatches"
+    counts = {k: launches[k] for k in VERIFY_LAUNCHES}
+    want_counts = {k: v * len(sizes) for k, v in VERIFY_LAUNCHES.items()}
+    assert counts == want_counts, f"{len(sizes)} gossip verifies launched {counts}, expected {want_counts}"
+    grown = int(metrics.BLS_SETS_TOTAL.value - sets0)
+    assert grown == len(flat), f"{metrics.BLS_SETS_TOTAL.name} grew by {grown}, {len(flat)} sets verified"
+    fc = chain.fork_choice
+    assert all(v == (head, epoch) for v in votes), "fork choice did not take every gossip vote"
+
+    # latency from admission to each set's verdict, on the recorder's clock
+    admitted = {e["corr_id"]: e["t_mono"] for e in events_all if e["event"] == "admitted"}
+    lat = [(e["t_mono"] - admitted[e["corr_id"]]) * 1e3 for e in events if e["event"] == "set_verdict"]
+    early_id = recorder.lookup(bytes(type(early).hash_tree_root(early)))
+    early_lat = [(e["t_mono"] - admitted[early_id]) * 1e3 for e in events_all
+                 if e["event"] == "set_verdict" and e["corr_id"] == early_id]
+    assert len(lat) == sum(len(s) for s, _ in submissions[:n_cycle1]) and len(early_lat) == 1, "a set has no verdict"
+    path = ("admitted", "staged", "batch_formed", "device_dispatch", "set_verdict")
+    seen = collections.defaultdict(dict)
+    for e in events:
+        seen[e["corr_id"]].setdefault(e["event"], e["t_mono"])
+    hops = {}
+    for kind in ("attestation", "aggregate"):
+        rows = [ts for cid, ts in seen.items() if cid.startswith(kind) and all(h in ts for h in path)]
+        hops[kind] = {f"{a}-{b}": round(statistics.median((ts[b] - ts[a]) * 1e3 for ts in rows), 3)
+                      for a, b in zip(path, path[1:])}
+    phase("gossip", validators=len(secret), epoch=epoch, clock_slot=clock,
+          attestations=len(batch_a) + 1, aggregates=len(aggregates), hostile=len(hostile),
+          attestation_sets=len(batch_a) + 1, aggregate_sets=3 * (len(aggregates) + 1),
+          dispatches=dispatches, bisection_dispatches=bisections,
+          batch_sizes=json.dumps(sizes, separators=(",", ":")), sets=len(flat), blamed=sum(not v for _, v in flat),
+          sign_s=f"{sign_s:.2f}", oracle_s=f"{oracle_s:.2f}", oracle_sets=len(oracle), card=f'"{card}"')
+    phase("gossip", drain_ms=f"{drain_ms:.3f}", drain_b_ms=f"{drain_b_ms:.3f}", flush_cycle_ms=f"{cycle1_ms:.3f}",
+          early_drain_ms=f"{drain_c_ms:.3f}", aggregate_handler_ms=json.dumps([round(x, 3) for x in agg_ms]),
+          set_latency_ms_median=f"{statistics.median(lat):.3f}", set_latency_ms_max=f"{max(lat):.3f}",
+          set_latency_ms_min=f"{min(lat):.3f}", early_latency_ms=f"{early_lat[0]:.3f}", queue_depth_peak=depth[0],
+          hop_ms_median=json.dumps(hops, separators=(",", ":")),
+          items_dropped=dropped, launches=json.dumps(launches, separators=(",", ":")), card=f'"{card}"')
+
+    # the loop: the op pool's attestations in the next block, imported
+    pre = chain.state_at_slot(clock + 1)
+    packed = op_pool.get_attestations(pre)
+    gossip_roots = {root_type(data_at(slot, index)) for slot, index, _ in duties}
+    assert len(packed) == len(duties) and {root_type(a.data) for a in packed} == gossip_roots, \
+        f"the op pool packed {len(packed)} attestations for {len(duties)} committees"
+    calls0, secs0, sets0 = metrics.BLS_BATCH_SECONDS.count, metrics.BLS_BATCH_SECONDS.sum, metrics.BLS_SETS_TOTAL.value
+    import0 = metrics.BLOCK_IMPORT_SECONDS.sum
+    torch.cuda.synchronize()
+    fp.reset_launches()
+    root, signed = harness.add_block_at_slot(clock + 1, attestations=packed)
+    torch.cuda.synchronize()
+    launches = dict(fp.LAUNCHES)
+    import_ms = (metrics.BLOCK_IMPORT_SECONDS.sum - import0) * 1e3
+    calls = metrics.BLS_BATCH_SECONDS.count - calls0
+    body = signed.message.body
+    assert chain.head_root == root and int(signed.message.slot) == clock + 1, "the next block is not the head"
+    assert [type(a).hash_tree_root(a) for a in body.attestations] == [type(a).hash_tree_root(a) for a in packed]
+    assert calls == 1 and {k: launches[k] for k in VERIFY_LAUNCHES} == VERIFY_LAUNCHES, \
+        f"the next block's import ran {calls} verifies, launching {launches}"
+    assert int(metrics.BLS_SETS_TOTAL.value - sets0) == block_sets(signed)
+    nodes, idx = fc.proto.nodes, fc.proto.indices
+    voters = [v for v in range(len(secret)) if bytes(fc.votes[v].current_root) == head]
+    assert len(voters) == len(secret), f"{len(voters)} of {len(secret)} votes on the gossip head after import"
+    assert nodes[idx[head]].weight - nodes[idx[root]].weight == sum(fc.balances[v] for v in voters), \
+        "fork choice does not weigh the gossip votes"
+    assert any(q.slot == clock + 1 for q in fc.queued), "the early vote is not queued for its next slot"
+    phase("gossip", step="next_block", slot=clock + 1, op_pool_attestations=sum(map(len, op_pool.attestations.values())),
+          block_attestations=len(body.attestations), sets=block_sets(signed), import_ms=f"{import_ms:.3f}",
+          verify_ms=f"{(metrics.BLS_BATCH_SECONDS.sum - secs0) * 1e3:.3f}", head_is_block=True,
+          voters=len(voters), launches=json.dumps(launches, separators=(",", ":")), card=f'"{card}"')
 
 
 def main() -> int:
@@ -2717,7 +3145,9 @@ def main() -> int:
     check_parity(torch, api, fp, pairing)
     run_sharded(torch, api, fp, pairing, name_power)
     run_coalescer(torch, api, fp, name_power)
-    run_chain(torch, api, fp, name_power)
+    harness = run_chain(torch, api, fp, name_power)
+    run_conformance(torch, api, fp, name_power)
+    run_gossip(torch, api, fp, name_power, harness)
 
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}", empty_traces_retaken=EMPTY_TRACES,
           partial_traces_retaken=PARTIAL_TRACES, most_tries_a_trace=TRACE_TRIES_MOST)

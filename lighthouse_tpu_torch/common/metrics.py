@@ -308,11 +308,29 @@ CHAIN_REORGS_TOTAL = REGISTRY.counter(
     "lighthouse_tpu_chain_reorgs_total",
     "Head moved to a block that does not descend from the previous head",
 )
-# Fed by the beacon processor's drain; common/slot_ledger.py reads it to
-# attribute a slot's queue wait.
+
+# The beacon processor (scheduler/beacon_processor.py) and supervised tasks
+# (common/task_executor.py). common/slot_ledger.py reads the queue wait to
+# attribute a slot's time.
+PROCESSOR_QUEUE_DEPTH = REGISTRY.gauge(
+    "lighthouse_tpu_processor_queue_depth", "BeaconProcessor total queued events"
+)
+PROCESSOR_ITEMS_DROPPED = REGISTRY.counter(
+    "lighthouse_tpu_processor_items_dropped_total",
+    "Work items dropped because their handler raised (hostile-input isolation)",
+)
+TASKS_FAILED_TOTAL = REGISTRY.counter(
+    "lighthouse_tpu_tasks_failed_total",
+    "Supervised tasks that died with an uncaught exception",
+)
 PROCESSOR_QUEUE_WAIT_SECONDS = REGISTRY.histogram_vec(
     "lighthouse_tpu_processor_queue_wait_seconds",
     "Time work items spent queued before a drain picked them up",
+    ("kind",),
+)
+PROCESSOR_HANDLE_SECONDS = REGISTRY.histogram_vec(
+    "lighthouse_tpu_processor_handle_seconds",
+    "Handler wall time per drained batch",
     ("kind",),
 )
 

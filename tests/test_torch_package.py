@@ -91,6 +91,62 @@ def test_consensus_host_import_does_not_load_jax_and_defaults_to_the_card():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
 
 
+# the gossip path, the op pool and the conformance runners, each at its JAX
+# path under lighthouse_tpu_torch/
+GOSSIP_MODULES = [
+    "common.task_executor",
+    "scheduler",
+    "scheduler.beacon_processor",
+    "scheduler.reprocess",
+    "chain.attestation_processing",
+    "op_pool",
+    "op_pool.max_cover",
+    "op_pool.pool",
+    "op_pool.sync_pool",
+    "conformance",
+    "conformance.bls_cases",
+    "conformance.kat_roots",
+    "conformance.transition_cases",
+]
+
+
+@pytest.mark.parametrize("module", GOSSIP_MODULES)
+def test_gossip_module_sits_at_its_jax_path(module):
+    rel = module.replace(".", "/")
+    for package in ("lighthouse_tpu_torch", "lighthouse_tpu"):
+        base = ROOT / package / rel
+        assert (base / "__init__.py").is_file() or base.with_suffix(".py").is_file(), f"{package}.{module}"
+
+
+def test_gossip_modules_import_without_jax():
+    """A fresh process imports the thirteen modules and loads no jax and no
+    lighthouse_tpu module."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {GOSSIP_MODULES!r}:\n"
+        "    importlib.import_module('lighthouse_tpu_torch.' + m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lighthouse_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("name", ["PROCESSOR_QUEUE_DEPTH", "PROCESSOR_ITEMS_DROPPED", "PROCESSOR_HANDLE_SECONDS",
+                                  "TASKS_FAILED_TOTAL"])
+def test_processor_metric_families_match_the_jax_package(name):
+    """The families the processor and the task executor record: the JAX
+    package's name, type, help text and labels."""
+    from lighthouse_tpu.common import metrics as jax_metrics
+    from lighthouse_tpu_torch.common import metrics
+
+    got, want = getattr(metrics, name), getattr(jax_metrics, name)
+    assert type(got).__name__ == type(want).__name__
+    assert (got.name, got.help) == (want.name, want.help)
+    assert getattr(got, "label_names", ()) == getattr(want, "label_names", ())
+    assert getattr(got, "buckets", None) == getattr(want, "buckets", None)
+    assert metrics.REGISTRY._metrics[got.name] is got
+
+
 def test_default_device_is_cuda_and_fails_without_gpu(monkeypatch):
     assert tapi.DEFAULT_DEVICE == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
