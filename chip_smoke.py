@@ -180,31 +180,54 @@ Phases, one line each, any failure exits non-zero:
               nothing; per case type the cases, the verifies and their
               launches, and K5's launches (public keys decompress on the
               host, so none); generation (host `ref` signing) timed apart
-     gossip   the gossip path over chain A, wired as the network service
-              wires it: one epoch at its last slot, every validator's
-              one-bit attestation and one SignedAggregateAndProof a
-              committee, signed in host processes, with a tampered
-              signature, an exact duplicate in a later batch of the same
-              cycle, an unknown head block, a future slot, an aggregate
-              with another validator's selection proof and an attestation
-              on the aggregate queue. Each item admitted with a
-              flight-recorder id, the BeaconProcessor draining into
-              `PipelinedGossipVerifier` and `batch_verify_gossip_aggregates`
-              over the coalescer (default bucket), routed into the op pool
-              and the reprocess queue. Every verdict the expected one; the
+     gossip   the gossip path over chain A through the port's network
+              layer: node A's `network.NetworkService` on a `LocalNetwork`
+              (its node a stand-in of chain, context, op pool and a
+              BeaconProcessor over the coalescer), a peer publishing one
+              epoch at its last slot: every validator's one-bit
+              attestation and one SignedAggregateAndProof a committee,
+              signed in host processes, with a tampered signature, an
+              unknown head block, a future slot and an aggregate with
+              another validator's selection proof; at a second tick of the
+              same slot the victim's genuine attestation, an exact
+              duplicate of an accepted one and an attestation on the
+              aggregate topic. Admission is `on_gossip` (a
+              flight-recorder id a message), the drain `process_pending`
+              at each slot tick (the clock, fork choice's tick, the
+              drain), routed by the service into the op pool and its
+              reprocess queue. Every verdict the expected one; the
               tampered set blamed alone in its batch; every set's verdict
               the ref oracle's on that set alone (all sets, host
               processes); the wrong container dropped once; the early
-              attestation released at its slot and accepted; launches
-              K10-K21 once a dispatch (first level and bisection);
-              `lighthouse_tpu_bls_signature_sets_total` grown by the sets;
-              queue depth 0 after every drain; fork choice holding every
-              validator's vote. Then the next block, packed by the op
-              pool with the gossip attestations, imported with one verify
-              and fork choice weighing the votes. Dispatches, batch sizes,
-              bisection, drain and aggregate-handler ms, per-set latency
-              from admission to verdict (recorder clock), queue-depth peak,
-              import and verify ms
+              attestation released by the next tick and accepted;
+              launches K10-K21 once a dispatch (first level and
+              bisection); `lighthouse_tpu_bls_signature_sets_total` grown
+              by the sets; queue depth 0 after every tick; fork choice
+              holding every validator's vote. Then the next block, packed
+              by the op pool with the gossip attestations, imported with
+              one verify and fork choice weighing the votes. Dispatches,
+              batch sizes, bisection, tick and aggregate-handler ms,
+              per-set latency from admission to verdict (recorder clock),
+              queue-depth peak, import and verify ms
+     sync     range sync and block gossip over real localhost sockets
+              (`network.SocketNetwork`): node A (chain A at its head after
+              `[gossip]`) and a follower F, a fresh chain on chain A's
+              genesis and context. F's status exchange over TCP starts
+              `RangeSync`, which downloads batches of two epochs with
+              BlocksByRange (ssz_snappy) and imports each with one
+              `process_chain_segment`, one verify a batch (K10-K21 once):
+              F reaches A's head in ceil(head slot / 16) batches, none
+              falling back to single-block imports, the sets verified
+              those the blocks carry. Per batch its blocks, S x K, the
+              download ms (of it the Req/Resp call: connect, frames,
+              snappy), the wire bytes, the import's host ms and the verify
+              ms. Then A's next block (two host signatures) published over
+              `GossipNode` on the spec topic with the fork digest reaches
+              F's processor within `SYNC_GOSSIP_WAIT_S` and imports at F's
+              tick with one verify; its second copy is dropped by F's seen
+              cache and launches nothing; the gossip internal-error count
+              stays 0. Which ENR signing backend (`cryptography` or pure)
+              the machine has
 
 then a `{"kernels": [...]}` JSON line, the nvidia-smi name/power line, and
 as the last line `{"ok": true, "device": {...}}`. Signature sets are built
@@ -226,6 +249,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 DEVICE = "cuda"
 N_RANDOM = 4096  # random elements of the kernel comparisons
@@ -663,6 +687,9 @@ CHAIN_SEGMENT = 32
 CHAIN_MIN_FINALIZED = 2
 # Conformance: the port generator's eth2 BLS cases, seven types.
 CONFORMANCE_CASES = 39
+# [sync]: the most a gossip block (or its second copy) may take to reach the
+# follower over localhost sockets
+SYNC_GOSSIP_WAIT_S = 10.0
 
 
 def phase(tag: str, **fields) -> None:
@@ -2690,22 +2717,38 @@ def run_conformance(torch, api, fp, card: str) -> None:
           generate_s=f"{generate_s:.2f}", cases_s=f"{cases_s:.2f}", card=f'"{card}"')
 
 
+def node_stand_in(chain, processor):
+    """What `network.NetworkService` reads of a node (the port has no
+    client yet): the chain, its context, an op pool and a processor, no
+    slasher, and no HTTP API (only sync-committee gossip reaches it)."""
+    from lighthouse_tpu_torch.op_pool import OperationPool
+
+    return types.SimpleNamespace(chain=chain, ctx=chain.ctx, op_pool=OperationPool(chain.ctx), processor=processor,
+                                 slasher=None, api=None)
+
+
+def slot_tick(node, service, slot: int) -> None:
+    """A node's slot tick (the JAX client's `per_slot_task`, with no
+    slasher): the clock, fork choice's tick, then the service's drain."""
+    node.chain.slot_clock.set_slot(slot)
+    node.chain.fork_choice.on_tick(slot)
+    service.process_pending()
+
+
 def run_gossip(torch, api, fp, card: str, harness) -> None:
     """The gossip path on the card over chain A; see the module docstring.
-    The glue (admission with a flight-recorder id, the handlers and the
-    route into the op pool and the reprocess queue) is the network
-    service's, written out here."""
-    from lighthouse_tpu_torch.chain.attestation_processing import (
-        AttestationError,
-        PipelinedGossipVerifier,
-        batch_verify_gossip_aggregates,
-    )
+    A peer publishes every item over a `LocalNetwork` to node A's
+    `NetworkService`, which admits it (`on_gossip`) and drains it
+    (`process_pending`) at each slot tick. The service's verifier and
+    aggregate check are wrapped to record each verdict as it is routed,
+    and unwrapped afterwards whatever happens."""
+    from lighthouse_tpu_torch.chain.attestation_processing import AttestationError
     from lighthouse_tpu_torch.common import metrics
     from lighthouse_tpu_torch.crypto.bls import batch_verifier as bv
     from lighthouse_tpu_torch.crypto.bls.constants import R
-    from lighthouse_tpu_torch.op_pool import OperationPool
-    from lighthouse_tpu_torch.scheduler import BeaconProcessor, WorkType
-    from lighthouse_tpu_torch.scheduler.reprocess import ReprocessQueue
+    from lighthouse_tpu_torch.network import LocalNetwork, NetworkService, Topic
+    from lighthouse_tpu_torch.network import service as network_service
+    from lighthouse_tpu_torch.scheduler import BeaconProcessor
     from lighthouse_tpu_torch.state_transition.helpers import get_beacon_committee, get_committee_count_per_slot
     from lighthouse_tpu_torch.state_transition.signature_sets import _signing_root_for_uint64
     from lighthouse_tpu_torch.types import compute_signing_root, get_domain, schedule_domain
@@ -2801,43 +2844,25 @@ def run_gossip(torch, api, fp, card: str, harness) -> None:
     expect[id(hostile["future_slot"])] = AttestationError("future slot")
 
     recorder = chain.flight_recorder
-    reprocess, op_pool = ReprocessQueue(), OperationPool(ctx)
-    got, routed, agg_ms, depth = [], collections.Counter(), [], [0]
-    current = [clock]
+    got, agg_ms, depth, released = [], [], [0], []
+    verifier_cls, verify_aggregates = network_service.PipelinedGossipVerifier, \
+        network_service.batch_verify_gossip_aggregates
 
-    def admit(kind: str, item, work_type) -> None:
-        """Gossip admission: a flight-recorder id minted and bound to the
-        message's root, then the processor's queue."""
-        recorder.bind(bytes(type(item).hash_tree_root(item)), recorder.mint(kind, node="chip_smoke"))
-        processor.submit(work_type, item)
-        depth[0] = max(depth[0], int(metrics.PROCESSOR_QUEUE_DEPTH.value))
+    class RecordedVerifier(verifier_cls):
+        """The service's attestation verifier, each verdict recorded as the
+        service routes it."""
 
-    def route(att, ok, signed=None, work_type=WorkType.GOSSIP_ATTESTATION) -> None:
-        got.append((signed if signed is not None else att, ok))
-        if ok is True:
-            op_pool.insert_attestation(att)
-        elif isinstance(ok, AttestationError) and "unknown head block" in str(ok):
-            routed["unknown_block"] += reprocess.park_unknown_block(
-                att if signed is None else signed, bytes(att.data.beacon_block_root), current[0], work_type=work_type)
-        elif isinstance(ok, AttestationError) and "future slot" in str(ok):
-            routed["early"] += reprocess.park_early(att if signed is None else signed, int(att.data.slot), current[0],
-                                                    work_type=work_type)
+        def flush(self, route):
+            return super().flush(lambda att, ok: (got.append((att, ok)), route(att, ok)))
 
-    def handle_aggs(items) -> None:
+    def recorded_aggregates(chain_, items):
         t1 = time.perf_counter()
         try:
-            results = batch_verify_gossip_aggregates(chain, items)
+            results = verify_aggregates(chain_, items)
         finally:
             agg_ms.append((time.perf_counter() - t1) * 1e3)
-        for signed, ok in zip(items, results):
-            route(signed.message.aggregate, ok, signed, WorkType.GOSSIP_AGGREGATE)
-
-    def drain(verifier) -> float:
-        t1 = time.perf_counter()
-        processor.drain({WorkType.GOSSIP_ATTESTATION: BeaconProcessor.isolated(verifier.submit),
-                         WorkType.GOSSIP_AGGREGATE: BeaconProcessor.isolated(handle_aggs)})
-        assert metrics.PROCESSOR_QUEUE_DEPTH.value == 0 and len(processor) == 0, "work left queued after a drain"
-        return (time.perf_counter() - t1) * 1e3
+        got.extend(zip(items, results))
+        return results
 
     sizes, submissions = [], []
     dispatch = api.verify_signature_sets_async
@@ -2848,6 +2873,7 @@ def run_gossip(torch, api, fp, card: str, harness) -> None:
 
     sets0, dropped0 = metrics.BLS_SETS_TOTAL.value, metrics.PROCESSOR_ITEMS_DROPPED.value
     bisect0 = metrics.BLS_BISECTION_DISPATCHES_TOTAL.value
+    net = LocalNetwork()
     svc = bv.ensure_running(api)
     try:
         assert svc is not None and svc.s_bucket == bv.DEFAULT_S_BUCKET, "the coalescer is not the card backend's"
@@ -2860,50 +2886,63 @@ def run_gossip(torch, api, fp, card: str, harness) -> None:
 
         svc.submit = submit
         api.verify_signature_sets_async = recorded
-        processor = BeaconProcessor(coalescer=svc)
-        chain.slot_clock.set_slot(clock)
-        chain.fork_choice.on_tick(clock)
+        network_service.PipelinedGossipVerifier = RecordedVerifier
+        network_service.batch_verify_gossip_aggregates = recorded_aggregates
+        node = node_stand_in(chain, BeaconProcessor(coalescer=svc))
+        aserv = NetworkService("A", node, net)
+        peer = NetworkService("P", types.SimpleNamespace(), net)  # publishes only: no chain of its own
+        reprocess, on_slot = aserv.reprocess, aserv.reprocess.on_slot
+
+        def recorded_on_slot(slot):
+            out = on_slot(slot)
+            released.extend(out)
+            return out
+
+        reprocess.on_slot = recorded_on_slot
+
+        def publish(items, send) -> None:
+            for item in items:
+                send(item)  # NetworkService.on_gossip admits it with a flight-recorder id
+                depth[0] = max(depth[0], int(metrics.PROCESSOR_QUEUE_DEPTH.value))
+
+        def tick(slot: int) -> float:
+            t1 = time.perf_counter()
+            slot_tick(node, aserv, slot)
+            assert metrics.PROCESSOR_QUEUE_DEPTH.value == 0 and len(node.processor) == 0, "work left queued"
+            return (time.perf_counter() - t1) * 1e3
+
         torch.cuda.synchronize()
         fp.reset_launches()
         dispatches0 = svc.dispatches
         t0 = time.perf_counter()
-        # cycle 1: the epoch's gossip, hostile items among it; batch B (the
-        # victim's genuine attestation and a duplicate of batch A's) is
-        # admitted while batch A's verdicts are in flight
-        for a in batch_a + [hostile["unknown_head"], hostile["future_slot"]]:
-            admit("attestation", a, WorkType.GOSSIP_ATTESTATION)
-        for s in aggregates + [hostile["bad_selection_proof"]]:
-            admit("aggregate", s, WorkType.GOSSIP_AGGREGATE)
-        verifier = PipelinedGossipVerifier(chain)
-        drain_ms = drain(verifier)
-        for a in (unagg[victim], hostile["duplicate"]):
-            admit("attestation", a, WorkType.GOSSIP_ATTESTATION)
-        admit("aggregate", hostile["wrong_container"], WorkType.GOSSIP_AGGREGATE)
-        drain_b_ms = drain(verifier)
-        verifier.flush(route)
+        # cycle 1, two ticks at the epoch's last slot: the epoch's gossip
+        # with hostile items among it, then the victim's genuine attestation,
+        # a duplicate of an accepted one and a wrong container
+        publish(batch_a + [hostile["unknown_head"], hostile["future_slot"]], peer.publish_attestation)
+        publish(aggregates + [hostile["bad_selection_proof"]], peer.publish_aggregate)
+        tick_ms = tick(clock)
+        publish([unagg[victim], hostile["duplicate"]], peer.publish_attestation)
+        publish([hostile["wrong_container"]], lambda a: net.publish("P", Topic.BEACON_AGGREGATE_AND_PROOF, a))
+        tick_b_ms = tick(clock)
         cycle1_ms = (time.perf_counter() - t0) * 1e3
         n_cycle1 = len(submissions)
         events = recorder.events()
         parked = len(reprocess)
-        # cycle 2: the next slot applies the last slot's votes and releases
-        # the early attestation
-        current[0] = clock + 1
-        chain.slot_clock.set_slot(clock + 1)
-        chain.fork_choice.on_tick(clock + 1)
+        early_parked = [item for _, _, item in reprocess._early]
+        unknown_parked = [p.item for p in reprocess._by_root.get(b"\xfe" * 32, [])]
+        # cycle 2: the next slot's tick applies the last slot's votes and
+        # the reprocess queue releases the early attestation into the drain
+        early_tick_ms = tick(clock + 1)
         votes = [(bytes(chain.fork_choice.votes[v].next_root), chain.fork_choice.votes[v].next_epoch)
                  for v in range(len(secret))]
-        released = reprocess.on_slot(clock + 1)
-        for work_type, item in released:
-            processor.submit(work_type, item)
-        verifier = PipelinedGossipVerifier(chain)
-        drain_c_ms = drain(verifier)
-        verifier.flush(route)
         verdicts = [f.result(timeout=SHARDED_JOIN_SECONDS) for _, f in submissions]
         torch.cuda.synchronize()
         launches = dict(fp.LAUNCHES)
         dispatches = svc.dispatches - dispatches0
         events_all = recorder.events()
     finally:
+        network_service.PipelinedGossipVerifier = verifier_cls
+        network_service.batch_verify_gossip_aggregates = verify_aggregates
         api.verify_signature_sets_async = dispatch
         svc.__dict__.pop("submit", None)
         bv.release(svc)
@@ -2911,7 +2950,7 @@ def run_gossip(torch, api, fp, card: str, harness) -> None:
 
     # verdicts, item by item, against the expected ones
     early = hostile["future_slot"]
-    assert [item for _, item in released] == [early], f"on_slot({clock + 1}) released {len(released)} items"
+    assert [item for _, item in released] == [early], f"the ticks released {len(released)} items"
     outcome = lambda r: True if r is True else (type(r).__name__, str(r))  # noqa: E731
     first = {}
     for item, ok in got:
@@ -2921,7 +2960,8 @@ def run_gossip(torch, api, fp, card: str, harness) -> None:
     assert outcome(got[-1][1]) is True and got[-1][0] is early, "the released early attestation was not accepted"
     dropped = int(metrics.PROCESSOR_ITEMS_DROPPED.value - dropped0)
     assert dropped == 1, f"{dropped} items dropped, the wrong container alone expected"
-    assert parked == 2 and routed["unknown_block"] == 1 and routed["early"] == 1, f"parked {parked}: {routed}"
+    assert parked == 2 and early_parked == [early] and unknown_parked == [hostile["unknown_head"]], \
+        f"parked {parked}: {len(early_parked)} early, {len(unknown_parked)} on the unknown block"
     assert len(reprocess) == 1, "the unknown-block attestation left the queue before it expired"
 
     # per-set verdicts: the tampered set blamed alone in its batch, and each
@@ -2970,8 +3010,8 @@ def run_gossip(torch, api, fp, card: str, harness) -> None:
           dispatches=dispatches, bisection_dispatches=bisections,
           batch_sizes=json.dumps(sizes, separators=(",", ":")), sets=len(flat), blamed=sum(not v for _, v in flat),
           sign_s=f"{sign_s:.2f}", oracle_s=f"{oracle_s:.2f}", oracle_sets=len(oracle), card=f'"{card}"')
-    phase("gossip", drain_ms=f"{drain_ms:.3f}", drain_b_ms=f"{drain_b_ms:.3f}", flush_cycle_ms=f"{cycle1_ms:.3f}",
-          early_drain_ms=f"{drain_c_ms:.3f}", aggregate_handler_ms=json.dumps([round(x, 3) for x in agg_ms]),
+    phase("gossip", tick_ms=f"{tick_ms:.3f}", tick_b_ms=f"{tick_b_ms:.3f}", cycle1_ms=f"{cycle1_ms:.3f}",
+          early_tick_ms=f"{early_tick_ms:.3f}", aggregate_handler_ms=json.dumps([round(x, 3) for x in agg_ms]),
           set_latency_ms_median=f"{statistics.median(lat):.3f}", set_latency_ms_max=f"{max(lat):.3f}",
           set_latency_ms_min=f"{min(lat):.3f}", early_latency_ms=f"{early_lat[0]:.3f}", queue_depth_peak=depth[0],
           hop_ms_median=json.dumps(hops, separators=(",", ":")),
@@ -2979,7 +3019,7 @@ def run_gossip(torch, api, fp, card: str, harness) -> None:
 
     # the loop: the op pool's attestations in the next block, imported
     pre = chain.state_at_slot(clock + 1)
-    packed = op_pool.get_attestations(pre)
+    packed = node.op_pool.get_attestations(pre)
     gossip_roots = {root_type(data_at(slot, index)) for slot, index, _ in duties}
     assert len(packed) == len(duties) and {root_type(a.data) for a in packed} == gossip_roots, \
         f"the op pool packed {len(packed)} attestations for {len(duties)} committees"
@@ -3004,10 +3044,230 @@ def run_gossip(torch, api, fp, card: str, harness) -> None:
     assert nodes[idx[head]].weight - nodes[idx[root]].weight == sum(fc.balances[v] for v in voters), \
         "fork choice does not weigh the gossip votes"
     assert any(q.slot == clock + 1 for q in fc.queued), "the early vote is not queued for its next slot"
-    phase("gossip", step="next_block", slot=clock + 1, op_pool_attestations=sum(map(len, op_pool.attestations.values())),
+    phase("gossip", step="next_block", slot=clock + 1,
+          op_pool_attestations=sum(map(len, node.op_pool.attestations.values())),
           block_attestations=len(body.attestations), sets=block_sets(signed), import_ms=f"{import_ms:.3f}",
           verify_ms=f"{(metrics.BLS_BATCH_SECONDS.sum - secs0) * 1e3:.3f}", head_is_block=True,
           voters=len(voters), launches=json.dumps(launches, separators=(",", ":")), card=f'"{card}"')
+
+
+def run_sync(torch, api, fp, card: str, harness) -> None:
+    """Range sync and block gossip on the card over real localhost sockets;
+    see the module docstring. Node A is chain A; the follower F a fresh
+    chain on its genesis and context. The follower's downloads, segment
+    imports and verifies, the Req/Resp client's calls and the bytes it
+    reads, and F's gossip deliveries and seen-cache answers are wrapped to
+    be recorded, and unwrapped afterwards whatever happens."""
+    from lighthouse_tpu_torch.chain import BeaconChain, ManualSlotClock
+    from lighthouse_tpu_torch.common import metrics
+    from lighthouse_tpu_torch.network import NetworkService, SocketNetwork, Topic, enr, rpc
+    from lighthouse_tpu_torch.network.gossip import message_id
+    from lighthouse_tpu_torch.network.sync import EPOCHS_PER_BATCH, SyncState
+    from lighthouse_tpu_torch.scheduler import BeaconProcessor
+    from lighthouse_tpu_torch.types import compute_fork_digest
+
+    chain_a, ctx = harness.chain, harness.ctx
+    assert ctx.bls is api, f"chain A runs on {ctx.bls.__name__}, not the card's backend"
+    head_a, head_slot = bytes(chain_a.head_root), int(chain_a.head_state().slot)
+    span = EPOCHS_PER_BATCH * ctx.preset.slots_per_epoch
+    want_batches = -(-head_slot // span)
+    blocks_a, root = [], head_a
+    while root != chain_a.genesis_block_root:
+        blocks_a.append(chain_a.store.get_block(root))
+        root = bytes(blocks_a[-1].message.parent_root)
+    blocks_a.reverse()
+    follower = BeaconChain(chain_a.store.get_state(chain_a.genesis_block_root).copy(), ctx,
+                           slot_clock=ManualSlotClock())
+
+    staged, downloads, segments, block_imports, frames, rpc_ms, delivered, seen = [], [], [], [], [], [], [], []
+    verify_staged, request, recv_frame = api.verify_staged, rpc.request, rpc._recv_frame
+    main_thread = threading.main_thread()
+
+    def recorded_staged(flat, S, K):
+        staged.append((S, K))
+        return verify_staged(flat, S, K)
+
+    def recorded_request(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return request(*args, **kwargs)
+        finally:
+            rpc_ms.append((time.perf_counter() - t) * 1e3)
+
+    def recorded_recv_frame(sock, *args, **kwargs):
+        frame = recv_frame(sock, *args, **kwargs)
+        if threading.current_thread() is main_thread:  # the client's reads, not the server threads'
+            frames.append(4 + len(frame))
+        return frame
+
+    segment, process_block = follower.process_chain_segment, follower.process_block
+
+    def recorded_segment(blocks):
+        row = {"blocks": len(blocks), "slots": [int(b.message.slot) for b in blocks],
+               "sets": sum(block_sets(b) for b in blocks), "calls": metrics.BLS_BATCH_SECONDS.count,
+               "verify_s": metrics.BLS_BATCH_SECONDS.sum, "sets_verified": metrics.BLS_SETS_TOTAL.value,
+               "shapes": len(staged)}
+        torch.cuda.synchronize()
+        before = dict(fp.LAUNCHES)
+        t = time.perf_counter()
+        try:
+            return segment(blocks)
+        finally:
+            torch.cuda.synchronize()
+            row["ms"] = (time.perf_counter() - t) * 1e3
+            row["launches"] = {k: fp.LAUNCHES[k] - before[k] for k in before}
+            row["calls"] = metrics.BLS_BATCH_SECONDS.count - row["calls"]
+            row["verify_ms"] = (metrics.BLS_BATCH_SECONDS.sum - row["verify_s"]) * 1e3
+            row["sets_verified"] = int(metrics.BLS_SETS_TOTAL.value - row["sets_verified"])
+            row["shapes"] = staged[row["shapes"]:]
+            segments.append(row)
+
+    def recorded_block(*args, **kwargs):
+        block_imports.append(args)
+        return process_block(*args, **kwargs)
+
+    follower.process_chain_segment, follower.process_block = recorded_segment, recorded_block
+    errors0, sets0 = metrics.GOSSIP_INTERNAL_ERRORS_TOTAL.value, metrics.BLS_SETS_TOTAL.value
+    net = SocketNetwork(ctx)
+    try:
+        api.verify_staged, rpc.request, rpc._recv_frame = recorded_staged, recorded_request, recorded_recv_frame
+        anode = node_stand_in(chain_a, BeaconProcessor())
+        fnode = node_stand_in(follower, BeaconProcessor())
+        aserv = NetworkService("A", anode, net)
+        fserv = NetworkService("F", fnode, net)
+        by_range = net.blocks_by_range_from
+
+        def recorded_by_range(requester, peer, start_slot, count):
+            n_frames, n_calls = len(frames), len(rpc_ms)
+            t = time.perf_counter()
+            blocks = by_range(requester, peer, start_slot, count)
+            downloads.append({"start_slot": start_slot, "count": count, "ms": (time.perf_counter() - t) * 1e3,
+                              "rpc_ms": sum(rpc_ms[n_calls:]), "blocks": len(blocks),
+                              "wire_bytes": sum(frames[n_frames:])})
+            return blocks
+
+        net.blocks_by_range_from = recorded_by_range
+
+        # status_sync: status over TCP, then BlocksByRange batches, each one
+        # process_chain_segment with one verify
+        follower.slot_clock.set_slot(head_slot)
+        follower.fork_choice.on_tick(head_slot)
+        torch.cuda.synchronize()
+        fp.reset_launches()
+        t0 = time.perf_counter()
+        fserv.exchange_status()
+        torch.cuda.synchronize()
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(fp.LAUNCHES)
+        assert bytes(follower.head_root) == head_a, "the follower did not reach node A's head"
+        assert fserv.sync.range.state is SyncState.IDLE, f"range sync ended {fserv.sync.range.state}"
+        assert fserv.sync.range.batches_imported == want_batches == len(segments) == len(downloads), \
+            f"{fserv.sync.range.batches_imported} batches imported, {len(segments)} segments, " \
+            f"{len(downloads)} downloads, {want_batches} expected"
+        assert not block_imports, f"range sync fell back to {len(block_imports)} single-block imports"
+        slots = [s for row in segments for s in row["slots"]]
+        assert slots == [int(b.message.slot) for b in blocks_a], "the batches did not carry chain A's blocks"
+        for i, (row, down) in enumerate(zip(segments, downloads)):
+            assert row["calls"] == 1 and len(row["shapes"]) == 1, f"batch {i}: {row['calls']} verifies"
+            assert {k: row["launches"][k] for k in VERIFY_LAUNCHES} == VERIFY_LAUNCHES, \
+                f"batch {i} launched {row['launches']}"
+            assert row["sets_verified"] == row["sets"], f"batch {i}: {row['sets_verified']} of {row['sets']} sets"
+            S, K = row["shapes"][0]
+            phase("sync", step="batch", index=i, start_slot=down["start_slot"], count=down["count"],
+                  blocks=row["blocks"], sets=row["sets"], S=S, K=K, download_ms=f"{down['ms']:.3f}",
+                  rpc_ms=f"{down['rpc_ms']:.3f}", ssz_decode_ms=f"{down['ms'] - down['rpc_ms']:.3f}",
+                  wire_bytes=down["wire_bytes"], import_ms=f"{row['ms']:.3f}",
+                  import_host_ms=f"{row['ms'] - row['verify_ms']:.3f}", verify_ms=f"{row['verify_ms']:.3f}",
+                  card=f'"{card}"')
+        counts = {k: launches[k] for k in VERIFY_LAUNCHES}
+        assert counts == {k: v * want_batches for k, v in VERIFY_LAUNCHES.items()}, \
+            f"{want_batches} batches launched {counts}"
+        assert sum(launches.values()) == sum(counts.values()), f"a kernel off the verify path launched: {launches}"
+        phase("sync", step="status_sync", head_slot=head_slot, batches=want_batches, blocks=len(slots),
+              sets=sum(r["sets"] for r in segments), verifies=sum(r["calls"] for r in segments),
+              wire_bytes=sum(d["wire_bytes"] for d in downloads), step_ms=f"{sync_ms:.3f}",
+              download_ms=f"{sum(d['ms'] for d in downloads):.3f}",
+              import_host_ms=f"{sum(r['ms'] - r['verify_ms'] for r in segments):.3f}",
+              verify_ms=f"{sum(r['verify_ms'] for r in segments):.3f}", head_equal=True,
+              state=fserv.sync.range.state.name, launches=json.dumps(launches, separators=(",", ":")),
+              card=f'"{card}"')
+
+        # gossip_block: node A's next block over GossipNode (the spec topic
+        # with the fork digest, a snappy payload, the spec message id) into
+        # F's processor, imported at F's tick with one verify; then the
+        # same block again, dropped by F's seen cache
+        slot = head_slot + 1
+        t0 = time.perf_counter()
+        root, signed = harness.add_block_at_slot(slot)
+        produce_ms = (time.perf_counter() - t0) * 1e3
+        gossip_f = net._nodes["F"]["gossip"]
+        deliver, mark_seen = gossip_f.deliver, gossip_f._mark_seen
+
+        def recorded_deliver(topic, payload, src):
+            delivered.append((topic, len(payload)))
+            return deliver(topic, payload, src)
+
+        def recorded_mark_seen(mid):
+            novel = mark_seen(mid)
+            seen.append((mid, novel))
+            return novel
+
+        gossip_f.deliver, gossip_f._mark_seen = recorded_deliver, recorded_mark_seen
+        mid = message_id(type(signed).serialize(signed))
+        state = chain_a.head_state()
+        digest = compute_fork_digest(bytes(state.fork.current_version), bytes(state.genesis_validators_root))
+
+        def wait_for(done, what: str) -> float:
+            t1 = time.perf_counter()
+            while not done():
+                if time.perf_counter() - t1 > SYNC_GOSSIP_WAIT_S:
+                    raise TimeoutError(f"{what}: nothing within {SYNC_GOSSIP_WAIT_S} s")
+                time.sleep(0.005)
+            return (time.perf_counter() - t1) * 1e3
+
+        wait_for(lambda: len(net._nodes["A"]["gossip"]._peers) > 0, "node A's gossip link to F")
+        calls0, secs0, n_staged = metrics.BLS_BATCH_SECONDS.count, metrics.BLS_BATCH_SECONDS.sum, len(staged)
+        torch.cuda.synchronize()
+        fp.reset_launches()
+        aserv.publish_block(signed)
+        arrive_ms = wait_for(lambda: len(fnode.processor) > 0, "the gossip block")
+        t0 = time.perf_counter()
+        slot_tick(fnode, fserv, slot)
+        torch.cuda.synchronize()
+        tick_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(fp.LAUNCHES)
+        calls = metrics.BLS_BATCH_SECONDS.count - calls0
+        assert bytes(follower.head_root) == bytes(chain_a.head_root) == root, "the gossip block is not F's head"
+        assert delivered == [(Topic.BEACON_BLOCK.full_name(digest), len(type(signed).serialize(signed)))], \
+            f"F's gossip deliveries: {delivered}"
+        assert seen == [(mid, True)], "the block did not arrive once under the spec message id"
+        assert calls == 1 and {k: launches[k] for k in VERIFY_LAUNCHES} == VERIFY_LAUNCHES, \
+            f"the gossip block's import ran {calls} verifies, launching {launches}"
+        assert [args[0] for args in block_imports] == [signed], "the gossip block was not imported alone"
+        S, K = staged[n_staged]
+        verify_ms = (metrics.BLS_BATCH_SECONDS.sum - secs0) * 1e3
+        fp.reset_launches()
+        aserv.publish_block(signed)
+        dup_ms = wait_for(lambda: len(seen) > 1, "the second copy")
+        slot_tick(fnode, fserv, slot)
+        torch.cuda.synchronize()
+        assert seen[1:] == [(mid, False)] and len(delivered) == 1, "the second copy was not dropped as seen"
+        assert all(n == 0 for n in fp.LAUNCHES.values()), f"the dropped copy launched {dict(fp.LAUNCHES)}"
+        assert bytes(follower.head_root) == root and metrics.BLS_BATCH_SECONDS.count - calls0 == 1
+    finally:
+        net.close()
+        api.verify_staged, rpc.request, rpc._recv_frame = verify_staged, request, recv_frame
+    errors = int(metrics.GOSSIP_INTERNAL_ERRORS_TOTAL.value - errors0)
+    assert errors == 0, f"{metrics.GOSSIP_INTERNAL_ERRORS_TOTAL.name} grew by {errors}"
+    grown = int(metrics.BLS_SETS_TOTAL.value - sets0)
+    want = sum(r["sets"] for r in segments) + 2 * block_sets(signed)  # node A's import and F's
+    assert grown == want, f"{metrics.BLS_SETS_TOTAL.name} grew by {grown}, {want} sets verified"
+    phase("sync", step="gossip_block", slot=slot, sets=block_sets(signed), S=S, K=K,
+          payload_bytes=len(type(signed).serialize(signed)), produce_ms=f"{produce_ms:.3f}",
+          arrive_ms=f"{arrive_ms:.3f}", tick_ms=f"{tick_ms:.3f}", verify_ms=f"{verify_ms:.3f}",
+          duplicate_dropped=True, duplicate_ms=f"{dup_ms:.3f}", gossip_internal_errors=errors,
+          enr_backend="cryptography" if enr._HAVE_CRYPTOGRAPHY else "pure", head_equal=True,
+          launches=json.dumps(launches, separators=(",", ":")), card=f'"{card}"')
 
 
 def main() -> int:
@@ -3148,6 +3408,7 @@ def main() -> int:
     harness = run_chain(torch, api, fp, name_power)
     run_conformance(torch, api, fp, name_power)
     run_gossip(torch, api, fp, name_power, harness)
+    run_sync(torch, api, fp, name_power, harness)
 
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}", empty_traces_retaken=EMPTY_TRACES,
           partial_traces_retaken=PARTIAL_TRACES, most_tries_a_trace=TRACE_TRIES_MOST)

@@ -334,6 +334,18 @@ PROCESSOR_HANDLE_SECONDS = REGISTRY.histogram_vec(
     ("kind",),
 )
 
+# The network's receive loops (network/gossip.py, network/discovery.py).
+GOSSIP_INTERNAL_ERRORS_TOTAL = REGISTRY.counter(
+    "lighthouse_tpu_gossip_internal_errors_total",
+    "Frames dropped because OUR handler raised (not the peer's fault: the "
+    "link is kept; a climbing rate means a local bug, not a bad peer)",
+)
+DISCOVERY_INTERNAL_ERRORS_TOTAL = REGISTRY.counter(
+    "lighthouse_tpu_discovery_internal_errors_total",
+    "Discovery datagrams dropped because OUR handler raised (the recv loop "
+    "keeps serving; a climbing rate means a local bug, not a hostile peer)",
+)
+
 # Cross-caller batch coalescing (crypto/bls/batch_verifier.py).
 BLS_COALESCED_BATCH_SIZE = REGISTRY.histogram(
     "lighthouse_tpu_bls_coalesced_batch_size",

@@ -131,11 +131,7 @@ def test_gossip_modules_import_without_jax():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
-@pytest.mark.parametrize("name", ["PROCESSOR_QUEUE_DEPTH", "PROCESSOR_ITEMS_DROPPED", "PROCESSOR_HANDLE_SECONDS",
-                                  "TASKS_FAILED_TOTAL"])
-def test_processor_metric_families_match_the_jax_package(name):
-    """The families the processor and the task executor record: the JAX
-    package's name, type, help text and labels."""
+def _same_family(name):
     from lighthouse_tpu.common import metrics as jax_metrics
     from lighthouse_tpu_torch.common import metrics
 
@@ -145,6 +141,68 @@ def test_processor_metric_families_match_the_jax_package(name):
     assert getattr(got, "label_names", ()) == getattr(want, "label_names", ())
     assert getattr(got, "buckets", None) == getattr(want, "buckets", None)
     assert metrics.REGISTRY._metrics[got.name] is got
+
+
+@pytest.mark.parametrize("name", ["PROCESSOR_QUEUE_DEPTH", "PROCESSOR_ITEMS_DROPPED", "PROCESSOR_HANDLE_SECONDS",
+                                  "TASKS_FAILED_TOTAL"])
+def test_processor_metric_families_match_the_jax_package(name):
+    """The families the processor and the task executor record: the JAX
+    package's name, type, help text and labels."""
+    _same_family(name)
+
+
+# the network layer, each module at its JAX path under lighthouse_tpu_torch/
+NETWORK_MODULES = [
+    "crypto.secp256k1",
+    "network",
+    "network.keccak",
+    "network.enr",
+    "network.discovery",
+    "network.topics",
+    "network.fork_id",
+    "network.snappy",
+    "network.peer_manager",
+    "network.rpc",
+    "network.gossip",
+    "network.sync",
+    "network.local",
+    "network.service",
+    "network.socket_net",
+]
+
+
+@pytest.mark.parametrize("module", NETWORK_MODULES)
+def test_network_module_sits_at_its_jax_path(module):
+    rel = module.replace(".", "/")
+    for package in ("lighthouse_tpu_torch", "lighthouse_tpu"):
+        base = ROOT / package / rel
+        assert (base / "__init__.py").is_file() or base.with_suffix(".py").is_file(), f"{package}.{module}"
+
+
+def test_network_modules_import_without_jax():
+    """A fresh process imports the fifteen modules and loads no jax and no
+    lighthouse_tpu module; the package exports what the JAX package's
+    does."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {NETWORK_MODULES!r}:\n"
+        "    importlib.import_module('lighthouse_tpu_torch.' + m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lighthouse_tpu')]\n"
+        "assert not bad, bad\n"
+        "from lighthouse_tpu_torch import network\n"
+        "assert network.__all__ == ['LocalNetwork', 'NetworkService', 'SocketNetwork', 'Topic'], network.__all__\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+    import lighthouse_tpu.network as jax_network
+
+    assert jax_network.__all__ == ["LocalNetwork", "NetworkService", "SocketNetwork", "Topic"]
+
+
+@pytest.mark.parametrize("name", ["GOSSIP_INTERNAL_ERRORS_TOTAL", "DISCOVERY_INTERNAL_ERRORS_TOTAL"])
+def test_network_metric_families_match_the_jax_package(name):
+    """The families gossip's and discovery's receive loops count their own
+    faults in: the JAX package's name, type and help text."""
+    _same_family(name)
 
 
 def test_default_device_is_cuda_and_fails_without_gpu(monkeypatch):
@@ -164,6 +222,38 @@ def test_chip_smoke_refuses_without_gpu(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0
+
+
+def _function(tree, name):
+    return next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == name)
+
+
+def test_chip_smoke_gossip_goes_through_the_network_service():
+    """chip_smoke's [gossip] no longer writes out the service's glue (no
+    admit, route, handle_aggs or drain of its own, no direct processor
+    drain or reprocess queue): it builds a NetworkService on a LocalNetwork
+    and drains with process_pending at the slot tick; [sync] builds a
+    SocketNetwork and runs after [gossip]."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    gossip = _function(tree, "run_gossip")
+    nested = {n.name for n in ast.walk(gossip) if isinstance(n, ast.FunctionDef)} - {"run_gossip"}
+    assert not nested & {"admit", "route", "handle_aggs", "drain"}, nested
+    calls = {n.func.attr if isinstance(n.func, ast.Attribute) else getattr(n.func, "id", None)
+             for n in ast.walk(gossip) if isinstance(n, ast.Call)}
+    assert {"NetworkService", "LocalNetwork", "slot_tick"} <= calls
+    attrs = {n.attr for n in ast.walk(gossip) if isinstance(n, ast.Attribute)}
+    assert {"publish_attestation", "publish_aggregate", "publish"} <= attrs
+    assert not calls & {"ReprocessQueue", "drain", "park_early", "park_unknown_block", "insert_attestation"}, calls
+    assert "process_pending" in {n.func.attr for n in ast.walk(_function(tree, "slot_tick"))
+                                 if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)}
+    sync = _function(tree, "run_sync")
+    sync_calls = {n.func.attr if isinstance(n.func, ast.Attribute) else getattr(n.func, "id", None)
+                  for n in ast.walk(sync) if isinstance(n, ast.Call)}
+    assert {"SocketNetwork", "NetworkService", "exchange_status", "publish_block", "close"} <= sync_calls
+    order = [n.func.id for n in sorted((n for n in ast.walk(_function(tree, "main")) if isinstance(n, ast.Call)),
+                                       key=lambda n: n.lineno)
+             if isinstance(n.func, ast.Name) and n.func.id.startswith("run_")]
+    assert order[-3:] == ["run_conformance", "run_gossip", "run_sync"], order
 
 
 # a fake verify's device operations, as (runtime call, device event): the

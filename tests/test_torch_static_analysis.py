@@ -1,7 +1,7 @@
 """The repo's AST checkers (the JAX package's analysis/: lock guards, thread
 hygiene, trace purity, metric names) over lighthouse_tpu_torch/, which now
 holds threaded modules of its own (the beacon processor, the task executor,
-the coalescer): 0 findings, with no allowlist. The checkers are the JAX
+the coalescer, the network's receive loops and servers): 0 findings, with no allowlist. The checkers are the JAX
 package's; the port does not import them."""
 
 from pathlib import Path
@@ -23,6 +23,11 @@ THREADED = [
     "lighthouse_tpu_torch/common/task_executor.py",
     "lighthouse_tpu_torch/chain/attestation_processing.py",
     "lighthouse_tpu_torch/crypto/bls/batch_verifier.py",
+    "lighthouse_tpu_torch/network/gossip.py",
+    "lighthouse_tpu_torch/network/rpc.py",
+    "lighthouse_tpu_torch/network/discovery.py",
+    "lighthouse_tpu_torch/network/socket_net.py",
+    "lighthouse_tpu_torch/network/peer_manager.py",
 ]
 
 
