@@ -228,6 +228,37 @@ Phases, one line each, any failure exits non-zero:
               cache and launches nothing; the gossip internal-error count
               stays 0. Which ENR signing backend (`cryptography` or pure)
               the machine has
+     vc       the validator client over the Beacon API, over chain A at
+              its head after `[sync]`: the 64 interop keys encrypted as
+              EIP-2335 keystores (pbkdf2, c = 262,144) in host processes,
+              saved in a directory held by its lockfile (a second holder,
+              in another process and in this one, refused), loaded and
+              decrypted in host processes, each public key its
+              validator's. Node A's `BeaconNodeApi` served by
+              `HttpApiServer` on localhost; a `ValidatorStore` on an
+              EIP-3076 `SlashingDatabase` file with 63 local keys and one
+              held by the Web3Signer mock (a validator with a duty in the
+              first slot); `BeaconNodeHttpClient` and `ValidatorClient`.
+              For each of two slots: the clock and fork choice's tick,
+              then `on_slot`: the block, every attestation and the first
+              aggregate of each committee verified on the card in the
+              server's handler threads (K10-K21 once a verify, nothing
+              else, K5 0) and accepted; the committees' other aggregates
+              dropped as already known before any verify; the head at the
+              slot; the second block carrying the first slot's
+              attesters. Per slot the signatures and their host seconds,
+              the HTTP requests and their ms, each verify's sets and ms,
+              the block import's ms. The remote key's signatures byte for
+              byte the local key's; a tampered attestation POSTed over
+              HTTP refused after one verify, False as the ref oracle's;
+              the second slot again from a client restarted on the same
+              store against a node anchored at chain A's earlier head:
+              the proposal and every attestation refused by the
+              database, no slashable signature, no verify, no launch; the
+              interchange export listing exactly the blocks and
+              attestations published; the client's `/metrics` and
+              `/health` showing the duties run. The phase under
+              `VC_MAX_S`
 
 then a `{"kernels": [...]}` JSON line, the nvidia-smi name/power line, and
 as the last line `{"ok": true, "device": {...}}`. Signature sets are built
@@ -690,6 +721,17 @@ CONFORMANCE_CASES = 39
 # [sync]: the most a gossip block (or its second copy) may take to reach the
 # follower over localhost sockets
 SYNC_GOSSIP_WAIT_S = 10.0
+# [vc]: the slots the validator client drives after chain A's head; its
+# keystores' KDF (pbkdf2 at the EIP-2335 test vector's count) and password
+# (the vector's, which NFKD folds to "testpassword" and the key); the most
+# an HTTP call may wait; the phase's limit
+VC_SLOTS = 2
+VC_KDF = {"c": 262144, "dklen": 32}
+VC_PASSWORD = "\U0001d531\U0001d522\U0001d530\U0001d531\U0001d52d\U0001d51e\U0001d530\U0001d530\U0001d534\U0001d52c\U0001d52f\U0001d521\U0001f511"
+VC_HTTP_TIMEOUT_S = 10.0
+VC_MAX_S = 60.0
+# the whole run's limit, well inside the 1,200 s a run may take
+DONE_MAX_S = 1000.0
 
 
 def phase(tag: str, **fields) -> None:
@@ -1248,6 +1290,40 @@ def oracle_set_verdict(task) -> bool:
     except ref.DecodeError:
         return False
     return bool(ref.verify_signature_sets([s]))
+
+
+def encrypt_keystore(task) -> dict:
+    """(secret key as an integer, validator index, public key hex) -> its
+    EIP-2335 keystore by the port's `keystore.encrypt`, pbkdf2 at VC_KDF
+    (a host process of `host_pool`)."""
+    from lighthouse_tpu_torch.crypto import keystore
+
+    k, i, pubkey = task
+    return keystore.encrypt(k.to_bytes(32, "big"), VC_PASSWORD, path=f"m/12381/3600/{i}/0/0", pubkey=pubkey,
+                            kdf_function="pbkdf2", kdf_params=VC_KDF)
+
+
+def decrypt_keystore(path: str) -> tuple[bytes, bytes]:
+    """A keystore file -> (its secret key, that key's public key by the ref
+    oracle), by the port's `keystore.load` and `decrypt` (a host process of
+    `host_pool`)."""
+    from lighthouse_tpu_torch.crypto import keystore
+    from lighthouse_tpu_torch.crypto.bls.ref import api as ref
+
+    secret = keystore.decrypt(keystore.load(path), VC_PASSWORD)
+    return secret, ref.SecretKey.from_bytes(secret).public_key().to_bytes()
+
+
+def second_lock_holder(path: str) -> str:
+    """Try to take the validator directory's lock from another process:
+    the refusal's message, or "acquired" (a host process of `host_pool`)."""
+    from lighthouse_tpu_torch.validator_client.lockfile import Lockfile, LockfileError
+
+    try:
+        Lockfile(path).acquire().release()
+    except LockfileError as e:
+        return str(e)
+    return "acquired"
 
 
 def make_sets(api, n_sets: int, keys_per_set: int, pubkeys=None):
@@ -3270,6 +3346,402 @@ def run_sync(torch, api, fp, card: str, harness) -> None:
           launches=json.dumps(launches, separators=(",", ":")), card=f'"{card}"')
 
 
+def run_vc(torch, api, fp, card: str, harness) -> None:
+    """The validator client over the Beacon API on the card, over chain A;
+    see the module docstring. The store's signing methods and its remote
+    key, the client's HTTP calls, node A's publish calls, the aggregate
+    admission and the backend's verify are wrapped to be recorded, and
+    unwrapped afterwards whatever happens; every server, the signer, the
+    lock and the directory are closed in a `finally`."""
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    from lighthouse_tpu_torch.chain import BeaconChain, ManualSlotClock
+    from lighthouse_tpu_torch.chain import attestation_processing as ap
+    from lighthouse_tpu_torch.crypto import keystore
+    from lighthouse_tpu_torch.http_api import HttpApiServer, encode
+    from lighthouse_tpu_torch.op_pool import OperationPool
+    from lighthouse_tpu_torch.types import compute_signing_root, compute_start_slot_at_epoch, schedule_domain
+    from lighthouse_tpu_torch.types.containers import Checkpoint
+    from lighthouse_tpu_torch.validator_client import (BeaconNodeApi, BeaconNodeHttpClient, MetricsServer,
+                                                       SlashingDatabase, SlashingProtectionError, ValidatorClient,
+                                                       ValidatorStore)
+    from lighthouse_tpu_torch.validator_client.lockfile import Lockfile, LockfileError
+    from lighthouse_tpu_torch.validator_client.validator_client import VC_DUTIES_TOTAL
+    from lighthouse_tpu_torch.validator_client.web3signer import MockWeb3Signer, Web3SignerClient
+
+    t_phase = time.perf_counter()
+    chain, ctx = harness.chain, harness.ctx
+    assert ctx.bls is api, f"chain A runs on {ctx.bls.__name__}, not the card's backend"
+    t, preset, spec = ctx.types, ctx.preset, ctx.spec
+    spe = preset.slots_per_epoch
+    state = chain.head_state()
+    head0, head_root0 = int(state.slot), bytes(chain.head_root)
+    gvr = bytes(state.genesis_validators_root)
+    pubkeys = [bytes(v.pubkey) for v in state.validators]
+    n = len(pubkeys)
+    slots = list(range(head0 + 1, head0 + 1 + VC_SLOTS))
+    epoch = slots[0] // spe
+    assert all(s // spe == epoch for s in slots), f"the slots {slots} are not in one epoch"
+    # the replay's node: chain A's head state as a checkpoint anchor, a
+    # node that never sees the phase's blocks
+    lag = BeaconChain(state.copy(), ctx, slot_clock=ManualSlotClock())
+    assert lag.head_root == head_root0, "the anchored node's head is not chain A's"
+
+    sign_methods = [m for m in dir(ValidatorStore) if m.startswith("sign_")]
+    made, refused, sign_s = collections.Counter(), collections.Counter(), [0.0]
+    http, verifies, published, admissions, remote_signed = [], [], [], [], []
+    verify_async, admit_aggregates = api.verify_signature_sets_async, ap.batch_verify_gossip_aggregates
+    main_thread = threading.main_thread()
+
+    def recorded_sign(name, fn):
+        def wrapper(*args, **kwargs):
+            t1 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+            except SlashingProtectionError:
+                refused[name] += 1
+                raise
+            finally:
+                sign_s[0] += time.perf_counter() - t1
+            made[name] += 1
+            return out
+        return wrapper
+
+    def recorded_request(request):
+        def wrapper(path, *args, **kwargs):
+            t1 = time.perf_counter()
+            try:
+                return request(path, *args, **kwargs)
+            finally:
+                http.append((path, (time.perf_counter() - t1) * 1e3))
+        return wrapper
+
+    def recorded_verify(sets, *args, **kwargs):
+        """One verify from whichever thread calls it (the node's handler
+        threads): its sets, wall ms to the verdict, verdict, launches."""
+        torch.cuda.synchronize()
+        before = dict(fp.LAUNCHES)
+        t1 = time.perf_counter()
+        fut = verify_async(sets, *args, **kwargs)
+        ok = fut.result()
+        torch.cuda.synchronize()
+        verifies.append({"sets": len(sets), "ms": (time.perf_counter() - t1) * 1e3, "ok": ok,
+                         "launches": {k: fp.LAUNCHES[k] - before[k] for k in before},
+                         "handler_thread": threading.current_thread() is not main_thread,
+                         "device": torch.cuda.current_device()})
+        return fut
+
+    def recorded_admission(chain_, aggregates, *args, **kwargs):
+        results = admit_aggregates(chain_, aggregates, *args, **kwargs)
+        admissions.extend(results)
+        return results
+
+    def recorded_publish(kind, fn):
+        def wrapper(item):
+            nv, t1 = len(verifies), time.perf_counter()
+            out = fn(item)
+            published.append({"kind": kind, "item": item, "out": out, "verifies": len(verifies) - nv,
+                              "ms": (time.perf_counter() - t1) * 1e3})
+            return out
+        return wrapper
+
+    def one_verify_each(rows, what: str) -> None:
+        for v in rows:
+            counts = {k: v["launches"][k] for k in VERIFY_LAUNCHES}
+            assert counts == VERIFY_LAUNCHES and sum(v["launches"].values()) == sum(counts.values()), \
+                f"{what}: a verify launched {v['launches']}"
+            assert v["handler_thread"] and v["device"] == 0, f"{what}: a verify ran off the node's threads or cuda:0"
+
+    tmp = tempfile.TemporaryDirectory(prefix="lighthouse_vc_")
+    lock_path = os.path.join(tmp.name, "validators.lock")
+    lock, store, stop = None, None, []
+    try:
+        # keys: EIP-2335 keystores in a directory held by its lockfile
+        lock = Lockfile(lock_path).acquire()
+        with host_pool() as pool:
+            t0 = time.perf_counter()
+            encrypted = pool.map(encrypt_keystore, [(int(kp[0].k), i, pubkeys[i].hex())
+                                                    for i, kp in enumerate(harness.keypairs)])
+            encrypt_s = time.perf_counter() - t0
+            paths = [os.path.join(tmp.name, f"keystore-{i}.json") for i in range(n)]
+            for ks, path in zip(encrypted, paths):
+                keystore.save(ks, path)
+            other_process = pool.apply(second_lock_holder, (lock_path,))
+            try:
+                Lockfile(lock_path).acquire().release()
+                this_process = "acquired"
+            except LockfileError as e:
+                this_process = str(e)
+            t0 = time.perf_counter()
+            decrypted = pool.map(decrypt_keystore, paths)
+            decrypt_s = time.perf_counter() - t0
+        assert "is locked" in other_process and "is locked" in this_process, \
+            f"a second holder took the lock: {other_process!r}, {this_process!r}"
+        assert [pk for _, pk in decrypted] == pubkeys, "a decrypted key's public key is not its validator's"
+        assert [int.from_bytes(sk, "big") for sk, _ in decrypted] == [int(kp[0].k) for kp in harness.keypairs]
+        assert all(ks["crypto"]["kdf"]["params"]["c"] == VC_KDF["c"] for ks in encrypted)
+        phase("vc", step="keys", keystores=n, kdf="pbkdf2", c=VC_KDF["c"], encrypt_s=f"{encrypt_s:.3f}",
+              decrypt_s=f"{decrypt_s:.3f}", pubkeys_equal=True, second_holder_refused=True,
+              refusal=f'"{other_process.split(" — ")[0]}"', card=f'"{card}"')
+
+        # node A over the Beacon API; the store with 63 local keys and one
+        # in the Web3Signer mock, a validator with a duty in the first slot
+        node_api = BeaconNodeApi(chain, OperationPool(ctx))
+        server = HttpApiServer(node_api).start()
+        stop.append(server)
+        url = f"http://127.0.0.1:{server.port}"
+        duties = node_api.attester_duties(epoch, pubkeys)
+        assert sorted(d.validator_index for d in duties) == list(range(n)), "not one duty a validator"
+        remote = min((d.committee_index, d.committee_position, d.validator_index)
+                     for d in duties if d.slot == slots[0])[2]
+        keys = [api.SecretKey.from_bytes(sk) for sk, _ in decrypted]
+        store = ValidatorStore(ctx, SlashingDatabase(os.path.join(tmp.name, "slashing_protection.sqlite")))
+        for i, sk in enumerate(keys):
+            if i != remote:
+                store.add_validator(sk)
+        signer = MockWeb3Signer([keys[remote]]).start()
+        stop.append(signer)
+        signer_client = Web3SignerClient(signer.url, timeout=VC_HTTP_TIMEOUT_S)
+        assert signer_client.upcheck() and signer_client.public_keys() == [pubkeys[remote]]
+        store.add_web3signer_validator(pubkeys[remote], signer_client)
+        assert sorted(store.pubkeys()) == sorted(pubkeys)
+        remote_key = store.keys[pubkeys[remote]]
+        remote_sign = remote_key.sign
+
+        def recorded_remote(root):
+            sig = remote_sign(root)
+            remote_signed.append((bytes(root), sig.to_bytes(), remote_key._duty_type))
+            return sig
+
+        remote_key.sign = recorded_remote
+        for name in sign_methods:
+            setattr(store, name, recorded_sign(name, getattr(store, name)))
+        client = BeaconNodeHttpClient([url], ctx, timeout=VC_HTTP_TIMEOUT_S)
+        client._request = recorded_request(client._request)
+        for kind in ("block", "attestation", "aggregate"):
+            setattr(node_api, f"publish_{kind}", recorded_publish(kind, getattr(node_api, f"publish_{kind}")))
+        api.verify_signature_sets_async, ap.batch_verify_gossip_aggregates = recorded_verify, recorded_admission
+        vc = ValidatorClient(client, store)
+        metrics_server = MetricsServer(vc).start()
+        stop.append(metrics_server)
+
+        def scrape(path: str) -> str:
+            with urllib.request.urlopen(f"http://127.0.0.1:{metrics_server.port}{path}",
+                                        timeout=VC_HTTP_TIMEOUT_S) as r:
+                return r.read().decode()
+
+        def duty_counts() -> dict:
+            return {m.group(1): float(m.group(2)) for m in re.finditer(
+                rf'^{VC_DUTIES_TOTAL.name}\{{duty="(\w+)"\}} (\S+)$', scrape("/metrics"), re.M)}
+
+        duties0 = duty_counts()
+        phase("vc", step="node", url=url, validators=n, local_keys=n - 1, remote_key=remote, signer=signer.url,
+              first_slot=slots[0], duties_first_slot=sum(1 for d in duties if d.slot == slots[0]),
+              card=f'"{card}"')
+
+        rows = []
+        for s in slots:
+            chain.slot_clock.set_slot(s)
+            chain.fork_choice.on_tick(s)
+            n_http, n_ver, n_pub, n_adm = len(http), len(verifies), len(published), len(admissions)
+            made.clear()
+            sign_s[0] = 0.0
+            torch.cuda.synchronize()
+            fp.reset_launches()
+            t1 = time.perf_counter()
+            summary = vc.on_slot(s)
+            torch.cuda.synchronize()
+            slot_ms = (time.perf_counter() - t1) * 1e3
+            launches = dict(fp.LAUNCHES)
+            ver, pub, calls, adm = verifies[n_ver:], published[n_pub:], http[n_http:], admissions[n_adm:]
+            mine = [d for d in duties if d.slot == s]
+            committees = sorted({d.committee_index for d in mine})
+            by_kind = {k: [p for p in pub if p["kind"] == k] for k in ("block", "attestation", "aggregate")}
+            assert int(chain.head_state().slot) == s, f"slot {s}: the head is at {int(chain.head_state().slot)}"
+            assert summary["proposed"] == bytes(chain.head_root), f"slot {s}: the proposal is not the head"
+            [block] = by_kind["block"]
+            assert block["out"] == bytes(chain.head_root) and block["verifies"] == 1, f"slot {s}: block {block}"
+            assert summary["attested"] == len(by_kind["attestation"]) == len(mine), \
+                f"slot {s}: {summary['attested']} attested of {len(mine)} duties"
+            assert all(p["out"] is True and p["verifies"] == 1 for p in by_kind["attestation"]), \
+                f"slot {s}: an attestation was refused or not verified once"
+            # every member of a small committee aggregates; the first
+            # aggregate of a committee is verified, the rest carry nothing new
+            verified = [p for p in by_kind["aggregate"] if p["out"] is True]
+            dropped = [p for p in by_kind["aggregate"] if p["out"] is not True]
+            assert len(by_kind["aggregate"]) == made["sign_aggregate_and_proof"] == len(adm)
+            assert sorted(int(p["item"].message.aggregate.data.index) for p in verified) == committees, \
+                f"slot {s}: verified aggregates {len(verified)} for committees {committees}"
+            assert all(p["verifies"] == 1 for p in verified) and all(p["verifies"] == 0 for p in dropped)
+            reasons = collections.Counter("accepted" if r is True else str(r) for r in adm)
+            assert reasons == {"accepted": len(verified), "aggregate already known": len(dropped)}, reasons
+            assert summary["aggregated"] == len(verified)
+            assert len(ver) == 1 + len(mine) + len(verified) and all(v["ok"] is True for v in ver), \
+                f"slot {s}: {len(ver)} verifies, verdicts {[v['ok'] for v in ver]}"
+            one_verify_each(ver, f"slot {s}")
+            counts = {k: launches[k] for k in VERIFY_LAUNCHES}
+            assert counts == {k: v * len(ver) for k, v in VERIFY_LAUNCHES.items()}, f"slot {s} launched {launches}"
+            assert sum(launches.values()) == sum(counts.values()), f"slot {s}: a kernel off the path: {launches}"
+            body = chain.store.get_block(bytes(chain.head_root)).message.body
+            carried = [a for a in body.attestations if int(a.data.slot) == s - 1]
+            carried_bits = sum(sum(a.aggregation_bits) for a in carried)
+            if rows:
+                assert carried_bits == rows[-1]["attested"] > 0, \
+                    f"slot {s}'s block carries {carried_bits} of slot {s - 1}'s {rows[-1]['attested']} attesters"
+            rows.append({"attested": summary["attested"], "signatures": sum(made.values())})
+            phase("vc", step="slot", slot=s, proposed=f"0x{summary['proposed'].hex()}",
+                  proposer=int(block["item"].message.proposer_index), attested=summary["attested"],
+                  aggregated=summary["aggregated"], committees=len(committees),
+                  aggregates_published=len(by_kind["aggregate"]), aggregates_verified=len(verified),
+                  aggregates_dropped_seen=len(dropped), carried_attestations=len(carried),
+                  carried_attesters=carried_bits, signatures=sum(made.values()),
+                  signatures_by_kind=json.dumps(dict(sorted(made.items())), separators=(",", ":")),
+                  sign_s=f"{sign_s[0]:.3f}", http_requests=len(calls), http_ms=f"{sum(ms for _, ms in calls):.3f}",
+                  verifies=len(ver), verify_sets=json.dumps([v["sets"] for v in ver], separators=(",", ":")),
+                  verify_ms=json.dumps([round(v["ms"], 3) for v in ver], separators=(",", ":")),
+                  block_import_ms=f"{block['ms']:.3f}", slot_ms=f"{slot_ms:.3f}",
+                  head_slot=int(chain.head_state().slot), launches=json.dumps(launches, separators=(",", ":")),
+                  card=f'"{card}"')
+
+        # the remote key signed over HTTP what the local key signs
+        assert remote_signed, "the remote key signed nothing"
+        for root, sig, _ in remote_signed:
+            assert sig == keys[remote].sign(root).to_bytes(), "the remote signature is not the local one"
+        phase("vc", step="remote_key", validator=remote, signatures=len(remote_signed),
+              duties=json.dumps(sorted({d for _, _, d in remote_signed}), separators=(",", ":")),
+              byte_identical=True, card=f'"{card}"')
+
+        # a tampered attestation POSTed over HTTP: a validator of an earlier
+        # slot of the epoch (none of its votes seen yet), signed by another key
+        start = compute_start_slot_at_epoch(epoch, preset)
+        earlier = [d for d in duties if start <= d.slot < slots[0]]
+        assert earlier, f"no slot of epoch {epoch} before {slots[0]}"
+        victim = min(earlier, key=lambda d: (-d.slot, d.committee_index, d.committee_position))
+        head_state = chain.head_state()
+        hist = preset.slots_per_historical_root
+        data = t.AttestationData(slot=victim.slot, index=victim.committee_index,
+                                 beacon_block_root=bytes(head_state.block_roots[victim.slot % hist]),
+                                 source=head_state.current_justified_checkpoint,
+                                 target=Checkpoint(epoch=epoch, root=bytes(head_state.block_roots[start % hist])))
+        root = compute_signing_root(data, schedule_domain(spec, spec.domain_beacon_attester, epoch, gvr))
+        forger = (victim.validator_index + 1) % n
+        bad = t.Attestation(aggregation_bits=[i == victim.committee_position for i in range(victim.committee_length)],
+                            data=data, signature=keys[forger].sign(root).to_bytes())
+        oracle = oracle_set_verdict((bytes(bad.signature), [pubkeys[victim.validator_index]], root))
+        n_ver, n_pub, head_before = len(verifies), len(published), bytes(chain.head_root)
+        torch.cuda.synchronize()
+        fp.reset_launches()
+        req = urllib.request.Request(url + "/eth/v1/beacon/pool/attestations",
+                                     data=json.dumps([encode(bad, t.Attestation)]).encode(),
+                                     headers={"Content-Type": "application/json"}, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=VC_HTTP_TIMEOUT_S) as r:
+                status, answer = r.status, r.read()
+        except urllib.error.HTTPError as e:
+            status, answer = e.code, e.read()
+        torch.cuda.synchronize()
+        launches = dict(fp.LAUNCHES)
+        ver = verifies[n_ver:]
+        assert status == 400 and json.loads(answer)["failures"] == [{"index": 0, "message": "attestation rejected"}], \
+            f"the tampered attestation: HTTP {status} {answer[:200]!r}"
+        assert [(p["kind"], p["out"]) for p in published[n_pub:]] == [("attestation", False)]
+        assert oracle is False and [v["ok"] for v in ver] == [oracle], \
+            f"verdicts {[v['ok'] for v in ver]}, the oracle's {oracle}"
+        one_verify_each(ver, "tampered attestation")
+        assert {k: launches[k] for k in VERIFY_LAUNCHES} == {k: v * len(ver) for k, v in VERIFY_LAUNCHES.items()}
+        assert bytes(chain.head_root) == head_before and not any(
+            bytes(a.signature) == bytes(bad.signature) for b in node_api.op_pool.attestations.values() for a in b)
+        phase("vc", step="tampered_attestation", slot=victim.slot, validator=victim.validator_index, signer=forger,
+              status=status, verifies=len(ver), verdicts=json.dumps([v["ok"] for v in ver]), oracle=oracle,
+              verify_ms=json.dumps([round(v["ms"], 3) for v in ver], separators=(",", ":")),
+              launches=json.dumps(launches, separators=(",", ":")), card=f'"{card}"')
+
+        # the second slot again, from a client restarted on the same store
+        # against a node that never saw the phase's blocks: the database
+        # refuses the proposal and every attestation
+        lag_api = BeaconNodeApi(lag, OperationPool(ctx))
+        lag_server = HttpApiServer(lag_api).start()
+        stop.append(lag_server)
+        s = slots[-1]
+        lag.slot_clock.set_slot(s)
+        lag.fork_choice.on_tick(s)
+        client2 = BeaconNodeHttpClient([f"http://127.0.0.1:{lag_server.port}"], ctx, timeout=VC_HTTP_TIMEOUT_S)
+        client2._request = recorded_request(client2._request)
+        vc2 = ValidatorClient(client2, store)
+        made.clear()
+        refused.clear()
+        n_ver, n_pub = len(verifies), len(published)
+        torch.cuda.synchronize()
+        fp.reset_launches()
+        replay = vc2.on_slot(s)
+        torch.cuda.synchronize()
+        launches = dict(fp.LAUNCHES)
+        mine = [d for d in duties if d.slot == s]
+        assert (replay["proposed"], replay["attested"], replay["aggregated"]) == (None, 0, 0), replay
+        assert refused == {"sign_block": 1, "sign_attestation": len(mine)}, f"the replay: refusals {dict(refused)}"
+        slashable = made["sign_block"] + made["sign_attestation"]
+        assert slashable == 0 and set(made) <= {"sign_randao"}, f"the replay signed {dict(made)}"
+        assert len(verifies) == n_ver and len(published) == n_pub and not any(launches.values()), \
+            f"the replay verified {len(verifies) - n_ver} times, launching {launches}"
+        assert lag.head_root == head_root0 and int(chain.head_state().slot) == slots[-1]
+        phase("vc", step="replay", slot=s, node=f"anchored_at_slot_{head0}", proposal_refused=True,
+              attestations_refused=refused["sign_attestation"], slashable_signatures=slashable,
+              randao_reveals=made["sign_randao"], verifies=0, launches=json.dumps(launches, separators=(",", ":")),
+              card=f'"{card}"')
+
+        # the EIP-3076 interchange lists what the phase signed, no more
+        interchange = store.slashing_db.export_interchange(gvr)
+        got_blocks = {(r["pubkey"], int(b["slot"]), b["signing_root"])
+                      for r in interchange["data"] for b in r["signed_blocks"]}
+        got_atts = {(r["pubkey"], int(a["source_epoch"]), int(a["target_epoch"]), a["signing_root"])
+                    for r in interchange["data"] for a in r["signed_attestations"]}
+        member = {(d.slot, d.committee_index, d.committee_position): d.validator_index for d in duties}
+        want_blocks, want_atts = set(), set()
+        for p in published:
+            if p["kind"] == "block":
+                blk = p["item"].message
+                sr = compute_signing_root(blk, schedule_domain(spec, spec.domain_beacon_proposer, int(blk.slot) // spe,
+                                                               gvr))
+                want_blocks.add((f"0x{pubkeys[int(blk.proposer_index)].hex()}", int(blk.slot), f"0x{sr.hex()}"))
+            elif p["kind"] == "attestation" and p["out"] is True:
+                d = p["item"].data
+                vi = member[(int(d.slot), int(d.index), list(p["item"].aggregation_bits).index(True))]
+                sr = compute_signing_root(d, schedule_domain(spec, spec.domain_beacon_attester, int(d.target.epoch),
+                                                             gvr))
+                want_atts.add((f"0x{pubkeys[vi].hex()}", int(d.source.epoch), int(d.target.epoch), f"0x{sr.hex()}"))
+        assert len(interchange["data"]) == n and interchange["metadata"]["genesis_validators_root"] == f"0x{gvr.hex()}"
+        assert got_blocks == want_blocks and got_atts == want_atts, \
+            f"the interchange lists {len(got_blocks)} blocks and {len(got_atts)} attestations, " \
+            f"the phase signed {len(want_blocks)} and {len(want_atts)}"
+        phase("vc", step="interchange", validators=len(interchange["data"]), blocks=len(got_blocks),
+              attestations=len(got_atts), equal_to_signed=True, card=f'"{card}"')
+
+        # the client's own /metrics and /health
+        duties1 = duty_counts()
+        grown = {k: int(v - duties0.get(k, 0.0)) for k, v in duties1.items() if v != duties0.get(k, 0.0)}
+        health = json.loads(scrape("/health"))
+        assert grown == vc.duty_totals == health["duties"] and grown["proposed"] == VC_SLOTS, \
+            f"{VC_DUTIES_TOTAL.name} grew by {grown}; the client ran {vc.duty_totals}"
+        assert health["keys"] == n and health["last_duty_slot"] == slots[-1], health
+        phase("vc", step="metrics", family=VC_DUTIES_TOTAL.name, grown=json.dumps(grown, separators=(",", ":")),
+              health_keys=health["keys"], last_duty_slot=health["last_duty_slot"], card=f'"{card}"')
+    finally:
+        api.verify_signature_sets_async, ap.batch_verify_gossip_aggregates = verify_async, admit_aggregates
+        for srv in reversed(stop):
+            srv.stop()
+        if store is not None:
+            store.slashing_db.close()
+        if lock is not None:
+            lock.release()
+        tmp.cleanup()
+    seconds = time.perf_counter() - t_phase
+    assert seconds < VC_MAX_S, f"[vc] took {seconds:.1f} s, more than {VC_MAX_S} s"
+    phase("vc", seconds=f"{seconds:.2f}", slot_signatures=sum(r["signatures"] for r in rows), verifies=len(verifies),
+          http_requests=len(http), card=f'"{card}"')
+
+
 def main() -> int:
     import torch
 
@@ -3409,9 +3881,12 @@ def main() -> int:
     run_conformance(torch, api, fp, name_power)
     run_gossip(torch, api, fp, name_power, harness)
     run_sync(torch, api, fp, name_power, harness)
+    run_vc(torch, api, fp, name_power, harness)
 
-    phase("done", seconds=f"{time.perf_counter() - t_start:.1f}", empty_traces_retaken=EMPTY_TRACES,
+    seconds = time.perf_counter() - t_start
+    phase("done", seconds=f"{seconds:.1f}", empty_traces_retaken=EMPTY_TRACES,
           partial_traces_retaken=PARTIAL_TRACES, most_tries_a_trace=TRACE_TRIES_MOST)
+    assert seconds < DONE_MAX_S, f"the run took {seconds:.1f} s, more than {DONE_MAX_S} s"
     print(json.dumps({"kernels": results}))
     print(name_power)
     # the run drives cuda:0 only, whatever else the machine holds

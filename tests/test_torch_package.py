@@ -205,6 +205,97 @@ def test_network_metric_families_match_the_jax_package(name):
     _same_family(name)
 
 
+# the validator client, its keys and the Beacon API, each module at its JAX
+# path under lighthouse_tpu_torch/
+VC_MODULES = [
+    "crypto.aes",
+    "crypto.keystore",
+    "crypto.key_derivation",
+    "crypto.wallet",
+    "networks",
+    "http_api.json_codec",
+    "http_api.server",
+    "http_api",
+    "validator_client.slashing_protection",
+    "validator_client.doppelganger",
+    "validator_client.lockfile",
+    "validator_client.validator_client",
+    "validator_client.web3signer",
+    "validator_client.http_client",
+    "validator_client.metrics_server",
+    "validator_client",
+]
+
+
+def _module_path(package: str, module: str) -> pathlib.Path:
+    base = ROOT / package / module.replace(".", "/")
+    return base / "__init__.py" if (base / "__init__.py").is_file() else base.with_suffix(".py")
+
+
+@pytest.mark.parametrize("module", VC_MODULES)
+def test_vc_module_sits_at_its_jax_path(module):
+    for package in ("lighthouse_tpu_torch", "lighthouse_tpu"):
+        assert _module_path(package, module).is_file(), f"{package}.{module}"
+
+
+def test_vc_modules_import_without_jax():
+    """A fresh process imports the sixteen modules and loads no jax and no
+    lighthouse_tpu module; both packages export the same names."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {VC_MODULES!r}:\n"
+        "    importlib.import_module('lighthouse_tpu_torch.' + m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lighthouse_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+    import lighthouse_tpu.http_api as jax_http_api
+    import lighthouse_tpu.validator_client as jax_vc
+    from lighthouse_tpu_torch import http_api, validator_client
+
+    assert http_api.__all__ == jax_http_api.__all__ and validator_client.__all__ == jax_vc.__all__
+
+
+def _code_only(path: pathlib.Path) -> str:
+    """The module's AST with every docstring dropped and the port's package
+    name read as the JAX package's."""
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant) \
+                    and isinstance(body[0].value.value, str):
+                node.body = body[1:] or [ast.Pass()]
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            node.value = node.value.replace("lighthouse_tpu_torch", "lighthouse_tpu")
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            node.module = node.module.replace("lighthouse_tpu_torch", "lighthouse_tpu")
+        elif isinstance(node, ast.alias):
+            node.name = node.name.replace("lighthouse_tpu_torch", "lighthouse_tpu")
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("module", VC_MODULES)
+def test_vc_module_is_its_jax_namesake_but_for_docstrings(module):
+    """Each of the sixteen is the JAX module's code: the same AST once
+    docstrings are dropped and package names equated (comments do not
+    reach the AST)."""
+    port, jax = _module_path("lighthouse_tpu_torch", module), _module_path("lighthouse_tpu", module)
+    assert _code_only(port) == _code_only(jax), f"{module}: the port's code differs from the JAX package's"
+
+
+def test_code_only_sees_a_changed_line(tmp_path):
+    """The comparison is not vacuous: a changed constant or call differs, a
+    reworded docstring or comment does not."""
+    src = _module_path("lighthouse_tpu", "validator_client.doppelganger").read_text()
+    same = tmp_path / "same.py"
+    same.write_text(src.replace('"""Doppelganger protection', '"""Reworded', 1).replace("# validator_index ->", "# ->"))
+    changed = tmp_path / "changed.py"
+    changed.write_text(src.replace("DEFAULT_REMAINING_DETECTION_EPOCHS = 1", "DEFAULT_REMAINING_DETECTION_EPOCHS = 2"))
+    want = _code_only(_module_path("lighthouse_tpu", "validator_client.doppelganger"))
+    assert _code_only(same) == want and _code_only(changed) != want
+
+
 def test_default_device_is_cuda_and_fails_without_gpu(monkeypatch):
     assert tapi.DEFAULT_DEVICE == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -253,7 +344,28 @@ def test_chip_smoke_gossip_goes_through_the_network_service():
     order = [n.func.id for n in sorted((n for n in ast.walk(_function(tree, "main")) if isinstance(n, ast.Call)),
                                        key=lambda n: n.lineno)
              if isinstance(n.func, ast.Name) and n.func.id.startswith("run_")]
-    assert order[-3:] == ["run_conformance", "run_gossip", "run_sync"], order
+    assert order[-4:] == ["run_conformance", "run_gossip", "run_sync", "run_vc"], order
+
+
+def test_chip_smoke_vc_goes_through_the_beacon_api_and_the_keystores():
+    """chip_smoke's [vc] drives the validator client over HTTP
+    (`BeaconNodeHttpClient` against an `HttpApiServer`), signs through a
+    `SlashingDatabase`, and takes its keys from keystores it decrypts with
+    the port's `keystore.decrypt` (in host processes)."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+
+    def calls(fn):
+        return {n.func.attr if isinstance(n.func, ast.Attribute) else getattr(n.func, "id", None)
+                for n in ast.walk(fn) if isinstance(n, ast.Call)}
+
+    vc = _function(tree, "run_vc")
+    assert {"BeaconNodeHttpClient", "HttpApiServer", "SlashingDatabase", "ValidatorStore", "ValidatorClient",
+            "MockWeb3Signer", "MetricsServer", "Lockfile", "on_slot", "export_interchange"} <= calls(vc)
+    assert "decrypt_keystore" in {n.id for n in ast.walk(vc) if isinstance(n, ast.Name)}
+    decrypt = _function(tree, "decrypt_keystore")
+    assert any(isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute) and n.func.attr == "decrypt"
+               and isinstance(n.func.value, ast.Name) and n.func.value.id == "keystore" for n in ast.walk(decrypt))
+    assert "encrypt" in calls(_function(tree, "encrypt_keystore"))
 
 
 # a fake verify's device operations, as (runtime call, device event): the

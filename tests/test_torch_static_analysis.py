@@ -1,7 +1,8 @@
 """The repo's AST checkers (the JAX package's analysis/: lock guards, thread
 hygiene, trace purity, metric names) over lighthouse_tpu_torch/, which now
 holds threaded modules of its own (the beacon processor, the task executor,
-the coalescer, the network's receive loops and servers): 0 findings, with no allowlist. The checkers are the JAX
+the coalescer, the network's receive loops and servers, the Beacon API's
+and the validator client's HTTP servers): 0 findings, with no allowlist. The checkers are the JAX
 package's; the port does not import them."""
 
 from pathlib import Path
@@ -28,6 +29,9 @@ THREADED = [
     "lighthouse_tpu_torch/network/discovery.py",
     "lighthouse_tpu_torch/network/socket_net.py",
     "lighthouse_tpu_torch/network/peer_manager.py",
+    "lighthouse_tpu_torch/http_api/server.py",
+    "lighthouse_tpu_torch/validator_client/metrics_server.py",
+    "lighthouse_tpu_torch/validator_client/web3signer.py",
 ]
 
 
