@@ -259,6 +259,48 @@ Phases, one line each, any failure exits non-zero:
               attestations published; the client's `/metrics` and
               `/health` showing the duties run. The phase under
               `VC_MAX_S`
+     node     the node itself, booted from eth1 deposits on a post-merge
+              chain: network interop-merge (minimal preset, altair and
+              bellatrix at genesis), 64 validators (the preset's genesis
+              minimum). 65 deposits by `eth1.make_deposit` in host
+              processes (interop keys 0-63 at MAX_EFFECTIVE_BALANCE and, in
+              the middle, key 64's deposit signed by key 65), mined into a
+              `MockEth1Endpoint` served by `MockEth1RpcServer` on
+              localhost and followed by `Eth1Service` over
+              `JsonRpcEth1Endpoint`; `initialize_beacon_state_from_eth1`
+              over the follower's deposits on the card: 65 verifies of one
+              set (K10-K21 once each), every verdict the ref oracle's, the
+              bad deposit's alone False; 64 validators, a valid genesis,
+              the deposit root the follower's vote. That state and
+              `networks.dump_config_yaml` as a testnet directory, and the
+              `Client` `beacon-node` would build on it (`MockExecutionEngine`
+              over HTTP with a JWT, the slasher, a datadir, the Beacon API
+              on an ephemeral port, the coalescer) behind a
+              `NetworkService` on a `LocalNetwork` with one publishing
+              peer; its genesis the eth1 state. Six slots: each block by
+              `client.api.produce_block` (forkchoiceUpdated and getPayload
+              over HTTP; the first the merge-transition block), signed in
+              host processes, published by the peer and imported at
+              `Client.per_slot_task` with one verify and one
+              engine_newPayloadV1; the head's payload header the last
+              payload, no import optimistic. Slot 7: its proposer's second
+              block (another graffiti) dropped by the service as an
+              equivocation after one verify, both headers to the slasher;
+              a committee member's attestation through the coalescer into
+              the op pool and the slasher, its conflicting vote (same
+              target, another head) to the slasher directly; after
+              `per_slot_task` the op pool holds one proposer and one
+              attester slashing, and slot 8's block carries both, imports
+              with one verify, both validators slashed. Then, the node
+              shut down, the binary in fresh processes (`python -m
+              lighthouse_tpu_torch`, with a probe that reports its
+              launches at exit): `lcli check-deposit-data` on the bad
+              deposit exits 1, INVALID, after one verify on the card;
+              `beacon-node --run-slots 1` resumes from the node's datadir
+              and prints its genesis root and head slot. Public keys
+              decompress once each (a memo that times them). Per step its
+              verifies, sets, ms and launches; the phase under
+              `NODE_MAX_S`
 
 then a `{"kernels": [...]}` JSON line, the nvidia-smi name/power line, and
 as the last line `{"ok": true, "device": {...}}`. Signature sets are built
@@ -730,6 +772,21 @@ VC_KDF = {"c": 262144, "dklen": 32}
 VC_PASSWORD = "\U0001d531\U0001d522\U0001d530\U0001d531\U0001d52d\U0001d51e\U0001d530\U0001d530\U0001d534\U0001d52c\U0001d52f\U0001d521\U0001f511"
 VC_HTTP_TIMEOUT_S = 10.0
 VC_MAX_S = 60.0
+# [node]: the network it boots (minimal preset, altair and bellatrix at
+# genesis), its validators (the preset's MIN_GENESIS_ACTIVE_VALIDATOR_COUNT),
+# the slots of a block each before the slashing slot, the eth1 chain's first
+# timestamp (its genesis lands after MIN_GENESIS_TIME) and deposits a block,
+# the most an HTTP call, the oracle's verdicts and a binary may take; the
+# phase's limit
+NODE_NETWORK = "interop-merge"
+NODE_VALIDATORS = 64
+NODE_SLOTS = 6
+NODE_ETH1_TIMESTAMP = 1_600_000_000
+NODE_DEPOSITS_PER_ETH1_BLOCK = 13
+NODE_HTTP_TIMEOUT_S = 10.0
+NODE_ORACLE_TIMEOUT_S = 120.0
+NODE_CLI_TIMEOUT_S = 120.0
+NODE_MAX_S = 90.0
 # the whole run's limit, well inside the 1,200 s a run may take
 DONE_MAX_S = 1000.0
 
@@ -2569,11 +2626,14 @@ def run_coalescer(torch, api, fp, card: str) -> None:
 
 
 def block_sets(signed) -> int:
-    """Signature sets one phase0 block carries: proposal, RANDAO, one a
-    slashing, attestation and exit (deposits verify alone, and the
-    harness makes none)."""
+    """Signature sets one block carries: proposal, RANDAO, one a slashing,
+    attestation and exit (deposits verify alone, and the harness and
+    [node] make none; a sync aggregate with no participants carries
+    none)."""
     body = signed.message.body
-    assert not body.deposits, "the chain phase counts no deposit signatures"
+    assert not body.deposits, "a phase counts no deposit signatures in a block"
+    assert not any(getattr(getattr(body, "sync_aggregate", None), "sync_committee_bits", ())), \
+        "a sync aggregate with participants"
     return (2 + 2 * len(body.proposer_slashings) + 2 * len(body.attester_slashings) + len(body.attestations)
             + len(body.voluntary_exits))
 
@@ -3742,6 +3802,443 @@ def run_vc(torch, api, fp, card: str, harness) -> None:
           http_requests=len(http), card=f'"{card}"')
 
 
+def node_deposit(task) -> bytes:
+    """(interop index of the deposit's key, of the signing key) -> the
+    DepositData's SSZ by the port's `eth1.make_deposit` through the ref
+    oracle at MAX_EFFECTIVE_BALANCE; where the two differ, the signer's
+    deposit with the other key's public key put in (a host process of
+    `host_pool`)."""
+    from lighthouse_tpu_torch.crypto import bls as bls_pkg
+    from lighthouse_tpu_torch.eth1 import make_deposit
+    from lighthouse_tpu_torch.networks import network_config
+    from lighthouse_tpu_torch.types.containers import DepositData
+
+    ref = bls_pkg.backend("ref")
+    owner, signer = task
+    spec = network_config(NODE_NETWORK)[1]
+    dd = make_deposit(ref, ref.interop_secret_key(signer), spec.max_effective_balance, spec)
+    if owner != signer:
+        dd.pubkey = ref.interop_secret_key(owner).public_key().to_bytes()
+    return DepositData.serialize(dd)
+
+
+def cli_command(*args: str) -> list[str]:
+    """The port's binary in a fresh interpreter, as a user runs it."""
+    return [sys.executable, "-m", "lighthouse_tpu_torch", *args]
+
+
+# Put first on a binary's PYTHONPATH by [node] as sitecustomize.py: at exit
+# the process reports its kernel launches and its sync verifies (the
+# verify timer's count) on stderr; any sitecustomize it shadows still runs.
+CLI_PROBE = '''import atexit, importlib.machinery, importlib.util, json, os, sys
+
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _module = importlib.util.module_from_spec(_spec)
+    _spec.loader.exec_module(_module)
+
+
+def _report():
+    fp = sys.modules.get("lighthouse_tpu_torch.crypto.bls.torch_backend.fp")
+    metrics = sys.modules.get("lighthouse_tpu_torch.common.metrics")
+    sys.stderr.write("[cli_probe] " + json.dumps({
+        "launches": dict(fp.LAUNCHES) if fp is not None else {},
+        "verifies": int(metrics.BLS_BATCH_SECONDS.count) if metrics is not None else 0}) + "\\n")
+    sys.stderr.flush()
+
+
+atexit.register(_report)
+'''
+
+
+def run_binary(args: list[str], probe_dir: str) -> tuple[int, str, dict, float]:
+    """Run the port's binary with `args` under the launch probe, within
+    NODE_CLI_TIMEOUT_S: (exit code, stdout, the probe's report, seconds).
+    A run that times out, or that ends without the probe's report, fails
+    the phase."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (probe_dir, os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    out = subprocess.run(cli_command(*args), cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                         capture_output=True, text=True, timeout=NODE_CLI_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    reports = [line for line in out.stderr.splitlines() if line.startswith("[cli_probe] ")]
+    assert reports, f"{' '.join(args[:2])}: exit {out.returncode} without the probe's report: {out.stderr[-2000:]}"
+    return out.returncode, out.stdout, json.loads(reports[-1][len("[cli_probe] "):]), seconds
+
+
+def run_node(torch, api, fp, card: str) -> None:
+    """The node itself on the card; see the module docstring. Every verify
+    is one `api.verify_signature_sets_async` call (the sync verify's and
+    the coalescer's), recorded with its sets, (S, K), verdict, ms and
+    launches by wrappers of it and of `api.verify_staged`; public keys
+    decompress once each, through a memo on `PublicKey.from_bytes` that
+    times the misses. All are removed afterwards whatever happens; the
+    client, the engine, the eth1 server, the pool and the directory are
+    closed in a `finally`."""
+    import tempfile
+
+    from lighthouse_tpu_torch import networks
+    from lighthouse_tpu_torch.client import Client, ClientConfig
+    from lighthouse_tpu_torch.crypto.bls import batch_verifier as bv
+    from lighthouse_tpu_torch.eth1 import Eth1Service, JsonRpcEth1Endpoint, MockEth1Endpoint, MockEth1RpcServer
+    from lighthouse_tpu_torch.execution_layer import MockExecutionEngine
+    from lighthouse_tpu_torch.network import LocalNetwork, NetworkService
+    from lighthouse_tpu_torch.state_transition import TransitionContext, process_slots
+    from lighthouse_tpu_torch.state_transition.bellatrix import is_merge_transition_complete
+    from lighthouse_tpu_torch.state_transition.genesis import initialize_beacon_state_from_eth1, is_valid_genesis_state
+    from lighthouse_tpu_torch.state_transition.helpers import get_beacon_committee, get_beacon_proposer_index
+    from lighthouse_tpu_torch.state_transition.signature_sets import _signing_root_for_uint64
+    from lighthouse_tpu_torch.types import compute_domain, compute_signing_root, schedule_domain
+    from lighthouse_tpu_torch.types.containers import Checkpoint, DepositData, DepositMessage
+
+    t_phase = time.perf_counter()
+    preset_name, spec = networks.network_config(NODE_NETWORK)
+    ctx = TransitionContext.minimal()
+    assert preset_name == "minimal" and ctx.bls is api, f"{NODE_NETWORK} on {ctx.bls.__name__}, not the card's"
+    ctx.spec = spec
+    t, preset = ctx.types, ctx.preset
+    spe = preset.slots_per_epoch
+    n = NODE_VALIDATORS
+    assert n == spec.min_genesis_active_validator_count, "the cut is the preset's genesis minimum"
+    secret = [api.interop_secret_key(i).k for i in range(n + 2)]
+
+    verifies, shapes, decompress_s, memo = [], [], [0.0], {}
+    verify_async, verify_staged = api.verify_signature_sets_async, api.verify_staged
+    from_bytes = api.PublicKey.__dict__["from_bytes"]
+
+    def staged(flat, S, K):
+        shapes.append((S, K))
+        return verify_staged(flat, S, K)
+
+    def recorded(sets, *args, **kwargs):
+        """One verify, from whichever thread: its sets, (S, K), verdict, ms
+        from the sets to the verdict (host staging included), launches."""
+        torch.cuda.synchronize()
+        before, n_shapes = dict(fp.LAUNCHES), len(shapes)
+        t1 = time.perf_counter()
+        fut = verify_async(sets, *args, **kwargs)
+        ok = fut.result()
+        S, K = shapes[n_shapes] if len(shapes) > n_shapes else (0, 0)
+        verifies.append({"sets": len(sets), "S": S, "K": K, "ok": ok, "ms": (time.perf_counter() - t1) * 1e3,
+                         "launches": {k: fp.LAUNCHES[k] - before[k] for k in before}})
+        return fut
+
+    def decompressed(data):
+        key = bytes(data)
+        pk = memo.get(key)
+        if pk is None:
+            t1 = time.perf_counter()
+            try:
+                pk = memo[key] = from_bytes.__func__(key)
+            finally:
+                decompress_s[0] += time.perf_counter() - t1
+        return pk
+
+    def one_verify_each(rows, what: str) -> None:
+        for v in rows:
+            counts = {k: v["launches"][k] for k in VERIFY_LAUNCHES}
+            assert counts == VERIFY_LAUNCHES and sum(v["launches"].values()) == sum(counts.values()), \
+                f"{what}: a verify launched {v['launches']}"
+
+    tmp = tempfile.TemporaryDirectory(prefix="lighthouse_node_")
+    eth1_server = engine = client = None
+    api.verify_signature_sets_async, api.verify_staged = recorded, staged
+    api.PublicKey.from_bytes = staticmethod(decompressed)
+    try:
+        with host_pool() as pool:
+            # step eth1: deposits mined into an eth1 chain served over
+            # JSON-RPC, followed by the Eth1Service, genesis from them
+            t0 = time.perf_counter()
+            bad_at = n // 2
+            owners = list(range(n))
+            tasks = [(i, i) for i in owners]
+            tasks.insert(bad_at, (n, n + 1))  # key n's deposit, signed by key n + 1
+            deposits = [DepositData.deserialize(b) for b in pool.map(node_deposit, tasks)]
+            deposit_s = time.perf_counter() - t0
+            eth1 = MockEth1Endpoint(genesis_timestamp=NODE_ETH1_TIMESTAMP)
+            for j, dd in enumerate(deposits):
+                eth1.submit_deposit(dd)
+                if j % NODE_DEPOSITS_PER_ETH1_BLOCK == NODE_DEPOSITS_PER_ETH1_BLOCK - 1:
+                    eth1.mine_block()
+            eth1_server = MockEth1RpcServer(eth1).start()
+            service = Eth1Service(JsonRpcEth1Endpoint(eth1_server.url, timeout=NODE_HTTP_TIMEOUT_S))
+            for _ in range(service.follow_distance + 1):
+                eth1.mine_block()
+            t0 = time.perf_counter()
+            service.update()
+            vote = service.eth1_data_for_block()
+            follow_ms = (time.perf_counter() - t0) * 1e3
+            cache = service.deposit_cache
+            assert len(cache) == vote.deposit_count == len(deposits), \
+                f"the follower holds {len(cache)} deposits, votes {vote.deposit_count}, {len(deposits)} were mined"
+            assert [DepositData.serialize(d) for d in cache.deposits] == [DepositData.serialize(d) for d in deposits]
+            candidate = eth1.block_by_number(eth1.latest_block().number - service.follow_distance)
+            assert bytes(vote.block_hash) == candidate.hash
+            domain = compute_domain(spec.domain_deposit, spec.genesis_fork_version, b"\x00" * 32)
+            oracle_tasks = [(bytes(d.signature), [bytes(d.pubkey)], compute_signing_root(DepositMessage(
+                pubkey=d.pubkey, withdrawal_credentials=d.withdrawal_credentials, amount=d.amount), domain))
+                for d in cache.deposits]
+            oracle = pool.map_async(oracle_set_verdict, oracle_tasks)  # beside genesis, in host processes
+            del verifies[:]
+            decompress_s[0] = 0.0
+            torch.cuda.synchronize()
+            fp.reset_launches()
+            t0 = time.perf_counter()
+            genesis = initialize_beacon_state_from_eth1(candidate.hash, candidate.timestamp, list(cache.deposits), ctx)
+            torch.cuda.synchronize()
+            genesis_s = time.perf_counter() - t0
+            launches = dict(fp.LAUNCHES)
+            want = oracle.get(timeout=NODE_ORACLE_TIMEOUT_S)
+            got = [v["ok"] for v in verifies]
+            assert len(verifies) == len(deposits), f"{len(verifies)} verifies for {len(deposits)} deposits"
+            assert got == want and got.count(False) == 1 and not got[bad_at], \
+                f"deposit verdicts {got}, the oracle's {want}"
+            alone = (api._next_pow2(1), api._next_pow2(1))  # one set of one key, in the smallest bucket
+            assert all((v["sets"], v["S"], v["K"]) == (1, *alone) for v in verifies), \
+                f"deposits staged at {sorted({(v['S'], v['K']) for v in verifies})}, not {alone}"
+            one_verify_each(verifies, "eth1 genesis")
+            assert {k: launches[k] for k in VERIFY_LAUNCHES} == {k: m * len(deposits)
+                                                                for k, m in VERIFY_LAUNCHES.items()}
+            assert len(genesis.validators) == n and is_valid_genesis_state(genesis, ctx), "not a valid genesis"
+            assert [bytes(v.pubkey) for v in genesis.validators] == [bytes(deposits[i + (i >= bad_at)].pubkey)
+                                                                    for i in owners]
+            assert t.fork_of(genesis) == "bellatrix" and not is_merge_transition_complete(genesis)
+            assert bytes(genesis.eth1_data.deposit_root) == bytes(vote.deposit_root)
+            genesis_root = type(genesis).hash_tree_root(genesis)
+            phase("node", step="eth1", network=NODE_NETWORK, deposits=len(deposits), eth1_blocks=len(eth1.blocks),
+                  follow_distance=service.follow_distance, follow_ms=f"{follow_ms:.3f}", verifies=len(verifies),
+                  verdicts_false=got.count(False), oracle_equal=True, validators=len(genesis.validators),
+                  valid_genesis=True, fork=t.fork_of(genesis), deposit_sign_s=f"{deposit_s:.2f}",
+                  genesis_s=f"{genesis_s:.2f}", host_decompress_s=f"{decompress_s[0]:.2f}",
+                  keys_decompressed=len(memo), verify_ms_total=f"{sum(v['ms'] for v in verifies):.3f}",
+                  verify_ms_median=f"{statistics.median(v['ms'] for v in verifies):.3f}", S=alone[0], K=alone[1],
+                  state_root=f"0x{genesis_root.hex()}", launches=json.dumps(launches, separators=(",", ":")),
+                  card=f'"{card}"')
+
+            # step boot: a testnet directory, and the node cmd_beacon_node
+            # would make of it: the engine over HTTP with a JWT, the slasher,
+            # a datadir, the Beacon API on an ephemeral port
+            testnet = os.path.join(tmp.name, "testnet")
+            datadir = os.path.join(tmp.name, "datadir")
+            os.makedirs(testnet)
+            with open(os.path.join(testnet, "genesis.ssz"), "wb") as f:
+                f.write(type(genesis).serialize(genesis))
+            with open(os.path.join(testnet, "config.yaml"), "w") as f:
+                f.write(networks.dump_config_yaml(spec))
+            jwt_secret = bytes(range(32))
+            engine = MockExecutionEngine(jwt_secret=jwt_secret).start()
+            t0 = time.perf_counter()
+            client = Client(ClientConfig(
+                network=NODE_NETWORK, spec_override=networks.resolve_spec("minimal", NODE_NETWORK, testnet)[1],
+                genesis_state_path=os.path.join(testnet, "genesis.ssz"), bls_backend="torch",
+                execution_endpoints=[engine.url], jwt_secret=jwt_secret, slasher_enabled=True, datadir=datadir,
+                http_port=0))
+            boot_s = time.perf_counter() - t0
+            chain, cctx = client.chain, client.ctx
+            assert cctx.bls is api and cctx.spec == spec and client.slasher is not None and client.http is not None
+            assert client.coalescer is not None and bv.active_for(api) is client.coalescer, "no coalescer on the card"
+            assert type(chain.head_state()).hash_tree_root(chain.head_state()) == genesis_root, \
+                "the node's genesis is not the eth1 state"
+            net = LocalNetwork()
+            node_service = NetworkService("node", client, net)
+            peer = NetworkService("peer", types.SimpleNamespace(), net)  # publishes only
+            phase("node", step="boot", genesis_state_root=f"0x{genesis_root.hex()}",
+                  genesis_block_root=f"0x{chain.genesis_block_root.hex()}", engine=engine.url, jwt=True,
+                  slasher=True, http_port=client.http.port, coalescer=True, boot_s=f"{boot_s:.3f}",
+                  card=f'"{card}"')
+
+            # the proposers of the phase's slots and their RANDAO reveals
+            gvr = bytes(genesis.genesis_validators_root)
+            last = NODE_SLOTS + 2  # the slashing slot and the slot that carries the slashings
+            ahead, proposers = genesis.copy(), {}
+            for s in range(1, last + 1):
+                process_slots(ahead, s, cctx)
+                proposers[s] = get_beacon_proposer_index(ahead, preset, spec)
+            reveals = dict(zip(range(1, last + 1), pool.map(sign_root, [
+                (secret[proposers[s]], _signing_root_for_uint64(s // spe, schedule_domain(
+                    spec, spec.domain_randao, s // spe, gvr))) for s in range(1, last + 1)])))
+
+            def produce(s: int):
+                n_req = len(engine.requests)
+                t1 = time.perf_counter()
+                block = client.api.produce_block(s, reveals[s])
+                ms = (time.perf_counter() - t1) * 1e3
+                assert int(block.proposer_index) == proposers[s], f"slot {s}: proposer {int(block.proposer_index)}"
+                return block, engine.requests[n_req:], ms
+
+            def signed_blocks(blocks):
+                roots = [compute_signing_root(b, schedule_domain(spec, spec.domain_beacon_proposer,
+                                                                 int(b.slot) // spe, gvr)) for b in blocks]
+                sigs = pool.map(sign_root, [(secret[int(b.proposer_index)], r) for b, r in zip(blocks, roots)])
+                return [t.for_fork(t.fork_of(b.body)).SignedBeaconBlock(message=b, signature=sig)
+                        for b, sig in zip(blocks, sigs)]
+
+            def tick(fn):
+                """fn() with the counts set to 0 just before and read just
+                after: (verifies, launches, newPayload calls, ms)."""
+                n_ver, n_req = len(verifies), len(engine.requests)
+                torch.cuda.synchronize()
+                fp.reset_launches()
+                t1 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                return (verifies[n_ver:], dict(fp.LAUNCHES), engine.requests[n_req:].count("engine_newPayloadV1"),
+                        (time.perf_counter() - t1) * 1e3)
+
+            # step slot: a block a slot, produced through the Beacon API
+            # (payload from the engine), signed in host processes, published
+            # by the peer and imported at the slot tick
+            imported, new_payloads = [], 0
+            for s in range(1, NODE_SLOTS + 1):
+                block, requests, produce_ms = produce(s)
+                [signed] = signed_blocks([block])
+                peer.publish_block(signed)
+                ver, launches, payloads, tick_ms = tick(lambda: client.per_slot_task(s))
+                root = type(block).hash_tree_root(block)
+                assert bytes(chain.head_root) == root and int(chain.head_state().slot) == s, f"slot {s}: not the head"
+                assert len(ver) == 1 and ver[0]["ok"] and ver[0]["sets"] == block_sets(signed) and payloads == 1, \
+                    f"slot {s}: {len(ver)} verifies, {payloads} newPayload calls"
+                one_verify_each(ver, f"slot {s}")
+                assert {k: launches[k] for k in VERIFY_LAUNCHES} == VERIFY_LAUNCHES and \
+                    sum(launches.values()) == sum(VERIFY_LAUNCHES.values()), f"slot {s} launched {launches}"
+                # production runs the block on the state for its root: the
+                # engine sees the payload then too
+                assert requests == ["engine_forkchoiceUpdatedV1", "engine_getPayloadV1", "engine_newPayloadV1"], \
+                    f"slot {s}: {requests}"
+                payload = block.body.execution_payload
+                assert bytes(payload.block_hash) != bytes(32), f"slot {s}: an empty payload"
+                new_payloads += payloads
+                imported.append(root)
+                phase("node", step="slot", slot=s, proposer=proposers[s], transition=s == 1,
+                      payload=f"0x{bytes(payload.block_hash).hex()[:16]}", block_number=int(payload.block_number),
+                      engine_requests=json.dumps(requests + ["engine_newPayloadV1"] * payloads,
+                                                 separators=(",", ":")),
+                      produce_ms=f"{produce_ms:.3f}", sets=block_sets(signed), S=ver[0]["S"], K=ver[0]["K"],
+                      verify_ms=f"{ver[0]['ms']:.3f}", tick_ms=f"{tick_ms:.3f}", card=f'"{card}"')
+            head = chain.head_state()
+            assert bytes(head.latest_execution_payload_header.block_hash) == bytes(payload.block_hash)
+            assert not any(chain.fork_choice.is_optimistic(r) for r in imported), "an import is optimistic"
+            assert new_payloads == len(imported) == NODE_SLOTS
+            phase("node", step="chain", head_slot=int(head.slot), imports=len(imported),
+                  new_payload_calls=new_payloads, optimistic=0, engine_requests=len(engine.requests),
+                  head_payload=f"0x{bytes(head.latest_execution_payload_header.block_hash).hex()[:16]}",
+                  card=f'"{card}"')
+
+            # step slashing: at slot NODE_SLOTS + 1 the proposer also signs a
+            # second block (another graffiti), both published; a committee
+            # member's attestation enters as gossip, its conflicting vote
+            # (same target, another head) goes to the slasher
+            s = NODE_SLOTS + 1
+            block, _, _ = produce(s)
+            twin = type(block).deserialize(type(block).serialize(block))
+            twin.body.graffiti = b"\x5e" * 32
+            signed, signed_twin = signed_blocks([block, twin])
+            peer.publish_block(signed)
+            peer.publish_block(signed_twin)
+            ver_blocks, launches_blocks, payloads, _ = tick(lambda: slot_tick(client, node_service, s))
+            root = type(block).hash_tree_root(block)
+            assert bytes(chain.head_root) == root and chain.store.get_block(type(twin).hash_tree_root(twin)) is None
+            assert [v["ok"] for v in ver_blocks] == [True, True] and payloads == 1, \
+                f"the slashing slot's blocks: verdicts {[v['ok'] for v in ver_blocks]}, {payloads} newPayload calls"
+            one_verify_each(ver_blocks, "the equivocation")
+            state = chain.head_state()
+            proposer, nxt = proposers[s], proposers[s + 1]
+            committee = list(get_beacon_committee(state, s, 0, preset, spec))
+            pos, voter = next((j, v) for j, v in enumerate(committee) if v not in (proposer, nxt))
+            target = Checkpoint(epoch=s // spe, root=chain.genesis_block_root)
+            vote = t.AttestationData(slot=s, index=0, beacon_block_root=root,
+                                     source=state.current_justified_checkpoint, target=target)
+            other = t.AttestationData(slot=s, index=0, beacon_block_root=imported[-1],
+                                      source=state.current_justified_checkpoint, target=target)
+            att_domain = schedule_domain(spec, spec.domain_beacon_attester, s // spe, gvr)
+            sig, other_sig = pool.map(sign_root, [(secret[voter], compute_signing_root(d, att_domain))
+                                                  for d in (vote, other)])
+            client.slasher.accept_attestation(t.IndexedAttestation(attesting_indices=[voter], data=other,
+                                                                   signature=other_sig))
+            peer.publish_attestation(t.Attestation(aggregation_bits=[j == pos for j in range(len(committee))],
+                                                   data=vote, signature=sig))
+            ver_att, launches_att, _, _ = tick(lambda: client.per_slot_task(s))
+            assert [v["ok"] for v in ver_att] == [True], f"the gossip vote: verdicts {[v['ok'] for v in ver_att]}"
+            one_verify_each(ver_att, "the gossip vote")
+            pool_props = list(client.op_pool.proposer_slashings.values())
+            pool_atts = list(client.op_pool.attester_slashings)
+            assert len(pool_props) == 1 and len(pool_atts) == 1, \
+                f"the op pool holds {len(pool_props)} proposer and {len(pool_atts)} attester slashings"
+            assert int(pool_props[0].signed_header_1.message.proposer_index) == proposer
+            assert {bytes(pool_atts[0].attestation_1.data.beacon_block_root),
+                    bytes(pool_atts[0].attestation_2.data.beacon_block_root)} == {root, imported[-1]}
+            # the next block carries both, imported with one verify
+            carrier, _, _ = produce(s + 1)
+            body = carrier.body
+            assert len(body.proposer_slashings) == 1 and len(body.attester_slashings) == 1, "the slashings were left out"
+            [signed_carrier] = signed_blocks([carrier])
+            peer.publish_block(signed_carrier)
+            ver_carrier, launches_carrier, payloads, tick_ms = tick(lambda: client.per_slot_task(s + 1))
+            sets = block_sets(signed_carrier)
+            assert bytes(chain.head_root) == type(carrier).hash_tree_root(carrier), "the carrier is not the head"
+            assert len(ver_carrier) == 1 and ver_carrier[0]["ok"] and ver_carrier[0]["sets"] == sets and payloads == 1
+            one_verify_each(ver_carrier, "the slashings' block")
+            post = chain.head_state()
+            assert post.validators[proposer].slashed and post.validators[voter].slashed, "a validator is not slashed"
+            assert not any(chain.fork_choice.is_optimistic(r) for r in (root, bytes(chain.head_root)))
+            imported += [root, bytes(chain.head_root)]
+            phase("node", step="slashing", slot=s, proposer=proposer, equivocation_verifies=len(ver_blocks) - 1,
+                  twin_dropped=True, voter=voter, gossip_vote_verifies=len(ver_att),
+                  op_pool_proposer_slashings=len(pool_props), op_pool_attester_slashings=len(pool_atts),
+                  carrier_slot=s + 1, carrier_proposer=nxt, sets=sets, S=ver_carrier[0]["S"], K=ver_carrier[0]["K"],
+                  verify_ms=f"{ver_carrier[0]['ms']:.3f}", tick_ms=f"{tick_ms:.3f}", slashed=json.dumps(
+                      [proposer, voter]), block_verify_ms=json.dumps([round(v["ms"], 3) for v in ver_blocks]), card=f'"{card}"')
+
+        # step cli: the binary in fresh processes, the node shut down first
+        head_slot, head_root = int(chain.head_state().slot), bytes(chain.head_root)
+        genesis_block_root = chain.genesis_block_root
+        client.shutdown()
+        client = None
+        assert bv.active_for(api) is None, "the node's coalescer outlived it"
+        probe = os.path.join(tmp.name, "probe")
+        os.makedirs(probe)
+        with open(os.path.join(probe, "sitecustomize.py"), "w") as f:
+            f.write(CLI_PROBE)
+        bad_path = os.path.join(tmp.name, "bad_deposit.ssz")
+        with open(bad_path, "wb") as f:
+            f.write(DepositData.serialize(deposits[bad_at]))
+        rc, out, report, check_s = run_binary(["lcli", "check-deposit-data", "--file", bad_path], probe)
+        assert rc == 1 and "signature INVALID" in out, f"check-deposit-data: exit {rc}, {out!r}"
+        counts = {k: report["launches"].get(k, 0) for k in VERIFY_LAUNCHES}
+        assert report["verifies"] == 1 and counts == VERIFY_LAUNCHES and \
+            sum(report["launches"].values()) == sum(VERIFY_LAUNCHES.values()), f"check-deposit-data: {report}"
+        phase("node", step="cli", command="lcli_check-deposit-data", rc=rc, verdict="INVALID",
+              verifies=report["verifies"], seconds=f"{check_s:.2f}",
+              launches=json.dumps(report["launches"], separators=(",", ":")), card=f'"{card}"')
+        rc, out, report, resume_s = run_binary(["beacon-node", "--network", NODE_NETWORK, "--testnet-dir", testnet,
+                                                "--datadir", datadir, "--http-port", "0", "--run-slots", "1"], probe)
+        printed = dict(re.findall(r"^(genesis root|ran 1 slots; head slot) (\S+)$", out, re.M))
+        assert rc == 0, f"beacon-node: exit {rc}, {out!r}"
+        assert printed.get("genesis root") == f"0x{genesis_block_root.hex()}", f"beacon-node: {out!r}"
+        assert printed.get("ran 1 slots; head slot") == str(head_slot), \
+            f"the resumed node's head slot: {printed}, the node's {head_slot}"
+        assert report["verifies"] == 0 and not any(report["launches"].values()), f"beacon-node: {report}"
+        phase("node", step="cli", command="beacon-node_resume", rc=rc, head_slot=head_slot,
+              head_root=f"0x{head_root.hex()[:16]}", genesis_equal=True, seconds=f"{resume_s:.2f}",
+              verifies=report["verifies"], card=f'"{card}"')
+    finally:
+        api.verify_signature_sets_async, api.verify_staged = verify_async, verify_staged
+        api.PublicKey.from_bytes = from_bytes
+        if client is not None:
+            client.shutdown()
+        for srv in (engine, eth1_server):
+            if srv is not None:
+                srv.stop()
+        tmp.cleanup()
+    seconds = time.perf_counter() - t_phase
+    assert seconds < NODE_MAX_S, f"[node] took {seconds:.1f} s, more than {NODE_MAX_S} s"
+    phase("node", seconds=f"{seconds:.2f}", verifies=len(verifies), imports=len(imported),
+          keys_decompressed=len(memo), host_decompress_s=f"{decompress_s[0]:.2f}", card=f'"{card}"')
+
+
 def main() -> int:
     import torch
 
@@ -3882,6 +4379,7 @@ def main() -> int:
     run_gossip(torch, api, fp, name_power, harness)
     run_sync(torch, api, fp, name_power, harness)
     run_vc(torch, api, fp, name_power, harness)
+    run_node(torch, api, fp, name_power)
 
     seconds = time.perf_counter() - t_start
     phase("done", seconds=f"{seconds:.1f}", empty_traces_retaken=EMPTY_TRACES,

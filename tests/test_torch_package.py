@@ -3,6 +3,7 @@ lighthouse_tpu, its entry points default to the CUDA device and fail
 without one (no CPU fallback), and a CPU tensor runs the plain versions
 without counting a kernel launch."""
 
+import argparse
 import ast
 import collections
 import itertools
@@ -296,6 +297,155 @@ def test_code_only_sees_a_changed_line(tmp_path):
     assert _code_only(same) == want and _code_only(changed) != want
 
 
+# the node itself, its binary and the modules it reaches, each at its JAX
+# path under lighthouse_tpu_torch/
+NODE_MODULES = [
+    "utils.safe_arith",
+    "slasher.db",
+    "slasher.slasher",
+    "slasher",
+    "execution_layer.engine_api",
+    "execution_layer.mock_el",
+    "execution_layer",
+    "eth1.service",
+    "eth1.json_rpc",
+    "eth1",
+    "common.monitoring",
+    "client",
+    "cli",
+    "__main__",
+]
+
+# the only code by which a node module differs from its JAX namesake: the
+# backend a node and the binary take by default is the card's, as
+# `TransitionContext.minimal()`'s is (state_transition/context.py); the
+# binary offers "torch" where the JAX package offers "jax"
+NODE_DIFFERENCES = {
+    "client": [('    bls_backend: str = "torch"\n', '    bls_backend: str = "ref"\n')],
+    "cli": [('choices=["ref", "fake", "torch"], default="torch"', 'choices=["ref", "fake", "jax"], default="ref"')],
+}
+
+
+@pytest.mark.parametrize("module", NODE_MODULES)
+def test_node_module_sits_at_its_jax_path(module):
+    for package in ("lighthouse_tpu_torch", "lighthouse_tpu"):
+        assert _module_path(package, module).is_file(), f"{package}.{module}"
+
+
+def test_node_modules_import_without_jax():
+    """A fresh process imports the thirteen modules (`__main__` runs the
+    binary, so it is left to the next test) and loads no jax and no
+    lighthouse_tpu module; the packages export the same names."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {[m for m in NODE_MODULES if m != '__main__']!r}:\n"
+        "    importlib.import_module('lighthouse_tpu_torch.' + m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lighthouse_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+    import lighthouse_tpu.eth1 as jax_eth1
+    import lighthouse_tpu.execution_layer as jax_el
+    import lighthouse_tpu.slasher as jax_slasher
+    from lighthouse_tpu_torch import eth1, execution_layer, slasher
+
+    assert eth1.__all__ == jax_eth1.__all__ and execution_layer.__all__ == jax_el.__all__
+    assert slasher.__all__ == jax_slasher.__all__
+
+
+def test_binary_help_loads_no_jax():
+    """`python -m lighthouse_tpu_torch --help` in a fresh process lists the
+    five commands and exits 0; run as the interpreter runs `-m`, it loads
+    no jax and no lighthouse_tpu module."""
+    out = subprocess.run([sys.executable, "-m", "lighthouse_tpu_torch", "--help"], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=120)
+    assert out.stdout.startswith("usage: lighthouse_tpu_torch")
+    for command in ("beacon-node", "validator-client", "account-manager", "boot-node", "lcli"):
+        assert command in out.stdout
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['lighthouse_tpu_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('lighthouse_tpu_torch', run_name='__main__', alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lighthouse_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120, capture_output=True)
+
+
+def test_binary_defaults_to_the_card_and_raises_without_one(tmp_path):
+    """The binary's default backend is "torch": `lcli check-deposit-data`
+    on a deposit signed by the ref oracle, with no GPU visible, raises
+    (the verify's "no CUDA device") instead of deciding on the CPU; with
+    `--bls-backend ref` the same file is VALID."""
+    from lighthouse_tpu_torch.crypto import bls as bls_pkg
+    from lighthouse_tpu_torch.eth1 import make_deposit
+    from lighthouse_tpu_torch.types import MINIMAL_SPEC
+    from lighthouse_tpu_torch.types.containers import DepositData
+
+    ref = bls_pkg.backend("ref")
+    dd = make_deposit(ref, ref.interop_secret_key(0), MINIMAL_SPEC.max_effective_balance, MINIMAL_SPEC)
+    path = tmp_path / "deposit.ssz"
+    path.write_bytes(DepositData.serialize(dd))
+    env = {**{k: v for k, v in os.environ.items() if k != "LIGHTHOUSE_TPU_BLS_BACKEND"}, "CUDA_VISIBLE_DEVICES": ""}
+    cmd = [sys.executable, "-m", "lighthouse_tpu_torch", "lcli"]
+    out = subprocess.run(cmd + ["check-deposit-data", "--file", str(path)], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr, (out.returncode, out.stdout, out.stderr[-2000:])
+    assert "VALID" not in out.stdout
+    out = subprocess.run(cmd + ["--bls-backend", "ref", "check-deposit-data", "--file", str(path)], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "signature VALID" in out.stdout, (out.stdout, out.stderr[-2000:])
+
+
+def _code_with_differences_undone(module: str) -> str:
+    text = _module_path("lighthouse_tpu_torch", module).read_text()
+    for port, jax in NODE_DIFFERENCES.get(module, []):
+        assert text.count(port) == 1, f"{module}: the listed difference {port!r} is not in the port once"
+        text = text.replace(port, jax)
+    return text
+
+
+@pytest.mark.parametrize("module", NODE_MODULES)
+def test_node_module_is_its_jax_namesake_but_for_docstrings_and_the_default_backend(module, tmp_path):
+    """Each of the fourteen is the JAX module's code once docstrings are
+    dropped and package names equated, but for exactly the differences of
+    NODE_DIFFERENCES: with those undone the ASTs are equal, and with any
+    one of them left in they differ."""
+    jax = _code_only(_module_path("lighthouse_tpu", module))
+    undone_text = _code_with_differences_undone(module)
+    undone = tmp_path / "undone.py"
+    undone.write_text(undone_text)
+    assert _code_only(undone) == jax, f"{module}: the port's code differs from the JAX package's"
+    for port, jax_text in NODE_DIFFERENCES.get(module, []):
+        kept = tmp_path / "kept.py"
+        kept.write_text(undone_text.replace(jax_text, port))
+        assert _code_only(kept) != jax, f"{module}: the listed difference {port!r} changes no code"
+
+
+def test_node_differences_are_the_default_backend_only():
+    """What the listed differences mean: a `ClientConfig()` takes "torch",
+    and the binary's `--bls-backend` offers ref, fake and torch with torch
+    as its default, where the JAX package's takes "ref" and offers jax."""
+    from lighthouse_tpu import cli as jax_cli
+    from lighthouse_tpu.client import ClientConfig as JaxClientConfig
+    from lighthouse_tpu_torch import cli
+    from lighthouse_tpu_torch.client import ClientConfig
+
+    assert ClientConfig().bls_backend == "torch" and JaxClientConfig().bls_backend == "ref"
+
+    def backend_option(parser, command):
+        sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+        return next(a for a in sub.choices[command]._actions if a.dest == "bls_backend")
+
+    for command in ("beacon-node", "validator-client", "lcli"):
+        port, jax = backend_option(cli.build_parser(), command), backend_option(jax_cli.build_parser(), command)
+        assert (port.choices, port.default) == (["ref", "fake", "torch"], "torch")
+        assert (jax.choices, jax.default) == (["ref", "fake", "jax"], "ref")
+
+
 def test_default_device_is_cuda_and_fails_without_gpu(monkeypatch):
     assert tapi.DEFAULT_DEVICE == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -344,7 +494,7 @@ def test_chip_smoke_gossip_goes_through_the_network_service():
     order = [n.func.id for n in sorted((n for n in ast.walk(_function(tree, "main")) if isinstance(n, ast.Call)),
                                        key=lambda n: n.lineno)
              if isinstance(n.func, ast.Name) and n.func.id.startswith("run_")]
-    assert order[-4:] == ["run_conformance", "run_gossip", "run_sync", "run_vc"], order
+    assert order[-5:] == ["run_conformance", "run_gossip", "run_sync", "run_vc", "run_node"], order
 
 
 def test_chip_smoke_vc_goes_through_the_beacon_api_and_the_keystores():
@@ -366,6 +516,48 @@ def test_chip_smoke_vc_goes_through_the_beacon_api_and_the_keystores():
     assert any(isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute) and n.func.attr == "decrypt"
                and isinstance(n.func.value, ast.Name) and n.func.value.id == "keystore" for n in ast.walk(decrypt))
     assert "encrypt" in calls(_function(tree, "encrypt_keystore"))
+
+
+def test_chip_smoke_node_boots_a_client_from_eth1_and_runs_the_binary():
+    """chip_smoke's [node] builds a `Client` from a `ClientConfig` that
+    names the engine (`execution_endpoints` with a JWT secret: the node
+    makes its own `ExecutionLayer`), the slasher, a datadir and the eth1
+    genesis; follows the deposits with `Eth1Service` over
+    `JsonRpcEth1Endpoint`; drives slots with `per_slot_task` behind a
+    `NetworkService`; and spawns `python -m lighthouse_tpu_torch` for
+    `lcli check-deposit-data` and `beacon-node`. `main` calls it last."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+
+    def calls(fn):
+        return [n for n in ast.walk(fn) if isinstance(n, ast.Call)]
+
+    def names(fn):
+        return {n.func.attr if isinstance(n.func, ast.Attribute) else getattr(n.func, "id", None) for n in calls(fn)}
+
+    node = _function(tree, "run_node")
+    assert {"Client", "ClientConfig", "Eth1Service", "JsonRpcEth1Endpoint", "MockEth1RpcServer", "MockEth1Endpoint",
+            "MockExecutionEngine", "initialize_beacon_state_from_eth1", "NetworkService", "LocalNetwork",
+            "per_slot_task", "produce_block", "accept_attestation", "shutdown", "run_binary"} <= names(node)
+    assert "ExecutionLayer" not in names(node) and "EngineApiClient" not in names(node)
+    [config] = [c for c in calls(node) if getattr(c.func, "id", None) == "ClientConfig"]
+    keywords = {k.arg: k.value for k in config.keywords}
+    assert {"execution_endpoints", "jwt_secret", "slasher_enabled", "datadir", "genesis_state_path", "network",
+            "http_port"} <= set(keywords)
+    assert isinstance(keywords["bls_backend"], ast.Constant) and keywords["bls_backend"].value == "torch"
+    [follower] = [c for c in calls(node) if getattr(c.func, "id", None) == "Eth1Service"]
+    assert getattr(follower.args[0].func, "id", None) == "JsonRpcEth1Endpoint"
+    binaries = [c for c in calls(node) if getattr(c.func, "id", None) == "run_binary"]
+    first_args = [c.args[0].elts[:2] for c in binaries]
+    assert [[a.value for a in args if isinstance(a, ast.Constant)] for args in first_args] == \
+        [["lcli", "check-deposit-data"], ["beacon-node", "--network"]]
+    spawn = _function(tree, "cli_command")
+    constants = [n.value for n in ast.walk(spawn) if isinstance(n, ast.Constant)]
+    assert constants[-2:] == ["-m", "lighthouse_tpu_torch"]
+    assert {"cli_command", "run"} <= names(_function(tree, "run_binary"))
+    order = [n.func.id for n in sorted((n for n in ast.walk(_function(tree, "main")) if isinstance(n, ast.Call)),
+                                       key=lambda n: n.lineno)
+             if isinstance(n.func, ast.Name) and n.func.id.startswith("run_")]
+    assert order[-1] == "run_node", order
 
 
 # a fake verify's device operations, as (runtime call, device event): the
